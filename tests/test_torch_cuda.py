@@ -1,0 +1,63 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These need an NVIDIA card and nvcc, and skip without them (the decision is
+made inside the fixture, never at import).  Run them on the card with
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+
+(``--noconftest``: tests/conftest.py imports jax, which a machine set up
+for the port need not have.)
+"""
+import numpy as np
+import pytest
+import torch
+
+from plagnn_tpu_torch.ops import spmm_kernels as sk
+from plagnn_tpu_torch.ops.graph_format import build_graph
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def _graph(seed=0, n=300):
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([rng.integers(0, n, 2000), np.arange(n)])
+    dst = np.concatenate([rng.integers(0, n - 30, 2000), np.zeros(n, np.int64)])
+    pairs = np.unique(np.stack([src, dst], 1), axis=0)
+    g = build_graph(pairs[:, 0], pairs[:, 1], n)
+    x = np.maximum(np.round(rng.standard_normal((g.n_nodes, 3 * 13)) * 2) / 2, 0)
+    return g, x.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_kernel_bit_exact(card, dtype):
+    g, x = _graph()
+    gd = g.to(card)
+    xd = torch.from_numpy(x).to(card, dtype)
+    name = "spmm_max_fwd_" + ("f32" if dtype == torch.float32 else "bf16")
+    before = sk.LAUNCHES[name]
+    out, arg = sk.spmm_max_fwd(gd, xd)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[name] == before + 1
+    out_p, arg_p = sk.spmm_max_fwd_plain(g, torch.from_numpy(x).to(dtype))
+    assert torch.equal(out.cpu(), out_p)
+    assert torch.equal(arg.cpu(), arg_p)
+
+
+def test_autograd_on_card_matches_cpu(card):
+    """dx through SpmmMax: the card's kernels against the CPU's plain
+    versions; float32 sums of the same hits in different orders."""
+    g, x = _graph(1)
+    w = np.random.default_rng(2).standard_normal(x.shape).astype(np.float32)
+    grads = []
+    for dev, graph in ((card, g.to(card)), (torch.device("cpu"), g)):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        (sk.spmm_max(graph, xt) * torch.from_numpy(w).to(dev)).sum().backward()
+        grads.append(xt.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)

@@ -1,0 +1,114 @@
+"""Import rules of the PyTorch port: no JAX, nothing of plagnn_tpu, and
+entry points that refuse to fall back to the CPU."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "plagnn_tpu_torch")
+
+# whole module names only: plagnn_tpu_torch must not match plagnn_tpu
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|plagnn_tpu)(\.|\s|,|$)", re.MULTILINE)
+
+
+def _port_sources():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(PKG):
+        paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return paths
+
+
+def test_import_closure_has_no_jax_or_reference_package():
+    # a fresh interpreter: this test process already imported jax (conftest)
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import plagnn_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    plagnn_tpu_torch.__path__, 'plagnn_tpu_torch.')]\n"
+        "assert 'plagnn_tpu_torch.cli' in mods, mods\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'plagnn_tpu'))\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sources_have_no_forbidden_imports():
+    offenders = []
+    for p in _port_sources():
+        with open(p) as f:
+            src = f.read()
+        offenders += [f"{p}: {m.group(0).strip()}" for m in FORBIDDEN.finditer(src)]
+    assert not offenders, offenders
+
+
+def test_forbidden_pattern_is_prefix_safe():
+    assert FORBIDDEN.search("import plagnn_tpu.cli")
+    assert FORBIDDEN.search("from plagnn_tpu import cli")
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert not FORBIDDEN.search("from plagnn_tpu_torch import cli")
+    assert not FORBIDDEN.search("import plagnn_tpu_torch.cli")
+    assert not FORBIDDEN.search("import jaxtyping")
+
+
+def test_cli_without_card_raises(monkeypatch, tmp_path):
+    from plagnn_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # -d defaults to cuda; the run must refuse before touching any data
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["train-normal", "-data", "GSE30931",
+                  "--data-root", str(tmp_path / "absent")])
+
+
+def test_cli_refuses_mesh_and_mid_round_checkpoints(tmp_path):
+    from plagnn_tpu_torch import cli
+
+    root = str(tmp_path)
+    for mesh in ("fold=2,graph=1", "auto"):
+        with pytest.raises(SystemExit, match="only 'fold=1,graph=1'"):
+            cli.main(["train-normal", "-data", "GSE30931", "--data-root", root,
+                      "-d", "cpu", "--mesh", mesh])
+    cli.main(["synth", "--data-root", root, "--nodes", "64", "--edges", "200"])
+    with pytest.raises(NotImplementedError):
+        cli.main(["train-normal", "-data", "GSE30931", "--data-root", root,
+                  "-d", "cpu", "-e", "1", "--rounds", "1", "-f", "2",
+                  "--fold-batch", "2", "--checkpoint-every", "1"])
+
+
+def test_cuda_wrappers_never_fall_back(monkeypatch):
+    """A CUDA tensor goes to the kernel: the wrapper asks the loader for the
+    library (which cannot build here) instead of running the plain version."""
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    calls = []
+
+    def fake_load(name):
+        calls.append(name)
+        raise RuntimeError("no kernel library")
+
+    monkeypatch.setattr(sk._build, "load", fake_load)
+
+    class FakeCuda:
+        type = "cuda"
+
+    g = sk.Graph(*(torch.zeros(1, dtype=torch.int32),) * 7, n_nodes=4,
+                 n_real_nodes=3, n_edges=0)
+    x = torch.zeros(4, 3)
+    monkeypatch.setattr(sk, "_check", lambda *a: None)
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda self: FakeCuda()))
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        sk.spmm_max_fwd(g, x)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        sk.spmm_max_bwd(g, x, torch.zeros(4, 3, dtype=torch.int16))
+    assert calls == ["spmm_max_fwd", "spmm_max_bwd"]
