@@ -8,19 +8,27 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
 1. Device: the card's name and power limit (nvidia-smi).
 2. Build: the kernels in plagnn_tpu_torch/csrc, from source, one nvcc each.
 3. Kernels against their plain PyTorch versions on the card, on a small
-   tie-heavy graph and on the full synthetic PPI graph at each width the
-   main path aggregates (B=10 folds x F=503, 400, 300): forward out and
-   argmax bit-exact; float32 dx within 1e-5 of the summed hit magnitudes
-   (the two sum the same hits in float32 in different orders); bfloat16 dx
-   within 1 bf16 ulp.  At the layer-1 shape, times each kernel (CUDA
+   tie-heavy graph and on the full synthetic PPI graph at each width its
+   path aggregates.  Segment max (GNN32: B=10 folds x F=503, 400, 300):
+   forward out and argmax bit-exact; float32 dx within 1e-5 of the summed
+   hit magnitudes (the two sum the same hits in float32 in different
+   orders); bfloat16 dx within 1 bf16 ulp.  Segment sum (GCN2: B=10 x 400
+   and 10 x 12), forward and transpose: float32 within 1e-5 of the summed
+   magnitudes and bit-identical run to run; bfloat16 on small integers
+   exact.  At the first layer's shape of each path, times each kernel (CUDA
    events, median), its plain version and a PyTorch library call.
-4. The slice at full width through the CLI: synth (24,041 nodes, 700k
-   edges), train-normal (float32, 3 epochs, 10 folds in one batch), then
+4. GNN32 at full width through the CLI: synth (24,041 nodes, 700k edges),
+   train-normal (float32, 3 epochs, 10 folds in one batch), then
    train-inter with --agg-dtype bfloat16 (2 epochs).  Each run must launch
-   each of its kernels 3 times per epoch (3 SAGE-pool layers) and write the
-   artifact contract with finite logits.
-   Then the float32 train-normal run once more under torch.profiler:
+   each of its kernels 3 times per epoch (3 SAGE-pool layers), no other
+   kernel, and write the artifact contract with finite logits.
+   4b. The float32 train-normal run once more under torch.profiler:
    device time per epoch by kernel group and the device's idle share.
+   4c. GCN2 at full width through ``train()`` (503 -> 400 -> 12, 10 folds,
+   float32, 3 epochs, a checkpoint every 2 epochs): 2 sum-forward and 2
+   sum-transpose launches per epoch, no max launch, the artifact contract,
+   and the mid-round checkpoint seen after epoch 2 and removed at the end;
+   then the same run once more under torch.profiler.
 5. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 """
@@ -40,18 +48,29 @@ FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 KERNEL_SOURCE = {
     "spmm_max_fwd": "plagnn_tpu_torch/csrc/spmm_max_fwd.cu",
     "spmm_max_bwd": "plagnn_tpu_torch/csrc/spmm_max_bwd.cu",
+    "spmm_sum": "plagnn_tpu_torch/csrc/spmm_sum.cu",
 }
+_FWD_BODY = "plagnn_tpu/ops/pallas/spmm_kernels.py:513"  # _spmm_fwd_kernel
 REPLACES = {
-    "spmm_max_fwd_f32": "plagnn_tpu/ops/pallas/spmm_kernels.py:513",
-    "spmm_max_fwd_bf16": "plagnn_tpu/ops/pallas/spmm_kernels.py:513",
+    "spmm_max_fwd_f32": _FWD_BODY,
+    "spmm_max_fwd_bf16": _FWD_BODY,
+    "spmm_max_fwd_noarg_f32": _FWD_BODY,
     "spmm_max_bwd_f32": "plagnn_tpu/ops/pallas/spmm_kernels.py:982",
     "spmm_max_bwd_bf16": "plagnn_tpu/ops/pallas/spmm_kernels.py:1270",
+    # reduce="sum": pallas_spmm_sum's forward, and its VJP over the transpose
+    "spmm_sum_fwd_f32": _FWD_BODY,
+    "spmm_sum_fwd_bf16": _FWD_BODY,
+    "spmm_sum_bwd_f32": _FWD_BODY,
+    "spmm_sum_bwd_bf16": _FWD_BODY,
 }
 NODES, EDGES, SEED = 24041, 700000, 70
 FOLDS, F_IN = 10, 503
-EPOCHS_F32, EPOCHS_BF16 = 3, 2
+EPOCHS_F32, EPOCHS_BF16, EPOCHS_GCN2 = 3, 2, 3
 LAYERS = 3
 AGG_WIDTHS = (F_IN, 400, 300)  # per-fold width of each SAGE-pool aggregation
+GCN2_HIDDEN, CLASSES = 400, 12
+# per-fold width of each GCN2 aggregation: W first (503 > 400, 400 > 12)
+SUM_WIDTHS = (GCN2_HIDDEN, CLASSES)
 SETUP_COPIES = "host<->device copies (data in, history out; not per epoch)"
 
 
@@ -89,6 +108,29 @@ def bf16_ulp(v):
 
     a = v.abs().clamp(min=2.0 ** -126)
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape):
+    """One entry of the ``kernels`` line; ``bound_ms`` from the compulsory
+    bytes (each input read once, each output written once) at the HBM rate
+    and the operations at the float32 rate, whichever is larger.  Launches
+    are filled in from the main path's runs."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": KERNEL_SOURCE[source],
+        "replaces": REPLACES[name],
+        "launches": 0,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib,
+        "shape": list(shape),
+    }
 
 
 def check_kernels(graph, x32, label, results=None):
@@ -180,31 +222,98 @@ def check_kernels(graph, x32, label, results=None):
         bwd_bytes = n * k * (esize + asize) + idx_bytes + n * k * esize
         fwd_ops = e * k                      # one compare per edge element
         bwd_ops = e * k + nonempty * k       # compares + one add per hit
-        for name, ms, plain, lib, nbytes, ops, gather in (
-            (f"spmm_max_fwd_{tag}", fwd_ms, fwd_plain_ms, fwd_lib_ms,
-             fwd_bytes, fwd_ops, e * k * esize + n * k * (esize + asize)),
-            (f"spmm_max_bwd_{tag}", bwd_ms, bwd_plain_ms, bwd_lib_ms,
-             bwd_bytes, bwd_ops, e * k * (esize + asize) + n * k * esize),
-        ):
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / FP32_OPS_PER_S * 1e3
-            results[name] = {
-                "name": name,
-                "route": "cuda",
-                "source": KERNEL_SOURCE[name.rsplit("_", 1)[0]],
-                "replaces": REPLACES[name],
-                "launches": None,
-                "max_abs_err": fwd_err if "fwd" in name else bwd_err,
-                "ms": ms,
-                "plain_ms": plain,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib,
-                "shape": [n, k],
-            }
+        timed = [
+            (f"spmm_max_fwd_{tag}", "spmm_max_fwd", fwd_err, fwd_ms, fwd_plain_ms,
+             fwd_lib_ms, fwd_bytes, fwd_ops, e * k * esize + n * k * (esize + asize)),
+            (f"spmm_max_bwd_{tag}", "spmm_max_bwd", bwd_err, bwd_ms, bwd_plain_ms,
+             bwd_lib_ms, bwd_bytes, bwd_ops, e * k * (esize + asize) + n * k * esize),
+        ]
+        if dt == torch.float32:
+            # the forward without the argmax (the VJP primal): the library
+            # yardstick is the same amax call, which records no argmax
+            out_n, _ = sk.spmm_max_fwd(graph, x, with_argmax=False)
+            noarg_err = (out_n - out_p).abs().max().item()
+            if not torch.equal(out_n, out_p):
+                fail(f"{label}: fwd f32 without argmax differs from plain")
+            noarg_ms = median_ms(lambda: sk.spmm_max_fwd(graph, x, with_argmax=False), 10)
+            noarg_plain_ms = median_ms(
+                lambda: sk.spmm_max_fwd_plain(graph, x, with_argmax=False), 3)
+            timed.append((f"spmm_max_fwd_noarg_{tag}", "spmm_max_fwd", noarg_err,
+                          noarg_ms, noarg_plain_ms, fwd_lib_ms,
+                          2 * n * k * esize + idx_bytes, fwd_ops,
+                          e * k * esize + n * k * esize))
+        for name, src, err_, ms, plain, lib, nbytes, ops, gather in timed:
+            r = results[name] = kernel_entry(name, src, err_, ms, plain, lib,
+                                             nbytes, ops, (n, k))
             print(f"  {name}: {ms:.3f} ms (plain {plain:.3f}, library {lib:.3f}, "
-                  f"bound {max(t_bytes, t_ops):.3f} by bytes, no-reuse gather "
+                  f"bound {r['bound_ms']:.3f} by {r['bound_by']}, no-reuse gather "
                   f"{gather / HBM_BYTES_PER_S * 1e3:.3f})", flush=True)
+
+
+def check_sum_kernels(graph, k, label, results=None):
+    """The segment-sum kernel against its plain version, forward and
+    transpose, at K elements per row; with ``results``, also time both
+    directions, the plain version and ``torch.sparse.mm`` on the CSR
+    adjacency (a yardstick only, never on the path)."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    n, e, dev = graph.n_nodes, graph.n_edges, graph.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x32 = torch.randn((n, k), generator=gen, device=dev)
+    xint = torch.randint(-8, 9, (n, k), generator=gen, device=dev).float()
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for transpose in (False, True):
+            direction = "bwd" if transpose else "fwd"
+
+            if dt == torch.float32:
+                # the same terms summed in float32 in two orders; each order
+                # is within ~sqrt(deg) eps of the sum of magnitudes
+                x = x32
+                out_k = sk.spmm_sum_rows(graph, x, transpose)
+                torch.cuda.synchronize()
+                if not torch.equal(out_k, sk.spmm_sum_rows(graph, x, transpose)):
+                    fail(f"{label}: sum {direction} f32 is not deterministic run to run")
+                out_p = sk.spmm_sum_plain(graph, x, transpose)
+                mag = sk.spmm_sum_plain(graph, x.abs(), transpose)
+                err = (out_k - out_p).abs()
+                if bool((err > 1e-5 * mag + 1e-7).any()):
+                    fail(f"{label}: sum {direction} f32 differs from plain beyond 1e-5 "
+                         f"of the summed magnitudes (max abs {err.max().item()})")
+            else:
+                # small integers: every float32 partial sum is exact and both
+                # round to bf16 once, so they are equal
+                x = xint.to(dt)
+                out_k = sk.spmm_sum_rows(graph, x, transpose)
+                torch.cuda.synchronize()
+                out_p = sk.spmm_sum_plain(graph, x, transpose)
+                if not torch.equal(out_k, out_p):
+                    fail(f"{label}: sum {direction} bf16 differs from plain on "
+                         "small-integer inputs")
+            err_max = (out_k.float() - out_p.float()).abs().max().item()
+            print(f"{label}: sum {direction} {tag} K={k} max abs err {err_max:.3e}",
+                  flush=True)
+            if results is None:
+                continue
+            indptr, idx = ((graph.t_indptr, graph.t_dst) if transpose
+                           else (graph.indptr, graph.src))
+            adj = torch.sparse_csr_tensor(indptr, idx, torch.ones(e, dtype=dt, device=dev),
+                                          size=(n, n), check_invariants=False)
+            ms = median_ms(lambda: sk.spmm_sum_rows(graph, x, transpose), 10)
+            plain = median_ms(lambda: sk.spmm_sum_plain(graph, x, transpose), 3)
+            lib = median_ms(lambda: torch.sparse.mm(adj, x), 10)
+            esize = x.element_size()
+            name = f"spmm_sum_{direction}_{tag}"
+            r = results[name] = kernel_entry(
+                name, "spmm_sum", err_max, ms, plain, lib,
+                2 * n * k * esize + 4 * (n + 1 + e), e * k, (n, k))
+            print(f"  {name}: {ms:.3f} ms (plain {plain:.3f}, library {lib:.3f}, "
+                  f"bound {r['bound_ms']:.3f} by {r['bound_by']}, no-reuse gather "
+                  f"{(e + n) * k * esize / HBM_BYTES_PER_S * 1e3:.3f})", flush=True)
+            del adj
+    del x32, xint
+    torch.cuda.empty_cache()
 
 
 def train_cli(data_root, cmd, agg, epochs):
@@ -216,36 +325,41 @@ def train_cli(data_root, cmd, agg, epochs):
                      "--fold-batch", str(FOLDS), "--agg-dtype", agg])
 
 
-def check_launches(label, tag, epochs):
-    """Each kernel of the run's dtype launched once per layer per epoch,
-    the other dtype's not at all; returns the counts."""
+def check_launches(label, expected):
+    """Every counter equals the run's expected count (0 where the run names
+    none); returns the counts."""
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     counts = dict(sk.LAUNCHES)
     for name, c in counts.items():
-        want = LAYERS * epochs if name.endswith(tag) else 0
+        want = expected.get(name, 0)
         if c != want:
             fail(f"{label}: {name} launched {c} times, expected {want}")
     return counts
 
 
-def profile_epochs(data_root, smi_line):
-    """torch.profiler over a float32 train-normal run through the CLI:
-    device time per epoch by kernel group, and the device's idle share
-    against the steady epoch time."""
-    import torch
+def gnn32_launches(tag, epochs):
+    """A GNN32 run: its dtype's max forward (with argmax) and backward once
+    per SAGE-pool layer per epoch."""
+    return {f"spmm_max_fwd_{tag}": LAYERS * epochs,
+            f"spmm_max_bwd_{tag}": LAYERS * epochs}
+
+
+def profile_epochs(label, run, expected, smi_line):
+    """torch.profiler over one training run (``run()`` returns its chunk
+    stats), which must launch the ``expected`` kernels: device time per
+    epoch by kernel group, and the device's idle share against the steady
+    epoch time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
-    # the earlier run's artifacts would make this one resume past its round
-    shutil.rmtree(os.path.join(data_root, "log"))
     sk.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stats = train_cli(data_root, "train-normal", "float32", EPOCHS_F32)
-    check_launches("profiled train-normal", "f32", EPOCHS_F32)
-    ms =[m for s in stats for m in s.epoch_ms]
+        stats = run()
+    check_launches(f"profiled {label}", expected)
+    ms = [m for s in stats for m in s.epoch_ms]
     groups = {}
     top = []
     for ev in prof.key_averages():
@@ -262,6 +376,8 @@ def profile_epochs(data_root, smi_line):
         low = name.lower()
         if "spmm_max" in low:
             grp = "spmm_max kernels"
+        elif "spmm_sum" in low:
+            grp = "spmm_sum kernels"
         elif any(t in low for t in ("gemm", "xmma", "cutlass", "sm90", "ampere")):
             grp = "matmul"
         elif any(t in low for t in ("sort", "radix", "search")):
@@ -279,7 +395,7 @@ def profile_epochs(data_root, smi_line):
     if busy <= 0:
         print("profile: no device time in the trace (not measured)")
         return
-    print(f"profile (train-normal f32, {len(ms)} epochs x {FOLDS} folds, AUC sampled "
+    print(f"profile ({label}, {len(ms)} epochs x {FOLDS} folds, AUC sampled "
           f"at epochs 0 and {len(ms) - 1}, {smi_line}): steady {steady:.3f} ms/epoch "
           f"wall, {busy:.3f} ms/epoch device busy, idle share "
           f"{max(0.0, 1 - busy / steady):.3f}", flush=True)
@@ -287,6 +403,91 @@ def profile_epochs(data_root, smi_line):
         print(f"  group {grp}: {t:.3f} ms/epoch ({t / steady:.3f} of steady wall)")
     for t, cnt, name in sorted(top, reverse=True)[:12]:
         print(f"  kernel {t:8.3f} ms/epoch  x{cnt:<4} {name}")
+
+
+def record_launches(results, counts):
+    """Each kernel entry takes the launches of the run whose path it is on."""
+    for name, c in counts.items():
+        if c and name in results:
+            results[name]["launches"] = c
+
+
+def check_artifacts(label, d):
+    """The artifact contract of one round of FOLDS folds, finite logits."""
+    import numpy as np
+
+    for f in range(1, FOLDS + 1):
+        p = os.path.join(d, f"1_{f}_loc_logits.npy")
+        if not os.path.exists(p):
+            fail(f"{label}: missing {p}")
+        lg = np.load(p)
+        if lg.shape != (NODES, CLASSES) or not np.isfinite(lg).all():
+            fail(f"{label}: {p} has shape {lg.shape} or non-finite values")
+    for fname in ("log.tsv", "txt_log.txt", "fig_data_1.json"):
+        if not os.path.exists(os.path.join(d, fname)):
+            fail(f"{label}: missing {fname}")
+
+
+def report_run(label, stats, wall, counts, smi_line):
+    import torch
+
+    ep = [m for s in stats for m in s.epoch_ms]
+    steady = statistics.median(ep[1:]) if len(ep) > 1 else ep[0]
+    print(f"slice {label}: {len(ep)} epochs x {FOLDS} folds, "
+          f"epoch ms {[round(m, 3) for m in ep]}, steady {steady:.3f} ms/epoch, "
+          f"run wall {wall:.1f} s, launches { {k: c for k, c in counts.items() if c} }, "
+          f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"on {smi_line}", flush=True)
+
+
+# 2 GraphConvs: one sum forward and one transpose each per epoch
+GCN2_LAUNCHES = {"spmm_sum_fwd_f32": 2 * EPOCHS_GCN2, "spmm_sum_bwd_f32": 2 * EPOCHS_GCN2}
+
+
+def train_gcn2(data_root, path, chunk_callback=None):
+    """GCN2 at full width through ``train()``, as a user of the JAX package
+    calls it (``TrainConfig(model="gcn2")``), float32, with a mid-round
+    checkpoint every 2 epochs; returns the chunk stats."""
+    from plagnn_tpu_torch.data.artifacts import load_condition
+    from plagnn_tpu_torch.train.engine import TrainConfig, train
+    from plagnn_tpu_torch.train.kfold import FOLD_SEEDS
+    from plagnn_tpu_torch.utils.precision import set_aggregation_dtype
+
+    set_aggregation_dtype("float32")
+    bundle = load_condition(data_root, "GSE30931", "normal")
+    cfg = TrainConfig(model="gcn2", fold_num=FOLDS, fold_batch=FOLDS,
+                      epoch_num=EPOCHS_GCN2, fold_seeds=FOLD_SEEDS[:1],
+                      hidden=(GCN2_HIDDEN,), checkpoint_every=2,
+                      chunk_callback=chunk_callback)
+    return train(bundle.graph, bundle.feats, bundle.labels, bundle.label_with_loc,
+                 bundle.loc_mat, cfg, path + os.sep, label_names=bundle.uniprot,
+                 device_name="cuda")
+
+
+def check_gcn2(data_root, results, smi_line):
+    """Phase 4c's checks: the sum kernels only, the artifact contract, and
+    the checkpoint seen after epoch 2 and gone at the end."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    path = os.path.join(data_root, "log_gcn2")
+    ck_file = os.path.join(path, "ckpt_a0_j0.npz")
+    seen = []
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    stats = train_gcn2(data_root, path, lambda r, a, c0, done: seen.append(
+        (done, os.path.exists(ck_file))))
+    wall = time.perf_counter() - t0
+    counts = check_launches("GCN2 train()", GCN2_LAUNCHES)
+    record_launches(results, counts)
+    check_artifacts("GCN2 train()", path)
+    if not seen or seen[0] != (2, True):
+        fail(f"GCN2 train(): no checkpoint seen after epoch 2 ({seen})")
+    if os.path.exists(ck_file):
+        fail("GCN2 train(): the checkpoint was not removed at the end")
+    report_run("GCN2 train() float32", stats, wall, counts, smi_line)
 
 
 def tie_graph():
@@ -366,13 +567,20 @@ def main(argv=None):
     for layer, width in enumerate(AGG_WIDTHS[1:], start=2):
         check_kernels(full_cuda, x_full[:, :FOLDS * width].contiguous(),
                       f"full graph layer {layer}")
-    del x_full, full_cuda
+    del x_full
+    torch.cuda.empty_cache()
+    # segment sum: GCN2's widths, conv1 timed
+    check_sum_kernels(graph.to("cuda"), vals.shape[1], "tie graph")
+    check_sum_kernels(full_cuda, FOLDS * SUM_WIDTHS[0], "full graph GCN2 conv1", results)
+    # conv2's narrow rows: timed for the record, not in the kernels line
+    check_sum_kernels(full_cuda, FOLDS * SUM_WIDTHS[1], "full graph GCN2 conv2", {})
+    del full_cuda
     torch.cuda.empty_cache()
     if args.only_kernels:
         print(json.dumps({"kernels": list(results.values())}))
         return
 
-    phase("4 slice at full width")
+    phase("4 GNN32 at full width")
     from plagnn_tpu_torch import cli
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -389,38 +597,32 @@ def main(argv=None):
             t0 = time.perf_counter()
             stats = train_cli(tmp, cmd, agg, epochs)
             wall = time.perf_counter() - t0
-            counts = check_launches(f"{cmd} --agg-dtype {agg}", tag, epochs)
-            for name, c in counts.items():
-                if c:
-                    results[name]["launches"] = c
-            d = os.path.join(tmp, "log", "GSE30931", subdir)
-            for f in range(1, FOLDS + 1):
-                p = os.path.join(d, f"1_{f}_loc_logits.npy")
-                if not os.path.exists(p):
-                    fail(f"{cmd}: missing {p}")
-                lg = np.load(p)
-                if lg.shape != (NODES, 12) or not np.isfinite(lg).all():
-                    fail(f"{cmd}: {p} has shape {lg.shape} or non-finite values")
-            for fname in ("log.tsv", "txt_log.txt", "fig_data_1.json"):
-                if not os.path.exists(os.path.join(d, fname)):
-                    fail(f"{cmd}: missing {fname}")
-            ep = [m for s in stats for m in s.epoch_ms]
-            steady = statistics.median(ep[1:]) if len(ep) > 1 else ep[0]
-            print(f"slice {cmd} {agg}: {len(ep)} epochs x {FOLDS} folds, "
-                  f"epoch ms {[round(m, 3) for m in ep]}, steady {steady:.3f} ms/epoch, "
-                  f"run wall {wall:.1f} s, launches {counts}, "
-                  f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-                  f"on {smi_line}", flush=True)
+            counts = check_launches(f"{cmd} --agg-dtype {agg}",
+                                    gnn32_launches(tag, epochs))
+            record_launches(results, counts)
+            check_artifacts(cmd, os.path.join(tmp, "log", "GSE30931", subdir))
+            report_run(f"GNN32 {cmd} {agg}", stats, wall, counts, smi_line)
         phase("4b profile")
-        profile_epochs(tmp, smi_line)
+        # the earlier run's artifacts would make this one resume past its round
+        shutil.rmtree(os.path.join(tmp, "log"))
+        profile_epochs("GNN32 train-normal f32",
+                       lambda: train_cli(tmp, "train-normal", "float32", EPOCHS_F32),
+                       gnn32_launches("f32", EPOCHS_F32), smi_line)
+        phase("4c GCN2 at full width")
+        check_gcn2(tmp, results, smi_line)
+        profile_epochs("GCN2 train() f32",
+                       lambda: train_gcn2(tmp, os.path.join(tmp, "log_gcn2_profiled")),
+                       GCN2_LAUNCHES, smi_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     phase("5 summary")
-    kernels = [results[k] for k in ("spmm_max_fwd_f32", "spmm_max_fwd_bf16",
-                                    "spmm_max_bwd_f32", "spmm_max_bwd_bf16")]
+    kernels = [results[k] for k in (
+        "spmm_max_fwd_f32", "spmm_max_fwd_bf16", "spmm_max_fwd_noarg_f32",
+        "spmm_max_bwd_f32", "spmm_max_bwd_bf16",
+        "spmm_sum_fwd_f32", "spmm_sum_fwd_bf16", "spmm_sum_bwd_f32", "spmm_sum_bwd_bf16")]
     for r in kernels:
-        if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
+        if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):
             fail(f"{r['name']}: non-finite timing")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -41,8 +41,11 @@ def _add_train_flags(p: argparse.ArgumentParser):
                    help="AUC sampling cadence in epochs (the value carries "
                         "between samples)")
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="mid-round checkpoints: not ported yet, 0 only "
-                        "(round-level resume is)")
+                   help="save each fold batch's model, Adam state and metric "
+                        "history every N epochs (ckpt_a{alpha}_j{chunk}.npz "
+                        "in the log directory, removed when the batch ends); "
+                        "a rerun with the same flags resumes from it. 0 "
+                        "disables (finished rounds are skipped either way)")
     p.add_argument("--precision", default="highest",
                    choices=["default", "high", "highest"],
                    help="float32 matmul precision (highest = TF32 off)")

@@ -1,11 +1,12 @@
-"""Fold-batched GNN32: the fold ensemble inside the feature layout.
+"""Fold-batched GNN32 and GCN2: the fold ensemble inside the feature layout.
 
-Port of ``plagnn_tpu/models/batched.py``.  Folds share the graph and the
-input features; only the parameters differ.  Activations are (N, B, F),
-parameters carry a leading fold axis (B, ...), the dense layers are
-``einsum('nbf,bfg->nbg')``, and one aggregation call serves every fold:
-the kernels take the (N, B*F) rows as they are, so the JAX package's
-1024/2048 stride padding (a TPU tiling rule) is gone.
+Port of ``plagnn_tpu/models/batched.py`` (which batches GNN32; GCN2 is
+batched the same way here).  Folds share the graph and the input features;
+only the parameters differ.  Activations are (N, B, F), parameters carry a
+leading fold axis (B, ...), the dense layers are ``einsum('nbf,bfg->nbg')``,
+and one aggregation call serves every fold: the kernels take the (N, B*F)
+rows as they are, so the JAX package's 1024/2048 stride padding (a TPU
+tiling rule) is gone.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.graph_format import Graph
-from .gnn32 import GNN32
+from ..ops.spmm import gcn_propagate
+from .gnn32 import GCN2, GNN32
 from .layers import aggregate_max
 
 
@@ -56,6 +58,29 @@ class BatchedLinear(nn.Module):
         return _bmm(x, self.weight) + self.bias
 
 
+class BatchedGraphConv(nn.Module):
+    """GraphConv with fold-stacked parameters; W first when in > out, as
+    ``GraphConv`` does, so conv1 of GCN2 aggregates B*hidden per row."""
+
+    def __init__(self, folds: int, in_feats: int, out_feats: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(folds, in_feats, out_feats))
+        self.bias = nn.Parameter(torch.empty(folds, out_feats))
+
+    def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.shape[1] > self.weight.shape[2]:
+            h = gcn_propagate(graph, _bmm(x, self.weight))
+        else:
+            h = _bmm(gcn_propagate(graph, x), self.weight)
+        return h + self.bias
+
+
+def _stack_into(out: nn.Module, models: Sequence[nn.Module]) -> nn.Module:
+    states = [m.state_dict() for m in models]
+    out.load_state_dict({k: torch.stack([s[k] for s in states]) for k in states[0]})
+    return out
+
+
 class BatchedGNN32(nn.Module):
     """GNN32 over a fold batch; ``forward`` returns (N, B, num_classes)."""
 
@@ -72,12 +97,11 @@ class BatchedGNN32(nn.Module):
     def stack(cls, models: Sequence[GNN32]) -> "BatchedGNN32":
         """Stack per-fold models (same widths) into one fold batch."""
         m0 = models[0]
-        out = cls(len(models), m0.conv1.w_self.shape[0], m0.conv1.w_self.shape[1],
-                  m0.conv2.w_self.shape[1], m0.conv3.w_self.shape[1],
-                  m0.liner1.weight.shape[1], m0.liner2.weight.shape[1])
-        states = [m.state_dict() for m in models]
-        out.load_state_dict({k: torch.stack([s[k] for s in states]) for k in states[0]})
-        return out
+        return _stack_into(
+            cls(len(models), m0.conv1.w_self.shape[0], m0.conv1.w_self.shape[1],
+                m0.conv2.w_self.shape[1], m0.conv3.w_self.shape[1],
+                m0.liner1.weight.shape[1], m0.liner2.weight.shape[1]),
+            models)
 
     def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
         """x: (N, F_in) shared by every fold, or (N, B, F_in)."""
@@ -86,3 +110,30 @@ class BatchedGNN32(nn.Module):
         h = F.leaky_relu(self.conv3(graph, h))
         h = F.leaky_relu(self.liner1(h))
         return torch.sigmoid(self.liner2(h))
+
+
+class BatchedGCN2(nn.Module):
+    """GCN2 over a fold batch; ``forward`` returns (N, B, num_classes)."""
+
+    def __init__(self, folds: int, in_feats: int, hidden: int, num_classes: int = 12):
+        super().__init__()
+        self.conv1 = BatchedGraphConv(folds, in_feats, hidden)
+        self.conv2 = BatchedGraphConv(folds, hidden, num_classes)
+
+    @classmethod
+    def stack(cls, models: Sequence[GCN2]) -> "BatchedGCN2":
+        """Stack per-fold models (same widths) into one fold batch."""
+        w1, w2 = models[0].conv1.weight, models[0].conv2.weight
+        return _stack_into(cls(len(models), w1.shape[0], w1.shape[1], w2.shape[1]),
+                           models)
+
+    def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+        """x: (N, F_in) shared by every fold, or (N, B, F_in)."""
+        h = torch.relu(self.conv1(graph, x))
+        return torch.sigmoid(self.conv2(graph, h))
+
+
+def stack_folds(models: Sequence[nn.Module]) -> nn.Module:
+    """The fold batch of per-fold GNN32 or GCN2 models."""
+    batched = {GNN32: BatchedGNN32, GCN2: BatchedGCN2}[type(models[0])]
+    return batched.stack(models)

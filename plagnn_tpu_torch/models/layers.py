@@ -1,14 +1,17 @@
 """Graph-convolution layers as ``nn.Module``s.
 
-Port of ``plagnn_tpu/models/layers.py`` (SAGE-pool and linear; GraphConv is
-not ported yet).  DGL 0.8.x ``SAGEConv(..., 'pool')`` semantics:
+Port of ``plagnn_tpu/models/layers.py``: SAGEConv, GraphConv and linear.
+DGL 0.8.x ``SAGEConv`` semantics, aggregator 'pool':
     h_pool_j = relu(W_pool . h_j + b_pool)
     m_i      = max over in-neighbours j of h_pool_j      (0 if none)
     out_i    = W_self . h_i + W_neigh . m_i + bias
+and 'mean' / 'sum' (m_i the mean / sum of the neighbours' h_j, no pool).
+DGL ``GraphConv`` (norm 'both'): ``out = D_in^{-1/2} A D_out^{-1/2} X W + b``.
 Weights are stored (in, out) as in the JAX package, so parameters carry
 across unchanged (``models/convert.py``).  Init follows the torch
-distributions: Xavier-uniform with gain sqrt(2) for the weights,
-torch-Linear default for ``b_pool`` and the dense layers, zero output bias.
+distributions: Xavier-uniform with gain sqrt(2) for the SAGE weights and
+gain 1 for GraphConv's, torch-Linear default for ``b_pool`` and the dense
+layers, zero output bias.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from torch import nn
 
 from ..ops.graph_format import Graph
-from ..ops.spmm_kernels import spmm_max
+from ..ops.spmm import gcn_propagate, spmm_max, spmm_mean, spmm_sum
 from ..utils.precision import aggregation_dtype
 
 _RELU_GAIN = math.sqrt(2.0)
@@ -53,25 +56,55 @@ def aggregate_max(graph: Graph, pooled: torch.Tensor) -> torch.Tensor:
     return spmm_max(graph, pooled.to(agg_dt)).to(pooled.dtype)
 
 
-class SageConvPool(nn.Module):
-    """One fold's SAGEConv('pool') over x (N_pad, F_in)."""
+class SageConv(nn.Module):
+    """One fold's SAGEConv over x (N_pad, F_in), aggregator 'pool', 'mean'
+    or 'sum' (only 'pool' has ``w_pool``/``b_pool``)."""
+
+    def __init__(self, in_feats: int, out_feats: int, aggregator: str = "pool",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if aggregator not in ("pool", "mean", "sum"):
+            raise ValueError(f"unknown aggregator {aggregator!r}")
+        self.aggregator = aggregator
+        self.w_self = nn.Parameter(xavier_uniform(in_feats, out_feats, _RELU_GAIN, generator))
+        self.w_neigh = nn.Parameter(xavier_uniform(in_feats, out_feats, _RELU_GAIN, generator))
+        self.bias = nn.Parameter(torch.zeros(out_feats))
+        if aggregator == "pool":
+            # fc_pool is a full torch Linear (in -> in)
+            self.w_pool = nn.Parameter(
+                xavier_uniform(in_feats, in_feats, _RELU_GAIN, generator))
+            bound = 1.0 / math.sqrt(in_feats)
+            self.b_pool = nn.Parameter(
+                torch.empty(in_feats).uniform_(-bound, bound, generator=generator))
+
+    def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+        if self.aggregator == "pool":
+            m = aggregate_max(graph, torch.relu(x @ self.w_pool + self.b_pool))
+        elif self.aggregator == "mean":
+            m = spmm_mean(graph, x)
+        else:
+            m = spmm_sum(graph, x)
+        return x @ self.w_self + m @ self.w_neigh + self.bias
+
+
+class GraphConv(nn.Module):
+    """One fold's DGL GraphConv (norm 'both') over x (N_pad, F_in).
+
+    Multiplies by W first when that narrows the rows to aggregate (DGL's
+    matmul order), so the sum runs at min(F_in, F_out) per fold."""
 
     def __init__(self, in_feats: int, out_feats: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.w_self = nn.Parameter(xavier_uniform(in_feats, out_feats, _RELU_GAIN, generator))
-        self.w_neigh = nn.Parameter(xavier_uniform(in_feats, out_feats, _RELU_GAIN, generator))
+        self.weight = nn.Parameter(xavier_uniform(in_feats, out_feats, 1.0, generator))
         self.bias = nn.Parameter(torch.zeros(out_feats))
-        # fc_pool is a full torch Linear (in -> in)
-        self.w_pool = nn.Parameter(xavier_uniform(in_feats, in_feats, _RELU_GAIN, generator))
-        bound = 1.0 / math.sqrt(in_feats)
-        self.b_pool = nn.Parameter(
-            torch.empty(in_feats).uniform_(-bound, bound, generator=generator))
 
     def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
-        pooled = torch.relu(x @ self.w_pool + self.b_pool)
-        m = aggregate_max(graph, pooled)
-        return x @ self.w_self + m @ self.w_neigh + self.bias
+        if self.weight.shape[0] > self.weight.shape[1]:
+            h = gcn_propagate(graph, x @ self.weight)
+        else:
+            h = gcn_propagate(graph, x) @ self.weight
+        return h + self.bias
 
 
 class Linear(nn.Module):

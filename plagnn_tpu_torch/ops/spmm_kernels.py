@@ -1,15 +1,19 @@
-"""Fold-batched segment max and its argmax-routed backward.
+"""Fold-batched segment max and sum, with their backwards.
 
-Port of ``pallas_spmm_max`` (``plagnn_tpu/ops/pallas/spmm_kernels.py``) and
-its custom VJP.  Features are (N_pad, K) with K = B*F, the fold batch
-packed next to the features, so one pass over the edges serves every fold.
+Port of ``pallas_spmm_max`` and ``pallas_spmm_sum``
+(``plagnn_tpu/ops/pallas/spmm_kernels.py``) and their custom VJPs.
+Features are (N_pad, K) with K = B*F, the fold batch packed next to the
+features, so one pass over the edges serves every fold.
 
-Two kernels, each with a plain PyTorch version beside it:
+Three kernels, each with a plain PyTorch version beside it:
 
 * ``spmm_max_fwd``: ``csrc/spmm_max_fwd.cu`` (float32 or bfloat16, with or
   without the argmax).  Plain version: ``spmm_max_fwd_plain``.
 * ``spmm_max_bwd``: ``csrc/spmm_max_bwd.cu`` (``spmm_max_bwd_f32`` and
   ``spmm_max_bwd_bf16``).  Plain version: ``spmm_max_bwd_plain``.
+* ``spmm_sum_rows``: ``csrc/spmm_sum.cu``, one kernel over the
+  destination-sorted CSR (forward) or its transpose (the VJP), float32 or
+  bfloat16 with a float32 sum.  Plain version: ``spmm_sum_plain``.
 
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.  ``LAUNCHES`` counts the kernel
@@ -26,11 +30,19 @@ import torch
 from . import _build
 from .graph_format import Graph
 
+# spmm_max_fwd_* count forwards that record the argmax (the training
+# path), spmm_max_fwd_noarg_* those that do not.
 LAUNCHES: Dict[str, int] = {
     "spmm_max_fwd_f32": 0,
     "spmm_max_fwd_bf16": 0,
+    "spmm_max_fwd_noarg_f32": 0,
+    "spmm_max_fwd_noarg_bf16": 0,
     "spmm_max_bwd_f32": 0,
     "spmm_max_bwd_bf16": 0,
+    "spmm_sum_fwd_f32": 0,
+    "spmm_sum_fwd_bf16": 0,
+    "spmm_sum_bwd_f32": 0,
+    "spmm_sum_bwd_bf16": 0,
 }
 
 _DTYPE_CODE = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16")}
@@ -66,14 +78,22 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+# C signature of each library's entry point (named after the library):
+# (dtype, [arg_bits,] pointers, n_rows, k_width, stream); pointers and the
+# stream as c_void_p, so ctypes passes them at full width.
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "spmm_max_fwd": [_I, _I, _P, _P, _P, _P, _P, _LL, _LL, _P],
+    "spmm_max_bwd": [_I, _I, _P, _P, _P, _P, _P, _LL, _LL, _P],
+    "spmm_sum": [_I, _P, _P, _P, _P, _LL, _LL, _P],
+}
+
+
 def _lib(name: str) -> ctypes.CDLL:
-    """The kernel library; both C entry points share one signature:
-    (dtype, arg_bits, 5 pointers, n_rows, k_width, stream)."""
+    """The kernel library, its entry point's signature declared."""
     lib = _build.load(name)
     fn = getattr(lib, name)
-    p = ctypes.c_void_p  # pointers and the stream at full width
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p, p, p,
-                   ctypes.c_longlong, ctypes.c_longlong, p]
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return lib
 
@@ -162,7 +182,7 @@ def spmm_max_fwd(
             arg.data_ptr() if arg is not None else None, n, k, _stream(x))
     if rc != 0:
         raise RuntimeError(f"spmm_max_fwd launch failed: CUDA error {rc}")
-    LAUNCHES[f"spmm_max_fwd_{tag}"] += 1
+    LAUNCHES[f"spmm_max_fwd_{'' if with_argmax else 'noarg_'}{tag}"] += 1
     return out, arg
 
 
@@ -250,3 +270,70 @@ def spmm_max(graph: Graph, x: torch.Tensor) -> torch.Tensor:
     else:
         out, _ = spmm_max_fwd(graph, x2, with_argmax=False)
     return out.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Segment sum: one kernel, forward over the CSR, VJP over its transpose.
+# ---------------------------------------------------------------------------
+
+
+def spmm_sum_plain(graph: Graph, x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/spmm_sum.cu``: ``index_add_`` of
+    ``x[src]`` into ``dst`` (``transpose``: of ``x[dst]`` into ``src``), in
+    float32 over edge ranges, rounded to x's dtype once."""
+    n, k = x.shape
+    out = torch.zeros((n, k), dtype=torch.float32, device=x.device)
+    step = max(_PLAIN_CHUNK // max(k, 1), 1)
+    for e0 in range(0, graph.n_edges, step):
+        e1 = min(e0 + step, graph.n_edges)
+        s = graph.src[e0:e1].long()
+        d = graph.dst[e0:e1].long()
+        if transpose:
+            s, d = d, s
+        out.index_add_(0, d, x[s].float())
+    return out.to(x.dtype)
+
+
+def spmm_sum_rows(graph: Graph, x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """out[i] = sum over in-edges j -> i of x[j], for x (N_pad, K); with
+    ``transpose``, dx[s] = sum over out-edges s -> n of x[n] (the VJP), the
+    same kernel over the transpose CSR.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (counted as spmm_sum_fwd_* / _bwd_*)."""
+    _check(graph, x, "x")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.device.type == "cpu":
+        return spmm_sum_plain(graph, x, transpose)
+    lib = _lib("spmm_sum")
+    code, tag = _DTYPE_CODE[x.dtype]
+    n, k = x.shape
+    indptr, idx = (graph.t_indptr, graph.t_dst) if transpose else (graph.indptr, graph.src)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = lib.spmm_sum(code, x.data_ptr(), indptr.data_ptr(), idx.data_ptr(),
+                          out.data_ptr(), n, k, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"spmm_sum launch failed: CUDA error {rc}")
+    LAUNCHES[f"spmm_sum_{'bwd' if transpose else 'fwd'}_{tag}"] += 1
+    return out
+
+
+class SpmmSum(torch.autograd.Function):
+    """``out[i] = sum over in-edges j -> i of x[j]``; the gradient is the
+    same sum over the transpose."""
+
+    @staticmethod
+    def forward(ctx, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+        ctx.graph = graph
+        return spmm_sum_rows(graph, x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return None, spmm_sum_rows(ctx.graph, g.contiguous(), transpose=True)
+
+
+def spmm_sum(graph: Graph, x: torch.Tensor) -> torch.Tensor:
+    """Segment sum over x (N_pad, ...): the trailing dims are packed into one
+    row of K elements, as ``spmm_max`` does."""
+    shape = x.shape
+    return SpmmSum.apply(graph, x.reshape(shape[0], -1).contiguous()).reshape(shape)

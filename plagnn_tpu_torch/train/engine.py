@@ -1,11 +1,11 @@
-"""Training engine: the fold-batched GNN32 ensemble.
+"""Training engine: the fold-batched GNN32 or GCN2 ensemble.
 
 Port of ``plagnn_tpu/train/engine.py`` (``TrainConfig``, the fold-batched
-runner, ``train``, ``_write_epoch_logs``, ``_write_tsv``).  The fold
-ensemble is a batch axis of the features (N, B, F); each epoch is forward ->
-masked weighted BCE per fold -> backward -> one Adam step over the
-fold-stacked parameters -> adaptive threshold -> AIM/COV/mlACC, F1 and
-sampled AUC, all on the device.  The metric history stays on the device
+runner, ``train`` with mid-round checkpoints, ``_write_epoch_logs``,
+``_write_tsv``).  The fold ensemble is a batch axis of the features
+(N, B, F); each epoch is forward -> masked weighted BCE per fold ->
+backward -> one Adam step over the fold-stacked parameters -> adaptive
+threshold -> AIM/COV/mlACC, F1 and sampled AUC, all on the device.  The metric history stays on the device
 until a job chunk ends and is copied to the host once.
 
 Reference quirks kept for parity: the val loss and the predictions use the
@@ -22,15 +22,16 @@ import datetime
 import json
 import os
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..models.batched import BatchedGNN32
-from ..models.gnn32 import init_gnn32
+from ..models.batched import stack_folds
+from ..models.gnn32 import MODEL_REGISTRY
 from ..ops.graph_format import Graph
-from .checkpoint import round_complete
+from ..utils.precision import aggregation_dtype
+from .checkpoint import load_state, restore_state, round_complete, save_state
 from .kfold import FOLD_SEEDS, fold_node_masks
 from .losses import multi_loss, weight_cal
 from .metrics import aim_cov_acc, macro_auc, macro_f1, micro_auc, micro_f1
@@ -46,7 +47,8 @@ class TrainConfig:
     fold_seeds: Tuple[int, ...] = FOLD_SEEDS
     seed: int = 70
     fold_batch: int = 10          # folds trained together (batch axis width)
-    model: str = "gnn32"
+    model: str = "gnn32"          # a key of models.gnn32.MODEL_REGISTRY
+    # GNN32 takes all four widths; GCN2 its first (the hidden width)
     hidden: Tuple[int, ...] = (400, 300, 200, 100)
     num_classes: int = 12
     compute_auc: bool = True
@@ -56,8 +58,13 @@ class TrainConfig:
     log_every: int = 5
     verbose: bool = True
     resume: bool = True           # skip rounds whose artifacts already exist
-    # Mid-round checkpoints are not ported yet: any value > 0 raises.
+    # Mid-round checkpoints: persist the chunk's model, Adam state and
+    # history every N epochs (ckpt_a{alpha}_j{chunk}.npz, removed when the
+    # chunk ends) and resume from it; 0 disables.
+    # chunk_callback(round, alpha, chunk start, epochs done) fires after
+    # every stretch of epochs (progress reporting, fault injection).
     checkpoint_every: int = 0
+    chunk_callback: Optional[Callable[[int, float, int, int], None]] = None
 
 
 METRIC_KEYS = ("aim", "cov", "acc", "loss")
@@ -98,18 +105,18 @@ def fold_seed(seed: int, round_idx: int, fold: int, alpha_idx: int) -> int:
 
 
 def init_fold_model(cfg: TrainConfig, in_feats: int, seeds: Sequence[int],
-                    device) -> BatchedGNN32:
-    """Fold batch of freshly initialised GNN32s, one ``torch.Generator``
-    per fold."""
-    if cfg.model != "gnn32":
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
-    h1, h2, h3, h4 = cfg.hidden
+                    device) -> torch.nn.Module:
+    """Fold batch of freshly initialised ``cfg.model``s, one
+    ``torch.Generator`` per fold."""
+    if cfg.model not in MODEL_REGISTRY:
+        raise ValueError(f"unknown model {cfg.model!r}; one of {sorted(MODEL_REGISTRY)}")
+    widths = tuple(cfg.hidden) if cfg.model == "gnn32" else (cfg.hidden[0],)
     models = [
-        init_gnn32(torch.Generator().manual_seed(s), in_feats, h1, h2, h3, h4,
-                   cfg.num_classes)
+        MODEL_REGISTRY[cfg.model](torch.Generator().manual_seed(s), in_feats,
+                                  *widths, num_classes=cfg.num_classes)
         for s in seeds
     ]
-    return BatchedGNN32.stack(models).to(device)
+    return stack_folds(models).to(device)
 
 
 def make_adam(model: torch.nn.Module, cfg: TrainConfig) -> torch.optim.Adam:
@@ -125,9 +132,11 @@ def make_batched_fold_runner(graph: Graph, feats: torch.Tensor,
     """Fold-batched runner over tensors already on the run's device.
 
     Returns run(model, opt, train_masks (B, N), val_masks (B, N), alpha,
-    n_epochs, epoch_offset, total_epochs) -> (model, opt, last_probs
-    (B, N, C), history, epoch_ms), history a dict of numpy (B, E) arrays
-    plus pred_num (B, E, C) int32, as the JAX runner returns them."""
+    n_epochs, epoch_offset, total_epochs, last_auc) -> (model, opt,
+    last_probs (B, N, C), history, epoch_ms), history a dict of numpy (B, E)
+    arrays plus pred_num (B, E, C) int32, as the JAX runner returns them.
+    ``last_auc`` carries the sampled AUC pair into a later stretch of epochs
+    (default 0.5 each)."""
     device = feats.device
     w = torch.as_tensor(np.asarray(class_weight), dtype=torch.float32, device=device)
     auc_every = max(int(cfg.auc_every or 1), 1)
@@ -158,14 +167,15 @@ def make_batched_fold_runner(graph: Graph, feats: torch.Tensor,
 
     def run(model, opt, train_masks, val_masks, alpha: float,
             n_epochs: Optional[int] = None, epoch_offset: int = 0,
-            total_epochs: Optional[int] = None):
+            total_epochs: Optional[int] = None, last_auc=None):
         if opt is None:
             opt = make_adam(model, cfg)
         n_run = n_epochs or cfg.epoch_num
         total = total_epochs or (epoch_offset + n_run)
         b = train_masks.shape[0]
-        last_auc = (torch.full((b,), 0.5, device=device),
-                    torch.full((b,), 0.5, device=device))
+        if last_auc is None:
+            last_auc = (torch.full((b,), 0.5, device=device),
+                        torch.full((b,), 0.5, device=device))
         rows = []
         timer = _EpochTimer(device)
         probs = None
@@ -250,10 +260,6 @@ def train(
     graph/feats/labels come from ``data.artifacts.load_condition`` (host);
     ``device_name`` is the torch device (default ``cuda``) and the device
     label written to txt_log.txt.  Returns per-chunk epoch timings."""
-    if cfg.checkpoint_every:
-        raise NotImplementedError(
-            "mid-round checkpoints (--checkpoint-every > 0) are not ported "
-            "yet; round-level resume is")
     device = resolve_device(device_name)
     os.makedirs(path, exist_ok=True)
     in_feats = feats.shape[1]
@@ -304,6 +310,8 @@ def train(
                 + ", ".join(f"val {k}={v:.3f}" for k, v in last.items())
             )
 
+    ck_every = int(cfg.checkpoint_every or 0)
+    ck_cfg = _checkpoint_fingerprint(cfg)
     for a_i, alpha in enumerate(cfg.alpha_list):
         jobs = [
             (round_idx, f + 1, tr_np[f], va_np[f])
@@ -316,14 +324,41 @@ def train(
                 cfg, in_feats,
                 [fold_seed(cfg.seed, r_i, f_f, a_i) for r_i, f_f, _, _ in chunk],
                 device)
+            opt = make_adam(model, cfg)
             tr_masks = torch.as_tensor(np.stack([j[2] for j in chunk]), device=device)
             va_masks = torch.as_tensor(np.stack([j[3] for j in chunk]), device=device)
-            model, _, f_probs, history, epoch_ms = run(
-                model, None, tr_masks, va_masks, float(alpha),
-                n_epochs=cfg.epoch_num, epoch_offset=0,
-                total_epochs=cfg.epoch_num)
+
+            # Stretches of checkpoint_every epochs with a checkpoint after
+            # each: a crash loses at most that many epochs of this chunk.
+            ck_file = os.path.join(path, f"ckpt_a{a_i}_j{c0}.npz")
+            done = 0
+            history = None
+            if ck_every and cfg.resume and os.path.exists(ck_file):
+                st = load_state(ck_file)
+                _check_checkpoint_config(ck_file, st["config"], ck_cfg)
+                restore_state(st, model, opt)
+                done = int(st["epochs_done"])
+                history = st["history"]
+                if cfg.verbose:
+                    print(f"[alpha {alpha}] resume job chunk {c0}.. at epoch {done}")
+            epoch_ms: List[float] = []
+            while done < cfg.epoch_num:
+                n_run = min(ck_every, cfg.epoch_num - done) if ck_every else cfg.epoch_num
+                model, opt, f_probs, hist, ms = run(
+                    model, opt, tr_masks, va_masks, float(alpha),
+                    n_epochs=n_run, epoch_offset=done, total_epochs=cfg.epoch_num,
+                    last_auc=_carried_auc(history, cfg, device))
+                history = hist if history is None else _concat_history(history, hist)
+                epoch_ms += ms
+                done += n_run
+                if ck_every and done < cfg.epoch_num:
+                    save_state(ck_file, model, opt, done, history, ck_cfg)
+                if cfg.chunk_callback is not None:
+                    cfg.chunk_callback(chunk[0][0], alpha, c0, done)
             stats.append(ChunkStats(folds=len(chunk), epoch_ms=epoch_ms))
             f_probs = f_probs.cpu().numpy()
+            if ck_every and os.path.exists(ck_file):
+                os.remove(ck_file)
 
             for b, (round_idx, fold_flag, trm, vam) in enumerate(chunk):
                 train_d = fig_acc[round_idx]["train"].setdefault(alpha, {})
@@ -367,6 +402,69 @@ def train(
                 if done_cnt[round_idx] == per_round_total:
                     _flush_round(round_idx)
     return stats
+
+
+def _carried_auc(history, cfg: TrainConfig, device):
+    """The AUC pair the last stretch of epochs ended with, so the value
+    carried between samples crosses a checkpoint as in an uninterrupted
+    run; None (start at 0.5) for a chunk's first stretch."""
+    if history is None or not cfg.compute_auc:
+        return None
+    return tuple(torch.as_tensor(history["val"][k][:, -1], device=device)
+                 for k in ("auc_micro", "auc_macro"))
+
+
+def _concat_history(a, b):
+    """Two runner histories joined along the epoch axis."""
+    if isinstance(a, dict):
+        return {k: _concat_history(a[k], b[k]) for k in a}
+    return np.concatenate([a, b], axis=1)
+
+
+def _checkpoint_fingerprint(cfg: TrainConfig) -> dict:
+    """Config fields a mid-round checkpoint depends on.
+
+    The chunk files are keyed ``ckpt_a{a_i}_j{c0}.npz``: fold_batch changes
+    the (round, fold) -> chunk mapping and the batch width of every saved
+    tensor; epoch_num/alpha_list change the chunk offsets and job list;
+    agg_dtype changes the numerical trajectory; seed/lr/fold_num/model/
+    hidden change the parameters the state continues from.  Resuming across
+    any of these would load mismatched state or silently diverge."""
+    return {
+        "fold_batch": int(cfg.fold_batch),
+        "epoch_num": int(cfg.epoch_num),
+        "alpha_list": tuple(float(a) for a in cfg.alpha_list),
+        "fold_num": int(cfg.fold_num),
+        "fold_seeds": tuple(int(s) for s in cfg.fold_seeds),
+        "agg_dtype": "bfloat16" if aggregation_dtype() is not None else "float32",
+        "seed": int(cfg.seed),
+        "lr": float(cfg.lr),
+        "model": str(cfg.model),
+        "hidden": tuple(int(h) for h in cfg.hidden),
+    }
+
+
+def _check_checkpoint_config(ck_file: str, saved: Optional[dict],
+                             current: dict) -> None:
+    if saved is None:
+        raise ValueError(
+            f"checkpoint {ck_file} predates config fingerprinting and cannot "
+            "be verified against the current run configuration; delete it to "
+            "restart this job chunk from epoch 0")
+    diffs = {k: (saved.get(k), current[k]) for k in current
+             if _norm(saved.get(k)) != _norm(current[k])}
+    if diffs:
+        detail = "; ".join(
+            f"{k}: checkpoint={s!r} vs current={c!r}" for k, (s, c) in diffs.items())
+        raise ValueError(
+            f"checkpoint {ck_file} was written under a different run "
+            f"configuration ({detail}); resuming would load mismatched state "
+            "or silently diverge — rerun with the original flags, or delete "
+            "the checkpoint to restart this job chunk from epoch 0")
+
+
+def _norm(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else v
 
 
 def _write_epoch_logs(

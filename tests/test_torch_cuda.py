@@ -14,6 +14,7 @@ import torch
 
 from plagnn_tpu_torch.ops import spmm_kernels as sk
 from plagnn_tpu_torch.ops.graph_format import build_graph
+from plagnn_tpu_torch.ops.spmm import spmm_sum
 
 pytestmark = pytest.mark.cuda
 
@@ -59,5 +60,56 @@ def test_autograd_on_card_matches_cpu(card):
     for dev, graph in ((card, g.to(card)), (torch.device("cpu"), g)):
         xt = torch.tensor(x, device=dev, requires_grad=True)
         (sk.spmm_max(graph, xt) * torch.from_numpy(w).to(dev)).sum().backward()
+        grads.append(xt.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sum_kernel_matches_plain(card, dtype, transpose):
+    """float32: within 1e-5 of the summed magnitudes (the same terms in
+    another order); bfloat16 on small integers: exact (every float32
+    partial sum exact, one rounding)."""
+    g, _ = _graph(3)
+    rng = np.random.default_rng(4)
+    if dtype == torch.float32:
+        x = torch.from_numpy(rng.standard_normal((g.n_nodes, 3 * 13)).astype(np.float32))
+    else:
+        x = torch.from_numpy(rng.integers(-8, 9, (g.n_nodes, 3 * 13)).astype(np.float32))
+    x = x.to(dtype)
+    name = f"spmm_sum_{'bwd' if transpose else 'fwd'}_" + (
+        "f32" if dtype == torch.float32 else "bf16")
+    before = sk.LAUNCHES[name]
+    out = sk.spmm_sum_rows(g.to(card), x.to(card), transpose)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[name] == before + 1
+    out_p = sk.spmm_sum_plain(g, x, transpose)
+    if dtype == torch.bfloat16:
+        assert torch.equal(out.cpu(), out_p)
+    else:
+        mag = sk.spmm_sum_plain(g, x.abs(), transpose)
+        assert bool(((out.cpu() - out_p).abs() <= 1e-5 * mag + 1e-7).all())
+
+
+def test_sum_kernel_deterministic(card):
+    g, _ = _graph(5)
+    gd = g.to(card)
+    x = torch.randn(g.n_nodes, 700, device=card)
+    for transpose in (False, True):
+        assert torch.equal(sk.spmm_sum_rows(gd, x, transpose),
+                           sk.spmm_sum_rows(gd, x, transpose))
+
+
+def test_sum_autograd_on_card_matches_cpu(card):
+    """dx through SpmmSum: the transpose kernel on the card against the
+    plain version on the CPU."""
+    g, _ = _graph(6)
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((g.n_nodes, 2, 21)).astype(np.float32)
+    w = rng.standard_normal(x.shape).astype(np.float32)
+    grads = []
+    for dev, graph in ((card, g.to(card)), (torch.device("cpu"), g)):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        (spmm_sum(graph, xt) * torch.from_numpy(w).to(dev)).sum().backward()
         grads.append(xt.grad.cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)

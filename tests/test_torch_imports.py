@@ -80,10 +80,16 @@ def test_cli_refuses_mesh_and_mid_round_checkpoints(tmp_path):
             cli.main(["train-normal", "-data", "GSE30931", "--data-root", root,
                       "-d", "cpu", "--mesh", mesh])
     cli.main(["synth", "--data-root", root, "--nodes", "64", "--edges", "200"])
-    with pytest.raises(NotImplementedError):
-        cli.main(["train-normal", "-data", "GSE30931", "--data-root", root,
-                  "-d", "cpu", "-e", "1", "--rounds", "1", "-f", "2",
-                  "--fold-batch", "2", "--checkpoint-every", "1"])
+    # mid-round checkpoints are ported: the run writes its artifacts and
+    # leaves no checkpoint behind
+    cli.main(["train-normal", "-data", "GSE30931", "--data-root", root,
+              "-d", "cpu", "-e", "3", "--rounds", "1", "-f", "2",
+              "--fold-batch", "2", "--checkpoint-every", "1"])
+    d = os.path.join(root, "log", "GSE30931", "normal")
+    for fold in (1, 2):
+        assert os.path.exists(os.path.join(d, f"1_{fold}_loc_logits.npy"))
+    assert os.path.exists(os.path.join(d, "fig_data_1.json"))
+    assert not [f for f in os.listdir(d) if f.startswith("ckpt_")]
 
 
 def test_cuda_wrappers_never_fall_back(monkeypatch):
@@ -111,4 +117,8 @@ def test_cuda_wrappers_never_fall_back(monkeypatch):
         sk.spmm_max_fwd(g, x)
     with pytest.raises(RuntimeError, match="no kernel library"):
         sk.spmm_max_bwd(g, x, torch.zeros(4, 3, dtype=torch.int16))
-    assert calls == ["spmm_max_fwd", "spmm_max_bwd"]
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        sk.spmm_sum_rows(g, x)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        sk.spmm_sum_rows(g, x, transpose=True)
+    assert calls == ["spmm_max_fwd", "spmm_max_bwd", "spmm_sum", "spmm_sum"]
