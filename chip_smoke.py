@@ -12,11 +12,14 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    path aggregates.  Segment max (GNN32: B=10 folds x F=503, 400, 300):
    forward out and argmax bit-exact; float32 dx within 1e-5 of the summed
    hit magnitudes (the two sum the same hits in float32 in different
-   orders); bfloat16 dx within 1 bf16 ulp.  Segment sum (GCN2: B=10 x 400
-   and 10 x 12), forward and transpose: float32 within 1e-5 of the summed
-   magnitudes and bit-identical run to run; bfloat16 on small integers
-   exact.  At the first layer's shape of each path, times each kernel (CUDA
-   events, median), its plain version and a PyTorch library call.
+   orders) and bit-identical run to run; bfloat16 dx within 1 bf16 ulp.
+   Segment sum (GCN2: B=10 x 400 and 10 x 12), forward and transpose:
+   float32 within 1e-5 of the summed magnitudes and bit-identical run to
+   run; bfloat16 on small integers exact.  Prints the row-chunk tables'
+   sizes (chunks, split rows) that the sum and max-backward kernels walk.
+   Times each kernel (CUDA events, median), its plain version and a PyTorch
+   library call at the first layer's shape of each path, and the sum also
+   at GCN2 conv2's K = 120.
 4. GNN32 at full width through the CLI: synth (24,041 nodes, 700k edges),
    train-normal (float32, 3 epochs, 10 folds in one batch), then
    train-inter with --agg-dtype bfloat16 (2 epochs).  Each run must launch
@@ -51,6 +54,7 @@ KERNEL_SOURCE = {
     "spmm_sum": "plagnn_tpu_torch/csrc/spmm_sum.cu",
 }
 _FWD_BODY = "plagnn_tpu/ops/pallas/spmm_kernels.py:513"  # _spmm_fwd_kernel
+CONV2 = "_k120"  # name suffix of the sum's entries at GCN2 conv2's width
 REPLACES = {
     "spmm_max_fwd_f32": _FWD_BODY,
     "spmm_max_fwd_bf16": _FWD_BODY,
@@ -121,7 +125,7 @@ def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape):
         "name": name,
         "route": "cuda",
         "source": KERNEL_SOURCE[source],
-        "replaces": REPLACES[name],
+        "replaces": REPLACES[name.removesuffix(CONV2)],
         "launches": 0,
         "max_abs_err": err,
         "ms": ms,
@@ -250,11 +254,12 @@ def check_kernels(graph, x32, label, results=None):
                   f"{gather / HBM_BYTES_PER_S * 1e3:.3f})", flush=True)
 
 
-def check_sum_kernels(graph, k, label, results=None):
+def check_sum_kernels(graph, k, label, results=None, suffix=""):
     """The segment-sum kernel against its plain version, forward and
     transpose, at K elements per row; with ``results``, also time both
     directions, the plain version and ``torch.sparse.mm`` on the CSR
-    adjacency (a yardstick only, never on the path)."""
+    adjacency (a yardstick only, never on the path), entered under the
+    kernel's counter name plus ``suffix``."""
     import torch
 
     from plagnn_tpu_torch.ops import spmm_kernels as sk
@@ -304,7 +309,7 @@ def check_sum_kernels(graph, k, label, results=None):
             plain = median_ms(lambda: sk.spmm_sum_plain(graph, x, transpose), 3)
             lib = median_ms(lambda: torch.sparse.mm(adj, x), 10)
             esize = x.element_size()
-            name = f"spmm_sum_{direction}_{tag}"
+            name = f"spmm_sum_{direction}_{tag}{suffix}"
             r = results[name] = kernel_entry(
                 name, "spmm_sum", err_max, ms, plain, lib,
                 2 * n * k * esize + 4 * (n + 1 + e), e * k, (n, k))
@@ -406,10 +411,13 @@ def profile_epochs(label, run, expected, smi_line):
 
 
 def record_launches(results, counts):
-    """Each kernel entry takes the launches of the run whose path it is on."""
-    for name, c in counts.items():
-        if c and name in results:
-            results[name]["launches"] = c
+    """Each kernel entry takes the launches of the run whose path it is on:
+    its counter's, at every width that run aggregates (an entry at conv2's
+    width is the same kernel as its counter's)."""
+    for name, r in results.items():
+        c = counts.get(name.removesuffix(CONV2), 0)
+        if c:
+            r["launches"] = c
 
 
 def check_artifacts(label, d):
@@ -490,6 +498,34 @@ def check_gcn2(data_root, results, smi_line):
     report_run("GCN2 train() float32", stats, wall, counts, smi_line)
 
 
+def sweep_row_chunk(full):
+    """Median times of the row-chunked kernels (float32 sum forward and
+    transpose at K = 10 x 400 and 10 x 12, max backward at 10 x 503) on the
+    full graph's edges cut at each chunk size."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+    from plagnn_tpu_torch.ops.graph_format import build_graph
+
+    src, dst = full.src.numpy(), full.dst.numpy()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    n = full.n_nodes
+    x = torch.randn((n, FOLDS * F_IN), generator=gen, device="cuda").relu_()
+    g = torch.randn((n, FOLDS * F_IN), generator=gen, device="cuda")
+    for cap in (128, 256, 512, 1024):
+        graph = build_graph(src, dst, full.n_real_nodes, row_chunk=cap).to("cuda")
+        _, arg = sk.spmm_max_fwd(graph, x)
+        row = {"row_chunk": cap, "chunks": graph.chunks.n_chunks,
+               "split_rows": graph.chunks.n_split,
+               "max_bwd_f32_k5030": median_ms(lambda: sk.spmm_max_bwd(graph, g, arg), 10)}
+        for width in SUM_WIDTHS:
+            xs = x[:, :FOLDS * width].contiguous()
+            for transpose in (False, True):
+                key = f"sum_{'bwd' if transpose else 'fwd'}_f32_k{FOLDS * width}"
+                row[key] = median_ms(lambda: sk.spmm_sum_rows(graph, xs, transpose), 10)
+        print("row-chunk sweep: " + json.dumps(row), flush=True)
+
+
 def tie_graph():
     """Small graph with a hub row, empty rows and many tied values."""
     import numpy as np
@@ -516,6 +552,10 @@ def main(argv=None):
     ap.add_argument("--only-kernels", action="store_true",
                     help="stop after phase 3 (build and kernel checks); "
                          "prints no result line")
+    ap.add_argument("--sweep-row-chunk", action="store_true",
+                    help="after phase 3, time the row-chunked kernels on the "
+                         "full graph at each chunk size and stop; prints no "
+                         "result line")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "plagnn_tpu_torch")):
         fail("the plagnn_tpu_torch package is not beside chip_smoke.py")
@@ -560,6 +600,10 @@ def main(argv=None):
     x_full = rng.standard_normal((full.n_nodes, FOLDS * F_IN), dtype=np.float32)
     # relu of bf16-representable values: ties at 0, identical in f32 and bf16
     x_full = torch.from_numpy(x_full).cuda().to(torch.bfloat16).float().relu_()
+    for direction, ch in (("forward", full.chunks), ("transpose", full.t_chunks)):
+        print(f"full graph {direction} row chunks (ROW_CHUNK {ch.cap}): "
+              f"{ch.n_chunks} chunks over {full.n_nodes} rows, {ch.n_split} split "
+              f"rows, {ch.n_slots} partial slots", flush=True)
     full_cuda = full.to("cuda")
     results = {}
     check_kernels(full_cuda, x_full, "full graph layer 1", results)
@@ -572,12 +616,15 @@ def main(argv=None):
     # segment sum: GCN2's widths, conv1 timed
     check_sum_kernels(graph.to("cuda"), vals.shape[1], "tie graph")
     check_sum_kernels(full_cuda, FOLDS * SUM_WIDTHS[0], "full graph GCN2 conv1", results)
-    # conv2's narrow rows: timed for the record, not in the kernels line
-    check_sum_kernels(full_cuda, FOLDS * SUM_WIDTHS[1], "full graph GCN2 conv2", {})
+    # conv2's narrow rows: its float32 entries go into the kernels line too
+    check_sum_kernels(full_cuda, FOLDS * SUM_WIDTHS[1], "full graph GCN2 conv2",
+                      results, suffix=CONV2)
     del full_cuda
     torch.cuda.empty_cache()
-    if args.only_kernels:
+    if args.only_kernels or args.sweep_row_chunk:
         print(json.dumps({"kernels": list(results.values())}))
+        if args.sweep_row_chunk:
+            sweep_row_chunk(full)
         return
 
     phase("4 GNN32 at full width")
@@ -620,7 +667,8 @@ def main(argv=None):
     kernels = [results[k] for k in (
         "spmm_max_fwd_f32", "spmm_max_fwd_bf16", "spmm_max_fwd_noarg_f32",
         "spmm_max_bwd_f32", "spmm_max_bwd_bf16",
-        "spmm_sum_fwd_f32", "spmm_sum_fwd_bf16", "spmm_sum_bwd_f32", "spmm_sum_bwd_bf16")]
+        "spmm_sum_fwd_f32", "spmm_sum_fwd_bf16", "spmm_sum_bwd_f32", "spmm_sum_bwd_bf16",
+        "spmm_sum_fwd_f32" + CONV2, "spmm_sum_bwd_f32" + CONV2)]
     for r in kernels:
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):
             fail(f"{r['name']}: non-finite timing")

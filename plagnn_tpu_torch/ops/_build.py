@@ -1,9 +1,9 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``_build/<name>_<hash>.so``, a shared
-library with a plain C interface, where the hash covers the source and the
-flags: a changed source builds anew, an unchanged one loads the library it
-finds.  Building happens at first use, so ``python3 chip_smoke.py`` alone
+library with a plain C interface, where the hash covers the source, every
+shared header ``csrc/*.cuh`` and the flags: a changed source or header
+builds anew, an unchanged one loads the library it finds.  Building happens at first use, so ``python3 chip_smoke.py`` alone
 builds the kernels; ``build_all`` starts one nvcc per source, all at once.
 Only the CUDA toolkit's own headers are used.
 """
@@ -42,6 +42,9 @@ def nvcc_path() -> str:
 def lib_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
@@ -57,7 +60,8 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
+               *(["-Xptxas=-v"] if verbose else []),
                "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

@@ -14,6 +14,10 @@ Differences from the JAX container:
   the JAX one on every row but the dummy's, whose row here is empty.
 * The transpose CSR (edges sorted by (src, dst)) is stored, for the
   gather-only backward kernel.
+* Each CSR's rows are cut into chunks of at most ``ROW_CHUNK`` edges
+  (``RowChunks``), the JAX mega-row split (``build_pallas_graph``'s
+  ``rank // cap``) applied to every row of both directions, so that the
+  row-chunked kernels (``csrc/row_chunks.cuh``) bound every thread's walk.
 * The bucketed ELL (``MultiEll``) is left out: it is a format for XLA on a
   TPU.
 """
@@ -26,8 +30,76 @@ import numpy as np
 import torch
 
 
+# The most edges one chunk of a row holds (the kernels' serial walk).
+ROW_CHUNK = 256
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class RowChunks:
+    """One CSR's rows cut into consecutive runs of at most ``cap`` edges, in
+    ascending edge order: chunk ``j`` of a row holds the edges of rank
+    ``[j*cap, (j+1)*cap)``.  An empty row has one empty chunk.  int32.
+
+    row:       (C,)     row of each chunk; chunks in (row, rank) order.
+    ptr:       (C + 1,) chunk c holds the edges ``[ptr[c], ptr[c+1])``.
+    slot:      (C,)     -1 where the chunk is its row's only one, else its
+                        row in the (n_slots, K) float32 partial buffer.
+    split_row: (S,)     the rows of more than ``cap`` edges, ascending.
+    split_ptr: (S + 1,) split row i owns the slots
+                        ``[split_ptr[i], split_ptr[i+1])``, in chunk order.
+    """
+
+    row: torch.Tensor
+    ptr: torch.Tensor
+    slot: torch.Tensor
+    split_row: torch.Tensor
+    split_ptr: torch.Tensor
+    cap: int
+    n_slots: int
+
+    @property
+    def n_chunks(self) -> int:
+        return self.row.shape[0]
+
+    @property
+    def n_split(self) -> int:
+        return self.split_row.shape[0]
+
+    def to(self, device) -> "RowChunks":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+def chunk_table(indptr: np.ndarray, cap: int, device=None) -> RowChunks:
+    """The chunk table of the CSR with row pointers ``indptr``."""
+    if cap < 1:
+        raise ValueError(f"row chunk must be >= 1, got {cap}")
+    indptr = np.asarray(indptr, np.int64)
+    deg = np.diff(indptr)
+    per_row = np.maximum(1, -(-deg // cap))
+    row = np.repeat(np.arange(len(deg)), per_row)
+    first = np.cumsum(per_row) - per_row          # each row's first chunk
+    rank0 = (np.arange(len(row)) - first[row]) * cap
+    ptr = np.append(indptr[row] + rank0, indptr[-1])
+    split = deg > cap
+    in_split = split[row]
+    slot = np.where(in_split, np.cumsum(in_split) - 1, -1)
+    split_row = np.flatnonzero(split)
+    split_ptr = np.zeros(len(split_row) + 1, np.int64)
+    np.cumsum(per_row[split_row], out=split_ptr[1:])
+
+    def i32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+
+    return RowChunks(row=i32(row), ptr=i32(ptr), slot=i32(slot),
+                     split_row=i32(split_row), split_ptr=i32(split_ptr),
+                     cap=cap, n_slots=int(split_ptr[-1]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +112,7 @@ class Graph:
     t_dst:      (E,)  destination of each edge, edges sorted by (src, dst).
     t_indptr:   (N_pad + 1,) row pointers into ``t_dst`` by source.
     in_degree / out_degree: (N_pad,) over the real edges.
+    chunks / t_chunks: ``RowChunks`` of (indptr, src) and (t_indptr, t_dst).
     """
 
     src: torch.Tensor
@@ -52,6 +125,8 @@ class Graph:
     n_nodes: int          # padded node count N_pad
     n_real_nodes: int
     n_edges: int
+    chunks: Optional[RowChunks] = None
+    t_chunks: Optional[RowChunks] = None
 
     @property
     def device(self) -> torch.device:
@@ -61,7 +136,7 @@ class Graph:
         fields = {
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)
+            if isinstance(getattr(self, f.name), (torch.Tensor, RowChunks))
         }
         return dataclasses.replace(self, **fields)
 
@@ -82,9 +157,12 @@ def build_graph(
     *,
     add_self_loops: bool = False,
     node_multiple: int = 128,
+    row_chunk: int = ROW_CHUNK,
     device: Optional[torch.device] = None,
 ) -> Graph:
-    """Host-side graph construction (``dgl.graph + dgl.add_self_loop``)."""
+    """Host-side graph construction (``dgl.graph + dgl.add_self_loop``);
+    ``row_chunk`` is the most edges a chunk of ``chunks``/``t_chunks``
+    holds."""
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     if add_self_loops:
@@ -116,6 +194,8 @@ def build_graph(
         n_nodes=n_pad,
         n_real_nodes=n_nodes,
         n_edges=n_edges,
+        chunks=chunk_table(indptr, row_chunk, device),
+        t_chunks=chunk_table(t_indptr, row_chunk, device),
     )
 
 

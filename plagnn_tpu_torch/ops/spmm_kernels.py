@@ -15,6 +15,10 @@ Three kernels, each with a plain PyTorch version beside it:
   destination-sorted CSR (forward) or its transpose (the VJP), float32 or
   bfloat16 with a float32 sum.  Plain version: ``spmm_sum_plain``.
 
+The backward and the sum walk the graph's row chunks (``Graph.chunks`` /
+``t_chunks``, ``csrc/row_chunks.cuh``): their wrappers pass the direction's
+chunk table and a float32 scratch for the partials of split rows.
+
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.  ``LAUNCHES`` counts the kernel
 launches, so a run can show that its path went through the kernels.
@@ -78,14 +82,20 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-# C signature of each library's entry point (named after the library):
-# (dtype, [arg_bits,] pointers, n_rows, k_width, stream); pointers and the
-# stream as c_void_p, so ctypes passes them at full width.
+# C signature of each library's entry point (named after the library);
+# pointers and the stream as c_void_p, so ctypes passes them at full width.
+#   spmm_max_fwd: dtype, arg_bits, x, indptr, src, out, arg, n_rows, k, stream
+#   spmm_max_bwd: dtype, arg_bits, g, arg, <chunk table>, t_dst,
+#                 split_row, split_ptr, n_split, dx, partial, k, stream
+#   spmm_sum:     dtype, x, <chunk table>, idx, split_row, split_ptr,
+#                 n_split, out, partial, k, stream
+# where <chunk table> is chunk_row, chunk_ptr, chunk_slot, n_chunks.
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_CHUNKS = [_P, _P, _P, _LL]
 _ARGTYPES = {
     "spmm_max_fwd": [_I, _I, _P, _P, _P, _P, _P, _LL, _LL, _P],
-    "spmm_max_bwd": [_I, _I, _P, _P, _P, _P, _P, _LL, _LL, _P],
-    "spmm_sum": [_I, _P, _P, _P, _P, _LL, _LL, _P],
+    "spmm_max_bwd": [_I, _I, _P, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, _P],
+    "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, _P],
 }
 
 
@@ -96,6 +106,21 @@ def _lib(name: str) -> ctypes.CDLL:
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return lib
+
+
+def _chunk_args(graph: Graph, transpose: bool, k: int, device):
+    """The direction's chunk table as the C entry points take it (row, ptr,
+    slot, n_chunks, [idx,] split_row, split_ptr, n_split), and a float32
+    scratch of (n_slots, k) for the split rows' partials."""
+    ch = graph.t_chunks if transpose else graph.chunks
+    if ch is None:
+        raise ValueError("graph has no row-chunk tables: build it with build_graph")
+    idx = graph.t_dst if transpose else graph.src
+    partial = torch.empty((ch.n_slots, k), dtype=torch.float32, device=device)
+    args = (ch.row.data_ptr(), ch.ptr.data_ptr(), ch.slot.data_ptr(), ch.n_chunks,
+            idx.data_ptr(), ch.split_row.data_ptr(), ch.split_ptr.data_ptr(),
+            ch.n_split)
+    return args, partial
 
 
 def _row_chunks(indptr: np.ndarray, k: int):
@@ -223,13 +248,13 @@ def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tens
         return spmm_max_bwd_plain(graph, g, arg)
     lib = _lib("spmm_max_bwd")
     code, tag = _DTYPE_CODE[g.dtype]
-    n, k = g.shape
+    k = g.shape[1]
     dx = torch.empty_like(g)
+    chunks, partial = _chunk_args(graph, True, k, g.device)
     with torch.cuda.device(g.device):
         rc = lib.spmm_max_bwd(
-            code, _ARG_BITS[arg.dtype], g.data_ptr(), arg.data_ptr(),
-            graph.t_indptr.data_ptr(), graph.t_dst.data_ptr(), dx.data_ptr(),
-            n, k, _stream(g))
+            code, _ARG_BITS[arg.dtype], g.data_ptr(), arg.data_ptr(), *chunks,
+            dx.data_ptr(), partial.data_ptr(), k, _stream(g))
     if rc != 0:
         raise RuntimeError(f"spmm_max_bwd launch failed: CUDA error {rc}")
     LAUNCHES[f"spmm_max_bwd_{tag}"] += 1
@@ -306,12 +331,12 @@ def spmm_sum_rows(graph: Graph, x: torch.Tensor, transpose: bool = False) -> tor
         return spmm_sum_plain(graph, x, transpose)
     lib = _lib("spmm_sum")
     code, tag = _DTYPE_CODE[x.dtype]
-    n, k = x.shape
-    indptr, idx = (graph.t_indptr, graph.t_dst) if transpose else (graph.indptr, graph.src)
+    k = x.shape[1]
     out = torch.empty_like(x)
+    chunks, partial = _chunk_args(graph, transpose, k, x.device)
     with torch.cuda.device(x.device):
-        rc = lib.spmm_sum(code, x.data_ptr(), indptr.data_ptr(), idx.data_ptr(),
-                          out.data_ptr(), n, k, _stream(x))
+        rc = lib.spmm_sum(code, x.data_ptr(), *chunks, out.data_ptr(),
+                          partial.data_ptr(), k, _stream(x))
     if rc != 0:
         raise RuntimeError(f"spmm_sum launch failed: CUDA error {rc}")
     LAUNCHES[f"spmm_sum_{'bwd' if transpose else 'fwd'}_{tag}"] += 1

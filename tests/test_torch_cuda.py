@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from plagnn_tpu_torch.ops import spmm_kernels as sk
-from plagnn_tpu_torch.ops.graph_format import build_graph
+from plagnn_tpu_torch.ops.graph_format import ROW_CHUNK, build_graph
 from plagnn_tpu_torch.ops.spmm import spmm_sum
 
 pytestmark = pytest.mark.cuda
@@ -113,3 +113,99 @@ def test_sum_autograd_on_card_matches_cpu(card):
         (spmm_sum(graph, xt) * torch.from_numpy(w).to(dev)).sum().backward()
         grads.append(xt.grad.cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
+# Row-chunked kernels (csrc/row_chunks.cuh).  Widths: 39 and 111 take the
+# scalar path, 120 16-byte vectors, 5030 8-byte float32 / 4-byte bfloat16
+# and int16 vectors; the last case cuts every row of more than 8 edges.
+CHUNK_CASES = [(39, ROW_CHUNK), (111, ROW_CHUNK), (120, ROW_CHUNK),
+               (5030, ROW_CHUNK), (111, 8)]
+
+
+def _split_graph(row_chunk):
+    """Row 0 has 3*ROW_CHUNK + 6 in-edges and node 0 as many out-edges (so
+    both directions split row 0 into 4 chunks at ROW_CHUNK), over random
+    edges; the last 30 nodes and the padding rows have no edges."""
+    rng = np.random.default_rng(11)
+    n, hub = 1000, 3 * ROW_CHUNK + 6
+    live = n - 30
+    src = np.concatenate([rng.integers(0, live, 6000), 1 + np.arange(hub),
+                          np.zeros(hub, np.int64)])
+    dst = np.concatenate([rng.integers(0, live, 6000), np.zeros(hub, np.int64),
+                          1 + np.arange(hub)])
+    pairs = np.unique(np.stack([src, dst], 1), axis=0)
+    g = build_graph(pairs[:, 0], pairs[:, 1], n, row_chunk=row_chunk)
+    assert g.chunks.n_split > 0 and g.t_chunks.n_split > 0
+    return g
+
+
+def _bf16_ulp(v):
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,row_chunk", CHUNK_CASES)
+def test_chunked_sum_matches_plain(card, k, row_chunk, dtype, transpose):
+    """float32: within 1e-5 of the summed magnitudes and bit-identical run
+    to run; bfloat16 on small integers: exact."""
+    g = _split_graph(row_chunk).to(card)
+    gen = torch.Generator(device=card).manual_seed(k)
+    if dtype == torch.float32:
+        x = torch.randn((g.n_nodes, k), generator=gen, device=card)
+    else:
+        x = torch.randint(-8, 9, (g.n_nodes, k), generator=gen, device=card).to(dtype)
+    name = f"spmm_sum_{'bwd' if transpose else 'fwd'}_" + (
+        "f32" if dtype == torch.float32 else "bf16")
+    before = sk.LAUNCHES[name]
+    out = sk.spmm_sum_rows(g, x, transpose)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[name] == before + 1
+    out_p = sk.spmm_sum_plain(g, x, transpose)
+    if dtype == torch.bfloat16:
+        assert torch.equal(out, out_p)
+    else:
+        assert torch.equal(out, sk.spmm_sum_rows(g, x, transpose))
+        mag = sk.spmm_sum_plain(g, x.abs(), transpose)
+        assert bool(((out - out_p).abs() <= 1e-5 * mag + 1e-7).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,row_chunk", CHUNK_CASES)
+def test_chunked_max_bwd_matches_plain(card, k, row_chunk, dtype):
+    """float32: within 1e-5 of the hit magnitudes and bit-identical run to
+    run; bfloat16 (small-integer gradients): within 1 ulp."""
+    g = _split_graph(row_chunk).to(card)
+    gen = torch.Generator(device=card).manual_seed(k)
+    x = torch.randn((g.n_nodes, k), generator=gen, device=card)
+    x = (torch.round(x * 2) / 2).relu_()  # ties, as after relu
+    _, arg = sk.spmm_max_fwd_plain(g, x)
+    if dtype == torch.float32:
+        gr = torch.randn((g.n_nodes, k), generator=gen, device=card)
+    else:
+        gr = torch.randint(-8, 9, (g.n_nodes, k), generator=gen, device=card).to(dtype)
+    name = "spmm_max_bwd_" + ("f32" if dtype == torch.float32 else "bf16")
+    before = sk.LAUNCHES[name]
+    dx = sk.spmm_max_bwd(g, gr, arg)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[name] == before + 1
+    dx_p = sk.spmm_max_bwd_plain(g, gr, arg)
+    err = (dx.float() - dx_p.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((err <= _bf16_ulp(torch.maximum(dx.float().abs(),
+                                                    dx_p.float().abs()))).all())
+    else:
+        assert torch.equal(dx, sk.spmm_max_bwd(g, gr, arg))
+        mag = sk.spmm_max_bwd_plain(g, gr.abs(), arg)
+        assert bool((err <= 1e-5 * mag + 1e-7).all())
+
+
+def test_chunked_grid_limit_raises(card):
+    """A K that needs more than 65,535 K-slices (odd, so scalar bfloat16
+    loads, 8 a lane, 256 a slice) is refused by the C entry point and
+    raised, not cut."""
+    g = build_graph(np.arange(5), np.arange(1, 6), 10).to(card)
+    k = 65535 * 256 + 1
+    x = torch.zeros((g.n_nodes, k), dtype=torch.bfloat16, device=card)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sk.spmm_sum_rows(g, x)
