@@ -6,27 +6,33 @@
 Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: the kernels in plagnn_tpu_torch/csrc, from source, one nvcc each.
+2. Build: the kernels in plagnn_tpu_torch/csrc, from source, one nvcc
+   each, with each kernel's registers and spills as ptxas reports them.
 3. Kernels against their plain PyTorch versions on the card, on a small
-   tie-heavy graph and on the full synthetic PPI graph at each width its
-   path aggregates.  Segment max (GNN32: B=10 folds x F=503, 400, 300):
-   forward out and argmax bit-exact; float32 dx within 1e-5 of the summed
-   hit magnitudes (the two sum the same hits in float32 in different
-   orders) and bit-identical run to run; bfloat16 dx within 1 bf16 ulp.
-   Segment sum (GCN2: B=10 x 400 and 10 x 12), forward and transpose:
-   float32 within 1e-5 of the summed magnitudes and bit-identical run to
-   run; bfloat16 on small integers exact.  Prints the row-chunk tables'
-   sizes (chunks, split rows) that the sum and max-backward kernels walk.
-   Times each kernel (CUDA events, median), its plain version and a PyTorch
-   library call at the first layer's shape of each path, and the sum also
-   at GCN2 conv2's K = 120.
+   tie-heavy graph, on a cross-chunk tie graph (a hub row of 3 x ROW_CHUNK
+   + 5 edges in 4 chunks; columns all equal, all -inf, and maxima first
+   reached at a chunk's first edge and tied across chunks) and on the full
+   synthetic PPI graph at each width its path aggregates.  Segment max
+   (GNN32: B=10 folds x F=503, 400, 300): forward out and argmax bit-exact
+   in float32 and bfloat16, with and without the argmax, and bit-identical
+   run to run; float32 dx within 1e-5 of the summed hit magnitudes (the two
+   sum the same hits in float32 in different orders) and bit-identical run
+   to run; bfloat16 dx within 1 bf16 ulp.  Segment sum (GCN2: B=10 x 400
+   and 10 x 12), forward and transpose: float32 within 1e-5 of the summed
+   magnitudes and bit-identical run to run; bfloat16 on small integers
+   exact.  Prints the row-chunk tables' sizes (chunks, split rows) that
+   all three kernels walk.  Times each kernel (CUDA events, median), its
+   plain version and a PyTorch library call at the first layer's shape of
+   each path, and the sum also at GCN2 conv2's K = 120.
 4. GNN32 at full width through the CLI: synth (24,041 nodes, 700k edges),
    train-normal (float32, 3 epochs, 10 folds in one batch), then
    train-inter with --agg-dtype bfloat16 (2 epochs).  Each run must launch
    each of its kernels 3 times per epoch (3 SAGE-pool layers), no other
    kernel, and write the artifact contract with finite logits.
    4b. The float32 train-normal run once more under torch.profiler:
-   device time per epoch by kernel group and the device's idle share.
+   device time per epoch by kernel group and the device's idle share, and
+   the layer-1 max forward's profiled time per launch beside phase 3's
+   CUDA-event median at the same shape.
    4c. GCN2 at full width through ``train()`` (503 -> 400 -> 12, 10 folds,
    float32, 3 epochs, a checkpoint every 2 epochs): 2 sum-forward and 2
    sum-transpose launches per epoch, no max launch, the artifact contract,
@@ -114,6 +120,28 @@ def bf16_ulp(v):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
+def ptxas_report(log):
+    """(kernel, "N registers, ... spill ...") for each kernel in ptxas' -v
+    output, the kernel's name demangled where c++filt is found."""
+    rows, fn, spill = [], None, ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and fn is not None:
+            regs = line.split(":", 1)[1].strip()
+            rows.append([fn, f"{regs}; {spill}"])
+            fn, spill = None, ""
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout.split("\n")
+        for r, name in zip(rows, out):
+            r[0] = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return rows
+
+
 def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape):
     """One entry of the ``kernels`` line; ``bound_ms`` from the compulsory
     bytes (each input read once, each output written once) at the HBM rate
@@ -137,6 +165,38 @@ def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape):
     }
 
 
+def check_max_fwd(graph, x, label):
+    """The max forward with and without the argmax against the plain
+    version: out and arg bit-exact, and each bit-identical over two
+    launches.  Returns (out, arg, plain out)."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    out_p, arg_p = sk.spmm_max_fwd_plain(graph, x)
+    got = {}
+    for with_arg in (True, False):
+        form = "" if with_arg else " without the argmax"
+        runs = [sk.spmm_max_fwd(graph, x, with_argmax=with_arg) for _ in range(2)]
+        torch.cuda.synchronize()
+        out_k, arg_k = runs[0]
+        if not torch.equal(out_k, out_p):
+            fail(f"{label}{form}: out differs from plain "
+                 f"(max abs {(out_k.float() - out_p.float()).abs().max().item()})")
+        if with_arg and not torch.equal(arg_k, arg_p):
+            fail(f"{label}: argmax differs from plain "
+                 f"({(arg_k != arg_p).sum().item()} elements)")
+        out_2, arg_2 = runs[1]
+        if not (torch.equal(bits(out_k), bits(out_2))
+                and (arg_k is None or torch.equal(arg_k, arg_2))):
+            fail(f"{label}{form}: not bit-identical run to run")
+        got[with_arg] = runs[0]
+    return (*got[True], out_p)
+
+
 def check_kernels(graph, x32, label, results=None):
     """Kernel vs plain version on one graph and input; with ``results``,
     also time both and the library yardsticks at this shape."""
@@ -150,15 +210,7 @@ def check_kernels(graph, x32, label, results=None):
     for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         x = x32.to(dt)
         esize = x.element_size()
-        out_k, arg_k = sk.spmm_max_fwd(graph, x)
-        torch.cuda.synchronize()
-        out_p, arg_p = sk.spmm_max_fwd_plain(graph, x)
-        if not torch.equal(out_k, out_p):
-            fail(f"{label}: fwd {tag} out differs from plain "
-                 f"(max abs {(out_k.float() - out_p.float()).abs().max().item()})")
-        if not torch.equal(arg_k, arg_p):
-            fail(f"{label}: fwd {tag} argmax differs from plain "
-                 f"({(arg_k != arg_p).sum().item()} elements)")
+        out_k, arg_k, out_p = check_max_fwd(graph, x, f"{label}: fwd {tag}")
         fwd_err = (out_k.float() - out_p.float()).abs().max().item()
 
         if dt == torch.float32:
@@ -188,8 +240,8 @@ def check_kernels(graph, x32, label, results=None):
             if bool((err > ulp).any()):
                 fail(f"{label}: bwd bf16 differs from plain by more than 1 ulp")
         bwd_err = (dx_k.float() - dx_p.float()).abs().max().item()
-        print(f"{label}: {tag} fwd out/arg bit-exact, bwd max abs err {bwd_err:.3e}",
-              flush=True)
+        print(f"{label}: {tag} fwd out/arg bit-exact with and without the argmax, "
+              f"bwd max abs err {bwd_err:.3e}", flush=True)
         if results is None:
             continue
 
@@ -233,12 +285,10 @@ def check_kernels(graph, x32, label, results=None):
              bwd_lib_ms, bwd_bytes, bwd_ops, e * k * (esize + asize) + n * k * esize),
         ]
         if dt == torch.float32:
-            # the forward without the argmax (the VJP primal): the library
-            # yardstick is the same amax call, which records no argmax
-            out_n, _ = sk.spmm_max_fwd(graph, x, with_argmax=False)
-            noarg_err = (out_n - out_p).abs().max().item()
-            if not torch.equal(out_n, out_p):
-                fail(f"{label}: fwd f32 without argmax differs from plain")
+            # the forward without the argmax (the VJP primal, checked
+            # above): the library yardstick is the same amax call, which
+            # records no argmax
+            noarg_err = fwd_err
             noarg_ms = median_ms(lambda: sk.spmm_max_fwd(graph, x, with_argmax=False), 10)
             noarg_plain_ms = median_ms(
                 lambda: sk.spmm_max_fwd_plain(graph, x, with_argmax=False), 3)
@@ -354,7 +404,7 @@ def profile_epochs(label, run, expected, smi_line):
     """torch.profiler over one training run (``run()`` returns its chunk
     stats), which must launch the ``expected`` kernels: device time per
     epoch by kernel group, and the device's idle share against the steady
-    epoch time."""
+    epoch time.  Returns {kernel name: (ms per epoch, launches per epoch)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -367,6 +417,7 @@ def profile_epochs(label, run, expected, smi_line):
     ms = [m for s in stats for m in s.epoch_ms]
     groups = {}
     top = []
+    per_kernel = {}
     for ev in prof.key_averages():
         # device-side events only: the op that launched a kernel reports
         # the same time as its own
@@ -395,11 +446,12 @@ def profile_epochs(label, run, expected, smi_line):
             grp = "elementwise/copy/other"
         groups[grp] = groups.get(grp, 0.0) + us / 1e3 / len(ms)
         top.append((us / 1e3 / len(ms), ev.count // len(ms), name[:90]))
+        per_kernel[name] = (us / 1e3 / len(ms), ev.count / len(ms))
     steady = statistics.median(ms[1:])
     busy = sum(t for grp, t in groups.items() if grp != SETUP_COPIES)
     if busy <= 0:
         print("profile: no device time in the trace (not measured)")
-        return
+        return {}
     print(f"profile ({label}, {len(ms)} epochs x {FOLDS} folds, AUC sampled "
           f"at epochs 0 and {len(ms) - 1}, {smi_line}): steady {steady:.3f} ms/epoch "
           f"wall, {busy:.3f} ms/epoch device busy, idle share "
@@ -408,6 +460,29 @@ def profile_epochs(label, run, expected, smi_line):
         print(f"  group {grp}: {t:.3f} ms/epoch ({t / steady:.3f} of steady wall)")
     for t, cnt, name in sorted(top, reverse=True)[:12]:
         print(f"  kernel {t:8.3f} ms/epoch  x{cnt:<4} {name}")
+    return per_kernel
+
+
+def crosscheck_max_fwd(per_kernel, results, smi_line):
+    """The layer-1 float32 max forward's profiled time per launch beside
+    phase 3's CUDA-event median at the same shape (K = 10 x 503).  Layer 1
+    is the only layer whose K takes 8-byte vectors, so its chunk kernel is
+    the float32 one launched once per epoch; the combine kernel serves all
+    three layers, and its mean per launch is added."""
+    chunk = [t / c for name, (t, c) in per_kernel.items()
+             if "spmm_max_fwd_kernel<float" in name and c == 1]
+    comb = [t / c for name, (t, c) in per_kernel.items()
+            if "spmm_max_fwd_combine_kernel<float" in name and c > 0]
+    event_ms = results["spmm_max_fwd_f32"]["ms"]
+    if len(chunk) != 1 or len(comb) != 1:
+        print(f"cross-check of the max forward: kernels not found in the profile "
+              f"({len(chunk)} chunk, {len(comb)} combine; not measured)")
+        return
+    total = chunk[0] + comb[0]
+    print(f"cross-check, max forward f32 at K = {FOLDS * F_IN} ({smi_line}): profiled "
+          f"{chunk[0]:.3f} ms/launch chunk kernel + {comb[0]:.3f} combine (mean "
+          f"of the 3 layers) = {total:.3f} ms; phase 3 CUDA events {event_ms:.3f} ms "
+          f"(median of 10, both kernels); ratio {total / event_ms:.3f}", flush=True)
 
 
 def record_launches(results, counts):
@@ -500,8 +575,8 @@ def check_gcn2(data_root, results, smi_line):
 
 def sweep_row_chunk(full):
     """Median times of the row-chunked kernels (float32 sum forward and
-    transpose at K = 10 x 400 and 10 x 12, max backward at 10 x 503) on the
-    full graph's edges cut at each chunk size."""
+    transpose at K = 10 x 400 and 10 x 12, max forward and backward at 10 x
+    503) on the full graph's edges cut at each chunk size."""
     import torch
 
     from plagnn_tpu_torch.ops import spmm_kernels as sk
@@ -517,6 +592,7 @@ def sweep_row_chunk(full):
         _, arg = sk.spmm_max_fwd(graph, x)
         row = {"row_chunk": cap, "chunks": graph.chunks.n_chunks,
                "split_rows": graph.chunks.n_split,
+               "max_fwd_f32_k5030": median_ms(lambda: sk.spmm_max_fwd(graph, x), 10),
                "max_bwd_f32_k5030": median_ms(lambda: sk.spmm_max_bwd(graph, g, arg), 10)}
         for width in SUM_WIDTHS:
             xs = x[:, :FOLDS * width].contiguous()
@@ -542,6 +618,39 @@ def tie_graph():
     graph = build_graph(pairs[:, 0], pairs[:, 1], n, add_self_loops=False)
     k = 3 * 37
     vals = np.maximum(np.round(rng.standard_normal((graph.n_nodes, k)) * 2) / 2, 0)
+    return graph, vals.astype(np.float32)
+
+
+def cross_chunk_tie_graph():
+    """Row 0 takes 3*ROW_CHUNK + 5 in-edges, from nodes 1 ... 3*ROW_CHUNK + 5
+    (so the node at rank r is r + 1), and splits into 4 chunks; random
+    edges elsewhere.  K = 130 (even, not a multiple of 4: the main path's
+    8-byte float32 vectors, as at K = 5,030).  Columns by k % 4: 0 all
+    equal (every row's first source wins); 1 all -inf (the same); 2 a
+    maximum of 5 first reached at the first edge of row 0's chunk 1, 2 or
+    3 and tied at every later chunk's first edge and at the row's last
+    edge; 3 relu-style ties."""
+    import numpy as np
+
+    from plagnn_tpu_torch.ops.graph_format import ROW_CHUNK, build_graph
+
+    rng = np.random.default_rng(13)
+    n, hub, k = 1200, 3 * ROW_CHUNK + 5, 130
+    src = rng.integers(0, n, 8000)
+    dst = rng.integers(1, n - 20, 8000)         # no random edge into row 0
+    src = np.concatenate([src, 1 + np.arange(hub)])
+    dst = np.concatenate([dst, np.zeros(hub, np.int64)])
+    pairs = np.unique(np.stack([src, dst], 1), axis=0)
+    graph = build_graph(pairs[:, 0], pairs[:, 1], n)
+    vals = np.maximum(np.round(rng.standard_normal((graph.n_nodes, k)) * 2) / 2, 0)
+    cols = np.arange(k)
+    vals[:, cols % 4 == 0] = 1.5
+    vals[:, cols % 4 == 1] = -np.inf
+    for c in cols[cols % 4 == 2]:
+        vals[:, c] = np.minimum(vals[:, c], 2.0)
+        first = 1 + (c // 4) % 3                # chunk of the first maximum
+        vals[1 + np.arange(first, 4) * ROW_CHUNK, c] = 5.0
+        vals[hub, c] = 5.0
     return graph, vals.astype(np.float32)
 
 
@@ -581,9 +690,8 @@ def main(argv=None):
 
     build_s, logs = _build.timed_build(verbose=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for fn, line in ptxas_report(log):
+            print(f"  {name} {fn}: {line}")
     print(f"build: {build_s:.1f} s ({len(logs)} compiled)", flush=True)
 
     phase("3 kernels vs plain")
@@ -593,6 +701,10 @@ def main(argv=None):
 
     graph, vals = tie_graph()
     check_kernels(graph.to("cuda"), torch.from_numpy(vals).cuda(), "tie graph")
+    cross, cross_vals = cross_chunk_tie_graph()
+    check_kernels(cross.to("cuda"), torch.from_numpy(cross_vals).cuda(),
+                  f"cross-chunk tie graph ({cross.chunks.n_chunks} chunks, "
+                  f"{cross.chunks.n_split} split row)")
     full = from_scipy_coo(powerlaw_ppi(NODES, EDGES, SEED), add_self_loops=True)
     print(f"full graph: N_pad {full.n_nodes}, E {full.n_edges}, max in-degree "
           f"{int(full.in_degree.max())}", flush=True)
@@ -652,9 +764,11 @@ def main(argv=None):
         phase("4b profile")
         # the earlier run's artifacts would make this one resume past its round
         shutil.rmtree(os.path.join(tmp, "log"))
-        profile_epochs("GNN32 train-normal f32",
-                       lambda: train_cli(tmp, "train-normal", "float32", EPOCHS_F32),
-                       gnn32_launches("f32", EPOCHS_F32), smi_line)
+        per_kernel = profile_epochs(
+            "GNN32 train-normal f32",
+            lambda: train_cli(tmp, "train-normal", "float32", EPOCHS_F32),
+            gnn32_launches("f32", EPOCHS_F32), smi_line)
+        crosscheck_max_fwd(per_kernel, results, smi_line)
         phase("4c GCN2 at full width")
         check_gcn2(tmp, results, smi_line)
         profile_epochs("GCN2 train() f32",

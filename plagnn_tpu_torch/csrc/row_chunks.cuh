@@ -1,5 +1,8 @@
-// Row-chunked CSR traversal for Hopper (sm_90a), shared by spmm_sum.cu and
-// spmm_max_bwd.cu.
+// Row-chunked CSR traversal for Hopper (sm_90a), shared by spmm_sum.cu,
+// spmm_max_bwd.cu and spmm_max_fwd.cu.  The first two use chunk_pass and
+// combine_pass below; the max forward walks chunks with walk_chunk too, but
+// keeps a running first maximum and its source, so it has its own chunk
+// pass and combine (spmm_max_fwd.cu).
 //
 // The graph cuts every CSR row into chunks of at most ROW_CHUNK edges
 // (plagnn_tpu_torch/ops/graph_format.py: RowChunks), the Hopper counterpart

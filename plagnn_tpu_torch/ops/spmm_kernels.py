@@ -15,9 +15,10 @@ Three kernels, each with a plain PyTorch version beside it:
   destination-sorted CSR (forward) or its transpose (the VJP), float32 or
   bfloat16 with a float32 sum.  Plain version: ``spmm_sum_plain``.
 
-The backward and the sum walk the graph's row chunks (``Graph.chunks`` /
-``t_chunks``, ``csrc/row_chunks.cuh``): their wrappers pass the direction's
-chunk table and a float32 scratch for the partials of split rows.
+All three walk the graph's row chunks (``Graph.chunks`` / ``t_chunks``,
+``csrc/row_chunks.cuh``): their wrappers pass the direction's chunk table
+and a float32 scratch for the partials of split rows (the max forward also
+an int32 scratch for the partials' sources).
 
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.  ``LAUNCHES`` counts the kernel
@@ -84,7 +85,9 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 
 # C signature of each library's entry point (named after the library);
 # pointers and the stream as c_void_p, so ctypes passes them at full width.
-#   spmm_max_fwd: dtype, arg_bits, x, indptr, src, out, arg, n_rows, k, stream
+#   spmm_max_fwd: dtype, arg_bits, x, <chunk table>, src, split_row,
+#                 split_ptr, n_split, out, arg, partial_val, partial_src, k,
+#                 stream
 #   spmm_max_bwd: dtype, arg_bits, g, arg, <chunk table>, t_dst,
 #                 split_row, split_ptr, n_split, dx, partial, k, stream
 #   spmm_sum:     dtype, x, <chunk table>, idx, split_row, split_ptr,
@@ -93,7 +96,7 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _CHUNKS = [_P, _P, _P, _LL]
 _ARGTYPES = {
-    "spmm_max_fwd": [_I, _I, _P, _P, _P, _P, _P, _LL, _LL, _P],
+    "spmm_max_fwd": [_I, _I, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _P, _P, _LL, _P],
     "spmm_max_bwd": [_I, _I, _P, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, _P],
     "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, _P],
 }
@@ -194,17 +197,20 @@ def spmm_max_fwd(
     code, tag = _DTYPE_CODE[x.dtype]
     n, k = x.shape
     out = torch.empty_like(x)
-    arg = None
+    chunks, partial_val = _chunk_args(graph, False, k, x.device)
+    arg = partial_src = None
     bits = 0
     if with_argmax:
         adt = arg_dtype(graph.n_nodes)
         arg = torch.empty((n, k), dtype=adt, device=x.device)
+        partial_src = torch.empty(partial_val.shape, dtype=torch.int32, device=x.device)
         bits = _ARG_BITS[adt]
     with torch.cuda.device(x.device):
         rc = lib.spmm_max_fwd(
-            code, bits, x.data_ptr(), graph.indptr.data_ptr(),
-            graph.src.data_ptr(), out.data_ptr(),
-            arg.data_ptr() if arg is not None else None, n, k, _stream(x))
+            code, bits, x.data_ptr(), *chunks, out.data_ptr(),
+            arg.data_ptr() if arg is not None else None, partial_val.data_ptr(),
+            partial_src.data_ptr() if partial_src is not None else None, k,
+            _stream(x))
     if rc != 0:
         raise RuntimeError(f"spmm_max_fwd launch failed: CUDA error {rc}")
     LAUNCHES[f"spmm_max_fwd_{'' if with_argmax else 'noarg_'}{tag}"] += 1

@@ -1,20 +1,23 @@
 """The row-chunk tables of the port's graph container (``RowChunks``).
 
-The sum and max-backward kernels (``csrc/row_chunks.cuh``) walk each CSR
-row in chunks of at most ``row_chunk`` edges and combine a split row's
-partials in ascending chunk order.  Here, on the CPU: the tables' invariants,
-the split against the JAX package's positional mega-row split
-(``build_pallas_graph``), the kernels' traversal replayed in numpy from the
-tables against the plain versions, and the build's rebuild rule for the
-shared header.
+The sum, max-forward and max-backward kernels (``csrc/row_chunks.cuh``)
+walk each CSR row in chunks of at most ``row_chunk`` edges and combine a
+split row's partials in ascending chunk order.  Here, on the CPU: the
+tables' invariants, the split against the JAX package's positional mega-row
+split (``build_pallas_graph``), the kernels' traversal replayed in numpy
+from the tables against the plain versions (and, for the max forward, the
+JAX package's kernel in interpret mode), and the build's rebuild rule for
+the shared header.
 """
 import shutil
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from plagnn_tpu.ops.pallas.spmm_kernels import build_pallas_graph
+from plagnn_tpu.ops.pallas.spmm_kernels import _run_spmm, build_pallas_graph
 from plagnn_tpu_torch.ops import _build
 from plagnn_tpu_torch.ops import spmm_kernels as sk
 from plagnn_tpu_torch.ops.graph_format import ROW_CHUNK, build_graph
@@ -84,15 +87,9 @@ def test_chunk_table_invariants(name, cap):
     assert moved.t_chunks.split_ptr.device.type == "meta"
 
 
-def test_chunk_split_matches_jax_positional_split(monkeypatch):
-    """On the fixture of the JAX package's mega-row test, a chunk size of 40
-    splits the rows ``build_pallas_graph(positional=True)`` splits at
-    ``POS_RANK_CAP = 40``, into as many chunks as it has sub-rows, and chunk
-    j holds the edges of rank j*40 ... j*40+39."""
-    from plagnn_tpu.ops.pallas import spmm_kernels as K
-
-    cap = 40
-    monkeypatch.setattr(K, "POS_RANK_CAP", cap)
+def _jax_mega_row_edges():
+    """The fixture of the JAX package's mega-row test: 90 real nodes (N_pad
+    128), rows 3 and 7 with more than 40 in-edges."""
     rng = np.random.default_rng(9)
     # tests/test_pallas_kernels.py's make_graph(rng, n_real=90, e=1000)
     src, dst = rng.integers(0, 90, 1000), rng.integers(0, 90, 1000)
@@ -102,7 +99,19 @@ def test_chunk_split_matches_jax_positional_split(monkeypatch):
     extra_d = np.concatenate([np.full(51, 3), np.full(46, 7)])
     pairs = np.unique(np.stack([np.concatenate([src, extra_s]),
                                 np.concatenate([dst, extra_d])], 1), axis=0)
-    src, dst = pairs[:, 0], pairs[:, 1]
+    return pairs[:, 0], pairs[:, 1], 90
+
+
+def test_chunk_split_matches_jax_positional_split(monkeypatch):
+    """On the fixture of the JAX package's mega-row test, a chunk size of 40
+    splits the rows ``build_pallas_graph(positional=True)`` splits at
+    ``POS_RANK_CAP = 40``, into as many chunks as it has sub-rows, and chunk
+    j holds the edges of rank j*40 ... j*40+39."""
+    from plagnn_tpu.ops.pallas import spmm_kernels as K
+
+    cap = 40
+    monkeypatch.setattr(K, "POS_RANK_CAP", cap)
+    src, dst, _ = _jax_mega_row_edges()
     split = build_pallas_graph(src, dst, 128, rows_per_block=64,
                                positional=True).fwd.split
     g = build_graph(src, dst, 90, row_chunk=cap)
@@ -190,6 +199,115 @@ def test_chunk_replay_of_max_bwd_matches_plain(cap):
     want = sk.spmm_max_bwd_plain(g, gr, arg)
     mag = sk.spmm_max_bwd_plain(g, gr.abs(), arg)
     assert bool(((got - want).abs() <= 1e-5 * mag + 1e-7).all())
+
+
+def _replay_max(ch, idx, xf):
+    """The max forward's traversal in numpy: each chunk walks its edges in
+    ascending order, takes the first one whatever its value and a later one
+    only where it is strictly greater; a whole row's chunk stores (value,
+    source), an empty row's 0 and -1; a split row's chunks store partials,
+    which are then combined from the first slot on, a later slot taken only
+    where strictly greater."""
+    row, ptr, slot = ch.row.numpy(), ch.ptr.numpy(), ch.slot.numpy()
+    n, k = xf.shape
+    out = np.zeros((n, k), np.float32)
+    arg = np.full((n, k), -1, np.int64)
+    p_val = np.zeros((ch.n_slots, k), np.float32)
+    p_src = np.zeros((ch.n_slots, k), np.int64)
+    for c in range(ch.n_chunks):
+        best = np.zeros(k, np.float32)
+        src = np.full(k, -1, np.int64)
+        for e in range(ptr[c], ptr[c + 1]):
+            v = xf[idx[e]]
+            take = np.ones(k, bool) if e == ptr[c] else v > best
+            best = np.where(take, v, best)
+            src = np.where(take, idx[e], src)
+        if slot[c] < 0:
+            out[row[c]], arg[row[c]] = best, src
+        else:
+            p_val[slot[c]], p_src[slot[c]] = best, src
+    sp = ch.split_ptr.numpy()
+    for i, r in enumerate(ch.split_row.numpy()):
+        best, src = p_val[sp[i]].copy(), p_src[sp[i]].copy()
+        for s in range(sp[i] + 1, sp[i + 1]):
+            take = p_val[s] > best
+            best = np.where(take, p_val[s], best)
+            src = np.where(take, p_src[s], src)
+        out[r], arg[r] = best, src
+    return out, arg
+
+
+def _max_inputs(g, cap, k, seed, neg_inf=True):
+    """relu-style ties, plus: column 0 equal everywhere (every row all
+    equal); column 1 -inf everywhere (every row all -inf; with ``neg_inf``
+    false, 0 everywhere instead); column 2 with the longest row's maximum
+    first reached at the first edge of its second chunk (rank ``cap``) and
+    tied at the first edge of each later chunk.  Returns x, that row, and
+    the source that must win its column 2 (None where the row does not
+    split)."""
+    rng = np.random.default_rng(seed)
+    x = np.maximum(np.round(rng.standard_normal((g.n_nodes, k)) * 2) / 2, 0)
+    x[:, 0] = 1.5
+    x[:, 1] = -np.inf if neg_inf else 0.0
+    indptr, src = g.indptr.numpy(), g.src.numpy()
+    r = int(np.argmax(np.diff(indptr)))
+    ranks = np.arange(cap, indptr[r + 1] - indptr[r], cap)
+    x[:, 2] = np.minimum(x[:, 2], 2.0)
+    x[src[indptr[r] + ranks], 2] = 5.0
+    return x.astype(np.float32), r, int(src[indptr[r] + cap]) if len(ranks) else None
+
+
+MAX_GRAPHS = {
+    "hub": lambda: _hub_graph(6),
+    "jax-mega-row": _jax_mega_row_edges,
+}
+
+
+@pytest.mark.parametrize("cap", [1, 3, 8, 40, ROW_CHUNK])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(MAX_GRAPHS))
+def test_chunk_replay_of_max_fwd_matches_plain(name, dtype, cap):
+    """out and arg of the replayed chunk walk bit-exact with the plain
+    forward; all-equal and all -inf rows keep their first source, empty
+    rows give 0 and -1, and ties across chunks go to the lower chunk."""
+    src, dst, n = MAX_GRAPHS[name]()
+    g = build_graph(src, dst, n, row_chunk=cap)
+    # every graph splits at the small caps; at ROW_CHUNK only the hub does
+    assert (g.chunks.n_split > 0) == (cap <= 40 or name == "hub")
+    x, r, winner = _max_inputs(g, cap, 9, seed=cap)
+    xt = torch.from_numpy(x).to(dtype)
+    out, arg = _replay_max(g.chunks, g.src.numpy(), xt.float().numpy())
+    want_out, want_arg = sk.spmm_max_fwd_plain(g, xt)
+    assert torch.equal(torch.from_numpy(out).to(dtype), want_out)
+    assert torch.equal(torch.from_numpy(arg).to(want_arg.dtype), want_arg)
+    indptr = g.indptr.numpy()
+    live = np.diff(indptr) > 0
+    np.testing.assert_array_equal(arg[live, :2], np.repeat(
+        g.src.numpy()[indptr[:-1][live], None], 2, axis=1))
+    assert (arg[~live] == -1).all() and (out[~live] == 0).all()
+    assert (winner is not None) == (g.chunks.n_split > 0)
+    if winner is not None:
+        assert arg[r, 2] == winner and out[r, 2] == 5.0
+
+
+@pytest.mark.parametrize("dtype,b", [(jnp.float32, 2), (jnp.bfloat16, 4)])
+def test_chunk_replay_of_max_fwd_matches_jax_interpret(dtype, b):
+    """At cap 40 on the JAX mega-row fixture, the replayed chunk walk gives
+    the JAX kernel's out and argmax (``_run_spmm`` in interpret mode over a
+    non-positional ``build_pallas_graph``: argmax as source ids).  Column 1
+    is 0, not -inf: the JAX kernel takes a row whose maximum is -inf for an
+    empty one (out 0, argmax -1)."""
+    src, dst, n = _jax_mega_row_edges()
+    g = build_graph(src, dst, n, row_chunk=40)
+    pg = build_pallas_graph(src, dst, 128, rows_per_block=64, positional=False)
+    x, _, _ = _max_inputs(g, 40, b * 512, seed=41, neg_inf=False)
+    xj = jnp.asarray(x.reshape(128, b, 512)).astype(dtype)
+    out_j, arg_j = jax.jit(lambda xx: _run_spmm(
+        pg.fwd, xx, reduce="max", with_argmax=True, interpret=True))(xj)
+    xf = np.asarray(xj.astype(jnp.float32)).reshape(128, -1)
+    out, arg = _replay_max(g.chunks, g.src.numpy(), xf)
+    np.testing.assert_array_equal(out, np.asarray(out_j.astype(jnp.float32)).reshape(128, -1))
+    np.testing.assert_array_equal(arg, np.asarray(arg_j).astype(np.int64).reshape(128, -1))
 
 
 def test_lib_path_follows_shared_header(tmp_path, monkeypatch):

@@ -115,9 +115,10 @@ def test_sum_autograd_on_card_matches_cpu(card):
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
 
 
-# Row-chunked kernels (csrc/row_chunks.cuh).  Widths: 39 and 111 take the
-# scalar path, 120 16-byte vectors, 5030 8-byte float32 / 4-byte bfloat16
-# and int16 vectors; the last case cuts every row of more than 8 edges.
+# Row-chunked kernels (csrc/row_chunks.cuh): the sum, the max forward and
+# the max backward.  Widths: 39 and 111 take the scalar path, 120 16-byte
+# vectors, 5030 8-byte float32 / 4-byte bfloat16 and int16 vectors; the last
+# case cuts every row of more than 8 edges.
 CHUNK_CASES = [(39, ROW_CHUNK), (111, ROW_CHUNK), (120, ROW_CHUNK),
                (5030, ROW_CHUNK), (111, 8)]
 
@@ -200,12 +201,87 @@ def test_chunked_max_bwd_matches_plain(card, k, row_chunk, dtype):
         assert bool((err <= 1e-5 * mag + 1e-7).all())
 
 
+def _check_max_fwd(g, x, with_argmax):
+    """out and arg bit-exact with the plain version, one launch counted, and
+    bit-identical over two launches."""
+    name = "spmm_max_fwd_" + ("" if with_argmax else "noarg_") + (
+        "f32" if x.dtype == torch.float32 else "bf16")
+    before = sk.LAUNCHES[name]
+    out, arg = sk.spmm_max_fwd(g, x, with_argmax=with_argmax)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[name] == before + 1
+    out_p, arg_p = sk.spmm_max_fwd_plain(g, x, with_argmax=with_argmax)
+    assert torch.equal(out, out_p)
+    out_2, arg_2 = sk.spmm_max_fwd(g, x, with_argmax=with_argmax)
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), out_2.view(bits))
+    if with_argmax:
+        assert torch.equal(arg, arg_p) and torch.equal(arg, arg_2)
+    else:
+        assert arg is None and arg_2 is None
+
+
+@pytest.mark.parametrize("with_argmax", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,row_chunk", CHUNK_CASES)
+def test_chunked_max_fwd_matches_plain(card, k, row_chunk, dtype, with_argmax):
+    g = _split_graph(row_chunk).to(card)
+    gen = torch.Generator(device=card).manual_seed(k)
+    x = torch.randn((g.n_nodes, k), generator=gen, device=card)
+    x = (torch.round(x * 2) / 2).relu_().to(dtype)  # ties, as after relu
+    _check_max_fwd(g, x, with_argmax)
+
+
+def _cross_chunk_graph():
+    """Row 0 takes 3*ROW_CHUNK + 5 in-edges from nodes 1, 2, ... (the node at
+    rank r is r + 1): 4 chunks.  Columns by k % 4: all equal; all -inf; a
+    maximum first reached at the first edge of chunk 1, 2 or 3 of row 0 and
+    tied at every later chunk's first edge and the last edge; relu ties."""
+    rng = np.random.default_rng(17)
+    n, hub, k = 900, 3 * ROW_CHUNK + 5, 62
+    src = np.concatenate([rng.integers(0, n, 5000), 1 + np.arange(hub)])
+    dst = np.concatenate([rng.integers(1, n - 20, 5000), np.zeros(hub, np.int64)])
+    pairs = np.unique(np.stack([src, dst], 1), axis=0)
+    g = build_graph(pairs[:, 0], pairs[:, 1], n)
+    assert g.chunks.split_row.tolist() == [0] and g.in_degree[0] == hub
+    x = np.maximum(np.round(rng.standard_normal((g.n_nodes, k)) * 2) / 2, 0)
+    cols = np.arange(k)
+    x[:, cols % 4 == 0] = 0.5
+    x[:, cols % 4 == 1] = -np.inf
+    for c in cols[cols % 4 == 2]:
+        x[:, c] = np.minimum(x[:, c], 1.0)
+        x[1 + np.arange(1 + (c // 4) % 3, 4) * ROW_CHUNK, c] = 3.0
+        x[hub, c] = 3.0
+    return g, x.astype(np.float32)
+
+
+@pytest.mark.parametrize("with_argmax", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_max_fwd_cross_chunk_ties(card, dtype, with_argmax):
+    """Ties across a split row's chunks go to the lower chunk; all-equal and
+    all -inf rows keep their first source."""
+    g, x = _cross_chunk_graph()
+    xd = torch.from_numpy(x).to(card, dtype)
+    _check_max_fwd(g.to(card), xd, with_argmax)
+    if with_argmax:
+        _, arg = sk.spmm_max_fwd(g.to(card), xd)
+        row0 = arg[0].cpu().numpy()
+        cols = np.arange(x.shape[1])
+        np.testing.assert_array_equal(row0[cols % 4 < 2], 1)
+        np.testing.assert_array_equal(
+            row0[cols % 4 == 2], 1 + (1 + (cols[cols % 4 == 2] // 4) % 3) * ROW_CHUNK)
+
+
 def test_chunked_grid_limit_raises(card):
     """A K that needs more than 65,535 K-slices (odd, so scalar bfloat16
-    loads, 8 a lane, 256 a slice) is refused by the C entry point and
-    raised, not cut."""
+    loads, 8 a lane, 256 a slice) is refused by the C entry points and
+    raised, not cut: the sum and the max forward, with and without the
+    argmax."""
     g = build_graph(np.arange(5), np.arange(1, 6), 10).to(card)
     k = 65535 * 256 + 1
     x = torch.zeros((g.n_nodes, k), dtype=torch.bfloat16, device=card)
     with pytest.raises(RuntimeError, match="CUDA error"):
         sk.spmm_sum_rows(g, x)
+    for with_argmax in (True, False):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            sk.spmm_max_fwd(g, x, with_argmax=with_argmax)
