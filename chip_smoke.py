@@ -29,6 +29,20 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    train-inter with --agg-dtype bfloat16 (2 epochs).  Each run must launch
    each of its kernels 3 times per epoch (3 SAGE-pool layers), no other
    kernel, and write the artifact contract with finite logits.
+   4a. The analysis at full width, on the log phase 4 wrote (GSE30931's
+   normal f32 and perturbation bf16 logits, 1 round x 10 folds).  For each
+   GSE*_data: a seeded perturbed expr_inter.npy, and PPI_inter built on the
+   card by the port's modify_network_topology (dataset thresholds 2.75 /
+   2.91 / 2.99) through the ΔPCC hit kernel.  Then the CLI's score,
+   performance --rounds 1 --folds 10 and statistics (the ΔPCC count kernel
+   on the card), each with its wall time.  Only the two ΔPCC kernels may
+   launch, 3 times each.  Checks: the CSV is non-empty, res_alldata.json
+   parses, the metrics are finite, statistics.txt has 3 sections; per
+   dataset the hit list equals the plain version's on the card (the same
+   pairs in the same order, and the tail of PPI_inter) and the counts equal
+   the plain scan's and the statistics'.  Times both kernels at full width
+   (CUDA events, median) beside their plain versions, the blocked
+   torch.matmul (cuBLAS DGEMM) yardstick and the float64 bound.
    4b. The float32 train-normal run once more under torch.profiler:
    device time per epoch by kernel group and the device's idle share, and
    the layer-1 max forward's profiled time per launch beside phase 3's
@@ -54,10 +68,15 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# H100 SXM float64 outside the tensor cores: 34 TFLOP/s counting an FMA as
+# two operations, i.e. 17e12 instructions a second; the ΔPCC scans contract
+# nothing, so each multiply, add, subtract and compare is one instruction
+FP64_OPS_PER_S = 17e12
 KERNEL_SOURCE = {
     "spmm_max_fwd": "plagnn_tpu_torch/csrc/spmm_max_fwd.cu",
     "spmm_max_bwd": "plagnn_tpu_torch/csrc/spmm_max_bwd.cu",
     "spmm_sum": "plagnn_tpu_torch/csrc/spmm_sum.cu",
+    "pcc_diff_scan": "plagnn_tpu_torch/csrc/pcc_diff_scan.cu",
 }
 _FWD_BODY = "plagnn_tpu/ops/pallas/spmm_kernels.py:513"  # _spmm_fwd_kernel
 CONV2 = "_k120"  # name suffix of the sum's entries at GCN2 conv2's width
@@ -72,6 +91,10 @@ REPLACES = {
     "spmm_sum_fwd_bf16": _FWD_BODY,
     "spmm_sum_bwd_f32": _FWD_BODY,
     "spmm_sum_bwd_bf16": _FWD_BODY,
+    # no Pallas kernel: the JAX package's host scans (numpy GEMM blocks;
+    # the topology step also native/plagnn_native.cpp:46)
+    "pcc_diff_count_f64": "plagnn_tpu/analysis/statistics.py:23",
+    "pcc_diff_hits_f64": "plagnn_tpu/data/topology.py:96",
 }
 NODES, EDGES, SEED = 24041, 700000, 70
 FOLDS, F_IN = 10, 503
@@ -82,6 +105,11 @@ GCN2_HIDDEN, CLASSES = 400, 12
 # per-fold width of each GCN2 aggregation: W first (503 > 400, 400 > 12)
 SUM_WIDTHS = (GCN2_HIDDEN, CLASSES)
 SETUP_COPIES = "host<->device copies (data in, history out; not per epoch)"
+# the datasets' topology thresholds (plagnn_tpu/analysis/statistics.py:65-67)
+ANALYSIS_DATASETS = (("GSE30931", 2.75), ("GSE74572", 2.91), ("GSE27182", 2.99))
+PERTURB_SIGMA = 0.1   # expr_inter = expr_normal x exp(0.1 N(0, 1)), seeded
+LIB_BLOCK_ROWS = 2048  # row block of the blocked-DGEMM yardstick
+DEVICE = "cuda"        # phase 4a's device ("cpu" runs its logic on the plain versions)
 
 
 def fail(msg):
@@ -142,13 +170,15 @@ def ptxas_report(log):
     return rows
 
 
-def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape):
+def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape,
+                 ops_per_s=FP32_OPS_PER_S):
     """One entry of the ``kernels`` line; ``bound_ms`` from the compulsory
     bytes (each input read once, each output written once) at the HBM rate
-    and the operations at the float32 rate, whichever is larger.  Launches
-    are filled in from the main path's runs."""
+    and the operations at their type's rate (float32 unless given),
+    whichever is larger.  Launches are filled in from the main path's
+    runs."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {
         "name": name,
         "route": "cuda",
@@ -380,12 +410,26 @@ def train_cli(data_root, cmd, agg, epochs):
                      "--fold-batch", str(FOLDS), "--agg-dtype", agg])
 
 
+def reset_launches():
+    from plagnn_tpu_torch.ops import pcc_scan
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    sk.reset_launches()
+    pcc_scan.reset_launches()
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count, by counter name."""
+    from plagnn_tpu_torch.ops import pcc_scan
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    return {**sk.LAUNCHES, **pcc_scan.LAUNCHES}
+
+
 def check_launches(label, expected):
     """Every counter equals the run's expected count (0 where the run names
     none); returns the counts."""
-    from plagnn_tpu_torch.ops import spmm_kernels as sk
-
-    counts = dict(sk.LAUNCHES)
+    counts = launch_counts()
     for name, c in counts.items():
         want = expected.get(name, 0)
         if c != want:
@@ -405,12 +449,9 @@ def profile_epochs(label, run, expected, smi_line):
     stats), which must launch the ``expected`` kernels: device time per
     epoch by kernel group, and the device's idle share against the steady
     epoch time.  Returns {kernel name: (ms per epoch, launches per epoch)}."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from plagnn_tpu_torch.ops import spmm_kernels as sk
-
-    sk.reset_launches()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         stats = run()
     check_launches(f"profiled {label}", expected)
@@ -418,17 +459,7 @@ def profile_epochs(label, run, expected, smi_line):
     groups = {}
     top = []
     per_kernel = {}
-    for ev in prof.key_averages():
-        # device-side events only: the op that launched a kernel reports
-        # the same time as its own
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us <= 0:
-            continue
-        name = ev.key
+    for total_ms, count, name in device_kernel_times(prof):
         low = name.lower()
         if "spmm_max" in low:
             grp = "spmm_max kernels"
@@ -444,9 +475,9 @@ def profile_epochs(label, run, expected, smi_line):
             grp = SETUP_COPIES
         else:
             grp = "elementwise/copy/other"
-        groups[grp] = groups.get(grp, 0.0) + us / 1e3 / len(ms)
-        top.append((us / 1e3 / len(ms), ev.count // len(ms), name[:90]))
-        per_kernel[name] = (us / 1e3 / len(ms), ev.count / len(ms))
+        groups[grp] = groups.get(grp, 0.0) + total_ms / len(ms)
+        top.append((total_ms / len(ms), count // len(ms), name[:90]))
+        per_kernel[name] = (total_ms / len(ms), count / len(ms))
     steady = statistics.median(ms[1:])
     busy = sum(t for grp, t in groups.items() if grp != SETUP_COPIES)
     if busy <= 0:
@@ -552,13 +583,11 @@ def check_gcn2(data_root, results, smi_line):
     the checkpoint seen after epoch 2 and gone at the end."""
     import torch
 
-    from plagnn_tpu_torch.ops import spmm_kernels as sk
-
     path = os.path.join(data_root, "log_gcn2")
     ck_file = os.path.join(path, "ckpt_a0_j0.npz")
     seen = []
     torch.cuda.reset_peak_memory_stats()
-    sk.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     stats = train_gcn2(data_root, path, lambda r, a, c0, done: seen.append(
         (done, os.path.exists(ck_file))))
@@ -571,6 +600,259 @@ def check_gcn2(data_root, results, smi_line):
     if os.path.exists(ck_file):
         fail("GCN2 train(): the checkpoint was not removed at the end")
     report_run("GCN2 train() float32", stats, wall, counts, smi_line)
+
+
+def build_perturbed_topologies(data_root):
+    """Phase 4a's topology step, as the preprocess step runs it: per
+    dataset a seeded perturbed expr_inter.npy, then PPI_inter.npz from the
+    port's modify_network_topology on the card.  Returns {dataset: (PPI_inter
+    COO, wall seconds of the topology call)}."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from plagnn_tpu_torch.data.expression import pcc_factors
+    from plagnn_tpu_torch.data.topology import modify_network_topology
+
+    gm = os.path.join(data_root, "generate_materials")
+    ppi = sp.load_npz(os.path.join(gm, "PPI_normal.npz"))
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for name, thr in ANALYSIS_DATASETS:
+        d = os.path.join(gm, f"{name}_data")
+        expr_n = np.load(os.path.join(d, "expr_normal.npy"))
+        expr_i = expr_n * np.exp(PERTURB_SIGMA * rng.standard_normal(expr_n.shape))
+        np.save(os.path.join(d, "expr_inter.npy"), expr_i)
+        t0 = time.perf_counter()
+        new = modify_network_topology(ppi, pcc_factors(expr_n), pcc_factors(expr_i),
+                                      thr, device=DEVICE)
+        out[name] = (new, time.perf_counter() - t0)
+        sp.save_npz(os.path.join(d, "PPI_inter"), new)
+    return out
+
+
+def run_analysis_cli(data_root):
+    """score, performance and statistics through the port's CLI, as a user
+    calls them after training.  Returns {subcommand: (result, wall s)}."""
+    from plagnn_tpu_torch import cli
+
+    out = {}
+    for argv in (["score"], ["performance", "--rounds", "1", "--folds", str(FOLDS)],
+                 ["statistics"]):
+        t0 = time.perf_counter()
+        res = cli.main(argv + ["--data-root", data_root])
+        out[argv[0]] = (res, time.perf_counter() - t0)
+    return out
+
+
+def check_analysis_outputs(data_root, cli_out):
+    """The CSV non-empty, res_alldata.json parsing, finite metrics and a
+    statistics.txt section per dataset."""
+    res_dir = os.path.join(data_root, "res", "GSE30931")
+    with open(os.path.join(res_dir, "loc_change_record.csv")) as f:
+        csv_rows = sum(1 for _ in f) - 1
+    if csv_rows < 1:
+        fail("score: loc_change_record.csv has no ranked entry")
+    with open(os.path.join(res_dir, "res_alldata.json")) as f:
+        proteins = len(json.load(f))
+    perf = cli_out["performance"][0]
+    values = [v for metrics in perf.values() for v in metrics.values()]
+    if "GSE30931/normal" not in perf or not all(math.isfinite(v) for v in values):
+        fail(f"performance: missing or non-finite metrics {perf}")
+    with open(os.path.join(data_root, "log", "statistics.txt")) as f:
+        sections = sum(1 for line in f if line.startswith("#" * 20 + " GSE"))
+    if sections != len(ANALYSIS_DATASETS):
+        fail(f"statistics.txt has {sections} dataset sections, expected "
+             f"{len(ANALYSIS_DATASETS)}")
+    m = perf["GSE30931/normal"]
+    print(f"analysis outputs: {csv_rows} ranked entries over {proteins} proteins; "
+          f"AIM {m['AIM']:.4f} COV {m['COV']:.4f} mlACC {m['mlACC']:.4f} "
+          f"AUC micro {m['AUC_micro']:.4f} macro {m['AUC_macro']:.4f} F1 micro "
+          f"{m['F1_micro']:.4f}; {sections} statistics sections", flush=True)
+
+
+def pcc_inputs(data_root, name, thr):
+    """The float64 factors on the card, (lo, hi) and the PPI's CSR, as the
+    statistics (factors from pcc_factors_torch) and the topology step (the
+    PPI_normal CSR) compute them for one dataset."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from plagnn_tpu_torch.data.expression import pcc_factors_torch
+    from plagnn_tpu_torch.data.topology import diff_stats
+    from plagnn_tpu_torch.ops.pcc_scan import csr_tensors
+
+    gm = os.path.join(data_root, "generate_materials")
+    d = os.path.join(gm, f"{name}_data")
+    z_n = pcc_factors_torch(np.load(os.path.join(d, "expr_normal.npy")), DEVICE)
+    z_i = pcc_factors_torch(np.load(os.path.join(d, "expr_inter.npy")), DEVICE)
+    mean, std = diff_stats(z_i, z_n)
+    ppi = sp.load_npz(os.path.join(gm, "PPI_normal.npz")).tocsr().astype(np.int8)
+    return z_i, z_n, mean - thr * std, mean + thr * std, csr_tensors(ppi, DEVICE)
+
+
+def check_pcc_kernels(data_root, topologies, stats):
+    """Per dataset, the kernels against their plain versions on the card:
+    the hit list pair for pair and in order (and equal to PPI_inter's added
+    tail), the counts equal and equal to the statistics' l_num / r_num."""
+    import numpy as np
+    import torch
+
+    from plagnn_tpu_torch.ops import pcc_scan
+
+    for name, thr in ANALYSIS_DATASETS:
+        z_i, z_n, lo, hi, csr = pcc_inputs(data_root, name, thr)
+        rows, cols = pcc_scan.pcc_diff_hits(z_i, z_n, hi, csr)
+        torch.cuda.synchronize()
+        p_rows, p_cols = pcc_scan.pcc_diff_hits_plain(z_i, z_n, hi, csr)
+        if not (torch.equal(rows, p_rows) and torch.equal(cols, p_cols)):
+            fail(f"{name}: the hit kernel's list differs from the plain version's "
+                 f"({rows.numel()} vs {p_rows.numel()} pairs)")
+        ppi_inter = topologies[name][0]
+        m = rows.numel()
+        if not (np.array_equal(ppi_inter.row[ppi_inter.nnz - m:], rows.cpu().numpy())
+                and np.array_equal(ppi_inter.col[ppi_inter.nnz - m:], cols.cpu().numpy())):
+            fail(f"{name}: PPI_inter's added pairs differ from the hit kernel's list")
+        counts = pcc_scan.pcc_diff_counts(z_i, z_n, lo, hi)
+        plain = pcc_scan.pcc_diff_counts_plain(z_i, z_n, lo, hi)
+        said = (stats[name]["l_num"], stats[name]["r_num"])
+        if not counts == plain == said:
+            fail(f"{name}: counts kernel {counts}, plain {plain}, statistics {said}")
+        print(f"{name}: {m} added pairs (kernel = plain, in order), "
+              f"{stats[name]['removed']} removed; counts < lo / > hi {counts} "
+              f"(kernel = plain = statistics)", flush=True)
+
+
+def time_pcc_kernels(data_root, results):
+    """The count and hit kernels at full width on GSE30931's inputs: CUDA
+    events (median of 10; each wrapper call ends in its host sync), their
+    plain versions (median of 3) and the blocked-DGEMM yardstick
+    (torch.matmul of both K = k products per 2,048-row block, subtract,
+    compare; for the hits also the edge mask and torch.nonzero; median of 3),
+    never on the path."""
+    import torch
+
+    from plagnn_tpu_torch.ops import pcc_scan
+
+    name, thr = ANALYSIS_DATASETS[0]
+    z_i, z_n, lo, hi, csr = pcc_inputs(data_root, name, thr)
+    n, k = z_i.shape
+    indptr, indices = csr
+    ptr = indptr.cpu().numpy()
+
+    def lib_block(r0, r1):
+        d = z_i[r0:r1] @ z_i.T - z_n[r0:r1] @ z_n.T
+        rr = torch.arange(r0, r1, device=d.device)
+        d[rr - r0, rr] = 0.0
+        return d
+
+    def lib_counts():
+        n_lo = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        n_hi = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        for r0 in range(0, n, LIB_BLOCK_ROWS):
+            d = lib_block(r0, min(r0 + LIB_BLOCK_ROWS, n))
+            n_lo += (d < lo).sum()
+            n_hi += (d > hi).sum()
+        return int(n_lo), int(n_hi)
+
+    def lib_hits():
+        out = []
+        for r0 in range(0, n, LIB_BLOCK_ROWS):
+            r1 = min(r0 + LIB_BLOCK_ROWS, n)
+            hit = lib_block(r0, r1) > hi
+            e0, e1 = int(ptr[r0]), int(ptr[r1])
+            er = torch.repeat_interleave(torch.arange(r1 - r0, device=DEVICE),
+                                         indptr[r0 + 1:r1 + 1] - indptr[r0:r1])
+            hit[er, indices[e0:e1].long()] = False
+            out.append(torch.nonzero(hit))
+        return torch.cat(out)
+
+    n_hits = pcc_scan.pcc_diff_hits(z_i, z_n, hi, csr)[0].numel()
+    lib_n = (lib_counts(), lib_hits().shape[0])
+    pairs = n * n
+    timed = (
+        ("pcc_diff_count_f64", lambda: pcc_scan.pcc_diff_counts(z_i, z_n, lo, hi),
+         lambda: pcc_scan.pcc_diff_counts_plain(z_i, z_n, lo, hi), lib_counts,
+         2 * n * k * 8 + 16, pairs * (4 * k - 1 + 2)),
+        ("pcc_diff_hits_f64", lambda: pcc_scan.pcc_diff_hits(z_i, z_n, hi, csr),
+         lambda: pcc_scan.pcc_diff_hits_plain(z_i, z_n, hi, csr), lib_hits,
+         2 * n * k * 8 + 8 * (n + 1) + 4 * indices.numel() + 8 * n_hits,
+         pairs * (4 * k - 1 + 1)),
+    )
+    for kname, kern, plain, lib, nbytes, ops in timed:
+        ms = median_ms(kern, 10)
+        plain_ms = median_ms(plain, 3)
+        lib_ms = median_ms(lib, 3)
+        r = results[kname] = kernel_entry(kname, "pcc_diff_scan", 0.0, ms, plain_ms,
+                                          lib_ms, nbytes, ops, (n, k), FP64_OPS_PER_S)
+        print(f"  {kname}: {ms:.3f} ms (plain {plain_ms:.3f}, blocked DGEMM "
+              f"{lib_ms:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}) at "
+              f"N = {n}, k = {k}, {n_hits} hits", flush=True)
+    print(f"  the yardstick's own answers (GEMM rounding): counts {lib_n[0]}, "
+          f"{lib_n[1]} hits", flush=True)
+    for kname, kern, *_ in timed:
+        profile_call(kname, kern)
+    torch.cuda.empty_cache()
+
+
+def device_kernel_times(prof):
+    """(ms, launches, name) of each kernel in a torch.profiler trace, from
+    its device-side events only (the op that launched a kernel reports the
+    same time as its own)."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, ev.count, ev.key))
+    return rows
+
+
+def profile_call(label, fn):
+    """One call under torch.profiler: its wall time and the device time of
+    each kernel it ran (the wrapper's own kernels, its checks and its
+    bookkeeping), so a wrapper's time splits into its parts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = device_kernel_times(prof)
+    busy = sum(r[0] for r in rows)
+    print(f"  profile of one {label} call: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms", flush=True)
+    for ms, cnt, name in sorted(rows, reverse=True)[:8]:
+        print(f"    {ms:8.3f} ms x{cnt:<3} {name[:80]}", flush=True)
+
+
+def analysis_phase(data_root, results):
+    """Phase 4a: the main path (topology step, score, performance,
+    statistics) with every launch counter at 0 before and read after, then
+    the checks and the timings."""
+    reset_launches()
+    topologies = build_perturbed_topologies(data_root)
+    cli_out = run_analysis_cli(data_root)
+    n_data = len(ANALYSIS_DATASETS)
+    counts = check_launches("analysis", {"pcc_diff_hits_f64": n_data,
+                                         "pcc_diff_count_f64": n_data})
+    for name, (_, wall) in topologies.items():
+        print(f"wall: topology {name} (modify_network_topology on the card) "
+              f"{wall:.3f} s", flush=True)
+    for cmd, (_, wall) in cli_out.items():
+        print(f"wall: {cmd} {wall:.3f} s", flush=True)
+    check_analysis_outputs(data_root, cli_out)
+    check_pcc_kernels(data_root, topologies, cli_out["statistics"][0])
+    time_pcc_kernels(data_root, results)
+    record_launches(results, counts)
 
 
 def sweep_row_chunk(full):
@@ -696,7 +978,6 @@ def main(argv=None):
 
     phase("3 kernels vs plain")
     from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
-    from plagnn_tpu_torch.ops import spmm_kernels as sk
     from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
 
     graph, vals = tie_graph()
@@ -752,7 +1033,7 @@ def main(argv=None):
         )
         for cmd, subdir, agg, epochs, tag in runs:
             torch.cuda.reset_peak_memory_stats()
-            sk.reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             stats = train_cli(tmp, cmd, agg, epochs)
             wall = time.perf_counter() - t0
@@ -761,6 +1042,8 @@ def main(argv=None):
             record_launches(results, counts)
             check_artifacts(cmd, os.path.join(tmp, "log", "GSE30931", subdir))
             report_run(f"GNN32 {cmd} {agg}", stats, wall, counts, smi_line)
+        phase("4a analysis at full width")
+        analysis_phase(tmp, results)
         phase("4b profile")
         # the earlier run's artifacts would make this one resume past its round
         shutil.rmtree(os.path.join(tmp, "log"))
@@ -782,7 +1065,8 @@ def main(argv=None):
         "spmm_max_fwd_f32", "spmm_max_fwd_bf16", "spmm_max_fwd_noarg_f32",
         "spmm_max_bwd_f32", "spmm_max_bwd_bf16",
         "spmm_sum_fwd_f32", "spmm_sum_fwd_bf16", "spmm_sum_bwd_f32", "spmm_sum_bwd_bf16",
-        "spmm_sum_fwd_f32" + CONV2, "spmm_sum_bwd_f32" + CONV2)]
+        "spmm_sum_fwd_f32" + CONV2, "spmm_sum_bwd_f32" + CONV2,
+        "pcc_diff_count_f64", "pcc_diff_hits_f64")]
     for r in kernels:
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):
             fail(f"{r['name']}: non-finite timing")

@@ -3,13 +3,17 @@
     python -m plagnn_tpu_torch.cli synth          (synthetic dataset bundle)
     python -m plagnn_tpu_torch.cli train-normal   (the reference's main_normal.py)
     python -m plagnn_tpu_torch.cli train-inter    (the reference's main_inter.py)
+    python -m plagnn_tpu_torch.cli score          (mis-localization ranking)
+    python -m plagnn_tpu_torch.cli performance    (CV metrics, random baselines)
+    python -m plagnn_tpu_torch.cli statistics     (topology-change statistics)
 
 Flag names, defaults and artifact paths match ``plagnn_tpu.cli`` (-data,
 -lr 5e-5, -f 10, -e 200, -a [0.1]).  ``-d`` is the torch device (default
-``cuda``) and the device label written to txt_log.txt; without a card, a
-run needs an explicit ``-d cpu``.  There is one aggregation path: the CUDA
-kernels on a card, their plain PyTorch versions on the CPU.  Only the
-single-device mesh ``fold=1,graph=1`` is accepted.
+``cuda``) of training and ``statistics``, and the device label written to
+txt_log.txt; without a card, a run needs an explicit ``-d cpu``.  There is
+one path: the CUDA kernels on a card, their plain PyTorch versions on the
+CPU.  ``score`` and ``performance`` are host numpy and take no ``-d``.
+Only the single-device mesh ``fold=1,graph=1`` is accepted.
 """
 from __future__ import annotations
 
@@ -110,12 +114,39 @@ def _train(args, condition: str):
     )
 
 
+def _performance(args):
+    """Per-round merge of the fold logits, then the CV metrics."""
+    import json
+
+    from .analysis.performance import mat_merge, performance
+
+    gm = os.path.join(args.data_root, "generate_materials")
+    with open(os.path.join(gm, "protein_ppi.json")) as f:
+        n_nodes = len(json.load(f))
+    mat_merge(os.path.join(args.data_root, "log"), n_nodes,
+              rounds=args.rounds, fold_num=args.folds)
+    return performance(args.data_root, rounds=args.rounds)
+
+
 def main(argv=None):
-    """Run one subcommand; training returns its per-chunk epoch timings."""
+    """Run one subcommand.  Training returns its per-chunk epoch timings,
+    ``performance`` and ``statistics`` their results dicts."""
     parser = argparse.ArgumentParser(prog="plagnn_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     for name in ("train-normal", "train-inter"):
         _add_train_flags(sub.add_parser(name))
+    for name, what in (("score", "mis-localization ranking (main.py)"),
+                       ("performance", "CV metrics + random baselines")):
+        what += "; host numpy, no device work (no -d)"
+        p = sub.add_parser(name, help=what, description=what)
+        p.add_argument("--data-root", default="data")
+    p.add_argument("--rounds", type=int, default=10)  # performance's own flags
+    p.add_argument("--folds", type=int, default=10)
+    p = sub.add_parser("statistics", help="topology-change statistics; the "
+                       "dense ΔPCC count runs on -d")
+    p.add_argument("--data-root", default="data")
+    p.add_argument("-d", type=str, default="cuda",
+                   help="torch device of the ΔPCC count (cuda, cuda:N or cpu)")
     p = sub.add_parser("synth", help="write a synthetic dataset bundle")
     p.add_argument("--data-root", default="data")
     p.add_argument("--nodes", type=int, default=24041)
@@ -127,6 +158,18 @@ def main(argv=None):
         return _train(args, "normal")
     if args.cmd == "train-inter":
         return _train(args, "inter")
+    if args.cmd == "score":
+        from .analysis.score import score_all
+
+        score_all(args.data_root)
+        return None
+    if args.cmd == "performance":
+        return _performance(args)
+    if args.cmd == "statistics":
+        from .analysis.statistics import topology_statistics
+        from .train.engine import resolve_device
+
+        return topology_statistics(args.data_root, device=resolve_device(args.d))
     _write_synth(args)
     return None
 

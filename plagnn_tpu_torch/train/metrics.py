@@ -9,10 +9,12 @@ leading fold axis (preds/scores (..., N, C), mask (..., N), true (N, C)):
 
 plus micro/macro F1 (sklearn zero_division=0 semantics) and a rank
 (Mann-Whitney) AUC with average ranks for ties (``torch.sort`` +
-``torch.searchsorted``).
+``torch.searchsorted``).  ``micro_f1_np`` / ``macro_f1_np`` are the numpy
+twins the host-side analysis uses.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -92,3 +94,27 @@ def micro_f1(loc_true, loc_pred, mask):
 def macro_f1(loc_true, loc_pred, mask):
     """Unweighted mean of per-class F1s."""
     return _f1_counts(loc_true, loc_pred, mask, -2).mean(-1)
+
+
+def micro_f1_np(loc_true, loc_pred) -> float:
+    """numpy twin of :func:`micro_f1` for ``analysis.performance`` (callers
+    pre-select rows, so no mask): the same 0.5 threshold and zero-division
+    convention."""
+    t = np.asarray(loc_true) > 0.5
+    p = np.asarray(loc_pred) > 0.5
+    tp = int(np.sum(t & p))
+    fp = int(np.sum(p & ~t))
+    fn = int(np.sum(t & ~p))
+    d = 2 * tp + fp + fn
+    return 2.0 * tp / d if d else 0.0
+
+
+def macro_f1_np(loc_true, loc_pred) -> float:
+    """numpy twin of :func:`macro_f1` (zero_division=0 semantics)."""
+    t = np.asarray(loc_true) > 0.5
+    p = np.asarray(loc_pred) > 0.5
+    tp = np.sum(t & p, axis=0)
+    fp = np.sum(p & ~t, axis=0)
+    fn = np.sum(t & ~p, axis=0)
+    d = 2 * tp + fp + fn
+    return float(np.mean(np.where(d > 0, 2 * tp / np.maximum(d, 1), 0.0)))

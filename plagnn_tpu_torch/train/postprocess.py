@@ -4,7 +4,8 @@ Port of ``plagnn_tpu/train/postprocess.py``: per-column min-max
 normalization over the valid rows, per-row sum normalization, then a
 per-row adaptive threshold ``rowmax - (rowmax - rowmin) . alpha`` with
 strict ``>``.  The torch version broadcasts over a leading fold axis and
-excludes padding rows; the numpy twin serves the host-side log writer.
+excludes padding rows; the numpy twin serves the host-side log writer and
+the analysis, which also takes ``scaling_np``, the scoring's merge scaler.
 """
 from __future__ import annotations
 
@@ -48,4 +49,16 @@ def protein_loc_correction_np(loc_proba: np.ndarray, alpha: float) -> np.ndarray
     pred = np.zeros(x.shape)
     pred[new > thr[:, None]] = 1.0
     return pred
+
+
+def scaling_np(logit_mat: np.ndarray) -> np.ndarray:
+    """Column min-max + row sum-normalization (the reference's main.py:15-29),
+    the merge scaler of the mis-localization scoring.  Dtype-preserving:
+    float32 logits stay float32 and are upcast only by the float64
+    accumulator of ``analysis.score.mat_merge``."""
+    mat = np.array(logit_mat, copy=True)
+    mat -= mat.min(0)
+    mat /= mat.max(0)
+    mat /= mat.sum(1).reshape(-1, 1)
+    return mat
 

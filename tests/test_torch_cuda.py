@@ -10,8 +10,10 @@ for the port need not have.)
 """
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
+from plagnn_tpu_torch.ops import pcc_scan
 from plagnn_tpu_torch.ops import spmm_kernels as sk
 from plagnn_tpu_torch.ops.graph_format import ROW_CHUNK, build_graph
 from plagnn_tpu_torch.ops.spmm import spmm_sum
@@ -285,3 +287,102 @@ def test_chunked_grid_limit_raises(card):
     for with_argmax in (True, False):
         with pytest.raises(RuntimeError, match="CUDA error"):
             sk.spmm_max_fwd(g, x, with_argmax=with_argmax)
+
+
+# ---------------------------------------------------------------------------
+# The ΔPCC scans (csrc/pcc_diff_scan.cu): exact against their plain versions.
+# ---------------------------------------------------------------------------
+
+PCC_SHAPES = [(n, k) for n in (1, 37, 1000, 4097) for k in (1, 3, 8, 16)]
+
+
+def _pcc_factors(card, n, k, seed=0):
+    """Random float64 factors with an eighth of the rows zero in each
+    condition (invalid proteins: d = 0 on their pairs)."""
+    rng = np.random.default_rng(seed + 7 * n + k)
+    z = rng.standard_normal((2, n, k))
+    for c in range(2):
+        z[c, rng.choice(n, n // 8, replace=False)] = 0.0
+    return (torch.from_numpy(z[0]).to(card), torch.from_numpy(z[1]).to(card))
+
+
+def _pcc_dense(z_i, z_n):
+    return pcc_scan._diff_block(z_i, z_n, 0, z_i.shape[0])
+
+
+def _pcc_thresholds(d):
+    """(lo, hi) pairs to test: thresholds that some off-diagonal d takes
+    exactly (strictness), 0 (every zero row's pairs tie there) and the
+    spread of d."""
+    off = d[~torch.eye(d.shape[0], dtype=torch.bool, device=d.device)]
+    if off.numel() == 0:
+        return [(-0.5, 0.5), (0.0, 0.0)]
+    q = torch.quantile(off[:1 << 24], torch.tensor([0.05, 0.95], dtype=d.dtype,
+                                                    device=d.device)).tolist()
+    exact = off[torch.argmin((off - q[1]).abs())].item()
+    return [(q[0], q[1]), (off[0].item(), exact), (0.0, 0.0)]
+
+
+@pytest.mark.parametrize("n,k", PCC_SHAPES)
+def test_pcc_count_kernel_matches_plain(card, n, k):
+    z_i, z_n = _pcc_factors(card, n, k)
+    d = _pcc_dense(z_i, z_n)
+    for lo, hi in _pcc_thresholds(d):
+        before = pcc_scan.LAUNCHES["pcc_diff_count_f64"]
+        got = pcc_scan.pcc_diff_counts(z_i, z_n, lo, hi)
+        assert pcc_scan.LAUNCHES["pcc_diff_count_f64"] == before + 1
+        want = pcc_scan.pcc_diff_counts_plain(z_i, z_n, lo, hi)
+        assert got == want == (int((d < lo).sum()), int((d > hi).sum()))
+        assert pcc_scan.pcc_diff_counts(z_i, z_n, lo, hi) == got
+
+
+def _pcc_csr(card, n, hit_r, hit_c, seed):
+    """A CSR holding every third hit, all the hits of the first row that has
+    any, and random other pairs."""
+    rng = np.random.default_rng(seed)
+    take = np.zeros(len(hit_r), bool)
+    take[::3] = True
+    if len(hit_r):
+        take[hit_r == hit_r[0]] = True
+    extra = rng.integers(0, n, (4 * n, 2))
+    r = np.concatenate([hit_r[take], extra[:, 0]])
+    c = np.concatenate([hit_c[take], extra[:, 1]])
+    m = sp.coo_matrix((np.ones(len(r)), (r, c)), shape=(n, n))
+    return pcc_scan.csr_tensors(m, card), (hit_r[0] if len(hit_r) else None)
+
+
+@pytest.mark.parametrize("n,k", PCC_SHAPES)
+def test_pcc_hit_kernel_matches_plain(card, n, k):
+    """The ordered hit list equals the plain version's, pair for pair, with
+    and without a CSR to exclude, and is the same over two launches; a row
+    whose hits are all edges gives none."""
+    z_i, z_n = _pcc_factors(card, n, k, seed=1)
+    d = _pcc_dense(z_i, z_n)
+    no_edges = (torch.zeros(n + 1, dtype=torch.int64, device=card),
+                torch.zeros(0, dtype=torch.int32, device=card))
+    for _, hi in _pcc_thresholds(d):
+        free_r, free_c = pcc_scan.pcc_diff_hits_plain(z_i, z_n, hi, no_edges)
+        csr, full_row = _pcc_csr(card, n, free_r.cpu().numpy(), free_c.cpu().numpy(), n + k)
+        for edges in (no_edges, csr):
+            before = pcc_scan.LAUNCHES["pcc_diff_hits_f64"]
+            rows, cols = pcc_scan.pcc_diff_hits(z_i, z_n, hi, edges)
+            torch.cuda.synchronize()
+            assert pcc_scan.LAUNCHES["pcc_diff_hits_f64"] == before + 1
+            want_r, want_c = pcc_scan.pcc_diff_hits_plain(z_i, z_n, hi, edges)
+            assert torch.equal(rows, want_r) and torch.equal(cols, want_c)
+            again = pcc_scan.pcc_diff_hits(z_i, z_n, hi, edges)
+            assert torch.equal(again[0], rows) and torch.equal(again[1], cols)
+        if full_row is not None:
+            assert not bool((rows == int(full_row)).any())
+            assert rows.numel() < free_r.numel()
+
+
+def test_pcc_scan_refuses_wide_k_and_oversized_grid(card):
+    """k = 17 is refused before any launch; a count grid of more than 65,535
+    row tiles (256 rows each) is refused by the C entry point and raised."""
+    wide = torch.zeros((8, 17), dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match="k = 17"):
+        pcc_scan.pcc_diff_counts(wide, wide, 0.0, 0.0)
+    tall = torch.zeros((65535 * 256 + 1, 1), dtype=torch.float64, device=card)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pcc_scan.pcc_diff_counts(tall, tall, -1.0, 1.0)

@@ -1,4 +1,5 @@
-"""Import rules of the PyTorch port: no JAX, nothing of plagnn_tpu, and
+"""Import rules of the PyTorch port: no JAX, nothing of plagnn_tpu, none of
+sklearn, pandas or matplotlib (the card's machine has none of them), and
 entry points that refuse to fall back to the CPU."""
 import os
 import re
@@ -13,7 +14,8 @@ PKG = os.path.join(ROOT, "plagnn_tpu_torch")
 
 # whole module names only: plagnn_tpu_torch must not match plagnn_tpu
 FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|plagnn_tpu)(\.|\s|,|$)", re.MULTILINE)
+    r"^\s*(import|from)\s+(jax|plagnn_tpu|sklearn|pandas|matplotlib)(\.|\s|,|$)",
+    re.MULTILINE)
 
 
 def _port_sources():
@@ -34,7 +36,8 @@ def test_import_closure_has_no_jax_or_reference_package():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'plagnn_tpu'))\n"
+        "             ('jax', 'jaxlib', 'plagnn_tpu', 'sklearn', 'pandas',\n"
+        "              'matplotlib'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -56,6 +59,9 @@ def test_forbidden_pattern_is_prefix_safe():
     assert FORBIDDEN.search("import plagnn_tpu.cli")
     assert FORBIDDEN.search("from plagnn_tpu import cli")
     assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("from sklearn.metrics import roc_auc_score")
+    assert FORBIDDEN.search("import pandas as pd")
+    assert FORBIDDEN.search("import matplotlib.pyplot as plt")
     assert not FORBIDDEN.search("from plagnn_tpu_torch import cli")
     assert not FORBIDDEN.search("import plagnn_tpu_torch.cli")
     assert not FORBIDDEN.search("import jaxtyping")
