@@ -52,6 +52,25 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    sum-transpose launches per epoch, no max launch, the artifact contract,
    and the mid-round checkpoint seen after epoch 2 and removed at the end;
    then the same run once more under torch.profiler.
+   4p. The preprocess stage at full width from synthetic raw files: a
+   BioGRID mitab of powerlaw_ppi(24,041, 700k, seed 70)'s pairs (each of
+   its 3 isolated nodes joined to one more node, so all 24,041 proteins
+   interact), one GSE*_exprSet.csv per dataset (~5% of proteins without a
+   probe, some with 2-3; intervention = normal x exp(0.1 N(0, 1)), seed 70),
+   a UniProt dat with 0-3 GO CC terms per protein.  ``preprocess
+   --no-dense-gcn`` through the CLI on the card, each step's wall time
+   (PPI, ECC x 4, expression x 3, topology x 3, labels, PCA x 10): 4 ECC
+   count launches and 3 ΔPCC hit launches, no other kernel.  Checks: the
+   artifact contract (lean: no GCN_*.npz); each graph's counts equal the
+   plain version's on the card pair for pair and give the saved ECC values;
+   the card's pca equals the CPU's at N = 4,096, 250 components (the
+   randomized solver) within 1e-9 of the largest singular value; every
+   condition loads with 503 features; one train-normal epoch (1 round, 10
+   folds in one batch) on the bundle through the max kernels.  Times the
+   ECC kernel on the normal graph and on GSE30931's PPI_inter (CUDA
+   events, median) beside its plain version, the bound and cuSPARSE's A·A
+   (``torch.sparse.mm``, normal graph only), and one full-width PCA split
+   into the dense input, the range finder and the SVD.
 5. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 """
@@ -72,11 +91,14 @@ FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 # two operations, i.e. 17e12 instructions a second; the ΔPCC scans contract
 # nothing, so each multiply, add, subtract and compare is one instruction
 FP64_OPS_PER_S = 17e12
+# H100 SXM int32 outside the tensor cores (Hopper architecture white paper)
+INT32_OPS_PER_S = 33.5e12
 KERNEL_SOURCE = {
     "spmm_max_fwd": "plagnn_tpu_torch/csrc/spmm_max_fwd.cu",
     "spmm_max_bwd": "plagnn_tpu_torch/csrc/spmm_max_bwd.cu",
     "spmm_sum": "plagnn_tpu_torch/csrc/spmm_sum.cu",
     "pcc_diff_scan": "plagnn_tpu_torch/csrc/pcc_diff_scan.cu",
+    "common_neighbors": "plagnn_tpu_torch/csrc/common_neighbors.cu",
 }
 _FWD_BODY = "plagnn_tpu/ops/pallas/spmm_kernels.py:513"  # _spmm_fwd_kernel
 CONV2 = "_k120"  # name suffix of the sum's entries at GCN2 conv2's width
@@ -95,6 +117,8 @@ REPLACES = {
     # the topology step also native/plagnn_native.cpp:46)
     "pcc_diff_count_f64": "plagnn_tpu/analysis/statistics.py:23",
     "pcc_diff_hits_f64": "plagnn_tpu/data/topology.py:96",
+    # no Pallas kernel: the host merge (scipy fallback plagnn_tpu/data/ecc.py:36)
+    "ecc_common_neighbors_i32": "native/plagnn_native.cpp:20",
 }
 NODES, EDGES, SEED = 24041, 700000, 70
 FOLDS, F_IN = 10, 503
@@ -110,6 +134,12 @@ ANALYSIS_DATASETS = (("GSE30931", 2.75), ("GSE74572", 2.91), ("GSE27182", 2.99))
 PERTURB_SIGMA = 0.1   # expr_inter = expr_normal x exp(0.1 N(0, 1)), seeded
 LIB_BLOCK_ROWS = 2048  # row block of the blocked-DGEMM yardstick
 DEVICE = "cuda"        # phase 4a's device ("cpu" runs its logic on the plain versions)
+CC_TERMS = ("GO:0005938", "GO:0005829", "GO:0015629", "GO:0005794", "GO:0005783",
+            "GO:0005730", "GO:0005777", "GO:0005739", "GO:0005764", "GO:0005813",
+            "GO:0005634", "GO:0005886")
+PCA_COMPONENTS = 250
+PCA_MID = 4096         # size of the card-vs-CPU PCA check (the randomized solver)
+PCA_RTOL = 1e-9        # tests/test_torch_preprocess.py's, relative to sigma_0
 
 
 def fail(msg):
@@ -411,19 +441,20 @@ def train_cli(data_root, cmd, agg, epochs):
 
 
 def reset_launches():
-    from plagnn_tpu_torch.ops import pcc_scan
+    from plagnn_tpu_torch.ops import common_neighbors, pcc_scan
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     sk.reset_launches()
     pcc_scan.reset_launches()
+    common_neighbors.reset_launches()
 
 
 def launch_counts():
     """Every kernel wrapper's launch count, by counter name."""
-    from plagnn_tpu_torch.ops import pcc_scan
+    from plagnn_tpu_torch.ops import common_neighbors, pcc_scan
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
-    return {**sk.LAUNCHES, **pcc_scan.LAUNCHES}
+    return {**sk.LAUNCHES, **pcc_scan.LAUNCHES, **common_neighbors.LAUNCHES}
 
 
 def check_launches(label, expected):
@@ -855,6 +886,282 @@ def analysis_phase(data_root, results):
     record_launches(results, counts)
 
 
+def write_raw_inputs(root):
+    """Phase 4p's synthetic raw files under root/support_materials (the
+    layout tests/test_preprocess_pipeline.py writes): the mitab, one
+    expression CSV per dataset and the UniProt dat.  Returns the pairs."""
+    import csv
+    import gzip
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from plagnn_tpu_torch.data.preprocess import DEFAULT_DATASETS
+    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+
+    sm = os.path.join(root, "support_materials")
+    os.makedirs(sm, exist_ok=True)
+    pairs = sp.triu(powerlaw_ppi(NODES, EDGES, SEED), 1).tocoo()
+    rows, cols = pairs.row.astype(np.int64), pairs.col.astype(np.int64)
+    deg = np.bincount(np.concatenate([rows, cols]), minlength=NODES)
+    lone = np.flatnonzero(deg == 0)  # join each to its successor
+    rows, cols = np.concatenate([rows, lone]), np.concatenate([cols, (lone + 1) % NODES])
+    prots = [f"P{i:05d}" for i in range(NODES)]
+    with open(os.path.join(sm, "BIOGRID-ORGANISM-Homo_sapiens-4.4.203.mitab.txt"), "w") as f:
+        f.write("#header\n")
+        f.writelines(f"x\ty\tbiogrid:1|uniprot/swiss-prot:{prots[a]}|x\t"
+                     f"biogrid:2|uniprot/swiss-prot:{prots[b]}|y\t-\t-\t-\t-\t-\t-\t-\t"
+                     "psi-mi:MI:0915(physical association)\n"
+                     for a, b in zip(rows.tolist(), cols.tolist()))
+
+    rng = np.random.default_rng(SEED)
+    for ds in DEFAULT_DATASETS:
+        probes = rng.choice([1, 2, 3], NODES, p=[0.7, 0.2, 0.1])
+        probes[rng.random(NODES) < 0.05] = 0
+        owner = np.repeat(np.arange(NODES), probes)
+        normal = rng.gamma(2.0, 2.0, (len(owner), 3))
+        inter = normal * np.exp(PERTURB_SIGMA * rng.standard_normal(normal.shape))
+        with open(os.path.join(root, ds.expr_csv), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["", "uniprot_id", *ds.normal_samples, *ds.intervention_samples])
+            for k, i in enumerate(rng.permutation(len(owner)).tolist()):
+                w.writerow([k + 1, prots[owner[i]], *map(repr, normal[i].tolist()),
+                            *map(repr, inter[i].tolist())])
+
+    with open(os.path.join(sm, "cellular_component.txt"), "w") as f:
+        f.write("\n".join(CC_TERMS) + "\n")
+    with gzip.open(os.path.join(sm, "uniprot_sprot_human.dat.gz"), "wt") as f:
+        for p in prots:
+            f.write(f"ID   {p}_HUMAN\nAC   {p};\n")
+            for go in rng.choice(CC_TERMS, size=int(rng.integers(0, 4)), replace=False):
+                f.write(f"DR   GO; {go}; C:somewhere; IDA:x.\n")
+            f.write("//\n")
+    return len(rows)
+
+
+def check_preprocess_artifacts(root):
+    """The artifact contract (tests/test_preprocess_pipeline.py), lean mode:
+    no GCN_*.npz."""
+    from plagnn_tpu_torch.data.preprocess import DEFAULT_DATASETS
+
+    gm = os.path.join(root, "generate_materials")
+    want = [os.path.join(gm, n) for n in (
+        "PPI_normal.npz", "ECC_normal.npz", "loc_matrix.npz", "ECC_normal_pca.npy",
+        "protein_ppi.json", "label_with_loc_list.json", "label_list.json")]
+    for ds in DEFAULT_DATASETS:
+        d = os.path.join(gm, f"{ds.name}_data")
+        want += [os.path.join(d, n) for n in (
+            "expr_normal.npy", "expr_inter.npy", "PPI_inter.npz", "ECC_inter.npz",
+            "GCN_normal_pca.npy", "GCN_inter_pca.npy", "ECC_inter_pca.npy")]
+        for n in ("GCN_normal.npz", "GCN_inter.npz"):
+            if os.path.exists(os.path.join(d, n)):
+                fail(f"preprocess --no-dense-gcn wrote {ds.name}_data/{n}")
+    missing = [p for p in want if not os.path.exists(p)]
+    if missing:
+        fail(f"preprocess: missing {missing}")
+
+
+def ecc_graphs(root):
+    """[(name, binary CSR on the card, query rows, query cols, the saved
+    ECC values of the queries, the degrees)] for PPI_normal and each
+    PPI_inter, set up as data/ecc.py sets them up."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from plagnn_tpu_torch.data.preprocess import DEFAULT_DATASETS
+    from plagnn_tpu_torch.ops.pcc_scan import csr_tensors
+
+    gm = os.path.join(root, "generate_materials")
+    files = [("PPI_normal", "PPI_normal.npz", "ECC_normal.npz")]
+    files += [(f"{ds.name} PPI_inter", f"{ds.name}_data/PPI_inter.npz",
+               f"{ds.name}_data/ECC_inter.npz") for ds in DEFAULT_DATASETS]
+    out = []
+    for name, ppi_file, ecc_file in files:
+        a = sp.load_npz(os.path.join(gm, ppi_file)).tocsr().astype(np.float64)
+        a.data[:] = 1.0
+        q = sp.triu(a, k=1).tocoo()
+        saved = sp.load_npz(os.path.join(gm, ecc_file))
+        out.append((name, csr_tensors(a, DEVICE),
+                    torch.as_tensor(q.row.astype(np.int32), device=DEVICE),
+                    torch.as_tensor(q.col.astype(np.int32), device=DEVICE),
+                    saved.data[:q.nnz], np.asarray(a.sum(axis=1)).ravel()))
+    return out
+
+
+def check_ecc_counts(graphs):
+    """Per graph: the kernel's counts equal the plain version's on the card
+    pair for pair, and give the saved ECC values (data/ecc.py's ratio)."""
+    import numpy as np
+    import torch
+
+    from plagnn_tpu_torch.ops import common_neighbors as cn
+
+    for name, csr, rows, cols, saved, deg in graphs:
+        got = cn.common_neighbors(csr, rows, cols)
+        torch.cuda.synchronize()
+        plain = cn.common_neighbors_plain(csr, rows, cols)
+        if not torch.equal(got, plain):
+            fail(f"{name}: the ECC kernel's counts differ from the plain version's "
+                 f"at {int((got != plain).sum())} of {rows.numel()} pairs")
+        r, c = rows.cpu().numpy(), cols.cpu().numpy()
+        den = np.minimum(deg[r], deg[c]) - 1.0
+        tri = plain.cpu().numpy().astype(np.float64)
+        if not np.array_equal(np.where(den > 0, tri / np.maximum(den, 1.0), 0.0), saved):
+            fail(f"{name}: the saved ECC values differ from the plain counts' ratios")
+        print(f"{name}: {rows.numel()} pairs, ECC counts kernel = plain, saved ECC "
+              f"= their ratios", flush=True)
+
+
+def check_pca_mid():
+    """The card's pca against the CPU's at N = PCA_MID, 250 components (the
+    randomized solver, n_iter 7), on a matrix with evenly spaced leading
+    singular values 50 .. 10: every column within PCA_RTOL of the largest."""
+    import numpy as np
+
+    from plagnn_tpu_torch.data.pca import choose_solver, pca
+
+    rng = np.random.default_rng(SEED)
+    k = PCA_COMPONENTS + 20
+    u = np.linalg.qr(rng.standard_normal((PCA_MID, k)))[0]
+    v = np.linalg.qr(rng.standard_normal((PCA_MID, k)))[0]
+    x = (u * np.linspace(50.0, 10.0, k)) @ v.T
+    t0 = time.perf_counter()
+    card = pca(x, PCA_COMPONENTS, device=DEVICE)
+    t1 = time.perf_counter()
+    cpu = pca(x, PCA_COMPONENTS, device="cpu")
+    t2 = time.perf_counter()
+    err = float(np.abs(card - cpu).max())
+    if not err <= PCA_RTOL * 50.0:
+        fail(f"pca at N = {PCA_MID}: the card's differs from the CPU's by {err}")
+    print(f"pca N = {PCA_MID}, {PCA_COMPONENTS} components "
+          f"({choose_solver(x.shape, PCA_COMPONENTS)}): card = CPU within {err:.3e} "
+          f"(limit {PCA_RTOL * 50.0:.1e}); card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s",
+          flush=True)
+
+
+def time_ecc(graphs, results, smi_line):
+    """The ECC kernel on the normal graph and on the first PPI_inter: CUDA
+    events (median of 10; the wrapper's checks and item table included),
+    the plain version (median of 3, of 1 on PPI_inter), the bound (the CSR
+    and the queries read once, the counts written once; one int32 lookup
+    per element of each pair's shorter row) and cuSPARSE's A·A
+    (``torch.sparse.mm`` on the CSR, float32 ones; normal graph only, a
+    yardstick never on the path)."""
+    import torch
+
+    from plagnn_tpu_torch.ops import common_neighbors as cn
+
+    for g, (name, csr, rows, cols, _, _) in enumerate(graphs[:2]):
+        indptr, indices = csr
+        n, nnz, q = indptr.numel() - 1, indices.numel(), rows.numel()
+        deg = indptr[1:] - indptr[:-1]
+        d_r, d_c = deg[rows.long()], deg[cols.long()]
+        lookups = int(torch.minimum(d_r, d_c).sum())
+        probes = int((torch.minimum(d_r, d_c).double()
+                      * torch.ceil(torch.log2(torch.maximum(d_r, d_c).double() + 1))).sum())
+        ms = median_ms(lambda: cn.common_neighbors(csr, rows, cols), 10)
+        plain_ms = median_ms(lambda: cn.common_neighbors_plain(csr, rows, cols),
+                             3 if g == 0 else 1)
+        lib_ms = None
+        if g == 0:
+            adj = torch.sparse_csr_tensor(indptr, indices.long(),
+                                          torch.ones(nnz, device=DEVICE), size=(n, n))
+            lib_ms = median_ms(lambda: torch.sparse.mm(adj, adj), 3)
+            lib_nnz = torch.sparse.mm(adj, adj)._nnz()
+            del adj
+            torch.cuda.empty_cache()
+        nbytes = 8 * (n + 1) + 4 * nnz + 8 * q + 4 * q
+        entry = kernel_entry("ecc_common_neighbors_i32", "common_neighbors", 0.0, ms,
+                             plain_ms, lib_ms, nbytes, lookups, (n, q), INT32_OPS_PER_S)
+        if g == 0:
+            results["ecc_common_neighbors_i32"] = entry
+        profile_call(f"ECC counts on {name}", lambda: cn.common_neighbors(csr, rows, cols))
+        print(f"  ECC counts on {name} ({smi_line}): {ms:.3f} ms (plain {plain_ms:.3f}, "
+              f"A·A {'not measured' if lib_ms is None else f'{lib_ms:.3f}'}, bound "
+              f"{entry['bound_ms']:.4f} by {entry['bound_by']}) at N = {n}, {q} pairs, "
+              f"max degree {int(deg.max())}, sum min(deg) {lookups} lookups, "
+              f"~{probes} binary-search probes"
+              + (f", A·A nnz {lib_nnz}" if g == 0 else ""), flush=True)
+
+
+def time_pca(root, smi_line):
+    """One full-width PCA of phase 4p's ECC_normal on the card, split into
+    its parts, with the peak device memory."""
+    import scipy.sparse as sp
+    import torch
+
+    from plagnn_tpu_torch.data.pca import pca
+
+    ecc = sp.load_npz(os.path.join(root, "generate_materials", "ECC_normal.npz"))
+    torch.cuda.reset_peak_memory_stats()
+    parts = {}
+    t0 = time.perf_counter()
+    pca(ecc, PCA_COMPONENTS, device=DEVICE, timings=parts)
+    wall = time.perf_counter() - t0
+    print(f"  PCA ECC_normal {ecc.shape[0]}^2 -> {PCA_COMPONENTS} ({smi_line}): "
+          f"{wall:.3f} s = dense input {parts['dense']:.3f} + range finder "
+          f"{parts['power']:.3f} + SVD, flip and copy {parts['svd']:.3f}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+
+def preprocess_phase(results, smi_line):
+    """Phase 4p: the main path (preprocess through the CLI, then one epoch
+    on its bundle), each with every launch counter at 0 before and read
+    after, then the checks and the timings."""
+    import numpy as np
+    import torch
+
+    from plagnn_tpu_torch import cli
+    from plagnn_tpu_torch.data.artifacts import load_condition
+    from plagnn_tpu_torch.data.preprocess import DEFAULT_DATASETS
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_prep_")
+    try:
+        t0 = time.perf_counter()
+        pairs = write_raw_inputs(root)
+        print(f"raw inputs: {NODES} proteins, {pairs} pairs, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        steps = cli.main(["preprocess", "--data-root", root, "--no-dense-gcn", "-d", DEVICE])
+        wall = time.perf_counter() - t0
+        counts = check_launches("preprocess", {"ecc_common_neighbors_i32": 4,
+                                               "pcc_diff_hits_f64": len(DEFAULT_DATASETS)})
+        print(f"wall: preprocess {wall:.3f} s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi_line})", flush=True)
+        for name, sec in steps:
+            print(f"  step {name}: {sec:.3f} s", flush=True)
+        if len(steps) != 1 + 4 + 3 + 3 + 1 + 10:
+            fail(f"preprocess ran {len(steps)} steps: {[n for n, _ in steps]}")
+        check_preprocess_artifacts(root)
+        graphs = ecc_graphs(root)
+        check_ecc_counts(graphs)
+        check_pca_mid()
+        for ds in DEFAULT_DATASETS:
+            for cond in ("normal", "inter"):
+                feats = load_condition(root, ds.name, cond).feats
+                if feats.shape[1] != F_IN or not np.isfinite(feats).all():
+                    fail(f"{ds.name} {cond}: features {feats.shape}, finite "
+                         f"{bool(np.isfinite(feats).all())}")
+        print(f"bundles: 6 conditions load with {F_IN} finite features", flush=True)
+        reset_launches()
+        stats = train_cli(root, "train-normal", "float32", 1)
+        check_launches("train-normal on the preprocessed bundle", gnn32_launches("f32", 1))
+        check_artifacts("train-normal on the preprocessed bundle",
+                        os.path.join(root, "log", "GSE30931", "normal"))
+        print(f"train-normal on the preprocessed bundle: 1 epoch x {FOLDS} folds, "
+              f"{stats[0].epoch_ms[0]:.3f} ms", flush=True)
+        time_ecc(graphs, results, smi_line)
+        record_launches(results, counts)
+        del graphs
+        torch.cuda.empty_cache()
+        time_pca(root, smi_line)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def sweep_row_chunk(full):
     """Median times of the row-chunked kernels (float32 sum forward and
     transpose at K = 10 x 400 and 10 x 12, max forward and backward at 10 x
@@ -1059,6 +1366,8 @@ def main(argv=None):
                        GCN2_LAUNCHES, smi_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase("4p preprocess at full width")
+    preprocess_phase(results, smi_line)
 
     phase("5 summary")
     kernels = [results[k] for k in (
@@ -1066,7 +1375,7 @@ def main(argv=None):
         "spmm_max_bwd_f32", "spmm_max_bwd_bf16",
         "spmm_sum_fwd_f32", "spmm_sum_fwd_bf16", "spmm_sum_bwd_f32", "spmm_sum_bwd_bf16",
         "spmm_sum_fwd_f32" + CONV2, "spmm_sum_bwd_f32" + CONV2,
-        "pcc_diff_count_f64", "pcc_diff_hits_f64")]
+        "pcc_diff_count_f64", "pcc_diff_hits_f64", "ecc_common_neighbors_i32")]
     for r in kernels:
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):
             fail(f"{r['name']}: non-finite timing")

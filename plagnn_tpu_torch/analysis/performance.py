@@ -9,8 +9,10 @@ uniform-count), F1 and AUC.  Host numpy, with no device work.
 sklearn is not used: ``roc_auc`` is the Mann-Whitney rank AUC in float64
 (``scipy.stats.rankdata``, average ranks for ties), which equals
 ``sklearn.metrics.roc_auc_score`` up to rounding.  Where the labels hold
-one class only it raises the ``ValueError`` that sklearn raised before it
-turned to a warning and nan, so an undefined AUC never enters the report.
+one class only it warns and returns nan, as the sklearn installed beside
+the JAX package (1.9.0) does, with sklearn's message and a warning class
+of the same name (``UndefinedMetricWarning``), so ``performance`` reports
+nan wherever the JAX package does.
 """
 from __future__ import annotations
 
@@ -29,16 +31,22 @@ from ..train.metrics import macro_f1_np, micro_f1_np
 from ..train.postprocess import protein_loc_correction_np
 
 
+class UndefinedMetricWarning(UserWarning):
+    """The metric is not defined on these labels (sklearn's class name)."""
+
+
 def roc_auc(y_true, y_score) -> float:
     """Binary ROC AUC as the normalized Mann-Whitney U statistic:
     (sum of the positives' average ranks - P(P+1)/2) / (P·N), in float64.
-    The larger of the two label values is the positive class."""
+    The larger of the two label values is the positive class; labels of
+    one class give nan and an ``UndefinedMetricWarning``."""
     y = np.asarray(y_true).reshape(-1)
     s = np.asarray(y_score, np.float64).reshape(-1)
     classes = np.unique(y)
     if len(classes) < 2:
-        raise ValueError("Only one class present in y_true. ROC AUC score is "
-                         "not defined in that case.")
+        warnings.warn("Only one class is present in y_true. ROC AUC score is not "
+                      "defined in that case.", UndefinedMetricWarning)
+        return float("nan")
     if len(classes) > 2:
         raise ValueError(f"y_true must be binary, got {len(classes)} classes")
     pos = y == classes[1]

@@ -1,5 +1,7 @@
 """Command-line interface of the port.
 
+    python -m plagnn_tpu_torch.cli preprocess     (raw BioGRID/UniProt/GEO -> artifacts)
+    python -m plagnn_tpu_torch.cli geo            (series matrix -> exprSet CSV)
     python -m plagnn_tpu_torch.cli synth          (synthetic dataset bundle)
     python -m plagnn_tpu_torch.cli train-normal   (the reference's main_normal.py)
     python -m plagnn_tpu_torch.cli train-inter    (the reference's main_inter.py)
@@ -8,11 +10,13 @@
     python -m plagnn_tpu_torch.cli statistics     (topology-change statistics)
 
 Flag names, defaults and artifact paths match ``plagnn_tpu.cli`` (-data,
--lr 5e-5, -f 10, -e 200, -a [0.1]).  ``-d`` is the torch device (default
-``cuda``) of training and ``statistics``, and the device label written to
+-lr 5e-5, -f 10, -e 200, -a [0.1], --no-dense-gcn).  ``-d`` is the torch
+device (default ``cuda``) of training, ``preprocess`` (ECC counts,
+topology, PCA) and ``statistics``, and the device label written to
 txt_log.txt; without a card, a run needs an explicit ``-d cpu``.  There is
 one path: the CUDA kernels on a card, their plain PyTorch versions on the
-CPU.  ``score`` and ``performance`` are host numpy and take no ``-d``.
+CPU.  ``score``, ``performance`` and ``geo`` are host work and take no
+``-d``.
 Only the single-device mesh ``fold=1,graph=1`` is accepted.
 """
 from __future__ import annotations
@@ -130,9 +134,22 @@ def _performance(args):
 
 def main(argv=None):
     """Run one subcommand.  Training returns its per-chunk epoch timings,
-    ``performance`` and ``statistics`` their results dicts."""
+    ``preprocess`` its (step, wall seconds) list, ``performance`` and
+    ``statistics`` their results dicts."""
     parser = argparse.ArgumentParser(prog="plagnn_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("preprocess", help="materialize graph/feature artifacts")
+    p.add_argument("--data-root", default="data")
+    p.add_argument("--no-dense-gcn", action="store_true",
+                   help="skip the dense PCC .npz artifacts (lean mode)")
+    p.add_argument("-d", type=str, default="cuda",
+                   help="torch device of the ECC counts, the topology step and "
+                        "the PCAs (cuda, cuda:N or cpu)")
+    what = "series-matrix → exprSet CSV (data_reader.R port); host only, no -d"
+    p = sub.add_parser("geo", help=what, description=what)
+    p.add_argument("series_matrix")
+    p.add_argument("probe_map", help="probe_id,uniprot_id CSV")
+    p.add_argument("out_csv")
     for name in ("train-normal", "train-inter"):
         _add_train_flags(sub.add_parser(name))
     for name, what in (("score", "mis-localization ranking (main.py)"),
@@ -154,6 +171,17 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=70)
 
     args = parser.parse_args(argv)
+    if args.cmd == "preprocess":
+        from .data.preprocess import preprocess
+        from .train.engine import resolve_device
+
+        return preprocess(args.data_root, dense_gcn_artifacts=not args.no_dense_gcn,
+                          device=resolve_device(args.d))
+    if args.cmd == "geo":
+        from .data.geo import write_expr_set
+
+        write_expr_set(args.series_matrix, args.probe_map, args.out_csv)
+        return None
     if args.cmd == "train-normal":
         return _train(args, "normal")
     if args.cmd == "train-inter":

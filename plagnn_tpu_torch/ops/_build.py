@@ -21,7 +21,7 @@ from typing import Dict
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("spmm_max_fwd", "spmm_max_bwd", "spmm_sum", "pcc_diff_scan")
+SOURCES = ("spmm_max_fwd", "spmm_max_bwd", "spmm_sum", "pcc_diff_scan", "common_neighbors")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -90,10 +90,10 @@ def _check_z(z_i: torch.Tensor, z_n: torch.Tensor) -> None:
         raise ValueError("the scan takes fewer than 2^31 rows")
 
 
-def _check_csr(csr, n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _check_csr(csr, n: int, device, strict: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(indptr int64 (n + 1), indices int32), on z's device, with each row's
     column ids in [0, n) and ascending (the kernel's merge pointer needs
-    that; repeats are harmless)."""
+    that; repeats are harmless), or strictly ascending with ``strict``."""
     indptr, indices = csr
     if indptr.dtype != torch.int64 or indptr.shape != (n + 1,):
         raise ValueError(f"indptr must be int64 of shape ({n + 1},)")
@@ -110,17 +110,19 @@ def _check_csr(csr, n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     if m:
         row = torch.searchsorted(indptr, torch.arange(m, device=device), right=True)
         bad = bad | (indices.min() < 0) | (indices.max() >= n)
-        bad = bad | ((indices[1:] < indices[:-1]) & (row[1:] == row[:-1])).any()
+        down = indices[1:] <= indices[:-1] if strict else indices[1:] < indices[:-1]
+        bad = bad | (down & (row[1:] == row[:-1])).any()
     if bool(bad):
         raise ValueError("csr must have an indptr rising from 0 to len(indices) and "
-                         "column ids in [0, n), ascending in each row")
+                         "column ids in [0, n), "
+                         f"{'strictly ' if strict else ''}ascending in each row")
     return indptr, indices
 
 
 def csr_tensors(ppi, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (indptr, indices) that the hit scan excludes, from a scipy sparse
-    matrix: its entries with a nonzero value, duplicates summed, column ids
-    sorted in each row."""
+    """(indptr, indices) of a scipy sparse matrix's entries with a nonzero
+    value, duplicates summed, column ids sorted in each row: the pairs the
+    hit scan excludes, and the adjacency of the ECC counts."""
     m = ppi.tocsr(copy=True)
     m.sum_duplicates()
     m.eliminate_zeros()

@@ -188,16 +188,23 @@ def test_rank_auc_matches_sklearn_on_ties(seed):
     assert abs(got - roc_auc_score(labels, scores)) <= 1e-12
 
 
-def test_rank_auc_one_class_raises():
-    """One class only: the port raises sklearn's historical ValueError.
-    The sklearn installed beside the JAX package may instead warn and
-    return nan; either way the AUC is undefined there."""
+def test_rank_auc_one_class_nan():
+    """One class only: the port warns and returns nan, as the sklearn
+    installed beside the JAX package does, with sklearn's message and a
+    UserWarning subclass of sklearn's name; more than two classes still
+    raise."""
     labels = np.zeros(10)
     scores = np.linspace(0, 1, 10)
-    with pytest.raises(ValueError, match="Only one class"):
-        performance.roc_auc(labels, scores)
-    try:
-        with pytest.warns(UserWarning, match="Only one class"):
-            assert np.isnan(roc_auc_score(labels, scores))
-    except ValueError as e:
-        assert "Only one class" in str(e)
+    msg = ("Only one class is present in y_true. ROC AUC score is not defined "
+           "in that case.")
+    with pytest.warns(performance.UndefinedMetricWarning) as got:
+        assert np.isnan(performance.roc_auc(labels, scores))
+    with pytest.warns(UserWarning) as want:
+        assert np.isnan(roc_auc_score(labels, scores))
+    assert [str(w.message) for w in got] == [str(w.message) for w in want] == [msg]
+    assert issubclass(performance.UndefinedMetricWarning, UserWarning)
+    assert type(want[0].message).__name__ == "UndefinedMetricWarning"
+    with pytest.warns(performance.UndefinedMetricWarning):
+        assert np.isnan(performance.roc_auc(np.ones(4), scores[:4]))
+    with pytest.raises(ValueError, match="binary"):
+        performance.roc_auc(np.arange(10) % 3, scores)

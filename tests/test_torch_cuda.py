@@ -13,6 +13,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from plagnn_tpu_torch.ops import common_neighbors as cn
 from plagnn_tpu_torch.ops import pcc_scan
 from plagnn_tpu_torch.ops import spmm_kernels as sk
 from plagnn_tpu_torch.ops.graph_format import ROW_CHUNK, build_graph
@@ -386,3 +387,78 @@ def test_pcc_scan_refuses_wide_k_and_oversized_grid(card):
     tall = torch.zeros((65535 * 256 + 1, 1), dtype=torch.float64, device=card)
     with pytest.raises(RuntimeError, match="CUDA error"):
         pcc_scan.pcc_diff_counts(tall, tall, -1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# The ECC's common-neighbour counts (csrc/common_neighbors.cu)
+# ---------------------------------------------------------------------------
+
+
+def _cn_inputs(card, n, seed, hub=0):
+    """A symmetric CSR of n nodes (the last fifth isolated: empty rows),
+    with ``hub`` nodes joined to each other and to most nodes, and a
+    self-loop at node 0; queries are its upper-triangle edges, some random
+    pairs and some (i, i)."""
+    rng = np.random.default_rng(seed)
+    live = max(n - n // 5, 1)
+    r = rng.integers(0, live, 4 * n)
+    c = rng.integers(0, live, 4 * n)
+    if hub:
+        r = np.concatenate([r, np.repeat(np.arange(hub), live)])
+        c = np.concatenate([c, np.tile(np.arange(live), hub)])
+    r, c = np.append(r, 0), np.append(c, 0)
+    m = sp.coo_matrix((np.ones(len(r)), (r, c)), shape=(n, n))
+    m = (m + m.T) > 0
+    csr = pcc_scan.csr_tensors(m.astype(np.int8), card)
+    q = sp.triu(m, 1).tocoo()
+    extra = rng.integers(0, n, (n, 2))
+    rows = np.concatenate([q.row, extra[:, 0], np.arange(0, n, 7)])
+    cols = np.concatenate([q.col, extra[:, 1], np.arange(0, n, 7)])
+    return csr, (torch.from_numpy(rows.astype(np.int32)).to(card),
+                 torch.from_numpy(cols.astype(np.int32)).to(card))
+
+
+@pytest.mark.parametrize("n", [1, 37, 1000, 4097])
+def test_common_neighbors_kernel_matches_plain(card, n):
+    csr, (rows, cols) = _cn_inputs(card, n, n)
+    before = cn.LAUNCHES["ecc_common_neighbors_i32"]
+    got = cn.common_neighbors(csr, rows, cols)
+    torch.cuda.synchronize()
+    assert cn.LAUNCHES["ecc_common_neighbors_i32"] == before + 1
+    assert torch.equal(got, cn.common_neighbors_plain(csr, rows, cols))
+    assert torch.equal(cn.common_neighbors(csr, rows, cols), got)
+
+
+@pytest.mark.parametrize("row_chunk", [256, 8, 1])
+def test_common_neighbors_kernel_split_rows(card, row_chunk):
+    """Three hubs of ~3,300 neighbours each: their pairs split into 13+
+    chunks of 256 (hundreds at small row_chunk) that add into one count."""
+    csr, (rows, cols) = _cn_inputs(card, 4097, 5, hub=3)
+    deg = (csr[0][1:] - csr[0][:-1])
+    chunks = (torch.minimum(deg[rows.long()], deg[cols.long()]) + row_chunk - 1) // row_chunk
+    assert int(chunks.max()) > 12
+    got = cn.common_neighbors(csr, rows, cols, row_chunk=row_chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cn.common_neighbors_plain(csr, rows, cols))
+
+
+def test_common_neighbors_kernel_empty_rows_and_queries(card):
+    """Queries on empty rows count 0 and launch nothing when no query has
+    an item; no queries at all give an empty result."""
+    n = 50
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=card)
+    indices = torch.zeros(0, dtype=torch.int32, device=card)
+    q = torch.arange(n, dtype=torch.int32, device=card)
+    got = cn.common_neighbors((indptr, indices), q, q.flip(0).contiguous())
+    assert got.dtype == torch.int32 and not bool(got.any())
+    none = torch.zeros(0, dtype=torch.int32, device=card)
+    assert cn.common_neighbors((indptr, indices), none, none).numel() == 0
+
+
+def test_common_neighbors_kernel_refuses_unsorted(card):
+    indptr = torch.tensor([0, 3, 4, 4], dtype=torch.int64, device=card)
+    q = torch.tensor([0], dtype=torch.int32, device=card)
+    for bad in ([2, 1, 0, 0], [1, 1, 2, 0]):  # descending, repeated
+        with pytest.raises(ValueError, match="strictly ascending"):
+            cn.common_neighbors((indptr, torch.tensor(bad, dtype=torch.int32, device=card)),
+                                q, q + 1)
