@@ -20,10 +20,14 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    to run; bfloat16 dx within 1 bf16 ulp.  Segment sum (GCN2: B=10 x 400
    and 10 x 12), forward and transpose: float32 within 1e-5 of the summed
    magnitudes and bit-identical run to run; bfloat16 on small integers
-   exact.  Prints the row-chunk tables' sizes (chunks, split rows) that
-   all three kernels walk.  Times each kernel (CUDA events, median), its
-   plain version and a PyTorch library call at the first layer's shape of
-   each path, and the sum also at GCN2 conv2's K = 120.
+   exact.  The edge-weighted sum at conv1's K (values seeded uniform in
+   [0.5, 1.5), 1.0 on self-loops), forward and transpose: float32 as the
+   sum, bfloat16 exact on small integers with dyadic values.  Prints the
+   row-chunk tables' sizes (chunks, split rows) that all three kernels
+   walk.  Times each kernel (CUDA events, median), its plain version and a
+   PyTorch library call at the first layer's shape of each path, the sum
+   also at GCN2 conv2's K = 120, and the weighted sum beside the unweighted
+   one.
 4. GNN32 at full width through the CLI: synth (24,041 nodes, 700k edges),
    train-normal (float32, 3 epochs, 10 folds in one batch), then
    train-inter with --agg-dtype bfloat16 (2 epochs).  Each run must launch
@@ -43,7 +47,19 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    the plain scan's and the statistics'.  Times both kernels at full width
    (CUDA events, median) beside their plain versions, the blocked
    torch.matmul (cuBLAS DGEMM) yardstick and the float64 bound.
-   4b. The float32 train-normal run once more under torch.profiler:
+   4f. The figures' data at full width, on 4a's perturbed bundle: the
+   CLI's ``figures -d cuda --diff-hist --alpha-dist`` (3 ΔPCC histogram
+   launches, no other kernel, its wall time).  Checks: per dataset the
+   linked and unlinked counts equal the plain version's on the card bin for
+   bin; they add up to N² - N less the pairs outside the edges (the count
+   kernel's), and the linked ones to PPI_normal's off-diagonal entries less
+   those outside; every JSON file written parses and holds finite numbers.
+   ``figures --save-diff`` on a bundle cut to N = 4,096 (the full width
+   writes ~28 GB): the three arrays hold N², the links and the rest, and
+   hist_data.json's counts add up to them.  Times the histogram kernel
+   (CUDA events, median) beside its plain version, a blocked cuBLAS DGEMM
+   + bucketize + bincount yardstick and the float64 bound.
+   4b. The float32 train-normal run once more under utils.profiling.trace:
    device time per epoch by kernel group and the device's idle share, and
    the layer-1 max forward's profiled time per launch beside phase 3's
    CUDA-event median at the same shape.
@@ -51,7 +67,7 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    float32, 3 epochs, a checkpoint every 2 epochs): 2 sum-forward and 2
    sum-transpose launches per epoch, no max launch, the artifact contract,
    and the mid-round checkpoint seen after epoch 2 and removed at the end;
-   then the same run once more under torch.profiler.
+   then the same run once more under utils.profiling.trace.
    4p. The preprocess stage at full width from synthetic raw files: a
    BioGRID mitab of powerlaw_ppi(24,041, 700k, seed 70)'s pairs (each of
    its 3 isolated nodes joined to one more node, so all 24,041 proteins
@@ -69,8 +85,24 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    folds in one batch) on the bundle through the max kernels.  Times the
    ECC kernel on the normal graph and on GSE30931's PPI_inter (CUDA
    events, median) beside its plain version, the bound and cuSPARSE's A·A
-   (``torch.sparse.mm``, normal graph only), and one full-width PCA split
-   into the dense input, the range finder and the SVD.
+   (``torch.sparse.mm``; on PPI_inter its error and the memory asked for
+   where it cannot run), and one full-width PCA split into the dense input,
+   the range finder and the SVD.
+   4o. The other ops at full width, after every profiled phase (4a, 4f,
+   4b, 4c and 4p profile inside utils.profiling.trace, which fails where a
+   block launched kernels and its trace holds none; each session's lost
+   launches are printed, and counted here): sampled_graph of the
+   synthetic PPI at fanout 10 and 25, a max forward and backward on each
+   (K = 10 x 503; the fanout-10 forward inside utils.profiling.trace, whose
+   file must name the max-forward kernel), and the weighted sum forward and backward through
+   autograd on the fanout-10 sample with seeded edge values (K = 10 x 400,
+   float32 and bfloat16): exactly those launches.  Checks: the max kernels
+   on both samples against their plain versions as phase 3 checks them.
+   Then the max forward and the sum timed on the full synthetic graph and
+   on clustered_ppi(24,041, 700k, seed 70), each under the identity, RCM
+   and greedy orders (features permuted as x[perm], outputs restored: each
+   equals the identity order's), with each order's host time and
+   coalesce_report's fractions.
 5. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 """
@@ -102,6 +134,8 @@ KERNEL_SOURCE = {
 }
 _FWD_BODY = "plagnn_tpu/ops/pallas/spmm_kernels.py:513"  # _spmm_fwd_kernel
 CONV2 = "_k120"  # name suffix of the sum's entries at GCN2 conv2's width
+# the JAX package's edge-weighted sum: ell_reduce_sum(use_val=True), XLA
+_VAL_SUM = "plagnn_tpu/ops/spmm.py:105"
 REPLACES = {
     "spmm_max_fwd_f32": _FWD_BODY,
     "spmm_max_fwd_bf16": _FWD_BODY,
@@ -119,6 +153,12 @@ REPLACES = {
     "pcc_diff_hits_f64": "plagnn_tpu/data/topology.py:96",
     # no Pallas kernel: the host merge (scipy fallback plagnn_tpu/data/ecc.py:36)
     "ecc_common_neighbors_i32": "native/plagnn_native.cpp:20",
+    # no Pallas kernel: numpy GEMM blocks and np.histogram
+    "pcc_diff_hist_f64": "plagnn_tpu/analysis/figures.py:33",
+    "spmm_sum_val_fwd_f32": _VAL_SUM,
+    "spmm_sum_val_fwd_bf16": _VAL_SUM,
+    "spmm_sum_val_bwd_f32": _VAL_SUM,
+    "spmm_sum_val_bwd_bf16": _VAL_SUM,
 }
 NODES, EDGES, SEED = 24041, 700000, 70
 FOLDS, F_IN = 10, 503
@@ -140,6 +180,12 @@ CC_TERMS = ("GO:0005938", "GO:0005829", "GO:0015629", "GO:0005794", "GO:0005783"
 PCA_COMPONENTS = 250
 PCA_MID = 4096         # size of the card-vs-CPU PCA check (the randomized solver)
 PCA_RTOL = 1e-9        # tests/test_torch_preprocess.py's, relative to sigma_0
+SAVE_DIFF_NODES = 4096  # the --save-diff bundle (N² float64 a file)
+FANOUTS = (10, 25)      # phase 4o's sampled graphs
+# per traced session: (the block's launches without a kernel event, its
+# launches, its earliest kernel start less its launch's in us, the
+# warm-up's launches without a kernel event)
+TRACE_SESSIONS = []
 
 
 def fail(msg):
@@ -431,6 +477,85 @@ def check_sum_kernels(graph, k, label, results=None, suffix=""):
     torch.cuda.empty_cache()
 
 
+def weighted_graph(coo_ppi, seed):
+    """The graph of a PPI with self-loops and edge values seeded uniform in
+    [0.5, 1.5) (1.0 on the self-loops), on the card."""
+    import numpy as np
+
+    from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
+
+    val = np.random.default_rng(seed).uniform(0.5, 1.5, coo_ppi.nnz)
+    return from_scipy_coo(coo_ppi, add_self_loops=True, edge_val=val).to(DEVICE)
+
+
+def check_val_sum_kernels(graph, k, label, results):
+    """The edge-weighted sum against its plain version at K elements per
+    row, forward and transpose: float32 within 1e-5 of the summed weighted
+    magnitudes and bit-identical run to run; bfloat16 on small integers with
+    the values rounded to eighths (dyadic: every product and partial sum
+    exact, one rounding each) equal.  Times each beside the unweighted
+    kernel, the plain version and ``torch.sparse.mm`` with the values."""
+    import dataclasses
+
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    n, e, dev = graph.n_nodes, graph.n_edges, graph.device
+    dyadic = dataclasses.replace(graph, val=torch.round(graph.val * 8) / 8,
+                                 t_val=torch.round(graph.t_val * 8) / 8)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x32 = torch.randn((n, k), generator=gen, device=dev)
+    xint = torch.randint(-8, 9, (n, k), generator=gen, device=dev).float()
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for transpose in (False, True):
+            direction = "bwd" if transpose else "fwd"
+            if dt == torch.float32:
+                x, g = x32, graph
+                out_k = sk.spmm_sum_rows(g, x, transpose, use_val=True)
+                torch.cuda.synchronize()
+                if not torch.equal(out_k, sk.spmm_sum_rows(g, x, transpose, use_val=True)):
+                    fail(f"{label}: weighted sum {direction} f32 is not deterministic")
+                out_p = sk.spmm_sum_plain(g, x, transpose, use_val=True)
+                mag = sk.spmm_sum_plain(g, x.abs(), transpose, use_val=True)
+                err = (out_k - out_p).abs()
+                if bool((err > 1e-5 * mag + 1e-7).any()):
+                    fail(f"{label}: weighted sum {direction} f32 differs from plain beyond "
+                         f"1e-5 of the summed magnitudes (max abs {err.max().item()})")
+            else:
+                x, g = xint.to(dt), dyadic
+                out_k = sk.spmm_sum_rows(g, x, transpose, use_val=True)
+                torch.cuda.synchronize()
+                out_p = sk.spmm_sum_plain(g, x, transpose, use_val=True)
+                if not torch.equal(out_k, out_p):
+                    fail(f"{label}: weighted sum {direction} bf16 differs from plain on "
+                         "small integers with dyadic values")
+            err_max = (out_k.float() - out_p.float()).abs().max().item()
+            print(f"{label}: weighted sum {direction} {tag} K={k} max abs err "
+                  f"{err_max:.3e}", flush=True)
+            indptr, idx, val = ((graph.t_indptr, graph.t_dst, graph.t_val) if transpose
+                                else (graph.indptr, graph.src, graph.val))
+            adj = torch.sparse_csr_tensor(indptr, idx, val.to(dt), size=(n, n),
+                                          check_invariants=False)
+            ms = median_ms(lambda: sk.spmm_sum_rows(graph, x, transpose, use_val=True), 10)
+            unweighted = median_ms(lambda: sk.spmm_sum_rows(graph, x, transpose), 10)
+            plain = median_ms(lambda: sk.spmm_sum_plain(graph, x, transpose, use_val=True), 3)
+            lib = median_ms(lambda: torch.sparse.mm(adj, x), 10)
+            esize = x.element_size()
+            name = f"spmm_sum_val_{direction}_{tag}"
+            # x read once, out written once, the CSR and its values; a
+            # multiply and an add per edge element
+            r = results[name] = kernel_entry(
+                name, "spmm_sum", err_max, ms, plain, lib,
+                2 * n * k * esize + 4 * (n + 1 + 2 * e), 2 * e * k, (n, k))
+            print(f"  {name}: {ms:.3f} ms (unweighted {unweighted:.3f}, plain {plain:.3f}, "
+                  f"library {lib:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']})",
+                  flush=True)
+            del adj
+    del x32, xint, dyadic
+    torch.cuda.empty_cache()
+
+
 def train_cli(data_root, cmd, agg, epochs):
     """One training run through the CLI, as a user calls it."""
     from plagnn_tpu_torch import cli
@@ -475,22 +600,49 @@ def gnn32_launches(tag, epochs):
             f"spmm_max_bwd_{tag}": LAYERS * epochs}
 
 
+def note_trace(path, label):
+    """Add the trace at ``path`` to TRACE_SESSIONS; print its launches
+    without a kernel event, if any."""
+    from plagnn_tpu_torch.utils.profiling import kernel_launches
+
+    lost, offsets, warm_lost = kernel_launches(path)
+    TRACE_SESSIONS.append((lost, lost + len(offsets), min(offsets, default=0.0), warm_lost))
+    if lost:
+        print(f"  trace of {label}: {lost} of {lost + len(offsets)} launches have no kernel "
+              f"event (the profiler lost them; its device times undercount)", flush=True)
+
+
+def profiled(fn, label):
+    """(fn's result, device_kernel_times of its trace) of one call inside
+    utils.profiling.trace, which fails where the call launched kernels and
+    its trace holds none."""
+    from plagnn_tpu_torch.utils.profiling import TRACE_FILE, trace
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with trace(log_dir):
+            out = fn()
+        path = os.path.join(log_dir, TRACE_FILE)
+        note_trace(path, label)
+        rows = device_kernel_times(path)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    return out, rows
+
+
 def profile_epochs(label, run, expected, smi_line):
-    """torch.profiler over one training run (``run()`` returns its chunk
-    stats), which must launch the ``expected`` kernels: device time per
+    """utils.profiling.trace over one training run (``run()`` returns its
+    chunk stats), which must launch the ``expected`` kernels: device time per
     epoch by kernel group, and the device's idle share against the steady
     epoch time.  Returns {kernel name: (ms per epoch, launches per epoch)}."""
-    from torch.profiler import ProfilerActivity, profile
-
     reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stats = run()
+    stats, rows = profiled(run, label)
     check_launches(f"profiled {label}", expected)
     ms = [m for s in stats for m in s.epoch_ms]
     groups = {}
     top = []
     per_kernel = {}
-    for total_ms, count, name in device_kernel_times(prof):
+    for total_ms, count, name in rows:
         low = name.lower()
         if "spmm_max" in low:
             grp = "spmm_max kernels"
@@ -547,13 +699,14 @@ def crosscheck_max_fwd(per_kernel, results, smi_line):
           f"(median of 10, both kernels); ratio {total / event_ms:.3f}", flush=True)
 
 
-def record_launches(results, counts):
+def record_launches(results, counts, names=None):
     """Each kernel entry takes the launches of the run whose path it is on:
     its counter's, at every width that run aggregates (an entry at conv2's
-    width is the same kernel as its counter's)."""
+    width is the same kernel as its counter's); ``names`` limits the
+    entries a run sets."""
     for name, r in results.items():
         c = counts.get(name.removesuffix(CONV2), 0)
-        if c:
+        if c and (names is None or name in names):
             r["launches"] = c
 
 
@@ -799,7 +952,9 @@ def time_pcc_kernels(data_root, results):
 
     n_hits = pcc_scan.pcc_diff_hits(z_i, z_n, hi, csr)[0].numel()
     lib_n = (lib_counts(), lib_hits().shape[0])
-    pairs = n * n
+    # d(i, j) and d(j, i) are the same bits (products commute, t ascending
+    # in both), so the function needs d once per unordered pair
+    pairs = n * (n - 1) // 2
     timed = (
         ("pcc_diff_count_f64", lambda: pcc_scan.pcc_diff_counts(z_i, z_n, lo, hi),
          lambda: pcc_scan.pcc_diff_counts_plain(z_i, z_n, lo, hi), lib_counts,
@@ -825,39 +980,33 @@ def time_pcc_kernels(data_root, results):
     torch.cuda.empty_cache()
 
 
-def device_kernel_times(prof):
-    """(ms, launches, name) of each kernel in a torch.profiler trace, from
-    its device-side events only (the op that launched a kernel reports the
-    same time as its own)."""
-    from torch.autograd import DeviceType
+def device_kernel_times(path):
+    """(ms, launches, name) of each kernel, copy and memset that the block
+    of the trace at ``path`` ran (utils.profiling.block_device_events)."""
+    from plagnn_tpu_torch.utils.profiling import block_device_events
 
-    rows = []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us / 1e3, ev.count, ev.key))
-    return rows
+    rows = {}
+    for name, us in block_device_events(path):
+        total, count = rows.get(name, (0.0, 0))
+        rows[name] = (total + us, count + 1)
+    return [(total / 1e3, count, name) for name, (total, count) in rows.items()]
 
 
 def profile_call(label, fn):
-    """One call under torch.profiler: its wall time and the device time of
-    each kernel it ran (the wrapper's own kernels, its checks and its
+    """One call inside utils.profiling.trace: its wall time and the device
+    time of each kernel it ran (the wrapper's own kernels, its checks and its
     bookkeeping), so a wrapper's time splits into its parts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def timed():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = device_kernel_times(prof)
+        return (time.perf_counter() - t0) * 1e3
+
+    fn()
+    torch.cuda.synchronize()
+    wall, rows = profiled(timed, label)
     busy = sum(r[0] for r in rows)
     print(f"  profile of one {label} call: wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms", flush=True)
@@ -884,6 +1033,186 @@ def analysis_phase(data_root, results):
     check_pcc_kernels(data_root, topologies, cli_out["statistics"][0])
     time_pcc_kernels(data_root, results)
     record_launches(results, counts)
+
+
+def json_numbers(obj):
+    """Every number in a parsed JSON value."""
+    if isinstance(obj, dict):
+        return [v for x in obj.values() for v in json_numbers(x)]
+    if isinstance(obj, list):
+        return [v for x in obj for v in json_numbers(x)]
+    return [obj] if isinstance(obj, (int, float)) and not isinstance(obj, bool) else []
+
+
+def hist_inputs(data_root, name):
+    """As ``figures --diff-hist`` sets up one dataset on the card: the
+    float64 factors, the reference's edges and PPI_normal's entries > 0."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from plagnn_tpu_torch.analysis.figures import default_bins, positive_csr
+    from plagnn_tpu_torch.data.expression import pcc_factors
+
+    gm = os.path.join(data_root, "generate_materials")
+    d = os.path.join(gm, f"{name}_data")
+    z_i, z_n = (torch.as_tensor(pcc_factors(np.load(os.path.join(d, f))), device=DEVICE)
+                for f in ("expr_inter.npy", "expr_normal.npy"))
+    ppi = sp.load_npz(os.path.join(gm, "PPI_normal.npz"))
+    edges = torch.as_tensor(default_bins(), device=DEVICE)
+    return z_i, z_n, edges, positive_csr(ppi, DEVICE)
+
+
+def check_hist(data_root, name):
+    """One dataset's diff_hist.json against the plain version on the card,
+    bin for bin, and the counts' sums against N² - N and the PPI's
+    off-diagonal entries, less the pairs outside the edges."""
+    import torch
+
+    from plagnn_tpu_torch.data.expression import pcc_at_edges_torch
+    from plagnn_tpu_torch.ops import pcc_scan
+
+    z_i, z_n, edges, csr = hist_inputs(data_root, name)
+    n = z_i.shape[0]
+    with open(os.path.join(data_root, "generate_materials", f"{name}_data",
+                           "diff_hist.json")) as f:
+        hist = json.load(f)
+    p_linked, p_unlinked = pcc_scan.pcc_diff_histogram_plain(z_i, z_n, edges, csr)
+    if not (hist["linked"] == p_linked.tolist() and hist["unlinked"] == p_unlinked.tolist()):
+        fail(f"{name}: the histogram kernel's counts differ from the plain version's")
+    e_lo, e_hi = float(edges[0]), float(edges[-1])
+    below, above = pcc_scan.pcc_diff_counts(z_i, z_n, e_lo, e_hi)  # d(i, i) = 0 is inside
+    indptr, indices = csr
+    rows = torch.repeat_interleave(torch.arange(n, device=DEVICE), indptr[1:] - indptr[:-1])
+    off = rows != indices.long()
+    d = (pcc_at_edges_torch(z_i, rows[off], indices[off].long())
+         - pcc_at_edges_torch(z_n, rows[off], indices[off].long()))
+    links_inside = int(((d >= e_lo) & (d <= e_hi)).sum())
+    total = sum(hist["linked"]) + sum(hist["unlinked"])
+    if total != n * n - n - below - above or sum(hist["linked"]) != links_inside:
+        fail(f"{name}: histogram sums {sum(hist['linked'])} + {sum(hist['unlinked'])}, "
+             f"expected {links_inside} linked of {n * n - n - below - above}")
+    print(f"{name}: ΔPCC histogram kernel = plain bin for bin; {sum(hist['linked'])} "
+          f"linked + {sum(hist['unlinked'])} unlinked = N² - N - {below + above} outside "
+          f"the edges; {int(off.sum())} off-diagonal links, {links_inside} inside", flush=True)
+
+
+def check_save_diff(smi_line):
+    """``figures --save-diff`` on a synth bundle of SAVE_DIFF_NODES
+    proteins with a perturbed expr_inter.npy: the arrays' lengths and
+    hist_data.json's sums."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from plagnn_tpu_torch import cli
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_diff_")
+    try:
+        n = SAVE_DIFF_NODES
+        cli.main(["synth", "--data-root", root, "--nodes", str(n),
+                  "--edges", str(EDGES * n // NODES), "--seed", str(SEED)])
+        gm = os.path.join(root, "generate_materials")
+        rng = np.random.default_rng(SEED)
+        for name, _ in ANALYSIS_DATASETS:
+            d = os.path.join(gm, f"{name}_data")
+            expr_n = np.load(os.path.join(d, "expr_normal.npy"))
+            np.save(os.path.join(d, "expr_inter.npy"),
+                    expr_n * np.exp(PERTURB_SIGMA * rng.standard_normal(expr_n.shape)))
+        t0 = time.perf_counter()
+        cli.main(["figures", "--data-root", root, "--save-diff"])
+        wall = time.perf_counter() - t0
+        ppi = sp.load_npz(os.path.join(gm, "PPI_normal.npz")).tocsr()
+        ppi.sum_duplicates()
+        links = int((ppi.data > 0).sum())
+        for name, _ in ANALYSIS_DATASETS:
+            d = os.path.join(gm, f"{name}_data")
+            sizes = {f: np.load(os.path.join(d, f"diff{f}.npy"), mmap_mode="r").shape[0]
+                     for f in ("", "_link", "_unlink")}
+            if sizes != {"": n * n, "_link": links, "_unlink": n * n - links}:
+                fail(f"save-diff {name}: lengths {sizes}, expected N² {n * n}, "
+                     f"{links} links and the rest")
+            with open(os.path.join(d, "hist_data.json")) as f:
+                hist = json.load(f)
+            sums = {flag: sum(c for _, c in hist[flag][1]) for flag in ("all", "link", "unlink")}
+            if sums != {"all": sizes[""], "link": sizes["_link"], "unlink": sizes["_unlink"]}:
+                fail(f"save-diff {name}: hist_data.json sums {sums}, arrays {sizes}")
+        print(f"figures --save-diff at N = {n} ({smi_line}): {wall:.3f} s for 3 datasets; "
+              f"diff.npy {n * n}, diff_link.npy {links}, diff_unlink.npy {n * n - links} "
+              f"values each, hist_data.json sums equal", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def time_hist_kernel(data_root, results, smi_line):
+    """The histogram kernel on GSE30931's inputs at full width: CUDA events
+    (median of 10), its plain version (median of 3) and the blocked yardstick
+    (torch.matmul of both products per 2,048-row block, bucketize against the
+    edges, the CSR mask, bincount; median of 3), never on the path."""
+    import torch
+
+    from plagnn_tpu_torch.ops import pcc_scan
+
+    z_i, z_n, edges, csr = hist_inputs(data_root, ANALYSIS_DATASETS[0][0])
+    n, k = z_i.shape
+    nb = edges.numel() - 1
+    indptr, indices = csr
+    ptr = indptr.cpu().numpy()
+
+    def lib_hist():
+        counts = torch.zeros(2 * nb, dtype=torch.int64, device=DEVICE)
+        for r0 in range(0, n, LIB_BLOCK_ROWS):
+            r1 = min(r0 + LIB_BLOCK_ROWS, n)
+            d = z_i[r0:r1] @ z_i.T - z_n[r0:r1] @ z_n.T
+            counts += pcc_scan._bin_block(d, edges, indptr, indices, ptr, r0, r1)
+        return counts
+
+    kern = lambda: pcc_scan.pcc_diff_histogram(z_i, z_n, edges, csr)  # noqa: E731
+    ms = median_ms(kern, 10)
+    plain_ms = median_ms(lambda: pcc_scan.pcc_diff_histogram_plain(z_i, z_n, edges, csr), 3)
+    lib_ms = median_ms(lib_hist, 3)
+    # z read once, the edges, the CSR, the counts written; per unordered pair
+    # (d(i, j) and d(j, i) are the same bits, and so is their bin) d (4k - 1
+    # float64 operations), the range (2 compares) and the bin's two edges
+    nbytes = 2 * n * k * 8 + 8 * (nb + 1) + 8 * (n + 1) + 4 * indices.numel() + 16 * nb
+    r = results["pcc_diff_hist_f64"] = kernel_entry(
+        "pcc_diff_hist_f64", "pcc_diff_scan", 0.0, ms, plain_ms, lib_ms, nbytes,
+        n * (n - 1) // 2 * (4 * k + 3), (n, k), FP64_OPS_PER_S)
+    print(f"  pcc_diff_hist_f64 ({smi_line}): {ms:.3f} ms (plain {plain_ms:.3f}, blocked "
+          f"DGEMM + bucketize + bincount {lib_ms:.3f}, bound {r['bound_ms']:.3f} by "
+          f"{r['bound_by']}) at N = {n}, k = {k}, {nb} bins", flush=True)
+    profile_call("pcc_diff_hist_f64", kern)
+    torch.cuda.empty_cache()
+
+
+def figures_phase(data_root, results, smi_line):
+    """Phase 4f: ``figures --diff-hist --alpha-dist`` through the CLI with
+    every launch counter at 0 before and read after, then the checks, the
+    --save-diff run at SAVE_DIFF_NODES and the kernel's timings."""
+    from plagnn_tpu_torch import cli
+
+    reset_launches()
+    t0 = time.perf_counter()
+    written = cli.main(["figures", "--data-root", data_root, "--diff-hist", "--alpha-dist",
+                        "-d", DEVICE])
+    wall = time.perf_counter() - t0
+    counts = check_launches("figures", {"pcc_diff_hist_f64": len(ANALYSIS_DATASETS)})
+    print(f"wall: figures --diff-hist --alpha-dist {wall:.3f} s ({smi_line}), "
+          f"{len(written)} JSON files", flush=True)
+    want = {"diff_hist.json": len(ANALYSIS_DATASETS), "alpha_dist.json": 2,
+            "AIM.json": 2, "COV.json": 2, "mlACC.json": 2}
+    got = {f: sum(1 for p in written if os.path.basename(p) == f) for f in want}
+    if got != want:
+        fail(f"figures wrote {got}, expected {want}")
+    for path in written:
+        with open(path) as f:
+            numbers = json_numbers(json.load(f))
+        if not numbers or not all(math.isfinite(v) for v in numbers):
+            fail(f"figures: {path} holds no numbers or non-finite ones")
+    for name, _ in ANALYSIS_DATASETS:
+        check_hist(data_root, name)
+    check_save_diff(smi_line)
+    time_hist_kernel(data_root, results, smi_line)
+    record_launches(results, counts, ("pcc_diff_hist_f64",))
 
 
 def write_raw_inputs(root):
@@ -1046,8 +1375,8 @@ def time_ecc(graphs, results, smi_line):
     the plain version (median of 3, of 1 on PPI_inter), the bound (the CSR
     and the queries read once, the counts written once; one int32 lookup
     per element of each pair's shorter row) and cuSPARSE's A·A
-    (``torch.sparse.mm`` on the CSR, float32 ones; normal graph only, a
-    yardstick never on the path)."""
+    (``torch.sparse.mm`` on the CSR, float32 ones, median of 3 on the
+    normal graph and of 1 on PPI_inter; a yardstick never on the path)."""
     import torch
 
     from plagnn_tpu_torch.ops import common_neighbors as cn
@@ -1063,14 +1392,24 @@ def time_ecc(graphs, results, smi_line):
         ms = median_ms(lambda: cn.common_neighbors(csr, rows, cols), 10)
         plain_ms = median_ms(lambda: cn.common_neighbors_plain(csr, rows, cols),
                              3 if g == 0 else 1)
-        lib_ms = None
-        if g == 0:
-            adj = torch.sparse_csr_tensor(indptr, indices.long(),
-                                          torch.ones(nnz, device=DEVICE), size=(n, n))
-            lib_ms = median_ms(lambda: torch.sparse.mm(adj, adj), 3)
-            lib_nnz = torch.sparse.mm(adj, adj)._nnz()
-            del adj
-            torch.cuda.empty_cache()
+        adj = torch.sparse_csr_tensor(indptr, indices.long(),
+                                      torch.ones(nnz, device=DEVICE), size=(n, n))
+        lib_ms, lib_note = None, ""
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        try:
+            # a yardstick only: where cuSPARSE cannot run A·A, its error and
+            # the memory asked for are the finding
+            lib_ms = median_ms(lambda: torch.sparse.mm(adj, adj), 3 if g == 0 else 1)
+            lib_note = f", A·A nnz {torch.sparse.mm(adj, adj)._nnz()}"
+        except (torch.cuda.OutOfMemoryError, RuntimeError) as err:
+            free, total = torch.cuda.mem_get_info()
+            lib_note = (f", A·A failed: {str(err).splitlines()[0][:300]} (peak "
+                        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
+                        f"allocated for it; {free / 2**30:.1f} of {total / 2**30:.1f} GiB "
+                        f"free after)")
+        del adj
+        torch.cuda.empty_cache()
         nbytes = 8 * (n + 1) + 4 * nnz + 8 * q + 4 * q
         entry = kernel_entry("ecc_common_neighbors_i32", "common_neighbors", 0.0, ms,
                              plain_ms, lib_ms, nbytes, lookups, (n, q), INT32_OPS_PER_S)
@@ -1081,8 +1420,7 @@ def time_ecc(graphs, results, smi_line):
               f"A·A {'not measured' if lib_ms is None else f'{lib_ms:.3f}'}, bound "
               f"{entry['bound_ms']:.4f} by {entry['bound_by']}) at N = {n}, {q} pairs, "
               f"max degree {int(deg.max())}, sum min(deg) {lookups} lookups, "
-              f"~{probes} binary-search probes"
-              + (f", A·A nnz {lib_nnz}" if g == 0 else ""), flush=True)
+              f"~{probes} binary-search probes{lib_note}", flush=True)
 
 
 def time_pca(root, smi_line):
@@ -1160,6 +1498,160 @@ def preprocess_phase(results, smi_line):
         time_pca(root, smi_line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def relu_features(n_pad, k, seed):
+    """(n_pad, k) float32 on the card: relu of bf16-representable normals
+    (ties at 0, identical in f32 and bf16)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((n_pad, k), generator=gen, device=DEVICE)
+    return x.to(torch.bfloat16).float().relu_()
+
+
+def time_orders(label, coo_ppi, smi_line):
+    """The max forward (with the argmax, K = 10 x 503) and the sum (K = 10
+    x 400) on one topology under the identity, RCM and greedy orders: each
+    order's graph is built from the relabelled edges, features go in as
+    x[perm] and outputs come back as out[inv_perm], which must equal the
+    identity order's (the sum on small integers, exact in any order)."""
+    import numpy as np
+    import torch
+
+    from plagnn_tpu_torch.ops import reorder
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+    from plagnn_tpu_torch.ops.graph_format import build_graph
+
+    src, dst = coo_ppi.row.astype(np.int64), coo_ppi.col.astype(np.int64)
+    t0 = time.perf_counter()
+    rcm = reorder.rcm_order(src, dst, NODES)
+    t1 = time.perf_counter()
+    greedy = reorder.greedy_coalesce_order(src, dst, NODES)
+    t2 = time.perf_counter()
+    orders = (("identity", np.arange(NODES, dtype=np.int64), 0.0),
+              ("rcm", rcm, t1 - t0), ("greedy", greedy, t2 - t1))
+    base = build_graph(src, dst, NODES, add_self_loops=True)
+    x_max = relu_features(base.n_nodes, FOLDS * F_IN, 21)
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    x_sum = torch.randint(-8, 9, (base.n_nodes, FOLDS * GCN2_HIDDEN), generator=gen,
+                          device=DEVICE).float()
+    want = None
+    for name, perm, host_s in orders:
+        s, d = reorder.relabel_edges(src, dst, perm)
+        g = build_graph(s, d, NODES, add_self_loops=True).to(DEVICE)
+        p = torch.as_tensor(perm, device=DEVICE)
+        inv = torch.empty_like(p)
+        inv[p] = torch.arange(NODES, device=DEVICE)
+        xm, xs = torch.zeros_like(x_max), torch.zeros_like(x_sum)
+        xm[:NODES], xs[:NODES] = x_max[p], x_sum[p]
+        got = (sk.spmm_max_fwd(g, xm)[0][inv], sk.spmm_sum_rows(g, xs)[inv])
+        torch.cuda.synchronize()
+        if want is None:
+            want = got
+        elif not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"{label} {name} order: the restored outputs differ from the identity's")
+        max_ms = median_ms(lambda: sk.spmm_max_fwd(g, xm), 10)
+        sum_ms = median_ms(lambda: sk.spmm_sum_rows(g, xs), 10)
+        print(f"  order {label} {name} ({smi_line}): max forward f32 K={FOLDS * F_IN} "
+              f"{max_ms:.3f} ms, sum f32 K={FOLDS * GCN2_HIDDEN} {sum_ms:.3f} ms, host "
+              f"order {host_s:.3f} s; outputs restored = identity's", flush=True)
+        del g, xm, xs
+    t0 = time.perf_counter()
+    report = reorder.coalesce_report(src, dst, NODES)
+    print(f"  coalesce_report {label} ({time.perf_counter() - t0:.3f} s): "
+          + json.dumps(report), flush=True)
+    del x_max, x_sum
+    torch.cuda.empty_cache()
+
+
+def other_ops_phase(results, smi_line):
+    """Phase 4o: the sampled graphs' max forward and backward (the first
+    inside utils.profiling.trace) and the weighted sum's forward and
+    backward through autograd, with every launch counter at 0 before and
+    read after; then the checks and the reorder timings."""
+    import numpy as np
+    import torch
+
+    from plagnn_tpu_torch.data.synthetic import clustered_ppi, powerlaw_ppi
+    from plagnn_tpu_torch.ops.graph_format import build_graph
+    from plagnn_tpu_torch.ops.sampling import sample_neighbors, sampled_graph
+    from plagnn_tpu_torch.ops.spmm import spmm_max, spmm_sum
+    from plagnn_tpu_torch.utils.profiling import (TRACE_FILE, TRACE_MARGIN_S,
+                                                  WARMUP_LAUNCHES, trace)
+
+    ppi = powerlaw_ppi(NODES, EDGES, SEED)
+    src, dst = ppi.row.astype(np.int64), ppi.col.astype(np.int64)
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        reset_launches()
+        graphs = {}
+        for fanout in FANOUTS:
+            t0 = time.perf_counter()
+            g = sampled_graph(src, dst, NODES, fanout, seed=SEED).to(DEVICE)
+            host_s = time.perf_counter() - t0
+            x = relu_features(g.n_nodes, FOLDS * F_IN, fanout).requires_grad_()
+            if fanout == FANOUTS[0]:
+                with trace(trace_dir) as prof:
+                    out = spmm_max(g, x)
+                    torch.cuda.synchronize()
+                table = [ev.key for ev in prof.key_averages() if "spmm" in ev.key]
+            else:
+                out = spmm_max(g, x)
+            out.backward(torch.ones_like(out))
+            torch.cuda.synchronize()
+            graphs[fanout] = g
+            print(f"sampled graph fanout {fanout}: {g.n_edges} edges (with self-loops), "
+                  f"max in-degree {int(g.in_degree.max())}, sampled and built in "
+                  f"{host_s:.3f} s", flush=True)
+        s, d = sample_neighbors(src, dst, NODES, FANOUTS[0], seed=SEED)
+        val = np.random.default_rng(SEED).uniform(0.5, 1.5, len(s))
+        wg = build_graph(s, d, NODES, add_self_loops=True, edge_val=val).to(DEVICE)
+        for dt in (torch.float32, torch.bfloat16):
+            x = relu_features(wg.n_nodes, FOLDS * GCN2_HIDDEN, 3).to(dt).requires_grad_()
+            out = spmm_sum(wg, x, use_val=True)
+            out.backward(torch.ones_like(out))
+        torch.cuda.synchronize()
+        n_max = len(FANOUTS)
+        counts = check_launches("other ops", {
+            "spmm_max_fwd_f32": n_max, "spmm_max_bwd_f32": n_max,
+            "spmm_sum_val_fwd_f32": 1, "spmm_sum_val_bwd_f32": 1,
+            "spmm_sum_val_fwd_bf16": 1, "spmm_sum_val_bwd_bf16": 1})
+        record_launches(results, counts, [n for n in counts if n.startswith("spmm_sum_val_")])
+        with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [str(ev.get("name")) for ev in events if ev.get("cat") == "kernel"]
+        if not any("spmm_max_fwd" in k for k in kernels):
+            cats = {}
+            for ev in events:
+                cats[ev.get("cat")] = cats.get(ev.get("cat"), 0) + 1
+            fail(f"the trace of the sampled-graph forward names no max-forward kernel: "
+                 f"{len(events)} events by category {cats}, kernels {kernels[:5]}; "
+                 f"the profiler's own table: {table[:5]}")
+        note_trace(os.path.join(trace_dir, TRACE_FILE), "the sampled-graph forward")
+        early = [-s[2] for s in TRACE_SESSIONS if s[2] < 0]
+        print(f"trace: {TRACE_FILE} names the max-forward kernel "
+              f"({[k[:60] for k in kernels if 'spmm_max_fwd' in k]}); {len(TRACE_SESSIONS)} "
+              f"traced sessions, {sum(1 for s in TRACE_SESSIONS if s[0])} of them with "
+              f"{sum(s[0] for s in TRACE_SESSIONS)} of {sum(s[1] for s in TRACE_SESSIONS)} "
+              f"block launches without a kernel event; the warm-ups lost "
+              f"{[s[3] for s in TRACE_SESSIONS]} of {WARMUP_LAUNCHES} launches; "
+              f"{len(early)} hold a kernel whose start precedes its launch, by up to "
+              f"{max(early, default=0.0) / 1e3:.3f} ms (margin {TRACE_MARGIN_S * 1e3:.0f} ms)",
+              flush=True)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    for fanout, g in graphs.items():
+        check_kernels(g, relu_features(g.n_nodes, FOLDS * F_IN, 30 + fanout),
+                      f"sampled graph fanout {fanout}")
+    del graphs, wg
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    clustered = clustered_ppi(NODES, EDGES, SEED)
+    print(f"clustered_ppi({NODES}, {EDGES}, seed {SEED}): {clustered.nnz} entries, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for label, coo in (("powerlaw", ppi), ("clustered", clustered)):
+        time_orders(label, coo, smi_line)
 
 
 def sweep_row_chunk(full):
@@ -1321,6 +1813,10 @@ def main(argv=None):
                       results, suffix=CONV2)
     del full_cuda
     torch.cuda.empty_cache()
+    # the edge-weighted sum at conv1's width
+    check_val_sum_kernels(weighted_graph(powerlaw_ppi(NODES, EDGES, SEED), SEED),
+                          FOLDS * SUM_WIDTHS[0], "full graph weighted", results)
+    torch.cuda.empty_cache()
     if args.only_kernels or args.sweep_row_chunk:
         print(json.dumps({"kernels": list(results.values())}))
         if args.sweep_row_chunk:
@@ -1351,6 +1847,8 @@ def main(argv=None):
             report_run(f"GNN32 {cmd} {agg}", stats, wall, counts, smi_line)
         phase("4a analysis at full width")
         analysis_phase(tmp, results)
+        phase("4f figures at full width")
+        figures_phase(tmp, results, smi_line)
         phase("4b profile")
         # the earlier run's artifacts would make this one resume past its round
         shutil.rmtree(os.path.join(tmp, "log"))
@@ -1368,6 +1866,8 @@ def main(argv=None):
         shutil.rmtree(tmp, ignore_errors=True)
     phase("4p preprocess at full width")
     preprocess_phase(results, smi_line)
+    phase("4o other ops at full width")
+    other_ops_phase(results, smi_line)
 
     phase("5 summary")
     kernels = [results[k] for k in (
@@ -1375,7 +1875,9 @@ def main(argv=None):
         "spmm_max_bwd_f32", "spmm_max_bwd_bf16",
         "spmm_sum_fwd_f32", "spmm_sum_fwd_bf16", "spmm_sum_bwd_f32", "spmm_sum_bwd_bf16",
         "spmm_sum_fwd_f32" + CONV2, "spmm_sum_bwd_f32" + CONV2,
-        "pcc_diff_count_f64", "pcc_diff_hits_f64", "ecc_common_neighbors_i32")]
+        "pcc_diff_count_f64", "pcc_diff_hits_f64", "ecc_common_neighbors_i32",
+        "pcc_diff_hist_f64", "spmm_sum_val_fwd_f32", "spmm_sum_val_bwd_f32",
+        "spmm_sum_val_fwd_bf16", "spmm_sum_val_bwd_bf16")]
     for r in kernels:
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):
             fail(f"{r['name']}: non-finite timing")

@@ -8,15 +8,18 @@
     python -m plagnn_tpu_torch.cli score          (mis-localization ranking)
     python -m plagnn_tpu_torch.cli performance    (CV metrics, random baselines)
     python -m plagnn_tpu_torch.cli statistics     (topology-change statistics)
+    python -m plagnn_tpu_torch.cli figures        (the figures' data, as JSON)
 
 Flag names, defaults and artifact paths match ``plagnn_tpu.cli`` (-data,
 -lr 5e-5, -f 10, -e 200, -a [0.1], --no-dense-gcn).  ``-d`` is the torch
 device (default ``cuda``) of training, ``preprocess`` (ECC counts,
-topology, PCA) and ``statistics``, and the device label written to
-txt_log.txt; without a card, a run needs an explicit ``-d cpu``.  There is
+topology, PCA), ``statistics`` and ``figures --diff-hist``, and the device
+label written to txt_log.txt; without a card, a run needs an explicit
+``-d cpu``.  There is
 one path: the CUDA kernels on a card, their plain PyTorch versions on the
 CPU.  ``score``, ``performance`` and ``geo`` are host work and take no
-``-d``.
+``-d``.  ``figures`` draws no PNG (no matplotlib on the port's machines):
+it writes the JSON each plot is drawn from, under the plot's stem.
 Only the single-device mesh ``fold=1,graph=1`` is accepted.
 """
 from __future__ import annotations
@@ -164,6 +167,21 @@ def main(argv=None):
     p.add_argument("--data-root", default="data")
     p.add_argument("-d", type=str, default="cuda",
                    help="torch device of the ΔPCC count (cuda, cuda:N or cpu)")
+    p = sub.add_parser("figures", help="the figures' data: JSON in place of the "
+                       "PNGs (no matplotlib); the ΔPCC histogram runs on -d")
+    p.add_argument("--data-root", default="data")
+    p.add_argument("--diff-hist", action="store_true",
+                   help="ΔPCC linked/unlinked histograms (figure.py save_diff/fig) "
+                        "as diff_hist.json in each GSE*_data")
+    p.add_argument("--save-diff", action="store_true",
+                   help="persist the ΔPCC artifact triple diff.npy/diff_link.npy/"
+                        "diff_unlink.npy + hist_data.json (figure.py:10-76 "
+                        "contract; O(N²) on disk)")
+    p.add_argument("--alpha-dist", action="store_true",
+                   help="per-organelle distributions + JS distance (figure.py "
+                        "fig_alpha) as alpha_dist.json in each log directory")
+    p.add_argument("-d", type=str, default="cuda",
+                   help="torch device of the --diff-hist scan (cuda, cuda:N or cpu)")
     p = sub.add_parser("synth", help="write a synthetic dataset bundle")
     p.add_argument("--data-root", default="data")
     p.add_argument("--nodes", type=int, default=24041)
@@ -198,8 +216,68 @@ def main(argv=None):
         from .train.engine import resolve_device
 
         return topology_statistics(args.data_root, device=resolve_device(args.d))
+    if args.cmd == "figures":
+        return _figures(args)
     _write_synth(args)
     return None
+
+
+def _figures(args):
+    """``plagnn_tpu.cli figures`` with JSON in place of its PNGs; returns the
+    paths of the JSON files written.  The ΔPCC scan's device is resolved,
+    and required, only for ``--diff-hist``."""
+    import glob
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from .analysis.figures import (
+        diff_hist_json, diff_histogram, fig_alpha, fig_and_perf, hist_data_from_diff,
+        save_diff,
+    )
+    from .data.expression import pcc_factors
+    from .train.engine import resolve_device
+
+    device = resolve_device(args.d) if args.diff_hist else None
+    written = []
+    for fd in sorted(glob.glob(os.path.join(args.data_root, "log", "GSE*", "*",
+                                            "fig_data_*.json"))):
+        out_dir = os.path.dirname(fd)
+        fig_and_perf(fd, out_dir=out_dir)
+        written += [os.path.join(out_dir, f"{m}.json") for m in ("AIM", "COV", "mlACC")]
+    gm = os.path.join(args.data_root, "generate_materials")
+
+    def datasets():
+        """(dataset dir, z_normal, z_inter) of each GSE*_data with both
+        expression files."""
+        for dsd in sorted(glob.glob(os.path.join(gm, "GSE*_data"))):
+            en = os.path.join(dsd, "expr_normal.npy")
+            ei = os.path.join(dsd, "expr_inter.npy")
+            if os.path.exists(en) and os.path.exists(ei):
+                yield dsd, pcc_factors(np.load(en)), pcc_factors(np.load(ei))
+
+    if args.save_diff:
+        ppi = sp.load_npz(os.path.join(gm, "PPI_normal.npz"))
+        for dsd, z_n, z_i in datasets():
+            save_diff(z_i, z_n, ppi, dsd)
+            hist_data_from_diff(dsd)
+    if args.diff_hist:
+        ppi = sp.load_npz(os.path.join(gm, "PPI_normal.npz"))
+        for dsd, z_n, z_i in datasets():
+            bins, linked, unlinked = diff_histogram(z_i, z_n, ppi, device=device)
+            written.append(diff_hist_json(os.path.join(dsd, "diff_hist.json"),
+                                          bins, linked, unlinked))
+    if args.alpha_dist:
+        loc = sp.load_npz(os.path.join(gm, "loc_matrix.npz")).toarray()
+        label_dist = loc.sum(0) / max(loc.sum(), 1)
+        for ld in sorted(glob.glob(os.path.join(args.data_root, "log", "GSE*", "*"))):
+            if os.path.isdir(ld):
+                out = os.path.join(ld, "alpha_dist.json")
+                fig_alpha(ld, out, label_dist)
+                written.append(out)
+    print(f"figures: no PNG is drawn (no matplotlib); wrote {len(written)} JSON "
+          f"files in their place: {', '.join(written) or 'none'}")
+    return written
 
 
 def _write_synth(args):

@@ -5,7 +5,9 @@
 //   -> pcc_diff_counts;
 // * plagnn_tpu/data/topology.py: modify_network_topology's blocked scan
 //   (numpy GEMM blocks, or native/plagnn_native.cpp: diff_threshold_scan)
-//   -> pcc_diff_hit_counts + pcc_diff_hit_write.
+//   -> pcc_diff_hit_counts + pcc_diff_hit_write;
+// * plagnn_tpu/analysis/figures.py: diff_histogram (numpy GEMM blocks and
+//   np.histogram) -> pcc_diff_hist.
 //
 // For rows z_i[r], z_n[r] of k float64 values (the standardized expression
 // factors, PCC = Z·Zᵀ; 1 <= k <= 16):
@@ -29,10 +31,15 @@
 // 24,041, k = 3), read once.  The H100 SXM data sheet gives 34 TFLOP/s of
 // float64 outside the tensor cores, counting an FMA as two operations: 17e12
 // float64 instructions a second.  With no contraction each multiply, add,
-// subtract and compare is one instruction, so the count over 578 M pairs at
-// k = 3 takes at least 578e6 x 13 / 17e12 = 0.44 ms.  The hits take two
-// passes over the pairs (count, then write at scanned offsets), so at best
-// twice the bound of one pass.
+// subtract and compare is one instruction.  d(i, j) and d(j, i) are the
+// same bits (the products commute and are summed in the same t order), so
+// the work needs d, its compares and its bin once per unordered pair; these
+// kernels evaluate every ordered pair, twice that.  So the count over the
+// 289 M unordered pairs at k = 3 takes at least 289e6 x 13 / 17e12 = 0.22
+// ms, and the hits 289e6 x 12 / 17e12 = 0.20 ms; the hit kernels take two
+// passes over the ordered pairs (count, then write at scanned offsets).
+// The histogram adds 2 compares for the range and 2 with the bin's edges a
+// pair: 4k + 3 = 15 at k = 3, 0.26 ms.
 //
 // Design.  Each block stages a tile of kTileCols columns (z_i's k values,
 // then z_n's) in shared memory, loaded once and used by all the block's
@@ -52,6 +59,21 @@
 //   them (torch.cumsum) into row offsets; the second pass recomputes d and
 //   writes each step's hits at offset + popcount(ballot below the lane),
 //   so positions follow from the scan and the ballots, never from atomics.
+// * Histogram: the count kernel's layout (one row per thread, a column
+//   tile staged in shared memory and read by all threads at once), each
+//   block over kHistCols columns, with a per-thread merge pointer into the
+//   row's CSR neighbours for "linked" (columns ascend along a thread's
+//   walk, so the pointer only moves forward).  The pairs i != j are
+//   binned by np.histogram's rule for an array of edges: bin b where
+//   edges[b] <= d < edges[b+1], the last bin closed on the right, values
+//   outside [edges[0], edges[nb]] dropped.  A guess from the mean bin
+//   width is corrected by comparing d with the edges, so the bin is what
+//   the comparisons say.  d is concentrated in a few central bins, so the
+//   block's shared histogram has C copies (32 where they fit), word
+//   bin * C + lane % C: lanes never share a word and, with C = 32, never
+//   a bank, so a warp's 32 shared atomics do not serialise on a hot bin.
+//   The block adds each nonzero bin's copies and adds the sum into the
+//   global int64 counts with one integer atomicAdd, exact in any order.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -297,6 +319,95 @@ pcc_diff_hit_kernel(const double* __restrict__ zi, const double* __restrict__ zn
   }
 }
 
+// Histogram blocks: kCountThreads rows (one a thread) by kHistCols columns.
+// Dynamic shared memory: the column tile, the n_bins + 1 edges and the
+// 2 * n_bins * copies counters; copies is the largest power of two up to
+// kHistCopies whose block fits kHistSmemTarget (two blocks an SM), else 1
+// if that fits the most a block may take.
+constexpr int kHistCols = 1024;
+constexpr int kHistCopies = 32;
+constexpr size_t kHistSmemTarget = 112 * 1024;
+constexpr size_t kSmemMax = 232448;
+
+// counts[0 .. n_bins): linked pairs by bin; counts[n_bins .. 2 n_bins):
+// the other pairs i != j.  Row and column ids are int (n <= INT_MAX - 1024).
+template <int K>
+__global__ void __launch_bounds__(kCountThreads)
+pcc_diff_hist_kernel(const double* __restrict__ zi, const double* __restrict__ zn,
+                     int n, const double* __restrict__ edges, int n_bins,
+                     double inv_width, int copies, const int64_t* __restrict__ indptr,
+                     const int* __restrict__ indices,
+                     unsigned long long* __restrict__ counts) {
+  constexpr int S = col_stride<K>();
+  extern __shared__ __align__(16) double smem[];
+  double* tile = smem;
+  double* edge = tile + kTileCols * S;
+  unsigned* hist = reinterpret_cast<unsigned*>(edge + n_bins + 1);
+  for (int i = threadIdx.x; i < 2 * n_bins * copies; i += kCountThreads) hist[i] = 0u;
+  for (int i = threadIdx.x; i <= n_bins; i += kCountThreads) edge[i] = edges[i];
+
+  const int row = static_cast<int>(blockIdx.y) * kCountThreads + static_cast<int>(threadIdx.x);
+  const bool live = row < n;
+  const int g0 = static_cast<int>(blockIdx.x) * kHistCols;
+  const int g1 = n - g0 < kHistCols ? n : g0 + kHistCols;
+  double ri[K], rn[K];
+  load_row<K>(zi, zn, row, live, ri, rn);
+  // the merge pointer: the row's first neighbour >= g0 (a lower bound) and
+  // its column id (INT_MAX past the row's end)
+  int64_t p = 0, p_end = 0;
+  if (live) {
+    p = indptr[row];
+    p_end = indptr[row + 1];
+    int64_t top = p_end;
+    while (p < top) {
+      const int64_t mid = p + (top - p) / 2;
+      if (indices[mid] < g0) {
+        p = mid + 1;
+      } else {
+        top = mid;
+      }
+    }
+  }
+  int nb = p < p_end ? indices[p] : INT_MAX;
+  const int mine = static_cast<int>(threadIdx.x) & (copies - 1);
+
+  for (int c0 = g0; c0 < g1; c0 += kTileCols) {
+    __syncthreads();  // the previous tile is done (and, at first, the edges and zeros are in)
+    load_tile<K, kTileCols>(zi, zn, n, c0, tile, kCountThreads);
+    __syncthreads();
+    if (!live) continue;
+    const double e_lo = edge[0];
+    const double e_hi = edge[n_bins];
+    const int cols = g1 - c0 < kTileCols ? g1 - c0 : kTileCols;
+    for (int c = 0; c < cols; ++c) {
+      const int j = c0 + c;
+      double v[2 * K];
+      load_col<K>(tile + c * S, v);
+      const double d = pair_diff<K>(ri, rn, v);
+      while (nb < j) {
+        ++p;
+        nb = p < p_end ? indices[p] : INT_MAX;
+      }
+      if (j == row || !(d >= e_lo && d <= e_hi)) continue;
+      // the guess (NaN or past the end: the last bin), then the edges decide
+      const double guess = (d - e_lo) * inv_width;
+      int b = guess < n_bins - 1 ? static_cast<int>(guess) : n_bins - 1;
+      while (b > 0 && d < edge[b]) --b;
+      while (b < n_bins - 1 && d >= edge[b + 1]) ++b;
+      const int bin = (nb == j ? 0 : n_bins) + b;
+      atomicAdd(hist + bin * copies + mine, 1u);
+    }
+  }
+  __syncthreads();
+  // each bin's copies, read from a rotated start so a warp's 32 bins hit 32
+  // banks; one global atomic per nonzero bin
+  for (int bin = threadIdx.x; bin < 2 * n_bins; bin += kCountThreads) {
+    unsigned long long s = 0;
+    for (int c = 0; c < copies; ++c) s += hist[bin * copies + ((c + bin) & (copies - 1))];
+    if (s) atomicAdd(counts + bin, s);
+  }
+}
+
 template <int K>
 int launch_counts(int64_t n, const double* zi, const double* zn, double lo, double hi,
                   unsigned long long* counts, cudaStream_t stream) {
@@ -319,6 +430,33 @@ int launch_hits(int64_t n, const double* zi, const double* zn, double hi,
   pcc_diff_hit_kernel<K, kWrite><<<static_cast<unsigned>(blocks), kHitThreads, 0, stream>>>(
       zi, zn, static_cast<int>(n), hi, indptr, indices, row_count, row_start, out_row,
       out_col);
+  return cudaGetLastError();
+}
+
+template <int K>
+int launch_hist(int64_t n, const double* zi, const double* zn, const double* edges,
+                int n_bins, double inv_width, const int64_t* indptr, const int* indices,
+                unsigned long long* counts, cudaStream_t stream) {
+  if (n > INT_MAX - 1024 || n_bins < 1) return cudaErrorInvalidValue;
+  const int64_t col_blocks = (n + kHistCols - 1) / kHistCols;
+  const int64_t row_tiles = (n + kCountThreads - 1) / kCountThreads;
+  if (row_tiles > 65535) return cudaErrorInvalidValue;
+  const size_t fixed = sizeof(double) * (kTileCols * col_stride<K>() + n_bins + 1);
+  int copies = 0;
+  for (int c = kHistCopies; c >= 1 && copies == 0; c /= 2) {
+    if (fixed + sizeof(unsigned) * 2 * n_bins * c <= kHistSmemTarget) copies = c;
+  }
+  if (copies == 0 && fixed + sizeof(unsigned) * 2 * n_bins <= kSmemMax) copies = 1;
+  if (copies == 0) return cudaErrorInvalidValue;
+  const size_t smem = fixed + sizeof(unsigned) * 2 * n_bins * copies;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      pcc_diff_hist_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(static_cast<unsigned>(col_blocks), static_cast<unsigned>(row_tiles));
+  pcc_diff_hist_kernel<K><<<grid, kCountThreads, smem, stream>>>(
+      zi, zn, static_cast<int>(n), edges, n_bins, inv_width, copies, indptr, indices,
+      counts);
   return cudaGetLastError();
 }
 
@@ -393,6 +531,35 @@ extern "C" int pcc_diff_hit_write(int k, long long n, const void* z_i, const voi
 #define PCC_CASE(K) \
   case K:           \
     return launch_hits<K, true>(n, zi, zn, hi, ip, ix, nullptr, rs, orow, ocol, st);
+    PCC_FOR_EACH_K(PCC_CASE)
+#undef PCC_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The ΔPCC histogram of the pairs i != j: counts (2 * n_bins unsigned long
+// long, zeroed by the caller) gets the linked pairs (in the CSR: indptr n + 1
+// int64, indices int32 ascending within each row) by bin, then the others.
+// edges: n_bins + 1 float64, strictly ascending and finite; inv_width: a
+// guess's scale, n_bins / (edges[n_bins] - edges[0]) (0 if that is not
+// finite; the bins come from comparisons with the edges either way).
+extern "C" int pcc_diff_hist(int k, long long n, const void* z_i, const void* z_n,
+                             const void* edges, int n_bins, double inv_width,
+                             const void* indptr, const void* indices, void* counts,
+                             void* stream) {
+  if (n <= 0) return cudaSuccess;
+  const auto* zi = static_cast<const double*>(z_i);
+  const auto* zn = static_cast<const double*>(z_n);
+  const auto* e = static_cast<const double*>(edges);
+  const auto* ip = static_cast<const int64_t*>(indptr);
+  const auto* ix = static_cast<const int*>(indices);
+  auto* c = static_cast<unsigned long long*>(counts);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (k) {
+#define PCC_CASE(K) \
+  case K:           \
+    return launch_hist<K>(n, zi, zn, e, n_bins, inv_width, ip, ix, c, st);
     PCC_FOR_EACH_K(PCC_CASE)
 #undef PCC_CASE
     default:

@@ -157,7 +157,8 @@ __host__ __device__ constexpr int vectors_per_lane() {
 // Walks edges [beg, end) of one chunk for this lane's elements.  `Op`
 // holds a kernel's per-edge work, in two steps run for kUnroll edges at a
 // time, each step for all kUnroll before the next:
-//   op.load(u, nbr)  issue the loads of edge u, whose other end is nbr;
+//   op.load(u, nbr, e)  issue the loads of edge u, whose other end is nbr
+//                       and whose index in the CSR is e;
 //   op.add(u, acc)   add edge u into acc -- in ascending edge order.
 // Every lane of the warp runs the loop (the shuffles need all 32); lanes
 // without k (`active` false) issue no load and add nothing.
@@ -172,7 +173,7 @@ __device__ __forceinline__ void walk_chunk(const int* __restrict__ idx, int beg,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int nbr = __shfl_sync(kFullMask, mine, j + u);
-        if (active && j + u < n) op.load(u, nbr);
+        if (active && j + u < n) op.load(u, nbr, base + j + u);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {

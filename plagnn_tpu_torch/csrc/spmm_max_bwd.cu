@@ -63,7 +63,7 @@ struct MaxBwdOp {
     k0 = k;
     nvec = n;
   }
-  __device__ __forceinline__ void load(int u, int n) {
+  __device__ __forceinline__ void load(int u, int n, int) {
     const int64_t off = static_cast<int64_t>(n) * k_width + k0;
 #pragma unroll
     for (int j = 0; j < J; ++j) {

@@ -108,7 +108,7 @@ struct MaxFwdOp {
 #pragma unroll
     for (int i = 0; i < V * J; ++i) src[i] = -1;
   }
-  __device__ __forceinline__ void load(int u, int s) {
+  __device__ __forceinline__ void load(int u, int s, int) {
     nbr[u] = s;
     const T* p = x + static_cast<int64_t>(s) * k_width + k0;
 #pragma unroll

@@ -7,11 +7,18 @@
 //
 // Computes, for a CSR (indptr, idx) and x of shape (M, K) with K = B*F
 // (fold batch times features, any K):
-//   out[r, k] = sum over e in [indptr[r], indptr[r+1]) of x[idx[e], k]
-// with 0 for empty rows.  The same kernels serve both directions of the
+//   out[r, k] = sum over e in [indptr[r], indptr[r+1]) of w[e] * x[idx[e], k]
+// with 0 for empty rows, where w is 1 (val null) or the CSR's float32 edge
+// values: the counterpart of plagnn_tpu/ops/spmm.py: spmm_sum(use_val=True)
+// (ell_reduce_sum, an XLA gather-reduce in the JAX package, no Pallas
+// kernel).  A weighted edge's term is the gathered element, in float32,
+// times its value, rounded once (__fmul_rn, no contraction into the add),
+// as the plain version computes it.  Without values (the GCN2 path) the
+// unweighted instantiation runs: it reads no value and multiplies nothing.  The same kernels serve both directions of the
 // segment sum: the forward over the destination-sorted CSR (indptr, src),
 // and the VJP over the transpose CSR (t_indptr, t_dst), where
-// dx[s] = sum over edges s -> n of g[n].  Each direction comes with its
+// dx[s] = sum over edges s -> n of w * g[n] (the transpose's values in its
+// own edge order: Graph.t_val).  Each direction comes with its
 // chunk table (row_chunks.cuh), which cuts every row into chunks of at most
 // ROW_CHUNK edges.
 //
@@ -45,20 +52,24 @@ namespace {
 
 namespace rc = row_chunks;
 
-// out[row] += x[src] for each edge, J vectors of V elements a lane.
-template <typename T, int V, int J>
+// out[row] += (w[e] *) x[src] for each edge e, J vectors of V elements a
+// lane; kWeighted reads w (one float32 an edge, the same for the warp).
+template <typename T, int V, int J, bool kWeighted>
 struct SumOp {
   const T* x;
+  const float* weight;
   int64_t k_width;
   int64_t k0;
   int nvec;
   rc::Vec<T, V> val[rc::kUnroll][J];
+  float w[rc::kUnroll];
 
   __device__ __forceinline__ void begin(int, int64_t k, int n) {
     k0 = k;
     nvec = n;
   }
-  __device__ __forceinline__ void load(int u, int src) {
+  __device__ __forceinline__ void load(int u, int src, int e) {
+    if constexpr (kWeighted) w[u] = __ldg(weight + e);
     const T* p = x + static_cast<int64_t>(src) * k_width + k0;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
@@ -70,18 +81,24 @@ struct SumOp {
     for (int j = 0; j < J; ++j) {
       if (j >= nvec) break;
 #pragma unroll
-      for (int i = 0; i < V; ++i) acc[j * V + i] += rc::get(val[u][j], i);
+      for (int i = 0; i < V; ++i) {
+        if constexpr (kWeighted) {
+          acc[j * V + i] += __fmul_rn(w[u], rc::get(val[u][j], i));
+        } else {
+          acc[j * V + i] += rc::get(val[u][j], i);
+        }
+      }
     }
   }
 };
 
-template <typename T, int V>
+template <typename T, int V, bool kWeighted>
 __global__ void __launch_bounds__(rc::kThreads)
 spmm_sum_kernel(const T* __restrict__ x, rc::Table table,
-                const int* __restrict__ idx, T* __restrict__ out,
-                float* __restrict__ partial, int64_t k_width) {
+                const int* __restrict__ idx, const float* __restrict__ weight,
+                T* __restrict__ out, float* __restrict__ partial, int64_t k_width) {
   constexpr int J = rc::vectors_per_lane<T, V>();
-  SumOp<T, V, J> op{x, k_width, 0, 0};
+  SumOp<T, V, J, kWeighted> op{x, weight, k_width, 0, 0};
   rc::chunk_pass<T, V, J>(table, idx, k_width, out, partial, op);
 }
 
@@ -95,7 +112,7 @@ spmm_sum_combine_kernel(const int* __restrict__ split_row,
 }
 
 template <typename T, int V>
-int launch_v(const void* x, const rc::Table& table, const int* idx,
+int launch_v(const void* x, const rc::Table& table, const int* idx, const float* weight,
              const int* split_row, const int* split_ptr, int64_t n_split,
              void* out, void* partial, int64_t k_width, cudaStream_t stream) {
   if constexpr (V * sizeof(T) > 16) {
@@ -106,9 +123,15 @@ int launch_v(const void* x, const rc::Table& table, const int* idx,
                                   32 * V * rc::vectors_per_lane<T, V>(), &grid,
                                   &combine_grid);
     if (rc_grid != cudaSuccess) return rc_grid;
-    spmm_sum_kernel<T, V><<<grid, rc::kThreads, 0, stream>>>(
-        static_cast<const T*>(x), table, idx, static_cast<T*>(out),
-        static_cast<float*>(partial), k_width);
+    if (weight != nullptr) {
+      spmm_sum_kernel<T, V, true><<<grid, rc::kThreads, 0, stream>>>(
+          static_cast<const T*>(x), table, idx, weight, static_cast<T*>(out),
+          static_cast<float*>(partial), k_width);
+    } else {
+      spmm_sum_kernel<T, V, false><<<grid, rc::kThreads, 0, stream>>>(
+          static_cast<const T*>(x), table, idx, nullptr, static_cast<T*>(out),
+          static_cast<float*>(partial), k_width);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 0) return err;
     spmm_sum_combine_kernel<T><<<combine_grid, rc::kCombineThreads, 0, stream>>>(
@@ -119,23 +142,23 @@ int launch_v(const void* x, const rc::Table& table, const int* idx,
 }
 
 template <typename T>
-int launch(const void* x, const rc::Table& table, const int* idx,
+int launch(const void* x, const rc::Table& table, const int* idx, const float* weight,
            const int* split_row, const int* split_ptr, int64_t n_split,
            void* out, void* partial, int64_t k_width, cudaStream_t stream) {
   constexpr int es = sizeof(T);
   const int v = rc::vector_width(k_width, es, {{x, es}, {out, es}, {partial, 4}});
   switch (v) {
     case 8:
-      return launch_v<T, 8>(x, table, idx, split_row, split_ptr, n_split, out,
+      return launch_v<T, 8>(x, table, idx, weight, split_row, split_ptr, n_split, out,
                             partial, k_width, stream);
     case 4:
-      return launch_v<T, 4>(x, table, idx, split_row, split_ptr, n_split, out,
+      return launch_v<T, 4>(x, table, idx, weight, split_row, split_ptr, n_split, out,
                             partial, k_width, stream);
     case 2:
-      return launch_v<T, 2>(x, table, idx, split_row, split_ptr, n_split, out,
+      return launch_v<T, 2>(x, table, idx, weight, split_row, split_ptr, n_split, out,
                             partial, k_width, stream);
     default:
-      return launch_v<T, 1>(x, table, idx, split_row, split_ptr, n_split, out,
+      return launch_v<T, 1>(x, table, idx, weight, split_row, split_ptr, n_split, out,
                             partial, k_width, stream);
   }
 }
@@ -145,12 +168,13 @@ int launch(const void* x, const rc::Table& table, const int* idx,
 // dtype: 0 = float32, 1 = bfloat16.  (chunk_row, chunk_ptr, chunk_slot,
 // n_chunks, split_row, split_ptr, n_split) is the chunk table of the CSR
 // whose column ids are idx: (indptr, src) forward, (t_indptr, t_dst)
-// transpose.  partial is float32 scratch of (n_slots, k_width), unused when
+// transpose.  val: null (every weight 1) or the CSR's float32 edge values,
+// one per entry of idx (Graph.val forward, Graph.t_val transpose).  partial is float32 scratch of (n_slots, k_width), unused when
 // n_split is 0.  Returns the CUDA error code of the launches (0 = launched);
 // cudaErrorInvalidValue for a grid that would not fit.
 extern "C" int spmm_sum(int dtype, const void* x, const void* chunk_row,
                         const void* chunk_ptr, const void* chunk_slot,
-                        long long n_chunks, const void* idx,
+                        long long n_chunks, const void* idx, const void* val,
                         const void* split_row, const void* split_ptr,
                         long long n_split, void* out, void* partial,
                         long long k_width, void* stream) {
@@ -161,14 +185,15 @@ extern "C" int spmm_sum(int dtype, const void* x, const void* chunk_row,
                         static_cast<const int*>(chunk_slot),
                         static_cast<int>(n_chunks)};
   const auto* ix = static_cast<const int*>(idx);
+  const auto* w = static_cast<const float*>(val);
   const auto* sr = static_cast<const int*>(split_row);
   const auto* sp = static_cast<const int*>(split_ptr);
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(x, table, ix, sr, sp, n_split, out, partial, k_width, st);
+      return launch<float>(x, table, ix, w, sr, sp, n_split, out, partial, k_width, st);
     case 1:
-      return launch<__nv_bfloat16>(x, table, ix, sr, sp, n_split, out, partial,
+      return launch<__nv_bfloat16>(x, table, ix, w, sr, sp, n_split, out, partial,
                                    k_width, st);
     default:
       return cudaErrorInvalidValue;

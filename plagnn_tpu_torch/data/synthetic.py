@@ -53,6 +53,75 @@ def powerlaw_ppi(
     return sp.coo_matrix((data, (row, col)), shape=(n_nodes, n_nodes))
 
 
+def clustered_ppi(
+    n_nodes: int,
+    n_edges: int,
+    seed: int = 70,
+    mean_complex: float = 18.0,
+    p_in: float = 0.55,
+    frac_background: float = 0.25,
+) -> sp.coo_matrix:
+    """Community-structured symmetric adjacency: protein-complex near-cliques
+    plus a power-law background.
+
+    Real PPI networks are dominated by complexes — groups of proteins that
+    interact almost all-to-all (the regime construct_uniprot_ppi ingests,
+    data_preprocess.py:74-110) — so neighbor sets overlap heavily.  That
+    overlap is what graph reordering (ops/reorder.py) exploits for DMA
+    coalescing; the pure configuration model above has none by construction,
+    so this generator is the honest measurement topology for that lever.
+
+    Nodes are assigned to contiguous complexes of geometric-ish size; within
+    a complex each pair is kept with probability ``p_in``;
+    ``frac_background`` of the edge budget comes from powerlaw_ppi.  Node
+    ids are SHUFFLED at the end so orderings must be *recovered* by the
+    reordering pass rather than handed to it.
+    """
+    rng = np.random.default_rng(seed)
+    m_target = n_edges // 2
+    m_bg = int(m_target * frac_background)
+
+    # complexes: contiguous id ranges (then shuffled)
+    sizes = []
+    total = 0
+    while total < n_nodes:
+        s = min(int(rng.geometric(1.0 / mean_complex)) + 2, n_nodes - total)
+        sizes.append(s)
+        total += s
+    bounds = np.cumsum([0] + sizes)
+    lo_l, hi_l = [], []
+    m_in_budget = m_target - m_bg
+    for c in range(len(sizes)):
+        a0, a1 = bounds[c], bounds[c + 1]
+        k = a1 - a0
+        if k < 2:
+            continue
+        iu = np.triu_indices(k, 1)
+        keep = rng.random(len(iu[0])) < p_in
+        lo_l.append(iu[0][keep] + a0)
+        hi_l.append(iu[1][keep] + a0)
+    lo = np.concatenate(lo_l) if lo_l else np.empty(0, np.int64)
+    hi = np.concatenate(hi_l) if hi_l else np.empty(0, np.int64)
+    if len(lo) > m_in_budget:
+        pick = rng.choice(len(lo), size=m_in_budget, replace=False)
+        lo, hi = lo[pick], hi[pick]
+
+    bg = powerlaw_ppi(n_nodes, 2 * m_bg, seed + 17)
+    mask = bg.row < bg.col
+    lo = np.concatenate([lo, bg.row[mask]])
+    hi = np.concatenate([hi, bg.col[mask]])
+    pairs = np.unique(np.stack([lo, hi], axis=1), axis=0)
+
+    # shuffle ids: the generator's contiguous layout must not leak
+    shuf = rng.permutation(n_nodes)
+    a = shuf[pairs[:, 0]]
+    b = shuf[pairs[:, 1]]
+    row = np.concatenate([a, b])
+    col = np.concatenate([b, a])
+    return sp.coo_matrix(
+        (np.ones(len(row), np.int8), (row, col)), shape=(n_nodes, n_nodes))
+
+
 def synthetic_features(
     n_nodes: int,
     seed: int = 70,

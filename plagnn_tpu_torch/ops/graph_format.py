@@ -3,7 +3,8 @@
 Port of ``plagnn_tpu/ops/graph_format.py:307-403`` (``build_graph``,
 ``from_scipy_coo``, ``pad_features``).  Node padding is the JAX package's:
 ``n_pad = round_up(n + 1, 128)``, so a dummy node at ``n_pad - 1`` always
-exists, and explicit self-loops are appended when asked.  Edges are sorted
+exists, and explicit self-loops are appended when asked (with edge value
+1.0 where the graph has edge values).  Edges are sorted
 by destination, sources ascending inside each row: the order in which the
 forward kernel's first-maximum tie rule is defined.
 
@@ -113,6 +114,8 @@ class Graph:
     t_indptr:   (N_pad + 1,) row pointers into ``t_dst`` by source.
     in_degree / out_degree: (N_pad,) over the real edges.
     chunks / t_chunks: ``RowChunks`` of (indptr, src) and (t_indptr, t_dst).
+    val / t_val: optional float32 (E,) edge values in the order of ``src``
+                 and of ``t_dst`` (the weighted segment sum's).
     """
 
     src: torch.Tensor
@@ -127,6 +130,8 @@ class Graph:
     n_edges: int
     chunks: Optional[RowChunks] = None
     t_chunks: Optional[RowChunks] = None
+    val: Optional[torch.Tensor] = None
+    t_val: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -142,12 +147,11 @@ class Graph:
 
 
 def _csr(rows: np.ndarray, cols: np.ndarray, n: int):
-    """Sort (rows, cols) by (row, col); return (rows, cols, indptr)."""
+    """Sort (rows, cols) by (row, col); return (order, cols, indptr)."""
     order = np.lexsort((cols, rows))
-    rows, cols = rows[order], cols[order]
     indptr = np.zeros(n + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
-    return rows, cols, indptr
+    return order, cols[order], indptr
 
 
 def build_graph(
@@ -158,17 +162,26 @@ def build_graph(
     add_self_loops: bool = False,
     node_multiple: int = 128,
     row_chunk: int = ROW_CHUNK,
+    edge_val: Optional[np.ndarray] = None,
     device: Optional[torch.device] = None,
 ) -> Graph:
     """Host-side graph construction (``dgl.graph + dgl.add_self_loop``);
     ``row_chunk`` is the most edges a chunk of ``chunks``/``t_chunks``
-    holds."""
+    holds; ``edge_val`` (one value per edge, float32) gives ``val`` and
+    ``t_val``, sorted with the edges."""
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
+    if edge_val is not None:
+        edge_val = np.asarray(edge_val, np.float32)
+        if edge_val.shape != src.shape:
+            raise ValueError(f"edge_val must hold one value per edge, got "
+                             f"{edge_val.shape} for {src.shape[0]} edges")
     if add_self_loops:
         loops = np.arange(n_nodes, dtype=np.int64)
         src = np.concatenate([src, loops])
         dst = np.concatenate([dst, loops])
+        if edge_val is not None:
+            edge_val = np.concatenate([edge_val, np.ones(n_nodes, np.float32)])
     # +1 guarantees a dedicated dummy node even when n_nodes is already a
     # multiple of node_multiple.
     n_pad = _round_up(n_nodes + 1, node_multiple)
@@ -176,16 +189,18 @@ def build_graph(
     if n_edges >= 2**31 or n_pad >= 2**31:
         raise ValueError("graph too large for int32 CSR indices")
 
-    dst_s, src_s, indptr = _csr(dst, src, n_pad)
-    t_src, t_dst, t_indptr = _csr(src, dst, n_pad)
-    del t_src
+    order, src_s, indptr = _csr(dst, src, n_pad)
+    t_order, t_dst, t_indptr = _csr(src, dst, n_pad)
 
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
 
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+
     return Graph(
         src=i32(src_s),
-        dst=i32(dst_s),
+        dst=i32(dst[order]),
         indptr=i32(indptr),
         t_dst=i32(t_dst),
         t_indptr=i32(t_indptr),
@@ -196,6 +211,8 @@ def build_graph(
         n_edges=n_edges,
         chunks=chunk_table(indptr, row_chunk, device),
         t_chunks=chunk_table(t_indptr, row_chunk, device),
+        val=None if edge_val is None else f32(edge_val[order]),
+        t_val=None if edge_val is None else f32(edge_val[t_order]),
     )
 
 

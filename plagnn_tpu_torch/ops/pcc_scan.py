@@ -16,9 +16,15 @@ taken as d = 0.  The JAX package scans on the host (numpy GEMM blocks in
   d > hi that are not edges of ``csr``, in row-major order (two passes: a
   count per row, then writes at the scanned offsets).  Plain version:
   ``pcc_diff_hits_plain``.
+* ``pcc_diff_histogram(z_i, z_n, edges, csr) -> (linked, unlinked)``: the
+  pairs i != j binned by np.histogram's rule for an array of edges (the
+  last bin closed on the right, values outside dropped), apart for the
+  pairs that are edges of ``csr``.  Plain version:
+  ``pcc_diff_histogram_plain``.
 
-Both forms compute d with one rounding per product and per sum, t
-ascending, and compare strictly, so kernel and plain version agree exactly.
+All forms compute d with one rounding per product and per sum, t
+ascending, and compare strictly (the histogram: with the edges, never by a
+division), so kernel and plain version agree exactly.
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.  ``LAUNCHES`` counts the kernel
 launches, so a run can show that its path went through the kernels.
@@ -26,6 +32,7 @@ launches, so a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Tuple
 
 import numpy as np
@@ -34,7 +41,9 @@ import torch
 from . import _build
 
 MAX_K = 16
-LAUNCHES: Dict[str, int] = {"pcc_diff_count_f64": 0, "pcc_diff_hits_f64": 0}
+MAX_BINS = 8192
+LAUNCHES: Dict[str, int] = {"pcc_diff_count_f64": 0, "pcc_diff_hits_f64": 0,
+                            "pcc_diff_hist_f64": 0}
 
 # Elements of the (rows, N) float64 blocks the plain versions hold at once.
 _PLAIN_BLOCK = 1 << 25
@@ -44,10 +53,12 @@ _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_dou
 #   pcc_diff_counts:     lo, hi, counts, stream
 #   pcc_diff_hit_counts: hi, indptr, indices, row_count, stream
 #   pcc_diff_hit_write:  hi, indptr, indices, row_start, out_row, out_col, stream
+#   pcc_diff_hist:       edges, n_bins, inv_width, indptr, indices, counts, stream
 _ARGTYPES = {
     "pcc_diff_counts": [_I, _LL, _P, _P, _D, _D, _P, _P],
     "pcc_diff_hit_counts": [_I, _LL, _P, _P, _D, _P, _P, _P, _P],
     "pcc_diff_hit_write": [_I, _LL, _P, _P, _D, _P, _P, _P, _P, _P, _P],
+    "pcc_diff_hist": [_I, _LL, _P, _P, _P, _I, _D, _P, _P, _P, _P],
 }
 
 
@@ -119,6 +130,22 @@ def _check_csr(csr, n: int, device, strict: bool = False) -> Tuple[torch.Tensor,
     return indptr, indices
 
 
+def _check_edges(edges: torch.Tensor, device) -> Tuple[float, float]:
+    """(first, last) of a 1-D float64 tensor of 2 .. MAX_BINS + 1 finite,
+    strictly ascending bin edges on ``device``."""
+    if edges.dtype != torch.float64 or edges.dim() != 1:
+        raise TypeError(f"edges must be a 1-D float64 tensor, got {edges.dtype} "
+                        f"{tuple(edges.shape)}")
+    if edges.device != device or not edges.is_contiguous():
+        raise ValueError(f"edges must be contiguous on {device}, got {edges.device}")
+    if not 2 <= edges.numel() <= MAX_BINS + 1:
+        raise ValueError(f"edges must hold 2 to {MAX_BINS + 1} values, got {edges.numel()}")
+    e = edges.cpu()
+    if not (bool(torch.isfinite(e).all()) and bool((e[1:] > e[:-1]).all())):
+        raise ValueError("edges must be finite and strictly ascending")
+    return float(e[0]), float(e[-1])
+
+
 def csr_tensors(ppi, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(indptr, indices) of a scipy sparse matrix's entries with a nonzero
     value, duplicates summed, column ids sorted in each row: the pairs the
@@ -157,6 +184,33 @@ def _row_blocks(n: int):
         yield r0, min(r0 + step, n)
 
 
+def _edge_mask(d: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
+               ptr: np.ndarray, r0: int, r1: int) -> torch.Tensor:
+    """The (r1 - r0, N) bool mask of the CSR's entries in rows [r0, r1)."""
+    mask = torch.zeros(d.shape, dtype=torch.bool, device=d.device)
+    e0, e1 = int(ptr[r0]), int(ptr[r1])
+    if e1 > e0:
+        deg = indptr[r0 + 1:r1 + 1] - indptr[r0:r1]
+        er = torch.repeat_interleave(torch.arange(r1 - r0, device=d.device), deg)
+        mask[er, indices[e0:e1].long()] = True
+    return mask
+
+
+def _bin_block(d: torch.Tensor, edges: torch.Tensor, indptr: torch.Tensor,
+               indices: torch.Tensor, ptr: np.ndarray, r0: int, r1: int) -> torch.Tensor:
+    """The 2 * (len(edges) - 1) counts of rows [r0, r1) of d, linked then
+    unlinked: ``torch.bucketize`` against the edges (right=True: edges[b] <=
+    d < edges[b + 1]; d == edges[-1] into the last bin), the diagonal and
+    the values outside [edges[0], edges[-1]] dropped."""
+    nb = edges.numel() - 1
+    b = (torch.bucketize(d, edges, right=True) - 1).clamp_(max=nb - 1)
+    keep = (d >= edges[0]) & (d <= edges[-1])
+    rr = torch.arange(r0, r1, device=d.device)
+    keep[rr - r0, rr] = False
+    key = torch.where(_edge_mask(d, indptr, indices, ptr, r0, r1), b, b + nb)
+    return torch.bincount(key[keep], minlength=2 * nb)
+
+
 def pcc_diff_counts_plain(z_i: torch.Tensor, z_n: torch.Tensor, lo: float,
                           hi: float) -> Tuple[int, int]:
     """Plain PyTorch version of ``pcc_diff_counts``."""
@@ -177,20 +231,27 @@ def pcc_diff_hits_plain(z_i: torch.Tensor, z_n: torch.Tensor, hi: float,
     ptr = indptr.cpu().numpy()
     rows, cols = [], []
     for r0, r1 in _row_blocks(z_i.shape[0]):
-        hit = _diff_block(z_i, z_n, r0, r1) > hi
-        e0, e1 = int(ptr[r0]), int(ptr[r1])
-        if e1 > e0:
-            deg = indptr[r0 + 1:r1 + 1] - indptr[r0:r1]
-            er = torch.repeat_interleave(
-                torch.arange(r1 - r0, device=hit.device), deg)
-            hit[er, indices[e0:e1].long()] = False
-        nz = torch.nonzero(hit)
+        d = _diff_block(z_i, z_n, r0, r1)
+        nz = torch.nonzero((d > hi) & ~_edge_mask(d, indptr, indices, ptr, r0, r1))
         rows.append((nz[:, 0] + r0).int())
         cols.append(nz[:, 1].int())
     if not rows:
         empty = torch.empty(0, dtype=torch.int32, device=z_i.device)
         return empty, empty.clone()
     return torch.cat(rows), torch.cat(cols)
+
+
+def pcc_diff_histogram_plain(z_i: torch.Tensor, z_n: torch.Tensor, edges: torch.Tensor,
+                             csr) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``pcc_diff_histogram``: each row block's
+    dense d, binned by ``_bin_block``."""
+    indptr, indices = csr
+    nb = edges.numel() - 1
+    ptr = indptr.cpu().numpy()
+    counts = torch.zeros(2 * nb, dtype=torch.int64, device=z_i.device)
+    for r0, r1 in _row_blocks(z_i.shape[0]):
+        counts += _bin_block(_diff_block(z_i, z_n, r0, r1), edges, indptr, indices, ptr, r0, r1)
+    return counts[:nb], counts[nb:]
 
 
 # ---------------------------------------------------------------------------
@@ -256,3 +317,37 @@ def pcc_diff_hits(z_i: torch.Tensor, z_n: torch.Tensor, hi: float,
         _raise_on(rc, "pcc_diff_hit_write")
     LAUNCHES["pcc_diff_hits_f64"] += 1
     return rows, cols
+
+
+def pcc_diff_histogram(z_i: torch.Tensor, z_n: torch.Tensor, edges: torch.Tensor,
+                       csr) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(linked, unlinked), int64 counts of the len(edges) - 1 bins, over the
+    pairs i != j of the (N, k) float64 factors: a pair is linked where
+    ``csr`` = (indptr int64 (N + 1), indices int32, ascending in each row;
+    see ``csr_tensors``) holds (i, j).  d goes into bin b where edges[b] <=
+    d < edges[b + 1], the last bin closed on the right; values outside
+    [edges[0], edges[-1]] are dropped (np.histogram's rule for an array of
+    edges, which must be finite and strictly ascending).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    _check_z(z_i, z_n)
+    n, k = z_i.shape
+    indptr, indices = _check_csr(csr, n, z_i.device)
+    e_lo, e_hi = _check_edges(edges, z_i.device)
+    if z_i.device.type == "cpu":
+        return pcc_diff_histogram_plain(z_i, z_n, edges, (indptr, indices))
+    dev = z_i.device
+    nb = edges.numel() - 1
+    if n == 0:
+        empty = torch.zeros(nb, dtype=torch.int64, device=dev)
+        return empty, empty.clone()
+    lib = _lib()
+    counts = torch.zeros(2 * nb, dtype=torch.int64, device=dev)
+    inv_width = nb / (e_hi - e_lo)
+    with torch.cuda.device(dev):
+        rc = lib.pcc_diff_hist(k, n, z_i.data_ptr(), z_n.data_ptr(), edges.data_ptr(), nb,
+                               inv_width if math.isfinite(inv_width) else 0.0,
+                               indptr.data_ptr(), indices.data_ptr(), counts.data_ptr(),
+                               _stream(z_i))
+    _raise_on(rc, "pcc_diff_hist")
+    LAUNCHES["pcc_diff_hist_f64"] += 1
+    return counts[:nb], counts[nb:]

@@ -3,7 +3,8 @@
 Port of ``plagnn_tpu/ops/spmm.py``.  Reduction semantics are DGL 0.8.x's:
 
 * ``spmm_max``:  ``out[i] = max_{j -> i} x[j]``, 0 for empty rows.
-* ``spmm_sum``:  ``out[i] = sum_{j -> i} x[j]``.
+* ``spmm_sum``:  ``out[i] = sum_{j -> i} (v_ji *) x[j]`` (``use_val``: the
+  graph's edge values, ``build_graph(..., edge_val=...)``).
 * ``spmm_mean``: sum / in-degree (degree-0 rows stay 0).
 * ``gcn_propagate``: degree-normalised propagation (DGL GraphConv norms).
 * ``sddmm_dot``: per-edge ``<x[src], y[dst]>``.
@@ -11,8 +12,7 @@ Port of ``plagnn_tpu/ops/spmm.py``.  Reduction semantics are DGL 0.8.x's:
 ``spmm_max`` and ``spmm_sum`` run the CUDA kernels of ``spmm_kernels`` on a
 card (their plain versions on the CPU); the rest is plain PyTorch around
 them.  The JAX package's ``segment_spmm_*`` oracles have their counterparts
-in the kernels' plain versions.  The edge-value-weighted sum (``use_val``)
-is not ported.
+in the kernels' plain versions.
 """
 from __future__ import annotations
 

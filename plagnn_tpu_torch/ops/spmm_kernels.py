@@ -13,7 +13,9 @@ Three kernels, each with a plain PyTorch version beside it:
   ``spmm_max_bwd_bf16``).  Plain version: ``spmm_max_bwd_plain``.
 * ``spmm_sum_rows``: ``csrc/spmm_sum.cu``, one kernel over the
   destination-sorted CSR (forward) or its transpose (the VJP), float32 or
-  bfloat16 with a float32 sum.  Plain version: ``spmm_sum_plain``.
+  bfloat16 with a float32 sum, each term optionally weighted by its edge
+  value (``use_val``: ``Graph.val`` / ``t_val``).  Plain version:
+  ``spmm_sum_plain``.
 
 All three walk the graph's row chunks (``Graph.chunks`` / ``t_chunks``,
 ``csrc/row_chunks.cuh``): their wrappers pass the direction's chunk table
@@ -48,6 +50,10 @@ LAUNCHES: Dict[str, int] = {
     "spmm_sum_fwd_bf16": 0,
     "spmm_sum_bwd_f32": 0,
     "spmm_sum_bwd_bf16": 0,
+    "spmm_sum_val_fwd_f32": 0,
+    "spmm_sum_val_fwd_bf16": 0,
+    "spmm_sum_val_bwd_f32": 0,
+    "spmm_sum_val_bwd_bf16": 0,
 }
 
 _DTYPE_CODE = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16")}
@@ -90,7 +96,7 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 #                 stream
 #   spmm_max_bwd: dtype, arg_bits, g, arg, <chunk table>, t_dst,
 #                 split_row, split_ptr, n_split, dx, partial, k, stream
-#   spmm_sum:     dtype, x, <chunk table>, idx, split_row, split_ptr,
+#   spmm_sum:     dtype, x, <chunk table>, idx, val, split_row, split_ptr,
 #                 n_split, out, partial, k, stream
 # where <chunk table> is chunk_row, chunk_ptr, chunk_slot, n_chunks.
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -98,7 +104,7 @@ _CHUNKS = [_P, _P, _P, _LL]
 _ARGTYPES = {
     "spmm_max_fwd": [_I, _I, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _P, _P, _LL, _P],
     "spmm_max_bwd": [_I, _I, _P, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, _P],
-    "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, _P],
+    "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _P, _LL, _P, _P, _LL, _P],
 }
 
 
@@ -308,11 +314,24 @@ def spmm_max(graph: Graph, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def spmm_sum_plain(graph: Graph, x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+def _edge_values(graph: Graph, transpose: bool) -> torch.Tensor:
+    val = graph.t_val if transpose else graph.val
+    if val is None:
+        raise ValueError("graph has no edge values")
+    if val.dtype != torch.float32 or val.shape != (graph.n_edges,):
+        raise ValueError(f"edge values must be float32 of shape ({graph.n_edges},), "
+                         f"got {val.dtype} {tuple(val.shape)}")
+    return val
+
+
+def spmm_sum_plain(graph: Graph, x: torch.Tensor, transpose: bool = False,
+                   use_val: bool = False) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/spmm_sum.cu``: ``index_add_`` of
-    ``x[src]`` into ``dst`` (``transpose``: of ``x[dst]`` into ``src``), in
+    ``x[src]`` (with ``use_val``, times the edge's value, rounded to float32
+    once) into ``dst`` (``transpose``: of ``x[dst]`` into ``src``), in
     float32 over edge ranges, rounded to x's dtype once."""
     n, k = x.shape
+    val = _edge_values(graph, False) if use_val else None
     out = torch.zeros((n, k), dtype=torch.float32, device=x.device)
     step = max(_PLAIN_CHUNK // max(k, 1), 1)
     for e0 in range(0, graph.n_edges, step):
@@ -321,50 +340,62 @@ def spmm_sum_plain(graph: Graph, x: torch.Tensor, transpose: bool = False) -> to
         d = graph.dst[e0:e1].long()
         if transpose:
             s, d = d, s
-        out.index_add_(0, d, x[s].float())
+        terms = x[s].float()
+        if val is not None:
+            terms = terms * val[e0:e1, None]
+        out.index_add_(0, d, terms)
     return out.to(x.dtype)
 
 
-def spmm_sum_rows(graph: Graph, x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+def spmm_sum_rows(graph: Graph, x: torch.Tensor, transpose: bool = False,
+                  use_val: bool = False) -> torch.Tensor:
     """out[i] = sum over in-edges j -> i of x[j], for x (N_pad, K); with
     ``transpose``, dx[s] = sum over out-edges s -> n of x[n] (the VJP), the
-    same kernel over the transpose CSR.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (counted as spmm_sum_fwd_* / _bwd_*)."""
+    same kernel over the transpose CSR; with ``use_val`` each term is
+    weighted by its edge's value (``ValueError`` if the graph has none).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted as spmm_sum[_val]_fwd_* / _bwd_*)."""
     _check(graph, x, "x")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    val = _edge_values(graph, transpose) if use_val else None
     if x.device.type == "cpu":
-        return spmm_sum_plain(graph, x, transpose)
+        return spmm_sum_plain(graph, x, transpose, use_val)
     lib = _lib("spmm_sum")
     code, tag = _DTYPE_CODE[x.dtype]
     k = x.shape[1]
     out = torch.empty_like(x)
     chunks, partial = _chunk_args(graph, transpose, k, x.device)
+    val_ptr = None if val is None else val.data_ptr()
     with torch.cuda.device(x.device):
-        rc = lib.spmm_sum(code, x.data_ptr(), *chunks, out.data_ptr(),
-                          partial.data_ptr(), k, _stream(x))
+        rc = lib.spmm_sum(code, x.data_ptr(), *chunks[:5], val_ptr, *chunks[5:],
+                          out.data_ptr(), partial.data_ptr(), k, _stream(x))
     if rc != 0:
         raise RuntimeError(f"spmm_sum launch failed: CUDA error {rc}")
-    LAUNCHES[f"spmm_sum_{'bwd' if transpose else 'fwd'}_{tag}"] += 1
+    LAUNCHES[f"spmm_sum_{'val_' if use_val else ''}{'bwd' if transpose else 'fwd'}_{tag}"] += 1
     return out
 
 
 class SpmmSum(torch.autograd.Function):
-    """``out[i] = sum over in-edges j -> i of x[j]``; the gradient is the
-    same sum over the transpose."""
+    """``out[i] = sum over in-edges j -> i of (v_ji *) x[j]``; the gradient
+    is the same sum over the transpose.  Edge values get no gradient."""
 
     @staticmethod
-    def forward(ctx, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, graph: Graph, x: torch.Tensor, use_val: bool) -> torch.Tensor:
         ctx.graph = graph
-        return spmm_sum_rows(graph, x)
+        ctx.use_val = use_val
+        return spmm_sum_rows(graph, x, use_val=use_val)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return None, spmm_sum_rows(ctx.graph, g.contiguous(), transpose=True)
+        return None, spmm_sum_rows(ctx.graph, g.contiguous(), transpose=True,
+                                   use_val=ctx.use_val), None
 
 
-def spmm_sum(graph: Graph, x: torch.Tensor) -> torch.Tensor:
+def spmm_sum(graph: Graph, x: torch.Tensor, use_val: bool = False) -> torch.Tensor:
     """Segment sum over x (N_pad, ...): the trailing dims are packed into one
-    row of K elements, as ``spmm_max`` does."""
+    row of K elements, as ``spmm_max`` does; ``use_val`` weights each term
+    by its edge's value (``plagnn_tpu/ops/spmm.py: spmm_sum``)."""
     shape = x.shape
-    return SpmmSum.apply(graph, x.reshape(shape[0], -1).contiguous()).reshape(shape)
+    return SpmmSum.apply(graph, x.reshape(shape[0], -1).contiguous(),
+                         use_val).reshape(shape)

@@ -1,0 +1,163 @@
+"""Tracing and step timing.
+
+Port of ``plagnn_tpu/utils/profiling.py``:
+
+* ``trace(log_dir)``: a ``torch.profiler.profile`` context that records
+  the host and, where a card is present, its CUDA kernels, and writes a
+  Chrome trace (``trace.json``, readable in Perfetto or chrome://tracing)
+  into ``log_dir`` when the context ends.  With a card the session starts
+  with a warm-up of tiny kernels, and it raises where the block launched
+  kernels and the file holds none of them, and warns where it holds only
+  some.
+* ``hard_sync(x)``: waits for x's device and returns x's first element.
+* ``StepTimer``: device-synchronised wall-clock step times, with the JAX
+  class's summary line.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+import warnings
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+TRACE_FILE = "trace.json"
+# The block's range in the trace; launches outside it are the warm-up's.
+TRACE_BLOCK = "plagnn_tpu_torch.trace block"
+# Two ways a session loses kernels on an H100 (torch 2.11, CUDA 12.8).  The
+# first kernels of a session can leave no event, the more the longer the
+# process has run CUDA work (8 once phase 4p of chip_smoke.py has run),
+# whatever the session waits or synchronises first.  So each session
+# starts with WARMUP_LAUNCHES tiny kernels.  And the profiler drops a
+# kernel whose start, moved onto the host clock, falls before its session,
+# which at times lands milliseconds before the kernel's own launch.  So
+# the session waits TRACE_MARGIN_S before the block and, the card
+# synchronised, after it.
+WARMUP_LAUNCHES = 64
+TRACE_MARGIN_S = 0.1
+_LAUNCH_CALLS = frozenset(("cudaLaunchKernel", "cudaLaunchKernelExC",
+                           "cuLaunchKernel", "cuLaunchKernelEx"))
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block; yields the ``torch.profiler.profile`` object."""
+    os.makedirs(log_dir, exist_ok=True)
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        if cuda:
+            w = torch.zeros(1, device="cuda")
+            for _ in range(WARMUP_LAUNCHES):
+                w.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
+        with record_function(TRACE_BLOCK):
+            yield prof
+            if cuda:
+                torch.cuda.synchronize()
+        if cuda:
+            time.sleep(TRACE_MARGIN_S)
+    path = os.path.join(log_dir, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    if cuda:
+        lost, offsets, _ = kernel_launches(path)
+        if lost and not offsets:
+            raise RuntimeError(f"{path}: none of the {lost} kernel launches has a kernel event")
+        if lost:
+            warnings.warn(f"{path}: {lost} of {lost + len(offsets)} kernel launches have no "
+                          f"kernel event; the recorded kernels start {min(offsets):.1f} us "
+                          f"after their launches at the earliest")
+
+
+def _block(path: str):
+    """The events of the Chrome trace at ``path`` and the TRACE_BLOCK
+    range's (start, end), the whole trace where it has none."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(ev["ts"], ev["ts"] + ev.get("dur", 0)) for ev in events
+             if ev.get("name") == TRACE_BLOCK and ev.get("cat") == "user_annotation"]
+    return events, (spans[0] if spans else (-float("inf"), float("inf")))
+
+
+def kernel_launches(path: str) -> Tuple[int, List[float], int]:
+    """Of the Chrome trace at ``path``: how many kernel launches inside the
+    TRACE_BLOCK range (the whole trace where it has none) have no kernel
+    event of the same correlation id; for each one that has, the kernel's
+    start less its launch's, in microseconds; and how many launches before
+    the range have no kernel event."""
+    events, (t0, t1) = _block(path)
+    launched = {ev["args"]["correlation"]: ev["ts"] for ev in events
+                if ev.get("name") in _LAUNCH_CALLS and "correlation" in ev.get("args", {})}
+    ran = {ev["args"].get("correlation"): ev["ts"] for ev in events
+           if ev.get("cat") == "kernel" and "args" in ev}
+    block = {c: ts for c, ts in launched.items() if t0 <= ts <= t1}
+    return (sum(c not in ran for c in block),
+            [ran[c] - ts for c, ts in block.items() if c in ran],
+            sum(c not in ran for c, ts in launched.items() if ts < t0))
+
+
+def block_device_events(path: str) -> List[Tuple[str, float]]:
+    """(name, duration in microseconds) of each kernel, copy and memset
+    event of the Chrome trace at ``path`` that a call inside the
+    TRACE_BLOCK range (the whole trace where it has none) started."""
+    events, (t0, t1) = _block(path)
+    calls = {ev["args"]["correlation"] for ev in events
+             if ev.get("cat") in ("cuda_runtime", "cuda_driver") and t0 <= ev["ts"] <= t1
+             and "correlation" in ev.get("args", {})}
+    return [(ev["name"], ev.get("dur", 0)) for ev in events
+            if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and ev.get("args", {}).get("correlation") in calls]
+
+
+def _first_tensor(x) -> torch.Tensor:
+    while isinstance(x, (list, tuple, dict)):
+        x = next(iter(x.values())) if isinstance(x, dict) else x[0]
+    return torch.as_tensor(x)
+
+
+def hard_sync(x) -> float:
+    """Wait for the device of x (a tensor, or the first tensor of nested
+    lists, tuples and dicts) and return its first element as a float."""
+    t = _first_tensor(x)
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+    return float(t.reshape(-1)[0])
+
+
+class StepTimer:
+    """Accumulates device-synced step durations."""
+
+    def __init__(self):
+        self.times: List[float] = []
+        self._t0: Optional[float] = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self, result) -> float:
+        hard_sync(result)
+        dt = time.perf_counter() - self._t0
+        self.times.append(dt)
+        return dt
+
+    @property
+    def mean(self) -> float:
+        return float(np.mean(self.times)) if self.times else 0.0
+
+    def summary(self) -> str:
+        if not self.times:
+            return "no steps recorded"
+        t = np.asarray(self.times)
+        return (
+            f"steps={len(t)} mean={t.mean()*1e3:.2f}ms "
+            f"p50={np.percentile(t,50)*1e3:.2f}ms "
+            f"p95={np.percentile(t,95)*1e3:.2f}ms"
+        )

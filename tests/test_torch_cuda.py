@@ -389,6 +389,139 @@ def test_pcc_scan_refuses_wide_k_and_oversized_grid(card):
         pcc_scan.pcc_diff_counts(tall, tall, -1.0, 1.0)
 
 
+def _hist_edges(d):
+    """The reference's 201 edges, and custom edges that some off-diagonal d
+    takes exactly (the first and the last among them, and 0, which every
+    zero row's pairs take), narrower than d's spread."""
+    default = torch.from_numpy(np.arange(-2.0, 2.0 + 1e-9, 0.02)).to(d.device)
+    off = d[~torch.eye(d.shape[0], dtype=torch.bool, device=d.device)]
+    vals = torch.unique(off[:1 << 22])
+    if vals.numel() < 4:
+        custom = torch.tensor([-1.0, 0.0, 1.0], dtype=torch.float64, device=d.device)
+    else:
+        pick = torch.linspace(vals.numel() // 10, 9 * vals.numel() // 10, 12,
+                              device=d.device).long()
+        custom = torch.unique(torch.cat([vals[pick], torch.zeros(1, dtype=d.dtype,
+                                                                 device=d.device)]))
+    return default, custom
+
+
+def _hub_csr(card, n, seed):
+    """Rows 0 and 1 linked to every node (hub rows), random pairs elsewhere."""
+    rng = np.random.default_rng(seed)
+    r = np.concatenate([np.zeros(n, np.int64), np.ones(n, np.int64) % max(n, 1),
+                        rng.integers(0, n, 3 * n)])
+    c = np.concatenate([np.arange(n), np.arange(n), rng.integers(0, n, 3 * n)])
+    m = sp.coo_matrix((np.ones(len(r)), (r, c)), shape=(n, n))
+    return pcc_scan.csr_tensors(m, card)
+
+
+@pytest.mark.parametrize("n,k", PCC_SHAPES)
+def test_pcc_hist_kernel_matches_plain(card, n, k):
+    """Linked and unlinked counts equal the plain version's bin for bin,
+    with the reference's edges and with edges that d takes, on factors with
+    zero rows and a CSR with hub rows; the same over two launches."""
+    z_i, z_n = _pcc_factors(card, n, k, seed=2)
+    csr = _hub_csr(card, n, n + k)
+    for edges in _hist_edges(_pcc_dense(z_i, z_n)):
+        before = pcc_scan.LAUNCHES["pcc_diff_hist_f64"]
+        linked, unlinked = pcc_scan.pcc_diff_histogram(z_i, z_n, edges, csr)
+        torch.cuda.synchronize()
+        assert pcc_scan.LAUNCHES["pcc_diff_hist_f64"] == before + 1
+        want_l, want_u = pcc_scan.pcc_diff_histogram_plain(z_i, z_n, edges, csr)
+        assert torch.equal(linked, want_l) and torch.equal(unlinked, want_u)
+        again = pcc_scan.pcc_diff_histogram(z_i, z_n, edges, csr)
+        assert torch.equal(again[0], linked) and torch.equal(again[1], unlinked)
+
+
+@pytest.mark.parametrize("k,n_bins", [(3, 1000), (3, 8192), (16, 8192)])
+def test_pcc_hist_kernel_many_bins(card, k, n_bins):
+    """More bins than 32 copies of the block histogram fit: the launcher
+    takes fewer copies (8 at 1,000 bins), or one at pcc_scan.MAX_BINS."""
+    z_i, z_n = _pcc_factors(card, 1000, k, seed=3)
+    csr = _hub_csr(card, 1000, k)
+    d = _pcc_dense(z_i, z_n)
+    edges = torch.linspace(float(d.min()) / 2, float(d.max()) / 2, n_bins + 1,
+                           dtype=torch.float64, device=card)
+    got = pcc_scan.pcc_diff_histogram(z_i, z_n, edges, csr)
+    torch.cuda.synchronize()
+    want = pcc_scan.pcc_diff_histogram_plain(z_i, z_n, edges, csr)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) > 0
+
+
+def test_pcc_hist_refuses_wide_k_and_malformed_edges(card):
+    z = torch.zeros((8, 3), dtype=torch.float64, device=card)
+    csr = (torch.zeros(9, dtype=torch.int64, device=card),
+           torch.zeros(0, dtype=torch.int32, device=card))
+    ok = torch.tensor([-1.0, 1.0], dtype=torch.float64, device=card)
+    wide = torch.zeros((8, 17), dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match="k = 17"):
+        pcc_scan.pcc_diff_histogram(wide, wide, ok, csr)
+    for bad in ([0.5], [0.0, 0.0, 1.0], [1.0, -1.0], [0.0, float("inf")]):
+        with pytest.raises(ValueError, match="edges"):
+            pcc_scan.pcc_diff_histogram(
+                z, z, torch.tensor(bad, dtype=torch.float64, device=card), csr)
+
+
+# The edge-weighted sum: float32 within 1e-5 of the summed magnitudes and
+# bit-identical run to run (values uniform in [0.5, 1.5)); bfloat16 exact on
+# small integers with dyadic values (every product and partial sum exact).
+VAL_CASES = [(39, ROW_CHUNK), (120, ROW_CHUNK), (4000, ROW_CHUNK), (39, 8), (120, 8)]
+
+
+def _weighted_split_graph(row_chunk, dyadic):
+    g = _split_graph(row_chunk)
+    rng = np.random.default_rng(row_chunk)
+    src = g.src.numpy()
+    val = rng.uniform(0.5, 1.5, len(src))
+    if dyadic:
+        val = np.round(val * 8) / 8
+    return build_graph(src, g.dst.numpy(), g.n_real_nodes, row_chunk=row_chunk,
+                       edge_val=val)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,row_chunk", VAL_CASES)
+def test_weighted_sum_matches_plain(card, k, row_chunk, dtype, transpose):
+    g = _weighted_split_graph(row_chunk, dyadic=dtype == torch.bfloat16).to(card)
+    assert g.chunks.n_split > 0 and g.t_chunks.n_split > 0
+    gen = torch.Generator(device=card).manual_seed(k)
+    if dtype == torch.float32:
+        x = torch.randn((g.n_nodes, k), generator=gen, device=card)
+    else:
+        x = torch.randint(-8, 9, (g.n_nodes, k), generator=gen, device=card).to(dtype)
+    name = f"spmm_sum_val_{'bwd' if transpose else 'fwd'}_" + (
+        "f32" if dtype == torch.float32 else "bf16")
+    before = sk.LAUNCHES[name]
+    out = sk.spmm_sum_rows(g, x, transpose, use_val=True)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[name] == before + 1
+    out_p = sk.spmm_sum_plain(g, x, transpose, use_val=True)
+    if dtype == torch.bfloat16:
+        assert torch.equal(out, out_p)
+    else:
+        assert torch.equal(out, sk.spmm_sum_rows(g, x, transpose, use_val=True))
+        mag = sk.spmm_sum_plain(g, x.abs(), transpose, use_val=True)
+        assert bool(((out - out_p).abs() <= 1e-5 * mag + 1e-7).all())
+    # the unweighted kernel is another function of these inputs
+    assert not torch.equal(out, sk.spmm_sum_rows(g, x, transpose))
+
+
+def test_weighted_sum_autograd_on_card_matches_cpu(card):
+    g = _weighted_split_graph(ROW_CHUNK, dyadic=False)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((g.n_nodes, 3, 13)).astype(np.float32)
+    w = rng.standard_normal(x.shape).astype(np.float32)
+    grads = []
+    for dev, graph in ((card, g.to(card)), (torch.device("cpu"), g)):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        (spmm_sum(graph, xt, use_val=True) * torch.from_numpy(w).to(dev)).sum().backward()
+        grads.append(xt.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # The ECC's common-neighbour counts (csrc/common_neighbors.cu)
 # ---------------------------------------------------------------------------

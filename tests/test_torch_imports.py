@@ -101,6 +101,7 @@ def test_cli_refuses_mesh_and_mid_round_checkpoints(tmp_path):
 def test_cuda_wrappers_never_fall_back(monkeypatch):
     """A CUDA tensor goes to the kernel: the wrapper asks the loader for the
     library (which cannot build here) instead of running the plain version."""
+    from plagnn_tpu_torch.ops import pcc_scan
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     calls = []
@@ -115,9 +116,16 @@ def test_cuda_wrappers_never_fall_back(monkeypatch):
         type = "cuda"
 
     g = sk.Graph(*(torch.zeros(1, dtype=torch.int32),) * 7, n_nodes=4,
-                 n_real_nodes=3, n_edges=0)
+                 n_real_nodes=3, n_edges=0, val=torch.zeros(0), t_val=torch.zeros(0))
     x = torch.zeros(4, 3)
+    z = torch.zeros(4, 3, dtype=torch.float64)
+    edges = torch.tensor([-1.0, 0.0, 1.0], dtype=torch.float64)
+    csr = (torch.zeros(5, dtype=torch.int64), torch.zeros(0, dtype=torch.int32))
     monkeypatch.setattr(sk, "_check", lambda *a: None)
+    # the (fake) devices of two tensors never compare equal: skip the checks
+    monkeypatch.setattr(pcc_scan, "_check_z", lambda *a: None)
+    monkeypatch.setattr(pcc_scan, "_check_csr", lambda c, *a, **k: c)
+    monkeypatch.setattr(pcc_scan, "_check_edges", lambda *a: (-1.0, 1.0))
     monkeypatch.setattr(torch.Tensor, "device", property(lambda self: FakeCuda()))
     with pytest.raises(RuntimeError, match="no kernel library"):
         sk.spmm_max_fwd(g, x)
@@ -127,4 +135,10 @@ def test_cuda_wrappers_never_fall_back(monkeypatch):
         sk.spmm_sum_rows(g, x)
     with pytest.raises(RuntimeError, match="no kernel library"):
         sk.spmm_sum_rows(g, x, transpose=True)
-    assert calls == ["spmm_max_fwd", "spmm_max_bwd", "spmm_sum", "spmm_sum"]
+    for transpose in (False, True):
+        with pytest.raises(RuntimeError, match="no kernel library"):
+            sk.spmm_sum_rows(g, x, transpose=transpose, use_val=True)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        pcc_scan.pcc_diff_histogram(z, z, edges, csr)
+    assert calls == ["spmm_max_fwd", "spmm_max_bwd", "spmm_sum", "spmm_sum", "spmm_sum",
+                     "spmm_sum", "pcc_diff_scan"]
