@@ -68,6 +68,27 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    sum-transpose launches per epoch, no max launch, the artifact contract,
    and the mid-round checkpoint seen after epoch 2 and removed at the end;
    then the same run once more under utils.profiling.trace.
+   4m. The multi-device path on the one card, after 4c (phase 4b's
+   train-normal float32 run is the single-card run it compares with).
+   (a) The full graph partitioned at P = 2 and 4 (balanced): every shard's
+   interior and boundary graph through spmm_max(empty_value=-inf) and its
+   backward at K = 10 x 503 and 10 x 400, float32 and bfloat16, equal to
+   the plain versions (out, argmax, dx; small-integer gradients keep the
+   sums exact), each timed (CUDA events, median of 10) beside its plain
+   version, scatter_reduce_ / index_add_ and its bytes bound; the kernels
+   line takes each (P, part, K, dtype, direction)'s slowest rank.  (b)
+   train() at full width (GNN32 float32, 3 epochs, 10 folds) at mesh
+   fold=1,graph=2 and fold=2,graph=2, the ranks gloo processes that share
+   cuda:0 (host-staged: a correctness run, not a scaling figure), spawned
+   by parallel.launch.spawn_local: each rank launches the -inf forward and
+   the backward twice (interior, boundary) per layer per epoch and no
+   other kernel; logits, every fig_data curve and log.tsv against the
+   single-card run (logits and losses within MESH_ATOL, threshold metrics
+   within 2 flipped rows); ms/epoch, the halo buffer bytes and received
+   rows per layer, and the exchange alone timed per layer.  (c) A NCCL
+   group of one rank on cuda:0 (in this process): the exchange at P = 1
+   and an all_reduce of CUDA tensors, then one epoch of the sharded runner
+   on a graph axis of size 1 against the single-card runner.
    4p. The preprocess stage at full width from synthetic raw files: a
    BioGRID mitab of powerlaw_ppi(24,041, 700k, seed 70)'s pairs (each of
    its 3 isolated nodes joined to one more node, so all 24,041 proteins
@@ -140,6 +161,9 @@ REPLACES = {
     "spmm_max_fwd_f32": _FWD_BODY,
     "spmm_max_fwd_bf16": _FWD_BODY,
     "spmm_max_fwd_noarg_f32": _FWD_BODY,
+    # empty_value=-inf: a graph shard's interior and boundary passes
+    "spmm_max_fwd_empty_f32": _FWD_BODY,
+    "spmm_max_fwd_empty_bf16": _FWD_BODY,
     "spmm_max_bwd_f32": "plagnn_tpu/ops/pallas/spmm_kernels.py:982",
     "spmm_max_bwd_bf16": "plagnn_tpu/ops/pallas/spmm_kernels.py:1270",
     # reduce="sum": pallas_spmm_sum's forward, and its VJP over the transpose
@@ -165,6 +189,18 @@ FOLDS, F_IN = 10, 503
 EPOCHS_F32, EPOCHS_BF16, EPOCHS_GCN2 = 3, 2, 3
 LAYERS = 3
 AGG_WIDTHS = (F_IN, 400, 300)  # per-fold width of each SAGE-pool aggregation
+MESH_EPOCHS = EPOCHS_F32  # phase 4m: the single-card run it compares with is 4b's
+MESH_RUNS = ((1, 2), (2, 2))   # (fold, graph) of phase 4m's sharded runs
+SHARD_PARTS = (2, 4)    # graph ranks of phase 4m's shard-kernel checks
+MESH_TIMEOUT_S = 600    # a hung rank fails phase 4m
+# Logits and losses of a sharded run against the single-card run of the
+# same jobs.  The JAX package's sharded engine tests hold 1e-5 over 4
+# epochs at a small size, as tests/test_torch_parallel.py does; at full
+# width a 3-epoch fold=1,graph=2 run gave 1.98e-5 (float32 sums of C-row
+# against N-row matmuls, through Adam's normalised step, which can turn a
+# near-zero gradient's rounding into a +-lr move).  Gate: 1e-4, the
+# tolerance tests/test_torch_train.py holds the runner to against JAX.
+MESH_ATOL = 1e-4
 GCN2_HIDDEN, CLASSES = 400, 12
 # per-fold width of each GCN2 aggregation: W first (503 > 400, 400 > 12)
 SUM_WIDTHS = (GCN2_HIDDEN, CLASSES)
@@ -259,7 +295,7 @@ def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape,
         "name": name,
         "route": "cuda",
         "source": KERNEL_SOURCE[source],
-        "replaces": REPLACES[name.removesuffix(CONV2)],
+        "replaces": REPLACES[counter_of(name)],
         "launches": 0,
         "max_abs_err": err,
         "ms": ms,
@@ -699,13 +735,19 @@ def crosscheck_max_fwd(per_kernel, results, smi_line):
           f"(median of 10, both kernels); ratio {total / event_ms:.3f}", flush=True)
 
 
+def counter_of(name):
+    """The launch counter of a kernels-line entry: an entry at conv2's
+    width (CONV2) or at a shard's shape (``@...``) is its counter's kernel."""
+    return name.split("@")[0].removesuffix(CONV2)
+
+
 def record_launches(results, counts, names=None):
     """Each kernel entry takes the launches of the run whose path it is on:
     its counter's, at every width that run aggregates (an entry at conv2's
     width is the same kernel as its counter's); ``names`` limits the
     entries a run sets."""
     for name, r in results.items():
-        c = counts.get(name.removesuffix(CONV2), 0)
+        c = counts.get(counter_of(name), 0)
         if c and (names is None or name in names):
             r["launches"] = c
 
@@ -1654,6 +1696,426 @@ def other_ops_phase(results, smi_line):
         time_orders(label, coo, smi_line)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4m: the multi-device path on the one card.
+# ---------------------------------------------------------------------------
+
+
+def shard_ks(p):
+    """K of phase 4m (a) at P = p graph ranks: the full fold batch's width
+    at each layer, and every width the sharded runs at P aggregate."""
+    ks = {FOLDS // f * w for f, g in MESH_RUNS if g == p for w in AGG_WIDTHS}
+    return sorted(ks | {FOLDS * w for w in AGG_WIDTHS}, reverse=True)
+
+
+def shard_max_entries(graph, own_rows, x32, label):
+    """spmm_max(empty_value=-inf) on one shard graph at one K, both dtypes:
+    forward (out, arg) and backward exactly equal to the plain versions
+    (small-integer gradients keep every float32 sum exact, so the single
+    rounding to bf16 agrees too), then timed (CUDA events, median of 10;
+    plain and library median of 3).  The bytes a pass must move: the
+    distinct source rows it reads (the forward's x, the backward's dx) and
+    the own rows whose output the sharded layer keeps (out and arg, g and
+    arg), each once, and the index.  Returns {(kind, tag): row}."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    ninf = -math.inf
+    n, k = x32.shape
+    e = graph.n_edges
+    src_l, dst_l = graph.src.long(), graph.dst.long()
+    n_src = int(torch.unique(src_l).numel())
+    c = own_rows
+    empty = graph.in_degree == 0
+    gen = torch.Generator(device="cuda").manual_seed(k + e)
+    rows = {}
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x = x32.to(dt)
+        out_k, arg_k = sk.spmm_max_fwd(graph, x, empty_value=ninf)
+        out_2, arg_2 = sk.spmm_max_fwd(graph, x, empty_value=ninf)
+        out_p, arg_p = sk.spmm_max_fwd_plain(graph, x, empty_value=ninf)
+        torch.cuda.synchronize()
+        if not (torch.equal(out_k, out_p) and torch.equal(arg_k, arg_p)):
+            fail(f"{label} {tag}: empty_value=-inf forward differs from plain")
+        if not (torch.equal(out_k, out_2) and torch.equal(arg_k, arg_2)):
+            fail(f"{label} {tag}: empty_value=-inf forward not identical run to run")
+        if not (bool(torch.isneginf(out_k[empty].float()).all())
+                and bool((arg_k[empty] == -1).all())):
+            fail(f"{label} {tag}: an empty row is not -inf with argmax -1")
+        g = torch.randint(-8, 9, (n, k), generator=gen, device="cuda").to(dt)
+        dx_k = sk.spmm_max_bwd(graph, g, arg_k)
+        dx_p = sk.spmm_max_bwd_plain(graph, g, arg_k)
+        torch.cuda.synchronize()
+        if not torch.equal(dx_k, dx_p):
+            fail(f"{label} {tag}: backward differs from plain "
+                 f"(max abs {(dx_k.float() - dx_p.float()).abs().max().item()})")
+        esize, asize = x.element_size(), arg_k.element_size()
+        fwd_ms = median_ms(lambda: sk.spmm_max_fwd(graph, x, empty_value=ninf), 10)
+        fwd_plain = median_ms(lambda: sk.spmm_max_fwd_plain(graph, x, empty_value=ninf), 3)
+        gathered = x[src_l]
+        sidx = dst_l[:, None].expand(-1, k)
+        lib_out = torch.full_like(x, ninf)
+        fwd_lib = median_ms(lambda: lib_out.scatter_reduce_(0, sidx, gathered, "amax",
+                                                            include_self=False), 3)
+        del gathered, lib_out, sidx
+        bwd_ms = median_ms(lambda: sk.spmm_max_bwd(graph, g, arg_k), 10)
+        bwd_plain = median_ms(lambda: sk.spmm_max_bwd_plain(graph, g, arg_k), 3)
+        masked = torch.where(arg_k[dst_l].long() == src_l[:, None], g[dst_l].float(), 0.0)
+        lib_dx = torch.zeros((n, k), device="cuda")
+        bwd_lib = median_ms(lambda: lib_dx.index_add_(0, src_l, masked), 3)
+        del masked, lib_dx
+        nonempty = int((~empty).sum().item())
+        rows[("fwd", tag)] = dict(
+            err=0.0, ms=fwd_ms, plain=fwd_plain, lib=fwd_lib,
+            nbytes=n_src * k * esize + 4 * (c + 1 + e) + c * k * (esize + asize),
+            ops=e * k)
+        rows[("bwd", tag)] = dict(
+            err=0.0, ms=bwd_ms, plain=bwd_plain, lib=bwd_lib,
+            nbytes=c * k * (esize + asize) + 4 * (n_src + 1 + e) + n_src * k * esize,
+            ops=e * k + nonempty * k)
+        del x, out_k, arg_k, out_2, arg_2, out_p, arg_p, g, dx_k, dx_p
+        torch.cuda.empty_cache()
+    return rows
+
+
+def shard_kernel_phase(results, smi_line):
+    """Phase 4m (a): the full graph partitioned at P = 2 and 4 (balanced);
+    every shard's interior and boundary graph through the -inf max forward
+    and its backward at shard_ks(P), f32 and bf16 (shard_max_entries).
+    The kernels line takes, per (P, part, K, dtype, direction), the slowest
+    rank's times (an SPMD step waits for it); phase 4m (b) fills in the
+    launches of the shapes its runs took."""
+    import numpy as np
+    import torch
+
+    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+    from plagnn_tpu_torch.parallel.partition import partition_graph
+
+    ppi = powerlaw_ppi(NODES, EDGES, SEED)
+    rng = np.random.default_rng(SEED)
+    for p in SHARD_PARTS:
+        pg = partition_graph(ppi.row, ppi.col, NODES, p, add_self_loops=True, balance=True)
+        recv = [int((pg.send_idx[:, r] >= 0).sum()) for r in range(p)]
+        print(f"partition P={p} (balanced): own rows C {pg.own_rows}, halo slots per "
+              f"peer S {pg.halo_per_peer}, gather space {pg.n_local} rows, halo rows "
+              f"received per rank {recv}, layer-1 halo buffer per exchange "
+              f"{p * pg.halo_per_peer * FOLDS * F_IN * 4 / 1e6:.1f} MB f32 per rank",
+              flush=True)
+        slowest = {}
+        ks = shard_ks(p)
+        for r in range(p):
+            shard = pg.shard(r, "cuda")
+            for part in ("interior", "boundary"):
+                graph = getattr(shard, part)
+                base = rng.standard_normal((graph.n_nodes, max(ks)), dtype=np.float32)
+                base = torch.from_numpy(base).cuda().to(torch.bfloat16).float().relu_()
+                for k in ks:
+                    label = f"P={p} rank {r} {part} (E {graph.n_edges}) K {k}"
+                    rows = shard_max_entries(graph, pg.own_rows, base[:, :k].contiguous(),
+                                             label)
+                    for (kind, tag), row in rows.items():
+                        key = (kind, tag, part, k)
+                        if key not in slowest or row["ms"] > slowest[key][0]["ms"]:
+                            slowest[key] = (row, graph.n_nodes, r)
+                    print(f"  {label}: " + ", ".join(
+                        f"{kind} {tag} {row['ms']:.3f} ms (bound "
+                        f"{row['nbytes'] / HBM_BYTES_PER_S * 1e3:.3f})"
+                        for (kind, tag), row in rows.items()), flush=True)
+                del base
+            del shard
+            torch.cuda.empty_cache()
+        for (kind, tag, part, k), (row, n, r) in sorted(slowest.items()):
+            counter = f"spmm_max_fwd_empty_{tag}" if kind == "fwd" else f"spmm_max_bwd_{tag}"
+            name = f"{counter}@p{p}_{part}_k{k}"
+            source = "spmm_max_fwd" if kind == "fwd" else "spmm_max_bwd"
+            results[name] = kernel_entry(name, source, row["err"], row["ms"], row["plain"],
+                                         row["lib"], row["nbytes"], row["ops"], (n, k))
+            results[name]["rank"] = r
+    print(f"shard kernels: every interior and boundary graph at P = {SHARD_PARTS}, K = "
+          f"{ {p: shard_ks(p) for p in SHARD_PARTS} }, f32 and bf16: forward and backward "
+          f"equal to their plain versions ({smi_line})", flush=True)
+
+
+def mesh_train_worker(rank, device, data_root, out, fold, graph, result_dir):
+    """One rank of a phase-4m run: train() at full width over the mesh, then
+    the halo exchange timed alone at each layer's width; writes its launch
+    counts, epoch times and exchange figures to result_dir."""
+    import torch
+    import torch.distributed as dist
+
+    from plagnn_tpu_torch.data.artifacts import load_condition, load_label_names
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+    from plagnn_tpu_torch.parallel.partition import partition_graph
+    from plagnn_tpu_torch.parallel.sharded import halo_exchange, make_mesh
+    from plagnn_tpu_torch.train.engine import TrainConfig, train
+    from plagnn_tpu_torch.train.kfold import FOLD_SEEDS
+
+    bundle = load_condition(data_root, "GSE30931", "normal")
+    cfg = TrainConfig(fold_num=FOLDS, fold_batch=FOLDS, epoch_num=MESH_EPOCHS,
+                      fold_seeds=FOLD_SEEDS[:1], mesh_fold=fold, mesh_graph=graph,
+                      verbose=False)
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    stats = train(bundle.graph, bundle.feats, bundle.labels, bundle.label_with_loc,
+                  bundle.loc_mat, cfg, out + os.sep,
+                  label_names=load_label_names(data_root) or bundle.uniprot,
+                  device_name=str(device))
+    wall = time.perf_counter() - t0
+    counts = dict(sk.LAUNCHES)
+    mesh = make_mesh(graph, fold)
+    g = bundle.graph
+    pg = partition_graph(g.src.numpy(), g.dst.numpy(), g.n_real_nodes, graph, balance=True)
+    # the launches by shape: the pass of this rank's shard with that many edges
+    part_of = {len(pg.interior_edges[mesh.graph_index][0]): "interior",
+               len(pg.boundary_edges[mesh.graph_index][0]): "boundary"}
+    shape_counts = {}
+    for (name, _, n_edges, k), c in sk.LAUNCH_SHAPES.items():
+        key = f"{name}@{part_of.get(n_edges, f'unknown graph of {n_edges} edges')}_k{k}"
+        shape_counts[key] = shape_counts.get(key, 0) + c
+    # the exchange alone, synchronous, at each layer's width (B/F folds)
+    send = torch.from_numpy(pg.send_idx[mesh.graph_index]).to(device)
+    exch = []
+    for width in AGG_WIDTHS:
+        k = FOLDS // fold * width
+        x = torch.rand((pg.own_rows, k), device=device)
+        times = []
+        for _ in range(4):
+            dist.barrier(group=mesh.graph_group)
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            halo_exchange(x, send, mesh.graph_group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - a) * 1e3)
+        exch.append({"k": k, "buffer_bytes": graph * pg.halo_per_peer * k * 4,
+                     "ms": statistics.median(times[1:])})
+    recv_rows = int((pg.send_idx[:, mesh.graph_index] >= 0).sum())
+    with open(os.path.join(result_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"counts": counts, "shape_counts": shape_counts, "epoch_ms": [m for st in stats for m in st.epoch_ms],
+                   "wall_s": wall, "exchange": exch, "halo_rows_received": recv_rows,
+                   "own_rows": pg.own_rows, "halo_per_peer": pg.halo_per_peer,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}, f)
+
+
+def compare_mesh_artifacts(label, got_dir, want_dir):
+    """A sharded run's artifacts against the single-card run of the same
+    jobs: logits and every loss within MESH_ATOL (relative for losses
+    above 1); threshold metrics within
+    2 flipped predictions of their row count (+1e-5, tests/test_torch_train.py
+    's allowance); AUC within 1e-4 per row of 1e-4 and pred_num within 3 per
+    class; log.tsv the same rows.  Returns the largest differences."""
+    import numpy as np
+
+    worst = {"logits": 0.0, "loss": 0.0, "metric": 0.0, "tsv_flips": 0}
+    for f in range(1, FOLDS + 1):
+        a = np.load(os.path.join(want_dir, f"1_{f}_loc_logits.npy"))
+        b = np.load(os.path.join(got_dir, f"1_{f}_loc_logits.npy"))
+        worst["logits"] = max(worst["logits"], float(np.abs(a - b).max()))
+    with open(os.path.join(want_dir, "fig_data_1.json")) as fh:
+        fa = json.load(fh)
+    with open(os.path.join(got_dir, "fig_data_1.json")) as fh:
+        fb = json.load(fh)
+    tsv = [open(os.path.join(d, "log.tsv")).read().splitlines() for d in (want_dir, got_dir)]
+    rows = {"train": {}, "validation": {}}
+    for line in tsv[0][1:]:
+        cols = line.split("\t")
+        split = "train" if cols[2] == "0" else "validation"
+        rows[split][cols[1]] = rows[split].get(cols[1], 0) + 1
+    for split, by_alpha in fa.items():
+        for alpha, folds in by_alpha.items():
+            for fold, curves in folds.items():
+                for key, v in curves.items():
+                    v = np.asarray(v, float)
+                    got = np.asarray(fb[split][alpha][fold][key], float)
+                    d = float(np.abs(got - v).max())
+                    if key == "loss":
+                        worst["loss"] = max(worst["loss"], d)
+                        if d > MESH_ATOL * max(1.0, float(np.abs(v).max())):
+                            fail(f"{label}: {split} fold {fold} loss differs by {d}")
+                    elif key == "pred_num_final":
+                        if d > 3:
+                            fail(f"{label}: fold {fold} pred_num differs by {d}")
+                    else:
+                        worst["metric"] = max(worst["metric"], d)
+                        if d > 2.0 / rows[split][fold] + 1e-5:
+                            fail(f"{label}: {split} fold {fold} {key} differs by {d}")
+    if worst["logits"] > MESH_ATOL:
+        fail(f"{label}: logits differ from the single-card run by {worst['logits']}")
+    if len(tsv[0]) != len(tsv[1]) or any(
+            a.split("\t")[:5] != b.split("\t")[:5] for a, b in zip(*tsv)):
+        fail(f"{label}: log.tsv rows differ from the single-card run's")
+    worst["tsv_flips"] = sum(a != b for a, b in zip(*tsv))
+    return worst
+
+
+def mesh_train_phase(data_root, want_dir, results, smi_line):
+    """Phase 4m (b): ranks sharing the one card through gloo, train() at
+    full width at each of MESH_RUNS, against the single-card run of the
+    same jobs (phase 4b's train-normal float32, the CLI's defaults)."""
+    from plagnn_tpu_torch.ops import _build
+    from plagnn_tpu_torch.parallel.launch import spawn_local
+
+    _build.build_all()     # the ranks load the libraries; none builds
+    print("phase 4m ranks: gloo process groups whose ranks all share cuda:0 (one "
+          "card); a correctness run through host-staged gloo, not a scaling figure",
+          flush=True)
+    shard_launches = {}
+    for fold, graph in MESH_RUNS:
+        n = fold * graph
+        tag = f"fold={fold},graph={graph}"
+        out = os.path.join(data_root, f"log_mesh_f{fold}g{graph}")
+        res_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        reset_launches()
+        t0 = time.perf_counter()
+        spawn_local(mesh_train_worker, n, backend="gloo", devices=["cuda:0"] * n,
+                    rdzv_dir=res_dir, args=(data_root, out, fold, graph, res_dir),
+                    timeout_s=MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if any(launch_counts().values()):
+            fail(f"mesh {tag}: the parent launched kernels during the sharded run")
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(res_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        shutil.rmtree(res_dir, ignore_errors=True)
+        counts = {}
+        for rr in ranks:
+            for k, c in rr["counts"].items():
+                counts[k] = counts.get(k, 0) + c
+        per_rank = 2 * LAYERS * MESH_EPOCHS      # interior + boundary, each layer
+        expected = {"spmm_max_fwd_empty_f32": n * per_rank,
+                    "spmm_max_bwd_f32": n * per_rank}
+        for k, c in counts.items():
+            if c != expected.get(k, 0):
+                fail(f"mesh {tag}: {k} launched {c} times, expected {expected.get(k, 0)}")
+        # each launch to its shard-shape entry: (counter, P, part, K)
+        for rr in ranks:
+            for key, c in rr["shape_counts"].items():
+                counter, shape = key.split("@")
+                name = f"{counter}@p{graph}_{shape}"
+                if name not in results:
+                    fail(f"mesh {tag}: {c} launches of {key}, a shape phase 4m (a) "
+                         "did not check")
+                shard_launches[name] = shard_launches.get(name, 0) + c
+        worst = compare_mesh_artifacts(f"mesh {tag}", out, want_dir)
+        ep = ranks[0]["epoch_ms"]
+        print(f"mesh {tag} ({n} gloo ranks on one card, {smi_line}): epoch ms "
+              f"{[round(m, 3) for m in ep]}, steady {statistics.median(ep[1:]):.3f} "
+              f"ms/epoch (rank 0), run wall {wall:.1f} s with spawn, peak "
+              f"{max(rr['peak_gib'] for rr in ranks):.2f} GiB a rank, launches "
+              f"{ {k: c for k, c in counts.items() if c} }", flush=True)
+        for layer, ex in enumerate(ranks[0]["exchange"], start=1):
+            slowest = max(rr["exchange"][layer - 1]["ms"] for rr in ranks)
+            print(f"  layer {layer} halo exchange (K {ex['k']}): buffer "
+                  f"{ex['buffer_bytes'] / 1e6:.1f} MB a rank a direction "
+                  f"(S {ranks[0]['halo_per_peer']}, halo rows received "
+                  f"{[rr['halo_rows_received'] for rr in ranks]}), slowest rank "
+                  f"{slowest:.3f} ms (median of 3, gloo host-staged)", flush=True)
+        print(f"  against one card: logits max abs diff {worst['logits']:.3e} (gate "
+              f"{MESH_ATOL}), losses {worst['loss']:.3e}, threshold/AUC metrics "
+              f"{worst['metric']:.3e}, log.tsv rows with a flipped prediction "
+              f"{worst['tsv_flips']}", flush=True)
+    # the shard entries launched by the runs; the other shapes stay at 0
+    for name, c in shard_launches.items():
+        results[name]["launches"] = c
+
+
+def nccl_phase(data_root, smi_line):
+    """Phase 4m (c): a NCCL group of one rank on cuda:0 (in this process):
+    the halo exchange at P = 1 (all slots padding: zeros, and a zero
+    gradient) and an all_reduce of CUDA tensors; then one epoch of the
+    sharded runner on a graph axis of size 1 (the local pass, no exchange)
+    against the single-card runner from the same models."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from plagnn_tpu_torch.data.artifacts import load_condition
+    from plagnn_tpu_torch.parallel.partition import partition_graph
+    from plagnn_tpu_torch.parallel.sharded import (
+        halo_exchange, make_mesh, make_sharded_fold_runner)
+    from plagnn_tpu_torch.train.engine import (
+        TrainConfig, fold_seed, init_fold_model, make_batched_fold_runner)
+    from plagnn_tpu_torch.train.kfold import FOLD_SEEDS, fold_node_masks
+    from plagnn_tpu_torch.train.losses import weight_cal
+
+    rdzv = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}/rdzv", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(1, 1)
+        b = load_condition(data_root, "GSE30931", "normal")
+        g = b.graph
+        pg = partition_graph(g.src.numpy(), g.dst.numpy(), g.n_real_nodes, 1)
+        shard = pg.shard(0, "cuda")
+        x = torch.rand((pg.own_rows, FOLDS * F_IN), device="cuda", requires_grad=True)
+        halo = halo_exchange(x, shard.send_idx, mesh.graph_group)
+        halo.backward(torch.ones_like(halo))
+        t = torch.arange(1024, dtype=torch.float32, device="cuda")
+        dist.all_reduce(t, group=mesh.graph_group)
+        torch.cuda.synchronize()
+        if halo.shape != (pg.halo_per_peer, FOLDS * F_IN) or bool(halo.any()):
+            fail("NCCL: the P = 1 halo is not all padding zeros")
+        if bool(x.grad.any()) or not torch.equal(
+                t, torch.arange(1024, dtype=torch.float32, device="cuda")):
+            fail("NCCL: the exchange's gradient or the all_reduce is wrong")
+        cfg = TrainConfig(fold_num=FOLDS, epoch_num=1, verbose=False)
+        tr, va = fold_node_masks(b.label_with_loc, g.n_nodes, FOLDS, FOLD_SEEDS[0])
+        seeds = [fold_seed(cfg.seed, 1, f + 1, 0) for f in range(FOLDS)]
+        w = weight_cal(b.loc_mat)
+        n = g.n_real_nodes
+        run_s = make_sharded_fold_runner(mesh, pg, shard, b.feats[:n], b.labels[:n], w,
+                                         cfg, torch.device("cuda"))
+        _, _, probs_s, hist_s, ms_s = run_s(
+            init_fold_model(cfg, F_IN, seeds, "cuda"), None, tr, va, 0.1)
+        gd = g.to("cuda")
+        run_1 = make_batched_fold_runner(
+            gd, torch.as_tensor(np.asarray(b.feats, np.float32), device="cuda"),
+            torch.as_tensor(np.asarray(b.labels, np.float32), device="cuda"), w,
+            torch.arange(g.n_nodes, device="cuda") < n, cfg)
+        _, _, probs_1, hist_1, ms_1 = run_1(
+            init_fold_model(cfg, F_IN, seeds, "cuda"), None,
+            torch.as_tensor(tr, device="cuda"), torch.as_tensor(va, device="cuda"), 0.1)
+        d = (probs_s - probs_1[:, :n]).abs().max().item()
+        dl = max(float(np.abs(hist_s[s]["loss"] - hist_1[s]["loss"]).max())
+                 for s in ("train", "val"))
+        if d > MESH_ATOL or dl > MESH_ATOL:
+            fail(f"NCCL graph=1 step: probabilities differ by {d}, losses by {dl}")
+        print(f"NCCL (1 rank, cuda:0, {smi_line}): halo exchange at P = 1 and "
+              f"all_reduce on CUDA tensors ran; graph=1 step {ms_s[0]:.3f} ms against "
+              f"the single-card runner's {ms_1[0]:.3f} ms, probabilities max abs diff "
+              f"{d:.3e}, losses {dl:.3e}", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+
+
+def mesh_phase(data_root, results, smi_line):
+    """Phase 4m, on a synthetic bundle whose log holds the single-card
+    train-normal float32 run of MESH_EPOCHS epochs."""
+    phase("4m multi-device path on one card")
+    shard_kernel_phase(results, smi_line)
+    mesh_train_phase(data_root, os.path.join(data_root, "log", "GSE30931", "normal"),
+                     results, smi_line)
+    nccl_phase(data_root, smi_line)
+
+
+def mesh_only(smi_line):
+    """``--only-mesh``: the single-card run phase 4m compares with, then 4m."""
+    from plagnn_tpu_torch import cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        cli.main(["synth", "--data-root", tmp, "--nodes", str(NODES),
+                  "--edges", str(EDGES), "--seed", str(SEED)])
+        train_cli(tmp, "train-normal", "float32", MESH_EPOCHS)
+        mesh_phase(tmp, {}, smi_line)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def sweep_row_chunk(full):
     """Median times of the row-chunked kernels (float32 sum forward and
     transpose at K = 10 x 400 and 10 x 12, max forward and backward at 10 x
@@ -1742,6 +2204,9 @@ def main(argv=None):
     ap.add_argument("--only-kernels", action="store_true",
                     help="stop after phase 3 (build and kernel checks); "
                          "prints no result line")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="phases 1-2, the single-card train-normal float32 run "
+                         "and phase 4m; prints no result line")
     ap.add_argument("--sweep-row-chunk", action="store_true",
                     help="after phase 3, time the row-chunked kernels on the "
                          "full graph at each chunk size and stop; prints no "
@@ -1774,6 +2239,9 @@ def main(argv=None):
         for fn, line in ptxas_report(log):
             print(f"  {name} {fn}: {line}")
     print(f"build: {build_s:.1f} s ({len(logs)} compiled)", flush=True)
+    if args.only_mesh:
+        mesh_only(smi_line)
+        return
 
     phase("3 kernels vs plain")
     from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
@@ -1862,6 +2330,8 @@ def main(argv=None):
         profile_epochs("GCN2 train() f32",
                        lambda: train_gcn2(tmp, os.path.join(tmp, "log_gcn2_profiled")),
                        GCN2_LAUNCHES, smi_line)
+        # phase 4b's run is the single-card run of the sharded runs' jobs
+        mesh_phase(tmp, results, smi_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase("4p preprocess at full width")
@@ -1878,6 +2348,7 @@ def main(argv=None):
         "pcc_diff_count_f64", "pcc_diff_hits_f64", "ecc_common_neighbors_i32",
         "pcc_diff_hist_f64", "spmm_sum_val_fwd_f32", "spmm_sum_val_bwd_f32",
         "spmm_sum_val_fwd_bf16", "spmm_sum_val_bwd_bf16")]
+    kernels += [r for name, r in sorted(results.items()) if "@p" in name]
     for r in kernels:
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):
             fail(f"{r['name']}: non-finite timing")

@@ -9,6 +9,7 @@
     python -m plagnn_tpu_torch.cli performance    (CV metrics, random baselines)
     python -m plagnn_tpu_torch.cli statistics     (topology-change statistics)
     python -m plagnn_tpu_torch.cli figures        (the figures' data, as JSON)
+    python -m plagnn_tpu_torch.cli plan-mesh      (refused: the planner waits)
 
 Flag names, defaults and artifact paths match ``plagnn_tpu.cli`` (-data,
 -lr 5e-5, -f 10, -e 200, -a [0.1], --no-dense-gcn).  ``-d`` is the torch
@@ -20,7 +21,15 @@ one path: the CUDA kernels on a card, their plain PyTorch versions on the
 CPU.  ``score``, ``performance`` and ``geo`` are host work and take no
 ``-d``.  ``figures`` draws no PNG (no matplotlib on the port's machines):
 it writes the JSON each plot is drawn from, under the plot's stem.
-Only the single-device mesh ``fold=1,graph=1`` is accepted.
+
+``--mesh fold=F,graph=P`` trains over F*P ranks (parallel/sharded.py): P
+ranks split the graph, F groups of them split the fold batch.  Under
+``torchrun`` each process is one rank (``WORLD_SIZE`` must be F*P; a rank
+takes ``cuda:LOCAL_RANK``, NCCL, or the CPU under ``-d cpu``, gloo).  Run
+plainly, the CLI spawns F*P local ranks: one per visible card (NCCL; fewer
+cards than ranks raises), or gloo CPU ranks under ``-d cpu``.  ``--mesh
+auto`` and ``plan-mesh`` are refused: the JAX package's planner runs on TPU
+rates, and the port's waits for H100 anchors.
 """
 from __future__ import annotations
 
@@ -29,6 +38,9 @@ import os
 import sys
 
 SINGLE_DEVICE_MESH = "fold=1,graph=1"
+PLANNER_WAITS = ("the mesh planner (--mesh auto, plan-mesh) is not ported: its "
+                 "model runs on TPU rates, and the port's waits for measured H100 "
+                 "anchors; pass --mesh fold=F,graph=P")
 
 
 def _add_train_flags(p: argparse.ArgumentParser):
@@ -65,37 +77,120 @@ def _add_train_flags(p: argparse.ArgumentParser):
                    help="aggregation message dtype (bfloat16 halves the "
                         "gathered bytes; float32 = reference parity)")
     p.add_argument("--mesh", default=SINGLE_DEVICE_MESH,
-                   help="only the single-device mesh 'fold=1,graph=1' is "
-                        "ported")
+                   help="'fold=F,graph=P': P ranks split the graph by "
+                        "destination blocks (a halo exchange per layer), F "
+                        "groups of them split the fold batch (fold-batch %% F "
+                        "== 0); F*P ranks: torchrun's, or spawned here, one "
+                        "per card (or CPU ranks under -d cpu)")
+    p.add_argument("--no-mesh-balance", action="store_true",
+                   help="contiguous node-id blocks instead of the balanced "
+                        "(in-degree snake) partition")
+
+
+def parse_mesh(spec: str):
+    """'fold=F,graph=P' (either key optional) -> (mesh_fold, mesh_graph),
+    the JAX CLI's cases; 'auto' / 'auto:D' exit (the planner waits)."""
+    s = str(spec).strip()
+    if s == "auto" or s.startswith("auto:"):
+        raise SystemExit(f"--mesh {spec!r}: {PLANNER_WAITS}")
+    vals = {"fold": 1, "graph": 1}
+    for part in s.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            k, v = part.split("=")
+            vals[k.strip()] = int(v)
+        except ValueError:
+            raise SystemExit(f"invalid --mesh {spec!r}: expected 'fold=F,graph=P'")
+        if k.strip() not in ("fold", "graph"):
+            raise SystemExit(f"invalid --mesh {spec!r}: unknown axis {k.strip()!r}")
+    if vals["fold"] < 1 or vals["graph"] < 1:
+        raise SystemExit(f"invalid --mesh {spec!r}: sizes must be >= 1")
+    return vals["fold"], vals["graph"]
 
 
 def _train(args, condition: str):
+    """A training subcommand: one device, or the mesh's ranks."""
+    from .parallel.multihost import launcher_environment
+
+    mesh_fold, mesh_graph = parse_mesh(args.mesh)
+    n = mesh_fold * mesh_graph
+    if n == 1 and not launcher_environment():
+        return _train_rank(0, args.d, args, condition)
+    import torch
+
+    from .train.engine import resolve_device
+
+    cpu = torch.device(args.d).type == "cpu"
+    backend = "gloo" if cpu else "nccl"
+    if not cpu:
+        resolve_device(args.d)
+    if launcher_environment():
+        import torch.distributed as dist
+
+        from .parallel.multihost import initialize_distributed
+
+        world = initialize_distributed(backend=backend)
+        if world != n:
+            raise SystemExit(f"--mesh {args.mesh!r} needs {n} ranks; the launcher "
+                             f"started {world}")
+        device = "cpu" if cpu else f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        if not cpu:
+            torch.cuda.set_device(device)
+        try:
+            return _train_rank(dist.get_rank(), device, args, condition)
+        finally:
+            dist.destroy_process_group()
+    if cpu:
+        devices = ["cpu"] * n
+    elif torch.cuda.device_count() < n:
+        raise RuntimeError(
+            f"--mesh {args.mesh!r} needs {n} cards (one rank per card, NCCL); "
+            f"{torch.cuda.device_count()} visible")
+    else:
+        devices = [f"cuda:{i}" for i in range(n)]
+    import tempfile
+
+    from . import cli as this   # the entry pickles by module name, also under -m
+    from .parallel.launch import spawn_local
+
+    with tempfile.TemporaryDirectory(prefix="plagnn_rdzv_") as rdzv:
+        spawn_local(this._train_rank, n, backend=backend, devices=devices,
+                    rdzv_dir=rdzv, args=(args, condition))
+    return None
+
+
+def _train_rank(rank: int, device, args, condition: str):
+    """One rank's training run (the only one on a single device) on
+    ``device`` (a name or a torch.device); rank 0 prints and writes the log
+    header."""
     from .data.artifacts import load_condition, load_label_names
     from .train.engine import TrainConfig, resolve_device, train
     from .train.kfold import FOLD_SEEDS
     from .utils.precision import set_aggregation_dtype, set_matmul_precision
 
-    if args.mesh != SINGLE_DEVICE_MESH:
-        raise SystemExit(f"--mesh {args.mesh!r}: only {SINGLE_DEVICE_MESH!r} is "
-                         "ported (multi-device training is not ported yet)")
-    resolve_device(args.d)
+    mesh_fold, mesh_graph = parse_mesh(args.mesh)
+    device = str(device)
+    resolve_device(device)
     set_matmul_precision(args.precision)
     set_aggregation_dtype(args.agg_dtype)
     bundle = load_condition(args.data_root, args.data, condition)
     subdir = "normal" if condition == "normal" else "perturbation"
     log_path = os.path.join(args.data_root, "log", args.data, subdir) + os.sep
-    os.makedirs(log_path, exist_ok=True)
-    print(
-        "learning rate:{:.8f}, fold num:{:}, epoch num:{:}, alpha list:{},device:{}".format(
-            args.lr, args.f, args.e, list(map(float, args.a)), args.d
-        )
-    )
-    with open(os.path.join(log_path, "txt_log.txt"), "w") as f:
-        f.write(
-            "learning rate:{:.8f}, fold num:{:}, epoch num:{:}, alpha list:{}, device:{}\n".format(
+    if rank == 0:
+        os.makedirs(log_path, exist_ok=True)
+        print(
+            "learning rate:{:.8f}, fold num:{:}, epoch num:{:}, alpha list:{},device:{}".format(
                 args.lr, args.f, args.e, list(map(float, args.a)), args.d
             )
         )
+        with open(os.path.join(log_path, "txt_log.txt"), "w") as f:
+            f.write(
+                "learning rate:{:.8f}, fold num:{:}, epoch num:{:}, alpha list:{}, device:{}\n".format(
+                    args.lr, args.f, args.e, list(map(float, args.a)), args.d
+                )
+            )
     cfg = TrainConfig(
         lr=args.lr,
         fold_num=args.f,
@@ -107,6 +202,9 @@ def _train(args, condition: str):
         compute_auc=not args.no_auc,
         auc_every=args.auc_every,
         checkpoint_every=args.checkpoint_every,
+        mesh_fold=mesh_fold,
+        mesh_graph=mesh_graph,
+        mesh_balance=not args.no_mesh_balance,
     )
     return train(
         bundle.graph,
@@ -117,7 +215,7 @@ def _train(args, condition: str):
         cfg,
         log_path,
         label_names=load_label_names(args.data_root) or bundle.uniprot,
-        device_name=args.d,
+        device_name=device,
     )
 
 
@@ -182,6 +280,8 @@ def main(argv=None):
                         "fig_alpha) as alpha_dist.json in each log directory")
     p.add_argument("-d", type=str, default="cuda",
                    help="torch device of the --diff-hist scan (cuda, cuda:N or cpu)")
+    what = "the mesh planner; refused: it waits for H100 anchors"
+    sub.add_parser("plan-mesh", help=what, description=what)
     p = sub.add_parser("synth", help="write a synthetic dataset bundle")
     p.add_argument("--data-root", default="data")
     p.add_argument("--nodes", type=int, default=24041)
@@ -218,6 +318,8 @@ def main(argv=None):
         return topology_statistics(args.data_root, device=resolve_device(args.d))
     if args.cmd == "figures":
         return _figures(args)
+    if args.cmd == "plan-mesh":
+        raise SystemExit(f"plan-mesh: {PLANNER_WAITS}")
     _write_synth(args)
     return None
 

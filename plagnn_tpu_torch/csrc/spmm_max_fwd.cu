@@ -8,7 +8,9 @@
 // Computes, for a destination-sorted CSR (indptr, src; sources ascending
 // inside each row) and x of shape (N, K) with K = B*F (fold batch times
 // features, any K):
-//   out[i, k] = max over in-edges j -> i of x[j, k]        (0 for empty rows)
+//   out[i, k] = max over in-edges j -> i of x[j, k]  (empty_value for empty
+//               rows: 0 on one device, -inf for the partial maxima of a
+//               graph shard, plagnn_tpu/parallel/sharded.py:136-142)
 //   arg[i, k] = the source of the FIRST maximum in (dst, src) order: the
 //               update is on strict '>' over ascending sources    (-1 empty)
 // Ties are common (relu gives many zeros), and the backward routes the
@@ -39,9 +41,9 @@
 //    is always taken, every later one only where it is strictly greater, in
 //    ascending edge order -- so a chunk's (value, source) is its first
 //    maximum, a value of -inf included.  A chunk that is its row's only one
-//    stores out and arg directly (an empty row's empty chunk stores 0 and
-//    -1); a chunk of a split row stores a float32 value and an int32 source
-//    in its slot of two (n_slots, K) scratch buffers.
+//    stores out and arg directly (an empty row's empty chunk stores
+//    empty_value and -1); a chunk of a split row stores a float32 value and
+//    an int32 source in its slot of two (n_slots, K) scratch buffers.
 // 2. spmm_max_fwd_combine_kernel: one thread per (split row, k) starts from
 //    the row's first slot and takes a later slot only where its value is
 //    strictly greater.  Slots run in ascending chunk order, and a lower
@@ -144,7 +146,8 @@ __global__ void __launch_bounds__(rc::kThreads, kMinBlocks)
 spmm_max_fwd_kernel(const T* __restrict__ x, rc::Table t,
                     const int* __restrict__ src, T* __restrict__ out,
                     ArgT* __restrict__ arg, float* __restrict__ partial_val,
-                    int* __restrict__ partial_src, int64_t k_width) {
+                    int* __restrict__ partial_src, int64_t k_width,
+                    float empty_value) {
   constexpr int J = rc::vectors_per_lane<T, V>();
   const int lane = threadIdx.x & 31;
   const int64_t chunk =
@@ -156,9 +159,11 @@ spmm_max_fwd_kernel(const T* __restrict__ x, rc::Table t,
   const int row = __ldg(t.row + chunk);
   MaxFwdOp<T, V, J, kWithArg> op{x, k_width};
   op.begin(k0, nvec);
-  float best[V * J];  // an empty chunk (empty row) keeps 0 and source -1
+  // An empty chunk (empty row) keeps empty_value and source -1; a split
+  // row's chunks are never empty, so the combine never sees it.
+  float best[V * J];
 #pragma unroll
-  for (int i = 0; i < V * J; ++i) best[i] = 0.0f;
+  for (int i = 0; i < V * J; ++i) best[i] = empty_value;
   rc::walk_chunk(src, __ldg(t.ptr + chunk), __ldg(t.ptr + chunk + 1), lane,
                  nvec > 0, op, best);
   const int slot = __ldg(t.slot + chunk);
@@ -213,7 +218,7 @@ template <typename T, typename ArgT, int V, bool kWithArg>
 int launch_v(const void* x, const rc::Table& table, const int* src,
              const int* split_row, const int* split_ptr, int64_t n_split,
              void* out, void* arg, void* partial_val, void* partial_src,
-             int64_t k_width, cudaStream_t stream) {
+             int64_t k_width, float empty_value, cudaStream_t stream) {
   if constexpr (V * sizeof(T) > 16) {
     return cudaErrorInvalidValue;  // never chosen: vector_width caps V
   } else {
@@ -225,7 +230,7 @@ int launch_v(const void* x, const rc::Table& table, const int* src,
     spmm_max_fwd_kernel<T, ArgT, V, kWithArg><<<grid, rc::kThreads, 0, stream>>>(
         static_cast<const T*>(x), table, src, static_cast<T*>(out),
         static_cast<ArgT*>(arg), static_cast<float*>(partial_val),
-        static_cast<int*>(partial_src), k_width);
+        static_cast<int*>(partial_src), k_width, empty_value);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 0) return err;
     spmm_max_fwd_combine_kernel<T, ArgT, kWithArg>
@@ -241,7 +246,7 @@ template <typename T, typename ArgT, bool kWithArg>
 int launch(const void* x, const rc::Table& table, const int* src,
            const int* split_row, const int* split_ptr, int64_t n_split,
            void* out, void* arg, void* partial_val, void* partial_src,
-           int64_t k_width, cudaStream_t stream) {
+           int64_t k_width, float empty_value, cudaStream_t stream) {
   constexpr int es = sizeof(T);
   constexpr int as = sizeof(ArgT);
   const int v = rc::vector_width(
@@ -251,19 +256,23 @@ int launch(const void* x, const rc::Table& table, const int* src,
     case 8:
       return launch_v<T, ArgT, 8, kWithArg>(x, table, src, split_row, split_ptr,
                                             n_split, out, arg, partial_val,
-                                            partial_src, k_width, stream);
+                                            partial_src, k_width, empty_value,
+                                            stream);
     case 4:
       return launch_v<T, ArgT, 4, kWithArg>(x, table, src, split_row, split_ptr,
                                             n_split, out, arg, partial_val,
-                                            partial_src, k_width, stream);
+                                            partial_src, k_width, empty_value,
+                                            stream);
     case 2:
       return launch_v<T, ArgT, 2, kWithArg>(x, table, src, split_row, split_ptr,
                                             n_split, out, arg, partial_val,
-                                            partial_src, k_width, stream);
+                                            partial_src, k_width, empty_value,
+                                            stream);
     default:
       return launch_v<T, ArgT, 1, kWithArg>(x, table, src, split_row, split_ptr,
                                             n_split, out, arg, partial_val,
-                                            partial_src, k_width, stream);
+                                            partial_src, k_width, empty_value,
+                                            stream);
   }
 }
 
@@ -271,20 +280,21 @@ template <typename T>
 int launch_arg(int arg_bits, const void* x, const rc::Table& table,
                const int* src, const int* split_row, const int* split_ptr,
                int64_t n_split, void* out, void* arg, void* partial_val,
-               void* partial_src, int64_t k_width, cudaStream_t stream) {
+               void* partial_src, int64_t k_width, float empty_value,
+               cudaStream_t stream) {
   switch (arg_bits) {
     case 0:
       return launch<T, int16_t, false>(x, table, src, split_row, split_ptr,
                                        n_split, out, nullptr, partial_val,
-                                       nullptr, k_width, stream);
+                                       nullptr, k_width, empty_value, stream);
     case 16:
       return launch<T, int16_t, true>(x, table, src, split_row, split_ptr,
                                       n_split, out, arg, partial_val,
-                                      partial_src, k_width, stream);
+                                      partial_src, k_width, empty_value, stream);
     case 32:
       return launch<T, int32_t, true>(x, table, src, split_row, split_ptr,
                                       n_split, out, arg, partial_val,
-                                      partial_src, k_width, stream);
+                                      partial_src, k_width, empty_value, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -297,7 +307,8 @@ int launch_arg(int arg_bits, const void* x, const rc::Table& table,
 // n_chunks, split_row, split_ptr, n_split) is the chunk table of the
 // destination-sorted CSR (indptr, src).  partial_val (float32) and
 // partial_src (int32) are scratch of (n_slots, k_width), unused when
-// n_split is 0.  Returns the CUDA error code of the launches (0 =
+// n_split is 0.  empty_value is what an empty row stores (its argmax -1).
+// Returns the CUDA error code of the launches (0 =
 // launched); cudaErrorInvalidValue for a grid that would not fit.
 extern "C" int spmm_max_fwd(int dtype, int arg_bits, const void* x,
                             const void* chunk_row, const void* chunk_ptr,
@@ -305,7 +316,8 @@ extern "C" int spmm_max_fwd(int dtype, int arg_bits, const void* x,
                             const void* src, const void* split_row,
                             const void* split_ptr, long long n_split, void* out,
                             void* arg, void* partial_val, void* partial_src,
-                            long long k_width, void* stream) {
+                            long long k_width, float empty_value,
+                            void* stream) {
   if (n_chunks == 0 || k_width == 0) return cudaSuccess;
   if (n_chunks > 2147483647LL) return cudaErrorInvalidValue;
   const rc::Table table{static_cast<const int*>(chunk_row),
@@ -319,11 +331,12 @@ extern "C" int spmm_max_fwd(int dtype, int arg_bits, const void* x,
   switch (dtype) {
     case 0:
       return launch_arg<float>(arg_bits, x, table, sp, srow, sptr, n_split, out,
-                               arg, partial_val, partial_src, k_width, st);
+                               arg, partial_val, partial_src, k_width,
+                               empty_value, st);
     case 1:
       return launch_arg<__nv_bfloat16>(arg_bits, x, table, sp, srow, sptr,
                                        n_split, out, arg, partial_val,
-                                       partial_src, k_width, st);
+                                       partial_src, k_width, empty_value, st);
     default:
       return cudaErrorInvalidValue;
   }

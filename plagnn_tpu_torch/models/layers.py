@@ -47,13 +47,19 @@ def torch_linear_init(in_feats: int, out_feats: int,
     return w, b
 
 
-def aggregate_max(graph: Graph, pooled: torch.Tensor) -> torch.Tensor:
+def aggregate_max(graph, pooled: torch.Tensor) -> torch.Tensor:
     """Segment max of pooled messages, in the aggregation dtype when one is
-    set (bf16 messages; the result comes back in pooled's dtype)."""
+    set (bf16 messages; the result comes back in pooled's dtype).
+
+    ``graph`` is a ``Graph`` (the single-device ``spmm_max``) or an
+    aggregation hook: a callable from the messages (rows, ...) to their
+    maxima, such as ``parallel.sharded.ShardedMaxAgg`` on one rank's graph
+    shard, so the models run unchanged on a shard."""
+    agg = graph if callable(graph) else (lambda msgs: spmm_max(graph, msgs))
     agg_dt = aggregation_dtype()
     if agg_dt is None:
-        return spmm_max(graph, pooled)
-    return spmm_max(graph, pooled.to(agg_dt)).to(pooled.dtype)
+        return agg(pooled)
+    return agg(pooled.to(agg_dt)).to(pooled.dtype)
 
 
 class SageConv(nn.Module):

@@ -8,7 +8,9 @@ features, so one pass over the edges serves every fold.
 Three kernels, each with a plain PyTorch version beside it:
 
 * ``spmm_max_fwd``: ``csrc/spmm_max_fwd.cu`` (float32 or bfloat16, with or
-  without the argmax).  Plain version: ``spmm_max_fwd_plain``.
+  without the argmax; ``empty_value`` is what an empty row stores: 0 on one
+  device, -inf for a graph shard's partial maxima).  Plain version:
+  ``spmm_max_fwd_plain``.
 * ``spmm_max_bwd``: ``csrc/spmm_max_bwd.cu`` (``spmm_max_bwd_f32`` and
   ``spmm_max_bwd_bf16``).  Plain version: ``spmm_max_bwd_plain``.
 * ``spmm_sum_rows``: ``csrc/spmm_sum.cu``, one kernel over the
@@ -24,7 +26,8 @@ an int32 scratch for the partials' sources).
 
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.  ``LAUNCHES`` counts the kernel
-launches, so a run can show that its path went through the kernels.
+launches, so a run can show that its path went through the kernels, and
+``LAUNCH_SHAPES`` the same launches by shape.
 """
 from __future__ import annotations
 
@@ -38,12 +41,17 @@ from . import _build
 from .graph_format import Graph
 
 # spmm_max_fwd_* count forwards that record the argmax (the training
-# path), spmm_max_fwd_noarg_* those that do not.
+# path), spmm_max_fwd_noarg_* those that do not; *_empty_* those whose
+# empty_value is not 0 (a graph shard's interior and boundary passes).
 LAUNCHES: Dict[str, int] = {
     "spmm_max_fwd_f32": 0,
     "spmm_max_fwd_bf16": 0,
     "spmm_max_fwd_noarg_f32": 0,
     "spmm_max_fwd_noarg_bf16": 0,
+    "spmm_max_fwd_empty_f32": 0,
+    "spmm_max_fwd_empty_bf16": 0,
+    "spmm_max_fwd_noarg_empty_f32": 0,
+    "spmm_max_fwd_noarg_empty_bf16": 0,
     "spmm_max_bwd_f32": 0,
     "spmm_max_bwd_bf16": 0,
     "spmm_sum_fwd_f32": 0,
@@ -56,6 +64,10 @@ LAUNCHES: Dict[str, int] = {
     "spmm_sum_val_bwd_bf16": 0,
 }
 
+# LAUNCHES by (counter, graph rows, graph edges, K): which shapes a run
+# launched each kernel at (a graph shard's interior or boundary pass).
+LAUNCH_SHAPES: Dict[Tuple[str, int, int, int], int] = {}
+
 _DTYPE_CODE = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16")}
 _ARG_BITS = {torch.int16: 16, torch.int32: 32}
 # Elements of the (edges, K) temporaries the plain versions materialize at
@@ -66,6 +78,13 @@ _PLAIN_CHUNK = 1 << 26
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def _count(name: str, graph: Graph, k: int) -> None:
+    LAUNCHES[name] += 1
+    key = (name, graph.n_nodes, graph.n_edges, k)
+    LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
 
 
 def arg_dtype(n_pad_nodes: int) -> torch.dtype:
@@ -93,16 +112,16 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 # pointers and the stream as c_void_p, so ctypes passes them at full width.
 #   spmm_max_fwd: dtype, arg_bits, x, <chunk table>, src, split_row,
 #                 split_ptr, n_split, out, arg, partial_val, partial_src, k,
-#                 stream
+#                 empty_value (float), stream
 #   spmm_max_bwd: dtype, arg_bits, g, arg, <chunk table>, t_dst,
 #                 split_row, split_ptr, n_split, dx, partial, k, stream
 #   spmm_sum:     dtype, x, <chunk table>, idx, val, split_row, split_ptr,
 #                 n_split, out, partial, k, stream
 # where <chunk table> is chunk_row, chunk_ptr, chunk_slot, n_chunks.
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _CHUNKS = [_P, _P, _P, _LL]
 _ARGTYPES = {
-    "spmm_max_fwd": [_I, _I, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _P, _P, _LL, _P],
+    "spmm_max_fwd": [_I, _I, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _P, _P, _LL, _F, _P],
     "spmm_max_bwd": [_I, _I, _P, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, _P],
     "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _P, _LL, _P, _P, _LL, _P],
 }
@@ -152,10 +171,12 @@ def _row_chunks(indptr: np.ndarray, k: int):
 
 def spmm_max_fwd_plain(
     graph: Graph, x: torch.Tensor, with_argmax: bool = True,
+    empty_value: float = 0.0,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version of ``csrc/spmm_max_fwd.cu``.
 
-    ``scatter_reduce('amax')`` gives out; the argmax is then the smallest
+    ``scatter_reduce('amax')`` gives out (an empty row keeps
+    ``empty_value``, its argmax -1); the argmax is then the smallest
     source among the row's edges whose value equals the max
     (``scatter_reduce('amin')``), which is the first maximum because sources
     ascend inside each row.  Computed in float32 (exact for bf16 input: the
@@ -163,7 +184,7 @@ def spmm_max_fwd_plain(
     stay bounded.
     """
     n, k = x.shape
-    out = torch.zeros((n, k), dtype=torch.float32, device=x.device)
+    out = torch.full((n, k), float(empty_value), dtype=torch.float32, device=x.device)
     arg = (torch.full((n, k), -1, dtype=torch.int32, device=x.device)
            if with_argmax else None)
     indptr = graph.indptr.cpu().numpy().astype(np.int64)
@@ -190,15 +211,17 @@ def spmm_max_fwd_plain(
 
 def spmm_max_fwd(
     graph: Graph, x: torch.Tensor, with_argmax: bool = True,
+    empty_value: float = 0.0,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(out, arg) for x (N_pad, K); arg is None without ``with_argmax``.
+    """(out, arg) for x (N_pad, K); arg is None without ``with_argmax``; an
+    empty row stores ``empty_value`` (in x's dtype) and argmax -1.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     _check(graph, x, "x")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.device.type == "cpu":
-        return spmm_max_fwd_plain(graph, x, with_argmax)
+        return spmm_max_fwd_plain(graph, x, with_argmax, empty_value)
     lib = _lib("spmm_max_fwd")
     code, tag = _DTYPE_CODE[x.dtype]
     n, k = x.shape
@@ -216,10 +239,11 @@ def spmm_max_fwd(
             code, bits, x.data_ptr(), *chunks, out.data_ptr(),
             arg.data_ptr() if arg is not None else None, partial_val.data_ptr(),
             partial_src.data_ptr() if partial_src is not None else None, k,
-            _stream(x))
+            float(empty_value), _stream(x))
     if rc != 0:
         raise RuntimeError(f"spmm_max_fwd launch failed: CUDA error {rc}")
-    LAUNCHES[f"spmm_max_fwd_{'' if with_argmax else 'noarg_'}{tag}"] += 1
+    _count(f"spmm_max_fwd_{'' if with_argmax else 'noarg_'}"
+           f"{'empty_' if empty_value != 0 else ''}{tag}", graph, k)
     return out, arg
 
 
@@ -269,7 +293,7 @@ def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tens
             dx.data_ptr(), partial.data_ptr(), k, _stream(g))
     if rc != 0:
         raise RuntimeError(f"spmm_max_bwd launch failed: CUDA error {rc}")
-    LAUNCHES[f"spmm_max_bwd_{tag}"] += 1
+    _count(f"spmm_max_bwd_{tag}", graph, k)
     return dx
 
 
@@ -280,12 +304,14 @@ def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tens
 
 class SpmmMax(torch.autograd.Function):
     """``out[i] = max over in-edges j -> i of x[j]``; the gradient goes to the
-    first maximum's source only.  The forward saves the argmax (int16 up to
-    2^15 padded nodes, else int32) for the backward kernel."""
+    first maximum's source only (an empty row's argmax -1 routes nothing).
+    The forward saves the argmax (int16 up to 2^15 padded nodes, else int32)
+    for the backward kernel."""
 
     @staticmethod
-    def forward(ctx, graph: Graph, x: torch.Tensor) -> torch.Tensor:
-        out, arg = spmm_max_fwd(graph, x, with_argmax=True)
+    def forward(ctx, graph: Graph, x: torch.Tensor,
+                empty_value: float = 0.0) -> torch.Tensor:
+        out, arg = spmm_max_fwd(graph, x, with_argmax=True, empty_value=empty_value)
         ctx.graph = graph
         ctx.save_for_backward(arg)
         return out
@@ -293,19 +319,22 @@ class SpmmMax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (arg,) = ctx.saved_tensors
-        return None, spmm_max_bwd(ctx.graph, g.contiguous(), arg)
+        return None, spmm_max_bwd(ctx.graph, g.contiguous(), arg), None
 
 
-def spmm_max(graph: Graph, x: torch.Tensor) -> torch.Tensor:
+def spmm_max(graph: Graph, x: torch.Tensor, empty_value: float = 0.0) -> torch.Tensor:
     """Segment max over x (N_pad, ...): the trailing dims are packed into one
-    row of K elements (any K; no padding of the fold or feature axes).
-    Records the argmax only when a gradient will be taken."""
+    row of K elements (any K; no padding of the fold or feature axes).  An
+    empty row gives ``empty_value`` (0, DGL's; -inf for the partial maxima
+    of a graph shard, ``plagnn_tpu/ops/spmm.py: spmm_max``'s argument), a
+    row whose inputs are all -inf gives -inf.  Records the argmax only when
+    a gradient will be taken."""
     shape = x.shape
     x2 = x.reshape(shape[0], -1).contiguous()
     if torch.is_grad_enabled() and x2.requires_grad:
-        out = SpmmMax.apply(graph, x2)
+        out = SpmmMax.apply(graph, x2, float(empty_value))
     else:
-        out, _ = spmm_max_fwd(graph, x2, with_argmax=False)
+        out, _ = spmm_max_fwd(graph, x2, with_argmax=False, empty_value=empty_value)
     return out.reshape(shape)
 
 
@@ -372,7 +401,8 @@ def spmm_sum_rows(graph: Graph, x: torch.Tensor, transpose: bool = False,
                           out.data_ptr(), partial.data_ptr(), k, _stream(x))
     if rc != 0:
         raise RuntimeError(f"spmm_sum launch failed: CUDA error {rc}")
-    LAUNCHES[f"spmm_sum_{'val_' if use_val else ''}{'bwd' if transpose else 'fwd'}_{tag}"] += 1
+    _count(f"spmm_sum_{'val_' if use_val else ''}{'bwd' if transpose else 'fwd'}_{tag}",
+           graph, k)
     return out
 
 

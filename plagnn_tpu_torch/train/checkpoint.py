@@ -57,9 +57,17 @@ def save_state(path: str, model: torch.nn.Module, opt: torch.optim.Adam,
     included, so bias correction continues) are stored by name and index;
     ``history`` (the runner's nested dict of numpy arrays) keeps its key
     paths in the metadata; ``config`` is the run's fingerprint."""
-    arrays = {f"p:{k}": v.detach().cpu().numpy()
-              for k, v in model.state_dict().items()}
-    opt_state = opt.state_dict()["state"]
+    save_state_dicts(path, model.state_dict(), opt.state_dict()["state"],
+                     epochs_done, history, config)
+
+
+def save_state_dicts(path: str, model_state: Mapping[str, torch.Tensor],
+                     opt_state: Mapping[int, Mapping[str, torch.Tensor]],
+                     epochs_done: int, history: dict, config: dict) -> None:
+    """``save_state`` from a ``state_dict`` and Adam's per-parameter state
+    (``opt.state_dict()["state"]``), e.g. those a mesh run gathers from its
+    fold groups."""
+    arrays = {f"p:{k}": v.detach().cpu().numpy() for k, v in model_state.items()}
     for i, st in opt_state.items():
         for key in _ADAM_KEYS:
             arrays[f"o{i}:{key}"] = st[key].detach().cpu().numpy()

@@ -3,15 +3,10 @@
 Port of ``plagnn_tpu/train/engine.py`` (``TrainConfig``, the fold-batched
 runner, ``train`` with mid-round checkpoints, ``_write_epoch_logs``,
 ``_write_tsv``).  The fold ensemble is a batch axis of the features
-(N, B, F); each epoch is forward -> masked weighted BCE per fold ->
-backward -> one Adam step over the fold-stacked parameters -> adaptive
-threshold -> AIM/COV/mlACC, F1 and sampled AUC, all on the device.  The metric history stays on the device
-until a job chunk ends and is copied to the host once.
+(N, B, F); the epoch itself is ``train/runner.py``'s.
 
-Reference quirks kept for parity: the val loss and the predictions use the
-pre-update forward; the saved ``loc_logits.npy`` are the last pre-update
-probabilities; the training loss is the sum of per-fold losses, so each
-fold's gradient is its own.  Artifact contract: ``{round}_{fold}_loc_logits.npy``,
+Reference quirk kept for parity: the saved ``loc_logits.npy`` are the last
+pre-update probabilities.  Artifact contract: ``{round}_{fold}_loc_logits.npy``,
 ``log.tsv``, ``txt_log.txt``, ``fig_data_{round}.json``.
 """
 from __future__ import annotations
@@ -21,7 +16,6 @@ import dataclasses
 import datetime
 import json
 import os
-import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,11 +25,12 @@ from ..models.batched import stack_folds
 from ..models.gnn32 import MODEL_REGISTRY
 from ..ops.graph_format import Graph
 from ..utils.precision import aggregation_dtype
-from .checkpoint import load_state, restore_state, round_complete, save_state
+from .checkpoint import (load_state, restore_state, round_complete, save_state,
+                         save_state_dicts)
 from .kfold import FOLD_SEEDS, fold_node_masks
-from .losses import multi_loss, weight_cal
-from .metrics import aim_cov_acc, macro_auc, macro_f1, micro_auc, micro_f1
-from .postprocess import protein_loc_correction, protein_loc_correction_np
+from .losses import weight_cal
+from .postprocess import protein_loc_correction_np
+from .runner import make_adam, make_fold_runner
 
 
 @dataclasses.dataclass
@@ -65,14 +60,17 @@ class TrainConfig:
     # every stretch of epochs (progress reporting, fault injection).
     checkpoint_every: int = 0
     chunk_callback: Optional[Callable[[int, float, int, int], None]] = None
+    # The (fold, graph) mesh: mesh_graph ranks split the graph by
+    # destination blocks (a halo exchange per layer), mesh_fold groups of
+    # them train fold_batch / mesh_fold folds each; F*P > 1 needs that many
+    # initialised ranks (parallel/launch.py, torchrun).  mesh_balance deals
+    # nodes to the blocks by in-degree (parallel/partition.py).
+    mesh_fold: int = 1
+    mesh_graph: int = 1
+    mesh_balance: bool = True
 
 
 METRIC_KEYS = ("aim", "cov", "acc", "loss")
-# Layout of one epoch's per-fold history row (then pred_num's C counts).
-_HIST_COLS = (("train", "aim"), ("train", "cov"), ("train", "acc"),
-              ("train", "loss"), ("val", "aim"), ("val", "cov"),
-              ("val", "acc"), ("val", "loss"), ("val", "f1_micro"),
-              ("val", "f1_macro"), ("val", "auc_micro"), ("val", "auc_macro"))
 
 
 @dataclasses.dataclass
@@ -90,11 +88,6 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but CUDA is not available; "
             "pass -d cpu to run on the CPU")
     return dev
-
-
-def _auc_sample_now(e_idx: int, n_epochs: int, auc_every: int) -> bool:
-    """On-cadence epochs and the final epoch (global indices)."""
-    return e_idx % auc_every == 0 or e_idx == n_epochs - 1
 
 
 def fold_seed(seed: int, round_idx: int, fold: int, alpha_idx: int) -> int:
@@ -119,17 +112,11 @@ def init_fold_model(cfg: TrainConfig, in_feats: int, seeds: Sequence[int],
     return stack_folds(models).to(device)
 
 
-def make_adam(model: torch.nn.Module, cfg: TrainConfig) -> torch.optim.Adam:
-    """One Adam state over the fold-stacked parameters (optax.adam's
-    update: eps outside the square root, no weight decay)."""
-    return torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
-                            eps=1e-8)
-
-
 def make_batched_fold_runner(graph: Graph, feats: torch.Tensor,
                              labels: torch.Tensor, class_weight,
                              node_valid: torch.Tensor, cfg: TrainConfig):
-    """Fold-batched runner over tensors already on the run's device.
+    """Fold-batched runner over tensors already on the run's device
+    (``train.runner.make_fold_runner`` on the whole graph).
 
     Returns run(model, opt, train_masks (B, N), val_masks (B, N), alpha,
     n_epochs, epoch_offset, total_epochs, last_auc) -> (model, opt,
@@ -137,91 +124,8 @@ def make_batched_fold_runner(graph: Graph, feats: torch.Tensor,
     arrays plus pred_num (B, E, C) int32, as the JAX runner returns them.
     ``last_auc`` carries the sampled AUC pair into a later stretch of epochs
     (default 0.5 each)."""
-    device = feats.device
-    w = torch.as_tensor(np.asarray(class_weight), dtype=torch.float32, device=device)
-    auc_every = max(int(cfg.auc_every or 1), 1)
-    n_metric = len(_HIST_COLS)
-
-    def epoch(model, opt, tr_masks, va_masks, alpha, e_idx, n_epochs, last_auc):
-        probs = model(graph, feats).transpose(0, 1)          # (B, N, C)
-        train_losses = multi_loss(probs, labels, tr_masks, w)
-        opt.zero_grad(set_to_none=True)
-        train_losses.sum().backward()
-        opt.step()
-        with torch.no_grad():
-            # val loss and predictions from the PRE-update forward
-            probs = probs.detach()
-            val_losses = multi_loss(probs, labels, va_masks, w)
-            preds = protein_loc_correction(probs, alpha, node_valid)
-            tr_m = aim_cov_acc(labels, preds, tr_masks)
-            va_m = aim_cov_acc(labels, preds, va_masks)
-            if cfg.compute_auc and _auc_sample_now(e_idx, n_epochs, auc_every):
-                last_auc = (micro_auc(probs, labels, va_masks),
-                            macro_auc(probs, labels, va_masks))
-            pred_num = torch.where(node_valid[:, None], preds, 0.0).sum(-2)
-            row = torch.stack([
-                *tr_m, train_losses.detach(), *va_m, val_losses,
-                micro_f1(labels, preds, va_masks),
-                macro_f1(labels, preds, va_masks), *last_auc], dim=-1)
-        return probs, torch.cat([row, pred_num], dim=-1), last_auc
-
-    def run(model, opt, train_masks, val_masks, alpha: float,
-            n_epochs: Optional[int] = None, epoch_offset: int = 0,
-            total_epochs: Optional[int] = None, last_auc=None):
-        if opt is None:
-            opt = make_adam(model, cfg)
-        n_run = n_epochs or cfg.epoch_num
-        total = total_epochs or (epoch_offset + n_run)
-        b = train_masks.shape[0]
-        if last_auc is None:
-            last_auc = (torch.full((b,), 0.5, device=device),
-                        torch.full((b,), 0.5, device=device))
-        rows = []
-        timer = _EpochTimer(device)
-        probs = None
-        for e in range(epoch_offset, epoch_offset + n_run):
-            timer.start()
-            probs, row, last_auc = epoch(model, opt, train_masks, val_masks,
-                                         alpha, e, total, last_auc)
-            rows.append(row)
-            timer.stop()
-        hist = torch.stack(rows, dim=1).cpu().numpy()       # (B, E, 12 + C)
-        history = {"train": {}, "val": {}}
-        for i, (split, key) in enumerate(_HIST_COLS):
-            if key.startswith("auc") and not cfg.compute_auc:
-                continue
-            history[split][key] = hist[:, :, i]
-        history["pred_num"] = hist[:, :, n_metric:].astype(np.int32)
-        return model, opt, probs, history, timer.elapsed_ms()
-
-    return run
-
-
-class _EpochTimer:
-    """Per-epoch wall time, read once at the end (CUDA events on a card)."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def start(self):
-        self.marks.append([self._mark(), None])
-
-    def stop(self):
-        self.marks[-1][1] = self._mark()
-
-    def _mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def elapsed_ms(self) -> List[float]:
-        if self.cuda:
-            torch.cuda.synchronize()
-            return [a.elapsed_time(b) for a, b in self.marks]
-        return [(b - a) * 1e3 for a, b in self.marks]
+    return make_fold_runner(lambda model: model(graph, feats), labels, class_weight,
+                            node_valid, cfg)
 
 
 _TPLT = (
@@ -259,18 +163,29 @@ def train(
 
     graph/feats/labels come from ``data.artifacts.load_condition`` (host);
     ``device_name`` is the torch device (default ``cuda``) and the device
-    label written to txt_log.txt.  Returns per-chunk epoch timings."""
+    label written to txt_log.txt.  Returns per-chunk epoch timings.
+
+    With ``cfg.mesh_fold * cfg.mesh_graph > 1`` every rank of the
+    initialised process group calls this with its own device: the graph is
+    partitioned, each rank trains its fold group's folds on its shard
+    through the sharded runner, and rank 0 alone writes the artifacts and
+    the checkpoints (a barrier after each write)."""
     device = resolve_device(device_name)
     os.makedirs(path, exist_ok=True)
     in_feats = feats.shape[1]
     class_weight = weight_cal(loc_mat_full)
     n_real = graph.n_real_nodes
-    g_dev = graph.to(device)
-    feats_t = torch.as_tensor(np.asarray(feats, np.float32), device=device)
-    labels_t = torch.as_tensor(np.asarray(labels, np.float32), device=device)
-    node_valid = torch.arange(graph.n_nodes, device=device) < n_real
-    run = make_batched_fold_runner(g_dev, feats_t, labels_t, class_weight,
-                                   node_valid, cfg)
+    mesh = None
+    if cfg.mesh_fold * cfg.mesh_graph > 1:
+        mesh, run = _mesh_runner(graph, feats, labels, class_weight, cfg, device)
+    else:
+        feats_t = torch.as_tensor(np.asarray(feats, np.float32), device=device)
+        labels_t = torch.as_tensor(np.asarray(labels, np.float32), device=device)
+        node_valid = torch.arange(graph.n_nodes, device=device) < n_real
+        run = make_batched_fold_runner(graph.to(device), feats_t, labels_t,
+                                       class_weight, node_valid, cfg)
+    is_main = mesh is None or mesh.rank == 0
+    verbose = cfg.verbose and is_main
 
     labels_np = np.asarray(labels)[:n_real]
     p_label_num = labels_np.astype(int).sum(0)
@@ -285,7 +200,7 @@ def train(
     rounds_todo = []
     for round_idx, fseed in enumerate(cfg.fold_seeds, start=1):
         if cfg.resume and round_complete(path, round_idx, cfg.fold_num):
-            if cfg.verbose:
+            if verbose:
                 print(f"[round {round_idx}] artifacts complete, skipping (resume)")
             continue
         tr_np, va_np = fold_node_masks(
@@ -301,7 +216,7 @@ def train(
         fig_data = fig_acc.pop(round_idx)
         with open(os.path.join(path, f"fig_data_{round_idx}.json"), "w") as f:
             json.dump(fig_data, f)
-        if cfg.verbose:
+        if verbose:
             val_d = fig_data["validation"][cfg.alpha_list[0]]
             last = {k: float(np.mean([v[k][-1] for v in val_d.values()]))
                     for k in METRIC_KEYS}
@@ -320,13 +235,20 @@ def train(
         ]
         for c0 in range(0, len(jobs), cfg.fold_batch):
             chunk = jobs[c0:c0 + cfg.fold_batch]
-            model = init_fold_model(
-                cfg, in_feats,
-                [fold_seed(cfg.seed, r_i, f_f, a_i) for r_i, f_f, _, _ in chunk],
-                device)
+            # a mesh shards the fold batch over its fold axis: a partial last
+            # chunk is padded to a multiple of it by repeating jobs, whose
+            # outputs are never written (JAX engine.py:656-661)
+            nb = len(chunk)
+            pad_n = (-nb) % cfg.mesh_fold if mesh is not None else 0
+            run_chunk = chunk + [chunk[i % nb] for i in range(pad_n)]
+            seeds = [fold_seed(cfg.seed, r_i, f_f, a_i) for r_i, f_f, _, _ in run_chunk]
+            # a mesh rank initialises its fold group's folds only: each fold
+            # has its own generator, so they equal the whole chunk's slice
+            mine = mesh.fold_slice(len(run_chunk)) if mesh is not None else slice(None)
+            model = init_fold_model(cfg, in_feats, seeds[mine], device)
             opt = make_adam(model, cfg)
-            tr_masks = torch.as_tensor(np.stack([j[2] for j in chunk]), device=device)
-            va_masks = torch.as_tensor(np.stack([j[3] for j in chunk]), device=device)
+            tr_masks = torch.as_tensor(np.stack([j[2] for j in run_chunk]), device=device)
+            va_masks = torch.as_tensor(np.stack([j[3] for j in run_chunk]), device=device)
 
             # Stretches of checkpoint_every epochs with a checkpoint after
             # each: a crash loses at most that many epochs of this chunk.
@@ -336,10 +258,14 @@ def train(
             if ck_every and cfg.resume and os.path.exists(ck_file):
                 st = load_state(ck_file)
                 _check_checkpoint_config(ck_file, st["config"], ck_cfg)
+                if mesh is not None:
+                    from ..parallel.sharded import slice_fold_state
+
+                    st = slice_fold_state(st, mine)
                 restore_state(st, model, opt)
                 done = int(st["epochs_done"])
                 history = st["history"]
-                if cfg.verbose:
+                if verbose:
                     print(f"[alpha {alpha}] resume job chunk {c0}.. at epoch {done}")
             epoch_ms: List[float] = []
             while done < cfg.epoch_num:
@@ -352,11 +278,14 @@ def train(
                 epoch_ms += ms
                 done += n_run
                 if ck_every and done < cfg.epoch_num:
-                    save_state(ck_file, model, opt, done, history, ck_cfg)
+                    _save_checkpoint(ck_file, mesh, model, opt, done, history, ck_cfg)
                 if cfg.chunk_callback is not None:
                     cfg.chunk_callback(chunk[0][0], alpha, c0, done)
             stats.append(ChunkStats(folds=len(chunk), epoch_ms=epoch_ms))
             f_probs = f_probs.cpu().numpy()
+            if not is_main:
+                _barrier(mesh)      # rank 0 writes this chunk's artifacts
+                continue
             if ck_every and os.path.exists(ck_file):
                 os.remove(ck_file)
 
@@ -401,7 +330,61 @@ def train(
                 done_cnt[round_idx] += 1
                 if done_cnt[round_idx] == per_round_total:
                     _flush_round(round_idx)
+            _barrier(mesh)
     return stats
+
+
+def _mesh_runner(graph: Graph, feats, labels, class_weight, cfg: TrainConfig,
+                 device):
+    """(mesh, sharded runner) of a mesh run: the destination-block
+    partition of the graph (its edges already hold the self-loops), this
+    rank's shard on its device and the runner over it."""
+    import torch.distributed as dist
+
+    from ..parallel.partition import partition_graph
+    from ..parallel.sharded import make_mesh, make_sharded_fold_runner
+
+    n_mesh = cfg.mesh_fold * cfg.mesh_graph
+    if cfg.fold_batch % cfg.mesh_fold:
+        raise ValueError(f"fold_batch {cfg.fold_batch} must be a multiple of "
+                         f"mesh_fold {cfg.mesh_fold}")
+    if not dist.is_initialized() or dist.get_world_size() != n_mesh:
+        raise RuntimeError(
+            f"mesh fold={cfg.mesh_fold},graph={cfg.mesh_graph} needs a process "
+            f"group of {n_mesh} ranks (parallel.launch.spawn_local or torchrun)")
+    mesh = make_mesh(cfg.mesh_graph, cfg.mesh_fold)
+    n_real = graph.n_real_nodes
+    pgraph = partition_graph(
+        graph.src.cpu().numpy(), graph.dst.cpu().numpy(), n_real, cfg.mesh_graph,
+        balance=bool(cfg.mesh_balance) and cfg.mesh_graph > 1)
+    shard = pgraph.shard(mesh.graph_index, device)
+    run = make_sharded_fold_runner(
+        mesh, pgraph, shard, np.asarray(feats)[:n_real], np.asarray(labels)[:n_real],
+        class_weight, cfg, device)
+    return mesh, run
+
+
+def _barrier(mesh) -> None:
+    """All ranks wait for rank 0's writes (no-op on one device)."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _save_checkpoint(ck_file: str, mesh, model, opt, done: int, history,
+                     ck_cfg: dict) -> None:
+    """The chunk's mid-round checkpoint; on a mesh the fold groups' states
+    are gathered and rank 0 writes the whole fold batch's."""
+    if mesh is None:
+        save_state(ck_file, model, opt, done, history, ck_cfg)
+        return
+    from ..parallel.sharded import gather_fold_state
+
+    model_state, opt_state = gather_fold_state(mesh, model, opt)
+    if mesh.rank == 0:
+        save_state_dicts(ck_file, model_state, opt_state, done, history, ck_cfg)
+    _barrier(mesh)
 
 
 def _carried_auc(history, cfg: TrainConfig, device):
@@ -429,8 +412,9 @@ def _checkpoint_fingerprint(cfg: TrainConfig) -> dict:
     tensor; epoch_num/alpha_list change the chunk offsets and job list;
     agg_dtype changes the numerical trajectory; seed/lr/fold_num/model/
     hidden change the parameters the state continues from.  Resuming across
-    any of these would load mismatched state or silently diverge."""
-    return {
+    any of these would load mismatched state or silently diverge.  A mesh
+    with a fold axis adds mesh_fold, which pads a partial last chunk."""
+    fp = {
         "fold_batch": int(cfg.fold_batch),
         "epoch_num": int(cfg.epoch_num),
         "alpha_list": tuple(float(a) for a in cfg.alpha_list),
@@ -442,6 +426,9 @@ def _checkpoint_fingerprint(cfg: TrainConfig) -> dict:
         "model": str(cfg.model),
         "hidden": tuple(int(h) for h in cfg.hidden),
     }
+    if cfg.mesh_fold > 1:
+        fp["mesh_fold"] = int(cfg.mesh_fold)
+    return fp
 
 
 def _check_checkpoint_config(ck_file: str, saved: Optional[dict],

@@ -595,3 +595,67 @@ def test_common_neighbors_kernel_refuses_unsorted(card):
         with pytest.raises(ValueError, match="strictly ascending"):
             cn.common_neighbors((indptr, torch.tensor(bad, dtype=torch.int32, device=card)),
                                 q, q + 1)
+
+
+def _shard_graphs(p):
+    """Every shard's interior and boundary graph of a balanced P-way
+    partition of a power-law graph (hub rows split into chunks; rows with
+    no interior or no boundary edge stay empty)."""
+    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+    from plagnn_tpu_torch.parallel.partition import partition_graph
+
+    ppi = powerlaw_ppi(3000, 40000, 7)
+    pg = partition_graph(ppi.row, ppi.col, 3000, p, add_self_loops=True, balance=True)
+    return [(f"{part} {r}", getattr(pg.shard(r), part))
+            for r in range(p) for part in ("interior", "boundary")]
+
+
+@pytest.mark.parametrize("with_argmax", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [2, 4])
+def test_empty_value_max_kernel_on_shard_graphs(card, p, dtype, with_argmax):
+    """spmm_max_fwd(empty_value=-inf), the sharded path's interior and
+    boundary passes: out and arg bit-exact with the plain version (empty
+    rows -inf and -1), one launch counted as *_empty_*, bit-identical run to
+    run; with the argmax, the backward as test_chunked_max_bwd_matches_plain
+    holds it."""
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    name = "spmm_max_fwd_" + ("" if with_argmax else "noarg_") + "empty_" + tag
+    splits = 0
+    for label, g in _shard_graphs(p):
+        g = g.to(card)
+        splits += g.chunks.n_split
+        gen = torch.Generator(device=card).manual_seed(len(label))
+        x = torch.randn((g.n_nodes, 130), generator=gen, device=card)
+        x = (torch.round(x * 2) / 2).relu_().to(dtype)
+        before = sk.LAUNCHES[name]
+        out, arg = sk.spmm_max_fwd(g, x, with_argmax=with_argmax, empty_value=-np.inf)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES[name] == before + 1, label
+        out_p, arg_p = sk.spmm_max_fwd_plain(g, x, with_argmax, empty_value=-np.inf)
+        assert torch.equal(out, out_p), label
+        empty = (g.in_degree == 0)
+        assert bool(torch.isneginf(out[empty].float()).all()), label
+        out_2, arg_2 = sk.spmm_max_fwd(g, x, with_argmax=with_argmax, empty_value=-np.inf)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(out.view(bits), out_2.view(bits)), label
+        if not with_argmax:
+            assert arg is None
+            continue
+        assert torch.equal(arg, arg_p) and torch.equal(arg, arg_2), label
+        assert bool((arg[empty] == -1).all()), label
+        if dtype == torch.float32:
+            gr = torch.randn((g.n_nodes, 130), generator=gen, device=card)
+        else:
+            gr = torch.randint(-8, 9, (g.n_nodes, 130), generator=gen,
+                               device=card).to(dtype)
+        dx = sk.spmm_max_bwd(g, gr, arg)
+        dx_p = sk.spmm_max_bwd_plain(g, gr, arg)
+        err = (dx.float() - dx_p.float()).abs()
+        if dtype == torch.bfloat16:
+            assert bool((err <= _bf16_ulp(torch.maximum(dx.float().abs(),
+                                                        dx_p.float().abs()))).all())
+        else:
+            mag = sk.spmm_max_bwd_plain(g, gr.abs(), arg)
+            assert bool((err <= 1e-5 * mag + 1e-7).all()), label
+    assert splits > 0

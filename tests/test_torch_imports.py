@@ -33,6 +33,8 @@ def test_import_closure_has_no_jax_or_reference_package():
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    plagnn_tpu_torch.__path__, 'plagnn_tpu_torch.')]\n"
         "assert 'plagnn_tpu_torch.cli' in mods, mods\n"
+        "assert {'plagnn_tpu_torch.parallel.' + m for m in\n"
+        "        ('partition', 'multihost', 'launch', 'sharded')} <= set(mods), mods\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
@@ -77,14 +79,23 @@ def test_cli_without_card_raises(monkeypatch, tmp_path):
                   "--data-root", str(tmp_path / "absent")])
 
 
-def test_cli_refuses_mesh_and_mid_round_checkpoints(tmp_path):
+def test_cli_refuses_mesh_and_mid_round_checkpoints(tmp_path, monkeypatch):
+    """The meshes the CLI refuses before touching any data: --mesh auto (the
+    planner waits for H100 anchors) and a mesh of more ranks than visible
+    cards (one rank per card); mid-round checkpoints are ported."""
     from plagnn_tpu_torch import cli
 
     root = str(tmp_path)
-    for mesh in ("fold=2,graph=1", "auto"):
-        with pytest.raises(SystemExit, match="only 'fold=1,graph=1'"):
+    for mesh in ("auto", "auto:4"):
+        with pytest.raises(SystemExit, match="planner"):
             cli.main(["train-normal", "-data", "GSE30931", "--data-root", root,
                       "-d", "cpu", "--mesh", mesh])
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="needs 2 cards"):
+            cli.main(["train-normal", "-data", "GSE30931", "--data-root", root,
+                      "--mesh", "fold=2,graph=1"])
     cli.main(["synth", "--data-root", root, "--nodes", "64", "--edges", "200"])
     # mid-round checkpoints are ported: the run writes its artifacts and
     # leaves no checkpoint behind
