@@ -1017,8 +1017,10 @@ def time_pcc_kernels(data_root, results):
               f"N = {n}, k = {k}, {n_hits} hits", flush=True)
     print(f"  the yardstick's own answers (GEMM rounding): counts {lib_n[0]}, "
           f"{lib_n[1]} hits", flush=True)
-    for kname, kern, *_ in timed:
-        profile_call(kname, kern)
+    split_wrapper(results["pcc_diff_count_f64"], "pcc_diff_count_f64", timed[0][1],
+                  ("pcc_diff_count_kernel",))
+    split_wrapper(results["pcc_diff_hits_f64"], "pcc_diff_hits_f64", timed[1][1],
+                  ("pcc_diff_mark_kernel", "pcc_diff_unmark_kernel", "pcc_diff_write_kernel"))
     torch.cuda.empty_cache()
 
 
@@ -1037,7 +1039,8 @@ def device_kernel_times(path):
 def profile_call(label, fn):
     """One call inside utils.profiling.trace: its wall time and the device
     time of each kernel it ran (the wrapper's own kernels, its checks and its
-    bookkeeping), so a wrapper's time splits into its parts."""
+    bookkeeping), so a wrapper's time splits into its parts.  Returns (wall
+    ms, device busy ms, [(ms, launches, name)])."""
     import torch
 
     def timed():
@@ -1054,6 +1057,49 @@ def profile_call(label, fn):
           f"{busy:.3f} ms", flush=True)
     for ms, cnt, name in sorted(rows, reverse=True)[:8]:
         print(f"    {ms:8.3f} ms x{cnt:<3} {name[:80]}", flush=True)
+    return wall, busy, rows
+
+
+def kernel_ms(rows, *names):
+    """Device ms of the profiled kernels whose name holds one of ``names``."""
+    return sum(ms for ms, _, name in rows if any(k in name for k in names))
+
+
+def host_syncs(fn):
+    """The host syncs one call of ``fn`` takes: torch's sync debug mode
+    warns at each synchronizing operation (a scalar read, a copy to the
+    host), and the warnings are counted."""
+    import warnings
+
+    import torch
+
+    counts = []
+    for _ in range(2):  # the fewer of two calls: a first may pay one-off syncs
+        fn()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts.append(sum(1 for w in caught if "synchroniz" in str(w.message).lower()))
+    return min(counts)
+
+
+def split_wrapper(entry, label, fn, kernels):
+    """Profiles one call of a kernel's wrapper and counts its host syncs;
+    records the kernel's own device time and the syncs in ``entry`` and
+    prints them beside the wrapper's CUDA-event time."""
+    _, busy, rows = profile_call(label, fn)
+    entry["device_ms"] = kernel_ms(rows, *kernels)
+    entry["host_syncs"] = host_syncs(fn)
+    print(f"  {label}: wrapper {entry['ms']:.3f} ms = kernel {entry['device_ms']:.3f} ms "
+          f"({' + '.join(kernels)}) + other device work "
+          f"{busy - entry['device_ms']:.3f} ms + host; {entry['host_syncs']} host "
+          f"sync(s) a call", flush=True)
 
 
 def analysis_phase(data_root, results):
@@ -1222,7 +1268,8 @@ def time_hist_kernel(data_root, results, smi_line):
     print(f"  pcc_diff_hist_f64 ({smi_line}): {ms:.3f} ms (plain {plain_ms:.3f}, blocked "
           f"DGEMM + bucketize + bincount {lib_ms:.3f}, bound {r['bound_ms']:.3f} by "
           f"{r['bound_by']}) at N = {n}, k = {k}, {nb} bins", flush=True)
-    profile_call("pcc_diff_hist_f64", kern)
+    split_wrapper(r, "pcc_diff_hist_f64", kern,
+                  ("pcc_diff_adjacency_kernel", "pcc_diff_hist_kernel"))
     torch.cuda.empty_cache()
 
 
@@ -1413,9 +1460,9 @@ def check_pca_mid():
 
 def time_ecc(graphs, results, smi_line):
     """The ECC kernel on the normal graph and on the first PPI_inter: CUDA
-    events (median of 10; the wrapper's checks and item table included),
+    events (median of 10; the wrapper's checks and slice tables included),
     the plain version (median of 3, of 1 on PPI_inter), the bound (the CSR
-    and the queries read once, the counts written once; one int32 lookup
+    and the queries read once, the counts written once; one int32 bit test
     per element of each pair's shorter row) and cuSPARSE's A·A
     (``torch.sparse.mm`` on the CSR, float32 ones, median of 3 on the
     normal graph and of 1 on PPI_inter; a yardstick never on the path)."""
@@ -1429,8 +1476,7 @@ def time_ecc(graphs, results, smi_line):
         deg = indptr[1:] - indptr[:-1]
         d_r, d_c = deg[rows.long()], deg[cols.long()]
         lookups = int(torch.minimum(d_r, d_c).sum())
-        probes = int((torch.minimum(d_r, d_c).double()
-                      * torch.ceil(torch.log2(torch.maximum(d_r, d_c).double() + 1))).sum())
+        slices = int(cn._slices(cn.longer_rows(indptr, rows, cols), n, cn.SLICE_QUERIES)[2][-1])
         ms = median_ms(lambda: cn.common_neighbors(csr, rows, cols), 10)
         plain_ms = median_ms(lambda: cn.common_neighbors_plain(csr, rows, cols),
                              3 if g == 0 else 1)
@@ -1457,12 +1503,13 @@ def time_ecc(graphs, results, smi_line):
                              plain_ms, lib_ms, nbytes, lookups, (n, q), INT32_OPS_PER_S)
         if g == 0:
             results["ecc_common_neighbors_i32"] = entry
-        profile_call(f"ECC counts on {name}", lambda: cn.common_neighbors(csr, rows, cols))
+        split_wrapper(entry, f"ECC counts on {name}",
+                      lambda: cn.common_neighbors(csr, rows, cols), ("common_neighbors_kernel",))
         print(f"  ECC counts on {name} ({smi_line}): {ms:.3f} ms (plain {plain_ms:.3f}, "
               f"A·A {'not measured' if lib_ms is None else f'{lib_ms:.3f}'}, bound "
               f"{entry['bound_ms']:.4f} by {entry['bound_by']}) at N = {n}, {q} pairs, "
-              f"max degree {int(deg.max())}, sum min(deg) {lookups} lookups, "
-              f"~{probes} binary-search probes{lib_note}", flush=True)
+              f"max degree {int(deg.max())}, sum min(deg) {lookups} bit tests, "
+              f"{slices} slices of <= {cn.SLICE_QUERIES} queries{lib_note}", flush=True)
 
 
 def time_pca(root, smi_line):

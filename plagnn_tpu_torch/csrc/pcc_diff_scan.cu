@@ -5,7 +5,7 @@
 //   -> pcc_diff_counts;
 // * plagnn_tpu/data/topology.py: modify_network_topology's blocked scan
 //   (numpy GEMM blocks, or native/plagnn_native.cpp: diff_threshold_scan)
-//   -> pcc_diff_hit_counts + pcc_diff_hit_write;
+//   -> pcc_diff_hit_mark + pcc_diff_hit_write;
 // * plagnn_tpu/analysis/figures.py: diff_histogram (numpy GEMM blocks and
 //   np.histogram) -> pcc_diff_hist.
 //
@@ -13,67 +13,71 @@
 // factors, PCC = Z·Zᵀ; 1 <= k <= 16):
 //   d(i, j) = (sum_t z_i[i,t]·z_i[j,t]) - (sum_t z_n[i,t]·z_n[j,t])
 // with d(i, i) taken as 0, as the reference's dense path zeroes the
-// diagonal.  pcc_diff_counts counts the pairs with d < lo and with d > hi
-// over all n² pairs; the hit kernels list, in row-major order, the pairs
-// with d > hi that are not edges of a CSR whose rows hold ascending column
-// ids.
+// diagonal.  The counts are the pairs with d < lo and with d > hi over all
+// n² pairs; the hit list is, in row-major order over all n² ordered pairs,
+// the pairs with d > hi that are not edges of a CSR whose rows hold
+// ascending column ids; the histogram bins the pairs i != j, apart for
+// those that are edges.
 //
 // Rounding rule: no FMA contraction.  Each product and each sum is rounded
 // on its own (__dmul_rn, __dadd_rn, __dsub_rn), t ascending, the first
 // product starting each sum (0.0 + p would change only the sign of a zero,
 // which no comparison sees).  The plain PyTorch versions in
 // ops/pcc_scan.py do the same operations in the same order, so kernel and
-// plain version agree bit for bit.  Comparisons are strict.
+// plain version agree bit for bit.  Comparisons are strict.  The float64
+// tensor cores are not used: they fuse the multiply and the add.
 //
-// What bounds it on this card: float64 operations.  Per pair 2k multiplies,
-// 2(k-1) adds and 1 subtract (11 at k = 3) plus the compares (2 for the
-// counts, 1 for the hits); the inputs are 2·n·k·8 bytes (1.2 MB at n =
+// What bounds it on this card: float64 operations.  Per unordered pair 2k
+// multiplies, 2(k-1) adds and 1 subtract (11 at k = 3) plus the compares
+// (2 for the counts, 1 for the hits; the histogram 2 for the range and 2
+// with the bin's edges); the inputs are 2·n·k·8 bytes (1.2 MB at n =
 // 24,041, k = 3), read once.  The H100 SXM data sheet gives 34 TFLOP/s of
-// float64 outside the tensor cores, counting an FMA as two operations: 17e12
-// float64 instructions a second.  With no contraction each multiply, add,
-// subtract and compare is one instruction.  d(i, j) and d(j, i) are the
-// same bits (the products commute and are summed in the same t order), so
-// the work needs d, its compares and its bin once per unordered pair; these
-// kernels evaluate every ordered pair, twice that.  So the count over the
-// 289 M unordered pairs at k = 3 takes at least 289e6 x 13 / 17e12 = 0.22
-// ms, and the hits 289e6 x 12 / 17e12 = 0.20 ms; the hit kernels take two
-// passes over the ordered pairs (count, then write at scanned offsets).
-// The histogram adds 2 compares for the range and 2 with the bin's edges a
-// pair: 4k + 3 = 15 at k = 3, 0.26 ms.
+// float64 outside the tensor cores, counting an FMA as two operations:
+// 17e12 float64 instructions a second.  d(i, j) and d(j, i) are the same
+// bits (the products commute and are summed in the same t order), so the
+// work is d once per unordered pair: over the 289 M pairs at k = 3 the
+// count takes at least 289e6 x 13 / 17e12 = 0.22 ms, the hits 0.20 ms and
+// the histogram 0.26 ms.
 //
-// Design.  Each block stages a tile of kTileCols columns (z_i's k values,
-// then z_n's) in shared memory, loaded once and used by all the block's
-// rows, and keeps each row's 2k values in registers.  No n² buffer exists.
-// * Counts: one row per thread, a 2-D grid of (column tile, 256-row tile);
-//   all threads read the same column (a broadcast).  Per-thread int counts
-//   are reduced by warp shuffles and per block, and each block adds its two
-//   sums with one integer atomicAdd each: the count is exact and the same
-//   run to run.
-// * Hits: each warp takes R rows (4 at k <= 4) over all column tiles, 32
-//   consecutive columns a step, one per lane; a lane's read of its column
-//   serves all R rows (the column stride in shared memory is padded so the
-//   32 lanes' reads hit distinct banks).  Each row's CSR neighbours are
-//   excluded with a merge pointer, which only moves forward since columns
-//   ascend: a window of the next 32 neighbours in the lanes' registers,
-//   passed with shuffles, so the walk reads the CSR once per 32.  The first pass writes each row's hit count; the wrapper scans
-//   them (torch.cumsum) into row offsets; the second pass recomputes d and
-//   writes each step's hits at offset + popcount(ballot below the lane),
-//   so positions follow from the scan and the ballots, never from atomics.
-// * Histogram: the count kernel's layout (one row per thread, a column
-//   tile staged in shared memory and read by all threads at once), each
-//   block over kHistCols columns, with a per-thread merge pointer into the
-//   row's CSR neighbours for "linked" (columns ascend along a thread's
-//   walk, so the pointer only moves forward).  The pairs i != j are
-//   binned by np.histogram's rule for an array of edges: bin b where
-//   edges[b] <= d < edges[b+1], the last bin closed on the right, values
-//   outside [edges[0], edges[nb]] dropped.  A guess from the mean bin
-//   width is corrected by comparing d with the edges, so the bin is what
-//   the comparisons say.  d is concentrated in a few central bins, so the
-//   block's shared histogram has C copies (32 where they fit), word
-//   bin * C + lane % C: lanes never share a word and, with C = 32, never
-//   a bank, so a warp's 32 shared atomics do not serialise on a hot bin.
-//   The block adds each nonzero bin's copies and adds the sum into the
-//   global int64 counts with one integer atomicAdd, exact in any order.
+// Design: one walk of the upper triangle, three epilogues.  The pairs are
+// cut into square tiles of TB rows by TB columns; tile pair (I, J) with
+// J >= I is numbered row by row, and a persistent grid (the blocks the card
+// holds at once) strides over the numbers.  A block stages the tile's TB
+// columns (z_i's k values, then z_n's) in shared memory and keeps its
+// thread's row's 2k values in registers: one row per thread, all threads
+// reading the same column at once (a broadcast).  Inside a diagonal tile a
+// thread takes only the columns j > i, so d is evaluated once per
+// unordered pair.  The diagonal, d = 0, is handled apart.
+// * Counts: per-thread 64-bit counts of the upper pairs, reduced by warp
+//   shuffles and per block, one integer atomicAdd each; the wrapper gives
+//   n_lo = 2 upper_lo + n [0 < lo] and n_hi = 2 upper_hi + n [0 > hi].
+// * Hits, pass 1 (mark): a pair with d > hi sets bits (i, j) and (j, i) of
+//   an n x n bitmask (72 MB at n = 24,041, zeroed by the wrapper); a thread
+//   gathers its row's bits 32 columns at a time and sets them with one
+//   atomicOr, a mirror bit (~1.3% of the pairs on a perturbed PPI) takes one
+//   atomicOr of its own.  The diagonal's bits are set where 0 > hi.  Then
+//   one warp a row clears the bits of the row's CSR entries and counts the
+//   row's bits.  The wrapper scans the counts into row offsets (one host
+//   sync reads the total); pass 2 (write) gives each row a warp that reads
+//   the row's words in order and writes each set bit's pair at the row's
+//   offset plus the popcounts before it, staged in shared memory and copied
+//   out coalesced.  No d is evaluated twice, no membership test waits in the
+//   walk, and no output position depends on an atomic's order.
+// * Histogram: each unordered pair is binned once, by np.histogram's rule
+//   for an array of edges (bin b where edges[b] <= d < edges[b+1], the last
+//   bin closed on the right, values outside [edges[0], edges[nb]]
+//   dropped): a guess from the mean bin width, corrected by comparing d
+//   with the edges.  The pair counts once for (i, j) and once for (j, i),
+//   each linked where it is a CSR entry, so the CSR need not be symmetric:
+//   the CSR and its transpose are first written as n x n bitmasks (one
+//   warp a row; 2 x 72 MB at n = 24,041), and a thread reads its row's
+//   word of each for the step's 32 columns a step ahead.  The block's
+//   shared histogram has C copies (8 where they fit), word bin * C +
+//   thread % C, so a warp's 32 shared atomics on one of the few hot central
+//   bins fall on 8 words, 4 to a word, and 8 blocks of 256 threads fit an
+//   SM (32 copies, one a lane, took more shared memory and ran slower); the
+//   block adds each nonzero bin's copies into the global int64 counts with
+//   one integer atomicAdd.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -81,45 +85,37 @@
 
 namespace {
 
-constexpr int kTileCols = 128;
-constexpr int kCountThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-
-// The hit kernels' blocks: kHitWarps warps, each over hit_rows<K>() rows
-// at once, so one shared-memory read of a column serves that many pairs;
-// fewer rows above k = 4 and k = 8, where a thread's registers hold its
-// rows' 2k values each and one column's 2k.  A hit block walks all n
-// columns, hit_tile_cols<K>() at a time (under 48 KB of shared memory).
-constexpr int kHitWarps = 8;
-constexpr int kHitThreads = 32 * kHitWarps;
-
-template <int K>
-__host__ __device__ constexpr int hit_rows() {
-  return K <= 4 ? 4 : (K <= 8 ? 2 : 1);
-}
-
-template <int K>
-__host__ __device__ constexpr int hit_tile_cols() {
-  return K <= 8 ? 256 : 128;
-}
+// Rows and columns of a tile, one thread a row: the counts and the hit
+// marks (smaller tiles: less waiting on the last wave of tiles); the
+// histogram, whose larger blocks share one block histogram among more
+// threads.
+constexpr int kTile = 128;
+constexpr int kHistTile = 256;
+// The most tile pairs one block walks: keeps a histogram block's 32-bit
+// shared counters (at most 2 x kHistTile² a tile) from overflowing.
+constexpr long long kMaxTilesPerBlock = 8192;
+constexpr int kRowWarps = 8;  // the row kernels' warps a block, one a row
+constexpr int kHistCopies = 8;
+constexpr size_t kHistSmemTarget = 112 * 1024;
+constexpr size_t kSmemMax = 232448;
 
 // Doubles per staged column: z_i's K values, z_n's K values, and 2 of
-// padding for even K, so the stride is 2 (mod 4) doubles and 32 lanes
-// reading 16-byte pairs of 32 consecutive columns hit distinct banks.
+// padding for even K, so a column starts on a 16-byte boundary.
 template <int K>
 __host__ __device__ constexpr int col_stride() {
   return 2 * K + (K % 2 == 0 ? 2 : 0);
 }
 
-// Columns [c0, c0 + TC) of z_i and z_n into the tile; columns past n are
-// zero (the kernels never count them).
+// Columns [c0, c0 + TC) of z_i and z_n into the tile, by the block's TC
+// threads; columns past n are zero (the walk never visits them).
 template <int K, int TC>
 __device__ __forceinline__ void load_tile(const double* __restrict__ zi,
                                           const double* __restrict__ zn, int64_t n,
-                                          int64_t c0, double* tile, int nthreads) {
+                                          int64_t c0, double* tile) {
   constexpr int S = col_stride<K>();
   const int64_t cols = n - c0 < TC ? n - c0 : TC;
-  for (int f = threadIdx.x; f < TC * K; f += nthreads) {
+  for (int f = threadIdx.x; f < TC * K; f += TC) {
     const int c = f / K;
     const int t = f - c * K;
     double a = 0.0, b = 0.0;
@@ -132,8 +128,7 @@ __device__ __forceinline__ void load_tile(const double* __restrict__ zi,
   }
 }
 
-// One staged column's 2K values, as K 16-byte loads (the column starts on a
-// 16-byte boundary since its stride is even).
+// One staged column's 2K values, as K 16-byte loads.
 template <int K>
 __device__ __forceinline__ void load_col(const double* col, double (&v)[2 * K]) {
   const double2* p = reinterpret_cast<const double2*>(col);
@@ -170,278 +165,382 @@ __device__ __forceinline__ double pair_diff(const double (&ri)[K], const double 
   return __dsub_rn(a, b);
 }
 
-template <int K>
-__global__ void __launch_bounds__(kCountThreads)
-pcc_diff_count_kernel(const double* __restrict__ zi, const double* __restrict__ zn,
-                      int64_t n, double lo, double hi,
-                      unsigned long long* __restrict__ counts) {
+// Tile pair p of the upper triangle of T x T tiles, numbered row by row:
+// row I starts at I T - I (I - 1) / 2 and holds T - I pairs.
+__device__ __forceinline__ void tile_pair(int p, int T, int& I, int& J) {
+  const double b = 2.0 * T + 1.0;
+  long long i = static_cast<long long>((b - sqrt(b * b - 8.0 * p)) * 0.5);
+  i = i < 0 ? 0 : (i > T - 1 ? T - 1 : i);
+  auto start = [T](long long r) { return r * T - r * (r - 1) / 2; };
+  while (i > 0 && start(i) > p) --i;
+  while (i + 1 < T && start(i + 1) <= p) ++i;
+  I = static_cast<int>(i);
+  J = static_cast<int>(i + (p - start(i)));
+}
+
+// The walk: every tile pair (I, J), J >= I, of the block's stride, tiles
+// of TB rows and TB columns.  Thread t takes row i = I TB + t against the
+// tile's columns, j > i in a diagonal tile.  op.row(i, diag, jb) starts the
+// row's tile, whose first visited column lies in the 32 from jb;
+// op.visit(j, u, d) takes pair (i, j); op.end() closes the tile.  An op
+// whose kStepped is true walks the columns in steps of the 32 of a bitmask
+// word (TB is a multiple of 32), op.step(jb) starting each, u the pair's
+// bit in the step's word.
+template <int K, int TB, class Op>
+__device__ __forceinline__ void walk_upper(const double* __restrict__ zi,
+                                           const double* __restrict__ zn, int n,
+                                           double* tile, Op& op) {
   constexpr int S = col_stride<K>();
-  __shared__ __align__(16) double tile[kTileCols * S];
-  __shared__ int warp_lo[kCountThreads / 32];
-  __shared__ int warp_hi[kCountThreads / 32];
-
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kTileCols;
-  const int64_t row = static_cast<int64_t>(blockIdx.y) * kCountThreads + threadIdx.x;
-  const bool live = row < n;
-  load_tile<K, kTileCols>(zi, zn, n, c0, tile, kCountThreads);
-  double ri[K], rn[K];
-  load_row<K>(zi, zn, row, live, ri, rn);
-  __syncthreads();
-
-  int n_lo = 0, n_hi = 0;
-  if (live) {
-    const int cols = static_cast<int>(n - c0 < kTileCols ? n - c0 : kTileCols);
-    for (int c = 0; c < cols; ++c) {
-      double v[2 * K];
-      load_col<K>(tile + c * S, v);
-      double d = pair_diff<K>(ri, rn, v);
-      if (c0 + c == row) d = 0.0;
-      n_lo += d < lo;
-      n_hi += d > hi;
+  const int T = (n + TB - 1) / TB;
+  const int pairs = static_cast<int>(static_cast<long long>(T) * (T + 1) / 2);
+  for (int p = blockIdx.x; p < pairs; p += gridDim.x) {
+    int I, J;
+    tile_pair(p, T, I, J);
+    const int i = I * TB + static_cast<int>(threadIdx.x);
+    const int j0 = J * TB;
+    __syncthreads();  // every thread is done with the previous tile
+    load_tile<K, TB>(zi, zn, n, j0, tile);
+    double ri[K], rn[K];
+    load_row<K>(zi, zn, i, i < n, ri, rn);
+    __syncthreads();
+    if (i >= n) continue;
+    const int cols = n - j0 < TB ? n - j0 : TB;
+    const int c_lo = I == J ? static_cast<int>(threadIdx.x) + 1 : 0;
+    op.row(i, I == J, j0 + (c_lo & ~31));
+    if constexpr (Op::kStepped) {
+      for (int cb = c_lo & ~31; cb < cols; cb += 32) {
+        op.step(j0 + cb);
+        const int ce = cb + 32 < cols ? cb + 32 : cols;
+        for (int c = cb < c_lo ? c_lo : cb; c < ce; ++c) {
+          double v[2 * K];
+          load_col<K>(tile + c * S, v);
+          op.visit(j0 + c, c - cb, pair_diff<K>(ri, rn, v));
+        }
+      }
+    } else {
+      for (int c = c_lo; c < cols; ++c) {
+        double v[2 * K];
+        load_col<K>(tile + c * S, v);
+        op.visit(j0 + c, 0, pair_diff<K>(ri, rn, v));
+      }
     }
+    op.end();
   }
+}
+
+struct CountOp {
+  static constexpr bool kStepped = false;
+  double lo, hi;
+  long long n_lo = 0, n_hi = 0;
+  __device__ void row(int, bool, int) {}
+  __device__ void visit(int, int, double d) {
+    n_lo += d < lo;
+    n_hi += d > hi;
+  }
+  __device__ void end() {}
+};
+
+template <int K>
+__global__ void __launch_bounds__(kTile)
+pcc_diff_count_kernel(const double* __restrict__ zi, const double* __restrict__ zn, int n,
+                      double lo, double hi, unsigned long long* __restrict__ counts) {
+  __shared__ __align__(16) double tile[kTile * col_stride<K>()];
+  __shared__ long long warp_lo[kTile / 32];
+  __shared__ long long warp_hi[kTile / 32];
+  CountOp op{lo, hi};
+  walk_upper<K, kTile>(zi, zn, n, tile, op);
+  long long s_lo = op.n_lo, s_hi = op.n_hi;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    n_lo += __shfl_down_sync(kFull, n_lo, o);
-    n_hi += __shfl_down_sync(kFull, n_hi, o);
+    s_lo += __shfl_down_sync(kFull, s_lo, o);
+    s_hi += __shfl_down_sync(kFull, s_hi, o);
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    warp_lo[warp] = n_lo;
-    warp_hi[warp] = n_hi;
+  if ((threadIdx.x & 31) == 0) {
+    warp_lo[threadIdx.x >> 5] = s_lo;
+    warp_hi[threadIdx.x >> 5] = s_hi;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    unsigned long long s_lo = 0, s_hi = 0;
+    unsigned long long t_lo = 0, t_hi = 0;
 #pragma unroll
-    for (int w = 0; w < kCountThreads / 32; ++w) {
-      s_lo += warp_lo[w];
-      s_hi += warp_hi[w];
+    for (int w = 0; w < kTile / 32; ++w) {
+      t_lo += warp_lo[w];
+      t_hi += warp_hi[w];
     }
-    if (s_lo) atomicAdd(&counts[0], s_lo);
-    if (s_hi) atomicAdd(&counts[1], s_hi);
+    if (t_lo) atomicAdd(&counts[0], t_lo);
+    if (t_hi) atomicAdd(&counts[1], t_hi);
   }
 }
 
-// kWrite false: row_count[row] = the row's hits.  kWrite true: the row's
-// hits, ascending, at out_row/out_col[row_start[row] ...].  Warp w of block
-// b takes rows (b * kHitWarps + w) * R ... + R - 1.  Row and column ids are
-// int: the launcher takes n <= INT_MAX - 1024.
-template <int K, bool kWrite>
-__global__ void __launch_bounds__(kHitThreads)
-pcc_diff_hit_kernel(const double* __restrict__ zi, const double* __restrict__ zn,
-                    int n, double hi, const int64_t* __restrict__ indptr,
-                    const int* __restrict__ indices, int* __restrict__ row_count,
-                    const int64_t* __restrict__ row_start, int* __restrict__ out_row,
-                    int* __restrict__ out_col) {
-  constexpr int S = col_stride<K>();
-  constexpr int R = hit_rows<K>();
-  constexpr int TC = hit_tile_cols<K>();
-  __shared__ __align__(16) double tile[TC * S];
-
-  const int lane = threadIdx.x & 31;
-  const int row0 = (blockIdx.x * kHitWarps + (threadIdx.x >> 5)) * R;
-  // Per row: its values; a window of its next 32 neighbours, one per lane
-  // (INT_MAX past the row's end), of which the first wo are passed, and
-  // next_nb, the first not passed (the same in every lane), so the column
-  // walk excludes edges with shuffles and reads the CSR once per 32
-  // neighbours; and its count or its next output position.
-  double ri[R][K], rn[R][K];
-  int64_t wp[R], p_end[R], pos[R];
-  int nbw[R], wo[R], next_nb[R], count[R];
-#pragma unroll
-  for (int q = 0; q < R; ++q) {
-    const int row = row0 + q;
-    const bool live = row < n;
-    load_row<K>(zi, zn, row, live, ri[q], rn[q]);
-    wp[q] = live ? indptr[row] : 0;
-    p_end[q] = live ? indptr[row + 1] : 0;
-    nbw[q] = wp[q] + lane < p_end[q] ? indices[wp[q] + lane] : INT_MAX;
-    wo[q] = 0;
-    next_nb[q] = __shfl_sync(kFull, nbw[q], 0);
-    pos[q] = (kWrite && live) ? row_start[row] : 0;
-    count[q] = 0;
-  }
-
-  for (int c0 = 0; c0 < n; c0 += TC) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<K, TC>(zi, zn, n, c0, tile, kHitThreads);
-    __syncthreads();
-    if (row0 >= n) continue;
-    for (int s = 0; s < TC; s += 32) {
-      const int j0 = c0 + s;
-      if (j0 >= n) break;
-      const int j = j0 + lane;
-      double v[2 * K];
-      load_col<K>(tile + (s + lane) * S, v);
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        const int row = row0 + q;
-        // row q's edges in [j0, j0 + 32), as a mask: a run of the window's
-        // lanes from wo on (every earlier neighbour was passed before j0)
-        unsigned edge = 0;
-        while (next_nb[q] < j0 + 32) {
-          const bool in = lane >= wo[q] && nbw[q] < j0 + 32;
-          edge |= __reduce_or_sync(kFull, in ? 1u << (nbw[q] - j0) : 0u);
-          wo[q] += __popc(__ballot_sync(kFull, in));
-          if (wo[q] == 32) {  // window passed: the next 32 neighbours
-            wp[q] += 32;
-            nbw[q] = wp[q] + lane < p_end[q] ? indices[wp[q] + lane] : INT_MAX;
-            wo[q] = 0;
-          }
-          next_nb[q] = __shfl_sync(kFull, nbw[q], wo[q]);
-        }
-        double d = pair_diff<K>(ri[q], rn[q], v);
-        if (j == row) d = 0.0;
-        const bool hit = row < n && j < n && !((edge >> lane) & 1u) && d > hi;
-        const unsigned mask = __ballot_sync(kFull, hit);
-        if constexpr (kWrite) {
-          if (hit) {
-            const int64_t at = pos[q] + __popc(mask & ((1u << lane) - 1u));
-            out_row[at] = row;
-            out_col[at] = j;
-          }
-          pos[q] += __popc(mask);
-        } else {
-          count[q] += __popc(mask);
-        }
-      }
+// Pass 1 of the hits: the bits of the pairs with d > hi, both directions
+// (the diagonal's where 0 > hi), row r's at mask[r * words ...], column j at
+// bit j % 32 of word j / 32.  The CSR's entries are cleared afterwards.
+struct MarkOp {
+  static constexpr bool kStepped = true;
+  double hi;
+  unsigned* mask;
+  int words;
+  int i = 0;
+  int at = 0;  // the word of the open step
+  unsigned word = 0u;
+  __device__ void row(int row, bool diag, int jb) {
+    i = row;
+    at = jb >> 5;
+    word = 0u;
+    if (diag && 0.0 > hi) {  // d(i, i) = 0
+      atomicOr(mask + static_cast<int64_t>(i) * words + (i >> 5), 1u << (i & 31));
     }
   }
-  if constexpr (!kWrite) {
-    if (lane == 0) {
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        if (row0 + q < n) row_count[row0 + q] = count[q];
-      }
+  __device__ void flush() {
+    if (word) atomicOr(mask + static_cast<int64_t>(i) * words + at, word);
+    word = 0u;
+  }
+  __device__ void step(int jb) {
+    flush();
+    at = jb >> 5;
+  }
+  __device__ void visit(int j, int u, double d) {
+    if (d > hi) {
+      word |= 1u << u;
+      atomicOr(mask + static_cast<int64_t>(j) * words + (i >> 5), 1u << (i & 31));
     }
   }
-}
+  __device__ void end() { flush(); }
+};
 
-// Histogram blocks: kCountThreads rows (one a thread) by kHistCols columns.
-// Dynamic shared memory: the column tile, the n_bins + 1 edges and the
-// 2 * n_bins * copies counters; copies is the largest power of two up to
-// kHistCopies whose block fits kHistSmemTarget (two blocks an SM), else 1
-// if that fits the most a block may take.
-constexpr int kHistCols = 1024;
-constexpr int kHistCopies = 32;
-constexpr size_t kHistSmemTarget = 112 * 1024;
-constexpr size_t kSmemMax = 232448;
-
-// counts[0 .. n_bins): linked pairs by bin; counts[n_bins .. 2 n_bins):
-// the other pairs i != j.  Row and column ids are int (n <= INT_MAX - 1024).
 template <int K>
-__global__ void __launch_bounds__(kCountThreads)
-pcc_diff_hist_kernel(const double* __restrict__ zi, const double* __restrict__ zn,
-                     int n, const double* __restrict__ edges, int n_bins,
-                     double inv_width, int copies, const int64_t* __restrict__ indptr,
-                     const int* __restrict__ indices,
+__global__ void __launch_bounds__(kTile)
+pcc_diff_mark_kernel(const double* __restrict__ zi, const double* __restrict__ zn, int n,
+                     double hi, unsigned* __restrict__ mask, int words) {
+  __shared__ __align__(16) double tile[kTile * col_stride<K>()];
+  MarkOp op{hi, mask, words};
+  walk_upper<K, kTile>(zi, zn, n, tile, op);
+}
+
+// Between the passes, one warp a row: clears the bits of the row's CSR
+// entries (only this warp touches the row's words), then counts the row's
+// bits into row_count.
+__global__ void __launch_bounds__(kRowWarps * 32)
+pcc_diff_unmark_kernel(int n, int words, const int64_t* __restrict__ indptr,
+                       const int* __restrict__ indices, unsigned* __restrict__ mask,
+                       int* __restrict__ row_count) {
+  const int row = blockIdx.x * kRowWarps + static_cast<int>(threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;  // whole warps leave together
+  unsigned* m = mask + static_cast<int64_t>(row) * words;
+  for (int64_t e = indptr[row] + lane; e < indptr[row + 1]; e += 32) {
+    const int c = indices[e];
+    atomicAnd(m + (c >> 5), ~(1u << (c & 31)));
+  }
+  __syncwarp();
+  int count = 0;
+  for (int w = lane; w < words; w += 32) count += __popc(m[w]);
+  count = __reduce_add_sync(kFull, count);
+  if (lane == 0) row_count[row] = count;
+}
+
+// Pass 2 of the hits: one warp a row, 32 of the row's words a step (one a
+// lane, an inclusive scan of their popcounts by shuffles).  Each lane
+// writes its word's columns in order into the warp's stage in shared
+// memory at the scan's offset; then the warp copies the step's pairs out
+// at the row's offset, lane l taking every 32nd from l (coalesced).
+__global__ void __launch_bounds__(kRowWarps * 32)
+pcc_diff_write_kernel(int n, int words, const unsigned* __restrict__ mask,
+                      const int* __restrict__ row_count, const int64_t* __restrict__ row_start,
+                      int* __restrict__ out_row, int* __restrict__ out_col) {
+  __shared__ int stage[kRowWarps][32 * 32];
+  const int row = blockIdx.x * kRowWarps + static_cast<int>(threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;  // whole warps leave together
+  int* st = stage[threadIdx.x >> 5];
+  int64_t pos = row_start[row];
+  const int64_t stop = pos + row_count[row];
+  const unsigned* m = mask + static_cast<int64_t>(row) * words;
+  for (int w0 = 0; w0 < words && pos < stop; w0 += 32) {
+    unsigned bits = w0 + lane < words ? m[w0 + lane] : 0u;
+    const int pc = __popc(bits);
+    int incl = pc;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += up;
+    }
+    for (int at = incl - pc; bits; bits &= bits - 1u) {
+      st[at++] = 32 * (w0 + lane) + __ffs(bits) - 1;
+    }
+    __syncwarp();
+    const int total = __shfl_sync(kFull, incl, 31);
+    for (int k = lane; k < total; k += 32) {
+      out_row[pos + k] = row;
+      out_col[pos + k] = st[k];
+    }
+    __syncwarp();  // the stage is read before the next step writes it
+    pos += total;
+  }
+}
+
+// The CSR's entries as n x n bitmasks, adj (row r: the entries (r, c)) and
+// adj_t (row c: the entries (r, c)), both zeroed by the caller; one warp a
+// row.  The histogram's linked tests, in both directions.
+__global__ void __launch_bounds__(kRowWarps * 32)
+pcc_diff_adjacency_kernel(int n, int words, const int64_t* __restrict__ indptr,
+                          const int* __restrict__ indices, unsigned* __restrict__ adj,
+                          unsigned* __restrict__ adj_t) {
+  const int row = blockIdx.x * kRowWarps + static_cast<int>(threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;
+  unsigned* m = adj + static_cast<int64_t>(row) * words;
+  for (int64_t e = indptr[row] + lane; e < indptr[row + 1]; e += 32) {
+    const int c = indices[e];
+    atomicOr(m + (c >> 5), 1u << (c & 31));
+    atomicOr(adj_t + static_cast<int64_t>(c) * words + (row >> 5), 1u << (row & 31));
+  }
+}
+
+// The bin of d by comparisons with the edges, -1 outside [e_lo, e_hi].
+__device__ __forceinline__ int bin_of(double d, const double* edge, double e_lo,
+                                      double e_hi, int n_bins, double inv_width) {
+  if (!(d >= e_lo && d <= e_hi)) return -1;
+  // the guess (past the end: the last bin), then the edges decide
+  const double guess = (d - e_lo) * inv_width;
+  int b = guess < n_bins - 1 ? static_cast<int>(guess) : n_bins - 1;
+  while (b > 0 && d < edge[b]) --b;
+  while (b < n_bins - 1 && d >= edge[b + 1]) ++b;
+  return b;
+}
+
+// A block's histogram: word ((linked ? 0 : n_bins) + bin) * copies plus the
+// thread's copy.  A pair counts once for (i, j) and once for (j, i), each
+// linked by its own CSR entry: row i's words of adj and adj_t for the
+// step's 32 columns, read from global memory a step ahead.
+struct HistOp {
+  static constexpr bool kStepped = true;
+  const double* edge;
+  int n_bins;
+  double inv_width;
+  unsigned* hist;
+  int copies;
+  const unsigned* adj;
+  const unsigned* adj_t;
+  int words;
+  double e_lo, e_hi;
+  int64_t base = 0;  // row i's first word in adj and adj_t
+  unsigned fwd = 0u, bwd = 0u, next_fwd = 0u, next_bwd = 0u;
+  __device__ void fetch(int jb) {
+    const int w = jb >> 5;
+    next_fwd = w < words ? adj[base + w] : 0u;
+    next_bwd = w < words ? adj_t[base + w] : 0u;
+  }
+  __device__ void row(int i, bool, int jb) {
+    base = static_cast<int64_t>(i) * words;
+    fetch(jb);
+  }
+  __device__ void step(int jb) {  // this step's words; the next step's, a step ahead
+    fwd = next_fwd;
+    bwd = next_bwd;
+    fetch(jb + 32);
+  }
+  __device__ void visit(int, int u, double d) {
+    const int b = bin_of(d, edge, e_lo, e_hi, n_bins, inv_width);
+    if (b < 0) return;
+    const int mine = static_cast<int>(threadIdx.x) & (copies - 1);
+    const unsigned ij = (fwd >> u) & 1u;
+    const unsigned ji = (bwd >> u) & 1u;
+    if (ij == ji) {
+      atomicAdd(hist + ((ij ? 0 : n_bins) + b) * copies + mine, 2u);
+    } else {
+      atomicAdd(hist + b * copies + mine, 1u);
+      atomicAdd(hist + (n_bins + b) * copies + mine, 1u);
+    }
+  }
+  __device__ void end() {}
+};
+
+template <int K>
+__global__ void __launch_bounds__(kHistTile)
+pcc_diff_hist_kernel(const double* __restrict__ zi, const double* __restrict__ zn, int n,
+                     const double* __restrict__ edges, int n_bins, double inv_width,
+                     int copies, const unsigned* __restrict__ adj,
+                     const unsigned* __restrict__ adj_t,
                      unsigned long long* __restrict__ counts) {
-  constexpr int S = col_stride<K>();
   extern __shared__ __align__(16) double smem[];
   double* tile = smem;
-  double* edge = tile + kTileCols * S;
+  double* edge = tile + kHistTile * col_stride<K>();
   unsigned* hist = reinterpret_cast<unsigned*>(edge + n_bins + 1);
-  for (int i = threadIdx.x; i < 2 * n_bins * copies; i += kCountThreads) hist[i] = 0u;
-  for (int i = threadIdx.x; i <= n_bins; i += kCountThreads) edge[i] = edges[i];
-
-  const int row = static_cast<int>(blockIdx.y) * kCountThreads + static_cast<int>(threadIdx.x);
-  const bool live = row < n;
-  const int g0 = static_cast<int>(blockIdx.x) * kHistCols;
-  const int g1 = n - g0 < kHistCols ? n : g0 + kHistCols;
-  double ri[K], rn[K];
-  load_row<K>(zi, zn, row, live, ri, rn);
-  // the merge pointer: the row's first neighbour >= g0 (a lower bound) and
-  // its column id (INT_MAX past the row's end)
-  int64_t p = 0, p_end = 0;
-  if (live) {
-    p = indptr[row];
-    p_end = indptr[row + 1];
-    int64_t top = p_end;
-    while (p < top) {
-      const int64_t mid = p + (top - p) / 2;
-      if (indices[mid] < g0) {
-        p = mid + 1;
-      } else {
-        top = mid;
-      }
-    }
-  }
-  int nb = p < p_end ? indices[p] : INT_MAX;
-  const int mine = static_cast<int>(threadIdx.x) & (copies - 1);
-
-  for (int c0 = g0; c0 < g1; c0 += kTileCols) {
-    __syncthreads();  // the previous tile is done (and, at first, the edges and zeros are in)
-    load_tile<K, kTileCols>(zi, zn, n, c0, tile, kCountThreads);
-    __syncthreads();
-    if (!live) continue;
-    const double e_lo = edge[0];
-    const double e_hi = edge[n_bins];
-    const int cols = g1 - c0 < kTileCols ? g1 - c0 : kTileCols;
-    for (int c = 0; c < cols; ++c) {
-      const int j = c0 + c;
-      double v[2 * K];
-      load_col<K>(tile + c * S, v);
-      const double d = pair_diff<K>(ri, rn, v);
-      while (nb < j) {
-        ++p;
-        nb = p < p_end ? indices[p] : INT_MAX;
-      }
-      if (j == row || !(d >= e_lo && d <= e_hi)) continue;
-      // the guess (NaN or past the end: the last bin), then the edges decide
-      const double guess = (d - e_lo) * inv_width;
-      int b = guess < n_bins - 1 ? static_cast<int>(guess) : n_bins - 1;
-      while (b > 0 && d < edge[b]) --b;
-      while (b < n_bins - 1 && d >= edge[b + 1]) ++b;
-      const int bin = (nb == j ? 0 : n_bins) + b;
-      atomicAdd(hist + bin * copies + mine, 1u);
-    }
-  }
+  for (int i = threadIdx.x; i < 2 * n_bins * copies; i += kHistTile) hist[i] = 0u;
+  for (int i = threadIdx.x; i <= n_bins; i += kHistTile) edge[i] = edges[i];
+  // the walk's first __syncthreads makes the zeros and the edges visible
+  HistOp op{edge, n_bins, inv_width, hist, copies, adj, adj_t, (n + 31) / 32,
+            edges[0], edges[n_bins]};
+  walk_upper<K, kHistTile>(zi, zn, n, tile, op);
   __syncthreads();
-  // each bin's copies, read from a rotated start so a warp's 32 bins hit 32
-  // banks; one global atomic per nonzero bin
-  for (int bin = threadIdx.x; bin < 2 * n_bins; bin += kCountThreads) {
+  // each bin's copies summed; one global atomic per nonzero bin
+  for (int bin = threadIdx.x; bin < 2 * n_bins; bin += kHistTile) {
     unsigned long long s = 0;
-    for (int c = 0; c < copies; ++c) s += hist[bin * copies + ((c + bin) & (copies - 1))];
+    for (int c = 0; c < copies; ++c) s += hist[bin * copies + c];
     if (s) atomicAdd(counts + bin, s);
   }
+}
+
+// Blocks for a walk: those the card holds at once, at least enough that no
+// block walks more than kMaxTilesPerBlock tile pairs, at most one a pair.
+// Refuses (0) a triangle of more tile pairs than an int numbers.
+template <class Kernel>
+long long walk_blocks(Kernel kernel, int threads, size_t smem, long long n, int tb) {
+  const long long t = (n + tb - 1) / tb;
+  const long long pairs = t * (t + 1) / 2;
+  if (n > INT_MAX - 1024 || pairs > INT_MAX) return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+          cudaSuccess) {
+    return 0;
+  }
+  long long blocks = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+  const long long least = (pairs + kMaxTilesPerBlock - 1) / kMaxTilesPerBlock;
+  if (blocks < least) blocks = least;
+  return blocks < pairs ? blocks : pairs;
 }
 
 template <int K>
 int launch_counts(int64_t n, const double* zi, const double* zn, double lo, double hi,
                   unsigned long long* counts, cudaStream_t stream) {
-  const int64_t col_tiles = (n + kTileCols - 1) / kTileCols;
-  const int64_t row_tiles = (n + kCountThreads - 1) / kCountThreads;
-  if (col_tiles > INT_MAX || row_tiles > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(col_tiles), static_cast<unsigned>(row_tiles));
-  pcc_diff_count_kernel<K><<<grid, kCountThreads, 0, stream>>>(zi, zn, n, lo, hi, counts);
+  const long long blocks =
+      walk_blocks(pcc_diff_count_kernel<K>, kTile, 0, n, kTile);
+  if (blocks == 0) return cudaErrorInvalidValue;
+  pcc_diff_count_kernel<K><<<static_cast<unsigned>(blocks), kTile, 0, stream>>>(
+      zi, zn, static_cast<int>(n), lo, hi, counts);
   return cudaGetLastError();
 }
 
-template <int K, bool kWrite>
-int launch_hits(int64_t n, const double* zi, const double* zn, double hi,
-                const int64_t* indptr, const int* indices, int* row_count,
-                const int64_t* row_start, int* out_row, int* out_col,
+template <int K>
+int launch_mark(int64_t n, const double* zi, const double* zn, double hi,
+                const int64_t* indptr, const int* indices, unsigned* mask, int* row_count,
                 cudaStream_t stream) {
-  constexpr int kRows = kHitWarps * hit_rows<K>();
-  if (n > INT_MAX - 1024) return cudaErrorInvalidValue;
-  const int64_t blocks = (n + kRows - 1) / kRows;
-  pcc_diff_hit_kernel<K, kWrite><<<static_cast<unsigned>(blocks), kHitThreads, 0, stream>>>(
-      zi, zn, static_cast<int>(n), hi, indptr, indices, row_count, row_start, out_row,
-      out_col);
+  const long long blocks =
+      walk_blocks(pcc_diff_mark_kernel<K>, kTile, 0, n, kTile);
+  if (blocks == 0) return cudaErrorInvalidValue;
+  const int words = static_cast<int>((n + 31) / 32);
+  pcc_diff_mark_kernel<K><<<static_cast<unsigned>(blocks), kTile, 0, stream>>>(
+      zi, zn, static_cast<int>(n), hi, mask, words);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long row_blocks = (n + kRowWarps - 1) / kRowWarps;
+  pcc_diff_unmark_kernel<<<static_cast<unsigned>(row_blocks), kRowWarps * 32, 0, stream>>>(
+      static_cast<int>(n), words, indptr, indices, mask, row_count);
   return cudaGetLastError();
 }
 
 template <int K>
 int launch_hist(int64_t n, const double* zi, const double* zn, const double* edges,
                 int n_bins, double inv_width, const int64_t* indptr, const int* indices,
-                unsigned long long* counts, cudaStream_t stream) {
-  if (n > INT_MAX - 1024 || n_bins < 1) return cudaErrorInvalidValue;
-  const int64_t col_blocks = (n + kHistCols - 1) / kHistCols;
-  const int64_t row_tiles = (n + kCountThreads - 1) / kCountThreads;
-  if (row_tiles > 65535) return cudaErrorInvalidValue;
-  const size_t fixed = sizeof(double) * (kTileCols * col_stride<K>() + n_bins + 1);
+                unsigned* adj, unsigned long long* counts, cudaStream_t stream) {
+  if (n_bins < 1 || n > INT_MAX - 1024) return cudaErrorInvalidValue;
+  // copies: the largest power of two up to kHistCopies whose block fits
+  // kHistSmemTarget, else 1 if that fits the most a block may take
+  const size_t fixed =
+      sizeof(double) * (kHistTile * col_stride<K>() + n_bins + 1);
   int copies = 0;
   for (int c = kHistCopies; c >= 1 && copies == 0; c /= 2) {
     if (fixed + sizeof(unsigned) * 2 * n_bins * c <= kHistSmemTarget) copies = c;
@@ -453,10 +552,15 @@ int launch_hist(int64_t n, const double* zi, const double* zn, const double* edg
       pcc_diff_hist_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(static_cast<unsigned>(col_blocks), static_cast<unsigned>(row_tiles));
-  pcc_diff_hist_kernel<K><<<grid, kCountThreads, smem, stream>>>(
-      zi, zn, static_cast<int>(n), edges, n_bins, inv_width, copies, indptr, indices,
-      counts);
+  const long long blocks = walk_blocks(pcc_diff_hist_kernel<K>, kHistTile, smem, n, kHistTile);
+  if (blocks == 0) return cudaErrorInvalidValue;
+  const int words = static_cast<int>((n + 31) / 32);
+  unsigned* adj_t = adj + static_cast<int64_t>(n) * words;
+  const long long row_blocks = (n + kRowWarps - 1) / kRowWarps;
+  pcc_diff_adjacency_kernel<<<static_cast<unsigned>(row_blocks), kRowWarps * 32, 0, stream>>>(
+      static_cast<int>(n), words, indptr, indices, adj, adj_t);
+  pcc_diff_hist_kernel<K><<<static_cast<unsigned>(blocks), kHistTile, smem, stream>>>(
+      zi, zn, static_cast<int>(n), edges, n_bins, inv_width, copies, adj, adj_t, counts);
   return cudaGetLastError();
 }
 
@@ -466,9 +570,10 @@ int launch_hist(int64_t n, const double* zi, const double* zn, const double* edg
 }  // namespace
 
 // z_i, z_n: (n, k) float64, row-major.  counts: 2 unsigned long long,
-// zeroed by the caller; gets (#pairs with d < lo, #pairs with d > hi).
-// Returns the CUDA error code of the launch (0 = launched);
-// cudaErrorInvalidValue for k outside 1..16 or a grid that would not fit.
+// zeroed by the caller; gets the pairs i < j with d < lo and with d > hi
+// (the wrapper doubles them and adds the diagonal).  Returns the CUDA error
+// code of the launch (0 = launched); cudaErrorInvalidValue for k outside
+// 1..16 or more tile pairs than an int numbers (n > 65,535 x 128).
 extern "C" int pcc_diff_counts(int k, long long n, const void* z_i, const void* z_n,
                                double lo, double hi, void* counts, void* stream) {
   if (n <= 0) return cudaSuccess;
@@ -487,23 +592,25 @@ extern "C" int pcc_diff_counts(int k, long long n, const void* z_i, const void* 
   }
 }
 
-// First pass of the hits: row_count (n int32) gets each row's pairs with
-// d > hi that are not in the CSR (indptr: n + 1 int64; indices: int32,
-// ascending within each row).
-extern "C" int pcc_diff_hit_counts(int k, long long n, const void* z_i, const void* z_n,
-                                   double hi, const void* indptr, const void* indices,
-                                   void* row_count, void* stream) {
+// Pass 1 of the hits: mask (n x ceil(n / 32) uint32, zeroed by the caller)
+// gets the pairs with d > hi that are not in the CSR (indptr: n + 1 int64;
+// indices: int32, ascending within each row), row_count (n int32) each
+// row's number of them.
+extern "C" int pcc_diff_hit_mark(int k, long long n, const void* z_i, const void* z_n,
+                                 double hi, const void* indptr, const void* indices,
+                                 void* mask, void* row_count, void* stream) {
   if (n <= 0) return cudaSuccess;
   const auto* zi = static_cast<const double*>(z_i);
   const auto* zn = static_cast<const double*>(z_n);
   const auto* ip = static_cast<const int64_t*>(indptr);
   const auto* ix = static_cast<const int*>(indices);
+  auto* mk = static_cast<unsigned*>(mask);
   auto* rc = static_cast<int*>(row_count);
   auto st = static_cast<cudaStream_t>(stream);
   switch (k) {
 #define PCC_CASE(K) \
   case K:           \
-    return launch_hits<K, false>(n, zi, zn, hi, ip, ix, rc, nullptr, nullptr, nullptr, st);
+    return launch_mark<K>(n, zi, zn, hi, ip, ix, mk, rc, st);
     PCC_FOR_EACH_K(PCC_CASE)
 #undef PCC_CASE
     default:
@@ -511,55 +618,48 @@ extern "C" int pcc_diff_hit_counts(int k, long long n, const void* z_i, const vo
   }
 }
 
-// Second pass: the same pairs, each row's in ascending column order at
+// Pass 2: the marked pairs, each row's in ascending column order at
 // out_row/out_col[row_start[row] ...] (row_start: n int64, the exclusive
-// scan of the first pass's counts).
-extern "C" int pcc_diff_hit_write(int k, long long n, const void* z_i, const void* z_n,
-                                  double hi, const void* indptr, const void* indices,
+// scan of row_count).
+extern "C" int pcc_diff_hit_write(long long n, const void* mask, const void* row_count,
                                   const void* row_start, void* out_row, void* out_col,
                                   void* stream) {
   if (n <= 0) return cudaSuccess;
-  const auto* zi = static_cast<const double*>(z_i);
-  const auto* zn = static_cast<const double*>(z_n);
-  const auto* ip = static_cast<const int64_t*>(indptr);
-  const auto* ix = static_cast<const int*>(indices);
-  const auto* rs = static_cast<const int64_t*>(row_start);
-  auto* orow = static_cast<int*>(out_row);
-  auto* ocol = static_cast<int*>(out_col);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (k) {
-#define PCC_CASE(K) \
-  case K:           \
-    return launch_hits<K, true>(n, zi, zn, hi, ip, ix, nullptr, rs, orow, ocol, st);
-    PCC_FOR_EACH_K(PCC_CASE)
-#undef PCC_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (n > INT_MAX - 1024) return cudaErrorInvalidValue;
+  const long long blocks = (n + kRowWarps - 1) / kRowWarps;
+  pcc_diff_write_kernel<<<static_cast<unsigned>(blocks), kRowWarps * 32, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int>(n), static_cast<int>((n + 31) / 32),
+      static_cast<const unsigned*>(mask), static_cast<const int*>(row_count),
+      static_cast<const int64_t*>(row_start), static_cast<int*>(out_row),
+      static_cast<int*>(out_col));
+  return cudaGetLastError();
 }
 
 // The ΔPCC histogram of the pairs i != j: counts (2 * n_bins unsigned long
 // long, zeroed by the caller) gets the linked pairs (in the CSR: indptr n + 1
 // int64, indices int32 ascending within each row) by bin, then the others.
-// edges: n_bins + 1 float64, strictly ascending and finite; inv_width: a
-// guess's scale, n_bins / (edges[n_bins] - edges[0]) (0 if that is not
-// finite; the bins come from comparisons with the edges either way).
+// adj: 2 x n x ceil(n / 32) uint32, zeroed by the caller (the CSR and its
+// transpose as bitmasks).  edges: n_bins + 1 float64, strictly ascending and finite;
+// inv_width: a guess's scale, n_bins / (edges[n_bins] - edges[0]) (0 if that
+// is not finite; the bins come from comparisons with the edges either way).
 extern "C" int pcc_diff_hist(int k, long long n, const void* z_i, const void* z_n,
                              const void* edges, int n_bins, double inv_width,
-                             const void* indptr, const void* indices, void* counts,
-                             void* stream) {
+                             const void* indptr, const void* indices, void* adj,
+                             void* counts, void* stream) {
   if (n <= 0) return cudaSuccess;
   const auto* zi = static_cast<const double*>(z_i);
   const auto* zn = static_cast<const double*>(z_n);
   const auto* e = static_cast<const double*>(edges);
   const auto* ip = static_cast<const int64_t*>(indptr);
   const auto* ix = static_cast<const int*>(indices);
+  auto* a = static_cast<unsigned*>(adj);
   auto* c = static_cast<unsigned long long*>(counts);
   auto st = static_cast<cudaStream_t>(stream);
   switch (k) {
 #define PCC_CASE(K) \
   case K:           \
-    return launch_hist<K>(n, zi, zn, e, n_bins, inv_width, ip, ix, c, st);
+    return launch_hist<K>(n, zi, zn, e, n_bins, inv_width, ip, ix, a, c, st);
     PCC_FOR_EACH_K(PCC_CASE)
 #undef PCC_CASE
     default:

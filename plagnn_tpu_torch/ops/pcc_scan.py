@@ -8,19 +8,22 @@ taken as d = 0.  The JAX package scans on the host (numpy GEMM blocks in
 ``analysis/statistics.py: threshold_counts`` and
 ``data/topology.py: modify_network_topology``, or the C++ loop
 ``native/plagnn_native.cpp: diff_threshold_scan``); here one CUDA source,
-``csrc/pcc_diff_scan.cu``, does it without any N² buffer:
+``csrc/pcc_diff_scan.cu``, does it with one walk of the pairs i < j (d(i, j)
+and d(j, i) are the same bits), the diagonal apart:
 
 * ``pcc_diff_counts(z_i, z_n, lo, hi) -> (n_lo, n_hi)``: the pairs with
   d < lo and with d > hi.  Plain version: ``pcc_diff_counts_plain``.
 * ``pcc_diff_hits(z_i, z_n, hi, csr) -> (rows, cols)``: the pairs with
-  d > hi that are not edges of ``csr``, in row-major order (two passes: a
-  count per row, then writes at the scanned offsets).  Plain version:
-  ``pcc_diff_hits_plain``.
+  d > hi that are not edges of ``csr``, in row-major order (a pass that
+  marks them in an N x N bitmask, N²/8 bytes, and counts them per row,
+  then one that writes each row's marks at its scanned offset).  Plain
+  version: ``pcc_diff_hits_plain``.
 * ``pcc_diff_histogram(z_i, z_n, edges, csr) -> (linked, unlinked)``: the
   pairs i != j binned by np.histogram's rule for an array of edges (the
   last bin closed on the right, values outside dropped), apart for the
-  pairs that are edges of ``csr``.  Plain version:
-  ``pcc_diff_histogram_plain``.
+  pairs that are edges of ``csr`` (written first as N x N bitmasks of the
+  CSR and of its transpose, N²/4 bytes, so each direction of a pair is
+  tested by its own entry).  Plain version: ``pcc_diff_histogram_plain``.
 
 All forms compute d with one rounding per product and per sum, t
 ascending, and compare strictly (the histogram: with the edges, never by a
@@ -49,16 +52,16 @@ LAUNCHES: Dict[str, int] = {"pcc_diff_count_f64": 0, "pcc_diff_hits_f64": 0,
 _PLAIN_BLOCK = 1 << 25
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-# k, n, z_i, z_n, then per entry point:
-#   pcc_diff_counts:     lo, hi, counts, stream
-#   pcc_diff_hit_counts: hi, indptr, indices, row_count, stream
-#   pcc_diff_hit_write:  hi, indptr, indices, row_start, out_row, out_col, stream
-#   pcc_diff_hist:       edges, n_bins, inv_width, indptr, indices, counts, stream
+# pcc_diff_counts:    k, n, z_i, z_n, lo, hi, counts, stream
+# pcc_diff_hit_mark:  k, n, z_i, z_n, hi, indptr, indices, mask, row_count, stream
+# pcc_diff_hit_write: n, mask, row_count, row_start, out_row, out_col, stream
+# pcc_diff_hist:      k, n, z_i, z_n, edges, n_bins, inv_width, indptr, indices,
+#                     adjacency, counts, stream
 _ARGTYPES = {
     "pcc_diff_counts": [_I, _LL, _P, _P, _D, _D, _P, _P],
-    "pcc_diff_hit_counts": [_I, _LL, _P, _P, _D, _P, _P, _P, _P],
-    "pcc_diff_hit_write": [_I, _LL, _P, _P, _D, _P, _P, _P, _P, _P, _P],
-    "pcc_diff_hist": [_I, _LL, _P, _P, _P, _I, _D, _P, _P, _P, _P],
+    "pcc_diff_hit_mark": [_I, _LL, _P, _P, _D, _P, _P, _P, _P, _P],
+    "pcc_diff_hit_write": [_LL, _P, _P, _P, _P, _P, _P],
+    "pcc_diff_hist": [_I, _LL, _P, _P, _P, _I, _D, _P, _P, _P, _P, _P],
 }
 
 
@@ -101,10 +104,15 @@ def _check_z(z_i: torch.Tensor, z_n: torch.Tensor) -> None:
         raise ValueError("the scan takes fewer than 2^31 rows")
 
 
-def _check_csr(csr, n: int, device, strict: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(indptr int64 (n + 1), indices int32), on z's device, with each row's
-    column ids in [0, n) and ascending (the kernel's merge pointer needs
-    that; repeats are harmless), or strictly ascending with ``strict``."""
+def _csr_flag(csr, n: int, device,
+              strict: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(indptr, indices, bad): raises on the CSR's types, shapes and device
+    (indptr int64 (n + 1), indices int32, on ``device``); ``bad``, a bool
+    tensor on the device, is true unless indptr rises from 0 to
+    len(indices) and each row's column ids lie in [0, n), ascending, as
+    ``csr_tensors`` writes them (repeats are harmless), or strictly
+    ascending with ``strict`` (the ECC walk needs that).  Reading it is the
+    caller's one host sync."""
     indptr, indices = csr
     if indptr.dtype != torch.int64 or indptr.shape != (n + 1,):
         raise ValueError(f"indptr must be int64 of shape ({n + 1},)")
@@ -114,19 +122,39 @@ def _check_csr(csr, n: int, device, strict: bool = False) -> Tuple[torch.Tensor,
         raise ValueError(f"csr on {indptr.device} / {indices.device}, z on {device}")
     if not (indptr.is_contiguous() and indices.is_contiguous()):
         raise ValueError("indptr and indices must be contiguous")
-    # one host sync for every check; the row of each entry comes from a
-    # search, so a malformed indptr indexes nothing out of range
+    # a step down is allowed only where a row starts; the starts come from
+    # the clamped indptr, so a malformed one indexes nothing out of range
     m = indices.numel()
     bad = (indptr[0] != 0) | (indptr[-1] != m) | (indptr[1:] < indptr[:-1]).any()
     if m:
-        row = torch.searchsorted(indptr, torch.arange(m, device=device), right=True)
+        # index_fill_ takes its value as a scalar: no copy to the device
+        starts = torch.zeros(m + 1, dtype=torch.bool, device=device)
+        starts.index_fill_(0, indptr.clamp(0, m), True)
         bad = bad | (indices.min() < 0) | (indices.max() >= n)
         down = indices[1:] <= indices[:-1] if strict else indices[1:] < indices[:-1]
-        bad = bad | (down & (row[1:] == row[:-1])).any()
-    if bool(bad):
-        raise ValueError("csr must have an indptr rising from 0 to len(indices) and "
-                         "column ids in [0, n), "
-                         f"{'strictly ' if strict else ''}ascending in each row")
+        bad = bad | (down & ~starts[1:m]).any()
+    return indptr, indices, bad
+
+
+def _csr_message(strict: bool) -> str:
+    return ("csr must have an indptr rising from 0 to len(indices) and column ids in "
+            f"[0, n), {'strictly ' if strict else ''}ascending in each row")
+
+
+def _raise_flags(checks) -> None:
+    """Reads every flag of ``checks`` = [(bool tensor, message)] with one
+    host sync and raises ValueError with the first set flag's message."""
+    got = torch.stack([flag.reshape(()) for flag, _ in checks]).tolist()
+    for bad, (_, message) in zip(got, checks):
+        if bad:
+            raise ValueError(message)
+
+
+def _check_csr(csr, n: int, device, strict: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(indptr int64 (n + 1), indices int32), on z's device, checked as
+    ``_csr_flag`` says, with one host sync."""
+    indptr, indices, bad = _csr_flag(csr, n, device, strict)
+    _raise_flags([(bad, _csr_message(strict))])
     return indptr, indices
 
 
@@ -277,8 +305,8 @@ def pcc_diff_counts(z_i: torch.Tensor, z_n: torch.Tensor, lo: float,
                                  float(hi), counts.data_ptr(), _stream(z_i))
     _raise_on(rc, "pcc_diff_counts")
     LAUNCHES["pcc_diff_count_f64"] += 1
-    n_lo, n_hi = counts.tolist()
-    return n_lo, n_hi
+    upper_lo, upper_hi = counts.tolist()  # the pairs i < j; d(i, i) = 0
+    return 2 * upper_lo + n * (0.0 < lo), 2 * upper_hi + n * (0.0 > hi)
 
 
 def pcc_diff_hits(z_i: torch.Tensor, z_n: torch.Tensor, hi: float,
@@ -297,12 +325,14 @@ def pcc_diff_hits(z_i: torch.Tensor, z_n: torch.Tensor, hi: float,
         empty = torch.empty(0, dtype=torch.int32, device=dev)
         return empty, empty.clone()
     lib = _lib()
+    words = (n + 31) // 32
+    mask = torch.zeros(n * words, dtype=torch.int32, device=dev)
     row_count = torch.empty(n, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.pcc_diff_hit_counts(k, n, z_i.data_ptr(), z_n.data_ptr(), float(hi),
-                                     indptr.data_ptr(), indices.data_ptr(),
-                                     row_count.data_ptr(), _stream(z_i))
-    _raise_on(rc, "pcc_diff_hit_counts")
+        rc = lib.pcc_diff_hit_mark(k, n, z_i.data_ptr(), z_n.data_ptr(), float(hi),
+                                   indptr.data_ptr(), indices.data_ptr(), mask.data_ptr(),
+                                   row_count.data_ptr(), _stream(z_i))
+    _raise_on(rc, "pcc_diff_hit_mark")
     ends = torch.cumsum(row_count, 0, dtype=torch.int64)
     total = int(ends[-1])
     rows = torch.empty(total, dtype=torch.int32, device=dev)
@@ -310,8 +340,7 @@ def pcc_diff_hits(z_i: torch.Tensor, z_n: torch.Tensor, hi: float,
     if total:
         row_start = ends - row_count
         with torch.cuda.device(dev):
-            rc = lib.pcc_diff_hit_write(k, n, z_i.data_ptr(), z_n.data_ptr(), float(hi),
-                                        indptr.data_ptr(), indices.data_ptr(),
+            rc = lib.pcc_diff_hit_write(n, mask.data_ptr(), row_count.data_ptr(),
                                         row_start.data_ptr(), rows.data_ptr(),
                                         cols.data_ptr(), _stream(z_i))
         _raise_on(rc, "pcc_diff_hit_write")
@@ -342,12 +371,13 @@ def pcc_diff_histogram(z_i: torch.Tensor, z_n: torch.Tensor, edges: torch.Tensor
         return empty, empty.clone()
     lib = _lib()
     counts = torch.zeros(2 * nb, dtype=torch.int64, device=dev)
+    adjacency = torch.zeros(2 * n * ((n + 31) // 32), dtype=torch.int32, device=dev)
     inv_width = nb / (e_hi - e_lo)
     with torch.cuda.device(dev):
         rc = lib.pcc_diff_hist(k, n, z_i.data_ptr(), z_n.data_ptr(), edges.data_ptr(), nb,
                                inv_width if math.isfinite(inv_width) else 0.0,
-                               indptr.data_ptr(), indices.data_ptr(), counts.data_ptr(),
-                               _stream(z_i))
+                               indptr.data_ptr(), indices.data_ptr(), adjacency.data_ptr(),
+                               counts.data_ptr(), _stream(z_i))
     _raise_on(rc, "pcc_diff_hist")
     LAUNCHES["pcc_diff_hist_f64"] += 1
     return counts[:nb], counts[nb:]

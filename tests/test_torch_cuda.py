@@ -379,8 +379,9 @@ def test_pcc_hit_kernel_matches_plain(card, n, k):
 
 
 def test_pcc_scan_refuses_wide_k_and_oversized_grid(card):
-    """k = 17 is refused before any launch; a count grid of more than 65,535
-    row tiles (256 rows each) is refused by the C entry point and raised."""
+    """k = 17 is refused before any launch; a triangle of more tile pairs
+    (128 rows a tile) than an int numbers is refused by the C entry point
+    and raised."""
     wide = torch.zeros((8, 17), dtype=torch.float64, device=card)
     with pytest.raises(ValueError, match="k = 17"):
         pcc_scan.pcc_diff_counts(wide, wide, 0.0, 0.0)
@@ -448,6 +449,90 @@ def test_pcc_hist_kernel_many_bins(card, k, n_bins):
     want = pcc_scan.pcc_diff_histogram_plain(z_i, z_n, edges, csr)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[1].sum()) > 0
+
+
+def _ppi_like_csr(card, n, seed):
+    """A symmetric CSR (a PPI's shape: a power-law of degrees, hubs joined
+    to each other) with self-loops at every fifth node."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, n + 1) ** 0.8
+    r = rng.choice(n, 6 * n, p=w / w.sum())
+    c = rng.integers(0, n, 6 * n)
+    loops = np.arange(0, n, 5)
+    m = sp.coo_matrix((np.ones(len(r) + len(loops)), (np.concatenate([r, loops]),
+                                                      np.concatenate([c, loops]))),
+                      shape=(n, n))
+    return pcc_scan.csr_tensors((m + m.T).tocsr(), card)
+
+
+@pytest.mark.parametrize("n", [300, 4097])
+def test_pcc_kernels_symmetric_csr_with_self_loops(card, n):
+    """All three entries on a symmetric PPI-like CSR with self-loops (the
+    topology step's and figures' shape of input; no one-way entries to
+    correct), n no multiple of either tile size."""
+    z_i, z_n = _pcc_factors(card, n, 3, seed=4)
+    csr = _ppi_like_csr(card, n, n)
+    d = _pcc_dense(z_i, z_n)
+    for lo, hi in _pcc_thresholds(d):
+        assert pcc_scan.pcc_diff_counts(z_i, z_n, lo, hi) == \
+            pcc_scan.pcc_diff_counts_plain(z_i, z_n, lo, hi)
+        rows, cols = pcc_scan.pcc_diff_hits(z_i, z_n, hi, csr)
+        want_r, want_c = pcc_scan.pcc_diff_hits_plain(z_i, z_n, hi, csr)
+        assert torch.equal(rows, want_r) and torch.equal(cols, want_c)
+    for edges in _hist_edges(d):
+        got = pcc_scan.pcc_diff_histogram(z_i, z_n, edges, csr)
+        want = pcc_scan.pcc_diff_histogram_plain(z_i, z_n, edges, csr)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[0].sum()) > 0
+
+
+@pytest.mark.parametrize("n,k", [(37, 3), (1000, 8), (4097, 1)])
+def test_pcc_hit_kernel_negative_threshold(card, n, k):
+    """hi < 0: every (i, i) with d = 0 > hi is a hit unless (i, i) is an
+    edge; counts add the diagonal to d < lo where 0 < lo."""
+    z_i, z_n = _pcc_factors(card, n, k, seed=5)
+    d = _pcc_dense(z_i, z_n)
+    off = d[~torch.eye(n, dtype=torch.bool, device=card)]
+    hi = float(torch.quantile(off[:1 << 24], 0.3))
+    assert hi < 0
+    csr = _ppi_like_csr(card, n, k)
+    rows, cols = pcc_scan.pcc_diff_hits(z_i, z_n, hi, csr)
+    want_r, want_c = pcc_scan.pcc_diff_hits_plain(z_i, z_n, hi, csr)
+    assert torch.equal(rows, want_r) and torch.equal(cols, want_c)
+    diag = int((rows == cols).sum())
+    assert 0 < diag < n  # the self-loops hold some back
+    assert pcc_scan.pcc_diff_counts(z_i, z_n, -hi, hi) == \
+        pcc_scan.pcc_diff_counts_plain(z_i, z_n, -hi, hi)
+
+
+def _repeated_entry_csr(card, n, seed):
+    """_hub_csr with the first entry of every fifth row repeated (ascending,
+    not strictly, as the hit and histogram entries take it)."""
+    indptr, indices = (t.cpu().numpy() for t in _hub_csr("cpu", n, seed))
+    rows = [list(indices[indptr[i]:indptr[i + 1]]) for i in range(n)]
+    for i in range(2, n, 5):
+        if rows[i]:
+            rows[i].insert(0, rows[i][0])
+    ptr = np.concatenate([[0], np.cumsum([len(x) for x in rows])]).astype(np.int64)
+    idx = np.array([v for x in rows for v in x], np.int32)
+    return torch.from_numpy(ptr).to(card), torch.from_numpy(idx).to(card)
+
+
+@pytest.mark.parametrize("n", [37, 1000])
+def test_pcc_hist_and_hits_repeated_entries(card, n):
+    """Repeated CSR entries count once: the histogram's one-way correction
+    skips a repeat, the hit marks test membership."""
+    z_i, z_n = _pcc_factors(card, n, 3, seed=6)
+    csr = _repeated_entry_csr(card, n, n)
+    d = _pcc_dense(z_i, z_n)
+    for edges in _hist_edges(d):
+        got = pcc_scan.pcc_diff_histogram(z_i, z_n, edges, csr)
+        want = pcc_scan.pcc_diff_histogram_plain(z_i, z_n, edges, csr)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for _, hi in _pcc_thresholds(d):
+        rows, cols = pcc_scan.pcc_diff_hits(z_i, z_n, hi, csr)
+        want_r, want_c = pcc_scan.pcc_diff_hits_plain(z_i, z_n, hi, csr)
+        assert torch.equal(rows, want_r) and torch.equal(cols, want_c)
 
 
 def test_pcc_hist_refuses_wide_k_and_malformed_edges(card):
@@ -562,22 +647,48 @@ def test_common_neighbors_kernel_matches_plain(card, n):
     assert torch.equal(cn.common_neighbors(csr, rows, cols), got)
 
 
-@pytest.mark.parametrize("row_chunk", [256, 8, 1])
-def test_common_neighbors_kernel_split_rows(card, row_chunk):
-    """Three hubs of ~3,300 neighbours each: their pairs split into 13+
-    chunks of 256 (hundreds at small row_chunk) that add into one count."""
+@pytest.mark.parametrize("slice_queries", [cn.SLICE_QUERIES, 8, 1])
+def test_common_neighbors_kernel_split_rows(card, slice_queries):
+    """Three hubs of ~3,300 neighbours each: the queries of a hub (the
+    longer row of most of its pairs) spread over many slices, each block
+    rebuilding the hub's bitmap, and add into their own counts."""
     csr, (rows, cols) = _cn_inputs(card, 4097, 5, hub=3)
-    deg = (csr[0][1:] - csr[0][:-1])
-    chunks = (torch.minimum(deg[rows.long()], deg[cols.long()]) + row_chunk - 1) // row_chunk
-    assert int(chunks.max()) > 12
-    got = cn.common_neighbors(csr, rows, cols, row_chunk=row_chunk)
+    per_row = torch.bincount(cn.longer_rows(csr[0], rows, cols).long())
+    assert int(per_row.max()) > 12 * slice_queries
+    got = cn.common_neighbors(csr, rows, cols, slice_queries=slice_queries)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cn.common_neighbors_plain(csr, rows, cols))
+
+
+@pytest.mark.parametrize("words", [1, 4, 40])
+def test_common_neighbors_kernel_windows(card, monkeypatch, words):
+    """A bitmap of 32 x words ids, less than N = 4,097: each block walks
+    its row's ids in windows (skipping those that hold none) and searches
+    each shorter row once per window; hubs and empty rows included."""
+    csr, (rows, cols) = _cn_inputs(card, 4097, 7, hub=2)
+    monkeypatch.setattr(cn, "WINDOW_WORDS", words)
+    got = cn.common_neighbors(csr, rows, cols, slice_queries=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cn.common_neighbors_plain(csr, rows, cols))
+
+
+def test_common_neighbors_kernel_ppi_like(card):
+    """A symmetric PPI-like CSR with self-loops, queries its upper-triangle
+    edges as data/ecc.py asks them."""
+    csr = _ppi_like_csr(card, 3001, 9)
+    indptr, indices = (t.cpu().numpy() for t in csr)
+    r = np.repeat(np.arange(3001), np.diff(indptr))
+    up = r < indices
+    rows = torch.from_numpy(r[up].astype(np.int32)).to(card)
+    cols = torch.from_numpy(indices[up].astype(np.int32)).to(card)
+    got = cn.common_neighbors(csr, rows, cols)
     torch.cuda.synchronize()
     assert torch.equal(got, cn.common_neighbors_plain(csr, rows, cols))
 
 
 def test_common_neighbors_kernel_empty_rows_and_queries(card):
-    """Queries on empty rows count 0 and launch nothing when no query has
-    an item; no queries at all give an empty result."""
+    """Queries on empty rows count 0 (every block leaves at once); no
+    queries at all give an empty result."""
     n = 50
     indptr = torch.zeros(n + 1, dtype=torch.int64, device=card)
     indices = torch.zeros(0, dtype=torch.int32, device=card)

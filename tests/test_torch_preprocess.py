@@ -506,44 +506,77 @@ def _queries(ppi):
     return a, q.row, q.col
 
 
-def _kernel_replay(csr, rows, cols, row_chunk):
-    """numpy replay of csrc/common_neighbors.cu from the wrapper's item
-    table: per item, the chunk of the shorter row (ties: the row's), each
-    of 32 lanes taking every 32nd element and binary-searching the longer
-    row, the warp's sum added to the query's count."""
+def _kernel_replay(csr, rows, cols, slice_queries, window_words):
+    """numpy replay of csrc/common_neighbors.cu over the wrapper's tables:
+    block b finds its longer row L by the slice ends and its queries in the
+    sorted order; it builds L's bitmap window by window (skipping windows
+    that hold none of L's ids), and warp w of 8 takes queries w, w + 8, ...
+    of the slice, walking each shorter row 4 x 32 elements a step, one bit
+    test each, until the row leaves the window.  Returns the counts, the blocks
+    that had a slice and the windows built."""
     indptr, indices = (t.numpy() for t in csr)
-    items_q, items_off = (t.numpy() for t in cn._items(
-        csr[0], torch.from_numpy(rows), torch.from_numpy(cols), row_chunk))
+    n = len(indptr) - 1
+    longer = cn.longer_rows(csr[0], torch.from_numpy(rows), torch.from_numpy(cols))
+    order, row_q, slice_end = (t.numpy() for t in cn._slices(longer, n, slice_queries))
+    span = 32 * max(min((n + 31) // 32, window_words), 1)
     out = np.zeros(len(rows), np.int64)
-    for q, off in zip(items_q, items_off):
-        a0, a1 = indptr[rows[q]], indptr[rows[q] + 1]
-        b0, b1 = indptr[cols[q]], indptr[cols[q] + 1]
-        if a1 - a0 > b1 - b0:
-            (a0, a1), (b0, b1) = (b0, b1), (a0, a1)
-        start = a0 + off
-        assert off % row_chunk == 0 and start < a1
-        total = 0
-        for lane in range(32):
-            for e in range(start + lane, min(start + row_chunk, a1), 32):
-                pos = np.searchsorted(indices[b0:b1], indices[e]) + b0
-                total += int(pos < b1 and indices[pos] == indices[e])
-        out[q] += total
-    return out
+    live = windows = 0
+    for b in range(n + -(-len(rows) // slice_queries)):
+        row = int(np.searchsorted(slice_end, b, side="right"))
+        if row == n:
+            continue
+        live += 1
+        q0 = row_q[row] + (b - (slice_end[row - 1] if row else 0)) * slice_queries
+        q1 = min(q0 + slice_queries, row_q[row + 1])
+        assert q0 < q1 and (longer.numpy()[order[q0:q1]] == row).all()
+        lrow = indices[indptr[row]:indptr[row + 1]]
+        if not len(lrow):
+            continue
+        lp, w0, first = 0, lrow[0] & ~31, True
+        while True:
+            windows += 1
+            bits = np.zeros(span, bool)
+            ids = lrow[lp:]
+            bits[ids[ids < w0 + span] - w0] = True
+            for warp in range(8):
+                for q in order[q0 + warp:q1:8]:
+                    s = cols[q] if rows[q] == row else rows[q]
+                    srow = indices[indptr[s]:indptr[s + 1]]
+                    e0 = 0 if first else int(np.searchsorted(srow, w0))
+                    for step in range(e0, len(srow), 128):  # 4 loads a lane at once
+                        x = np.full(128, 1 << 40)
+                        got = srow[step:step + 128] - w0
+                        x[:len(got)] = got
+                        inside = (x >= 0) & (x < span)
+                        out[q] += int(bits[x[inside]].sum())
+                        if not (x[96:] < span).all():
+                            break
+            if w0 + span > lrow[-1]:
+                break
+            lp = int(np.searchsorted(lrow, w0 + span))
+            w0, first = lrow[lp] & ~31, False
+    return out, live, windows
 
 
-@pytest.mark.parametrize("row_chunk", [256, 8])
-def test_common_neighbors_kernel_replay(row_chunk):
-    """The kernel's traversal over the wrapper's item table gives the
-    plain version's counts (the hub's queries split into chunks)."""
+@pytest.mark.parametrize("slice_queries,window_words", [(cn.SLICE_QUERIES, cn.WINDOW_WORDS),
+                                                        (3, 4)])
+def test_common_neighbors_kernel_replay(slice_queries, window_words):
+    """The kernel's walk over the wrapper's tables gives the plain
+    version's counts: one window a row at the default size, many windows
+    of 128 ids with slices of 3 queries (each hub's queries over many
+    slices, each rebuilding the hub's bitmap)."""
     a, rows, cols = _queries(_hub_graph())
     csr = csr_tensors(a, "cpu")
     r32, c32 = (torch.from_numpy(v.astype(np.int32)) for v in (rows, cols))
     plain = cn.common_neighbors(csr, r32, c32).numpy()
-    assert np.array_equal(_kernel_replay(csr, r32.numpy(), c32.numpy(), row_chunk), plain)
+    got, live, windows = _kernel_replay(csr, r32.numpy(), c32.numpy(), slice_queries,
+                                        window_words)
+    assert np.array_equal(got, plain)
     deg = np.diff(a.indptr)
-    chunks = (np.minimum(deg[rows], deg[cols]) + row_chunk - 1) // row_chunk
-    assert len(cn._items(csr[0], r32, c32, row_chunk)[0]) == chunks.sum()
-    assert chunks.max() > 3
+    per_row = np.bincount(np.where(deg[rows] > deg[cols], rows, cols))
+    assert live == (-(-per_row // slice_queries)).sum()
+    assert per_row.max() > 3 * slice_queries
+    assert (windows > live) == (window_words < a.shape[0] // 32)
 
 
 def test_common_neighbors_plain_blocks(monkeypatch):
@@ -584,8 +617,9 @@ def test_common_neighbors_cuda_never_falls_back(monkeypatch):
         type = "cuda"
 
     monkeypatch.setattr(cn._build, "load", fake_load)
-    monkeypatch.setattr(cn, "_check_csr", lambda csr, n, dev, strict: csr)
-    monkeypatch.setattr(cn, "_check_queries", lambda *a: None)
+    monkeypatch.setattr(cn, "_csr_flag", lambda csr, n, dev, strict: (*csr, None))
+    monkeypatch.setattr(cn, "_query_flag", lambda *a: None)
+    monkeypatch.setattr(cn, "_raise_flags", lambda checks: None)
     monkeypatch.setattr(cn, "common_neighbors_plain", None)
     csr = (torch.tensor([0, 1, 2], dtype=torch.int64), torch.tensor([1, 0], dtype=torch.int32))
     q = torch.tensor([0], dtype=torch.int32)
