@@ -124,6 +124,26 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    and greedy orders (features permuted as x[perm], outputs restored: each
    equals the identity order's), with each order's host time and
    coalesce_report's fractions.
+   4g. The big-graph path, last: BASELINE.json config 5 through the CLI
+   (``synth --nodes 330000 --edges 10000000 --seed 70``: N_pad 330,112,
+   E 10.33 M with self-loops, 5 rows past the positional rank cap), whose
+   graph takes the positional argmax (ranks within rows, int16).  At
+   every width the path aggregates (K = 8 x 503 / 400 / 300; relu ties,
+   an all-equal block, the top row's maximum past rank 32,767 in 64
+   columns), float32 and bfloat16, the positional max kernels and the
+   id-based int32 kernels on the same graph, each against its own plain
+   version as phase 3 holds them, and against each other: out bit-exact,
+   the argmax naming the same sources, dx within phase 3's tolerances
+   (bit-equal expected).  At layer 1 each is timed (CUDA events, median
+   of 10) beside its plain version, a ``scatter_reduce_`` /
+   ``index_add_`` yardstick over column slices (the whole gathered
+   operand does not fit) and its bytes bound.  Then GNN32 at 8 folds in one batch, 2 epochs,
+   train-normal float32 and train-inter bfloat16: exactly 3 positional
+   forwards and 3 positional backwards an epoch, no id-based max kernel,
+   the artifact contract.  Last, one forward and backward of BatchedGNN32
+   at B = 8 with each argmax form, both peaks and the saving beside the
+   one reckoned from the argmax's bytes.  The earlier phases' launch
+   checks hold every positional counter at 0.
 5. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 """
@@ -166,6 +186,12 @@ REPLACES = {
     "spmm_max_fwd_empty_bf16": _FWD_BODY,
     "spmm_max_bwd_f32": "plagnn_tpu/ops/pallas/spmm_kernels.py:982",
     "spmm_max_bwd_bf16": "plagnn_tpu/ops/pallas/spmm_kernels.py:1270",
+    # the positional argmax: the same bodies' positional mode (:1007,
+    # :1297), build_pallas_graph(positional=...) :1755
+    "spmm_max_fwd_pos_f32": _FWD_BODY,
+    "spmm_max_fwd_pos_bf16": _FWD_BODY,
+    "spmm_max_bwd_pos_f32": "plagnn_tpu/ops/pallas/spmm_kernels.py:982",
+    "spmm_max_bwd_pos_bf16": "plagnn_tpu/ops/pallas/spmm_kernels.py:1270",
     # reduce="sum": pallas_spmm_sum's forward, and its VJP over the transpose
     "spmm_sum_fwd_f32": _FWD_BODY,
     "spmm_sum_fwd_bf16": _FWD_BODY,
@@ -209,7 +235,7 @@ SETUP_COPIES = "host<->device copies (data in, history out; not per epoch)"
 ANALYSIS_DATASETS = (("GSE30931", 2.75), ("GSE74572", 2.91), ("GSE27182", 2.99))
 PERTURB_SIGMA = 0.1   # expr_inter = expr_normal x exp(0.1 N(0, 1)), seeded
 LIB_BLOCK_ROWS = 2048  # row block of the blocked-DGEMM yardstick
-DEVICE = "cuda"        # phase 4a's device ("cpu" runs its logic on the plain versions)
+DEVICE = "cuda"        # phases 4a and 4g ("cpu" runs their logic on the plain versions)
 CC_TERMS = ("GO:0005938", "GO:0005829", "GO:0015629", "GO:0005794", "GO:0005783",
             "GO:0005730", "GO:0005777", "GO:0005739", "GO:0005764", "GO:0005813",
             "GO:0005634", "GO:0005886")
@@ -218,6 +244,12 @@ PCA_MID = 4096         # size of the card-vs-CPU PCA check (the randomized solve
 PCA_RTOL = 1e-9        # tests/test_torch_preprocess.py's, relative to sigma_0
 SAVE_DIFF_NODES = 4096  # the --save-diff bundle (N² float64 a file)
 FANOUTS = (10, 25)      # phase 4o's sampled graphs
+# phase 4g: BASELINE.json config 5, the synthetic 10M-edge PPI-like graph
+# (benchmarks/big_graph.py: run_rate), 8 folds in one batch
+BIG_NODES, BIG_EDGES, BIG_FOLDS, BIG_EPOCHS = 330000, 10_000_000, 8, 2
+BIG_TIES = 64           # phase 4g's all-equal column block: columns [0, 64)
+BIG_MEGA_COLS = 64      # then columns whose top row's maximum is past the rank cap
+LIB_SLICE_BYTES = 4 << 30  # phase 4g's library yardstick: gathered bytes a slice
 # per traced session: (the block's launches without a kernel event, its
 # launches, its earliest kernel start less its launch's in us, the
 # warm-up's launches without a kernel event)
@@ -249,6 +281,19 @@ def median_ms(fn, reps):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def timed_ms(fn):
+    """(fn's result, the time of that one call in ms by CUDA events)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def bf16_ulp(v):
@@ -592,13 +637,14 @@ def check_val_sum_kernels(graph, k, label, results):
     torch.cuda.empty_cache()
 
 
-def train_cli(data_root, cmd, agg, epochs):
-    """One training run through the CLI, as a user calls it."""
+def train_cli(data_root, cmd, agg, epochs, folds=FOLDS):
+    """One training run through the CLI, as a user calls it: one round of
+    ``folds`` folds in one batch."""
     from plagnn_tpu_torch import cli
 
     return cli.main([cmd, "-data", "GSE30931", "--data-root", data_root,
-                     "-e", str(epochs), "--rounds", "1", "-f", str(FOLDS),
-                     "--fold-batch", str(FOLDS), "--agg-dtype", agg])
+                     "-e", str(epochs), "--rounds", "1", "-f", str(folds),
+                     "--fold-batch", str(folds), "--agg-dtype", agg])
 
 
 def reset_launches():
@@ -752,28 +798,28 @@ def record_launches(results, counts, names=None):
             r["launches"] = c
 
 
-def check_artifacts(label, d):
-    """The artifact contract of one round of FOLDS folds, finite logits."""
+def check_artifacts(label, d, folds=FOLDS, nodes=NODES):
+    """The artifact contract of one round of ``folds`` folds, finite logits."""
     import numpy as np
 
-    for f in range(1, FOLDS + 1):
+    for f in range(1, folds + 1):
         p = os.path.join(d, f"1_{f}_loc_logits.npy")
         if not os.path.exists(p):
             fail(f"{label}: missing {p}")
         lg = np.load(p)
-        if lg.shape != (NODES, CLASSES) or not np.isfinite(lg).all():
+        if lg.shape != (nodes, CLASSES) or not np.isfinite(lg).all():
             fail(f"{label}: {p} has shape {lg.shape} or non-finite values")
     for fname in ("log.tsv", "txt_log.txt", "fig_data_1.json"):
         if not os.path.exists(os.path.join(d, fname)):
             fail(f"{label}: missing {fname}")
 
 
-def report_run(label, stats, wall, counts, smi_line):
+def report_run(label, stats, wall, counts, smi_line, folds=FOLDS):
     import torch
 
     ep = [m for s in stats for m in s.epoch_ms]
     steady = statistics.median(ep[1:]) if len(ep) > 1 else ep[0]
-    print(f"slice {label}: {len(ep)} epochs x {FOLDS} folds, "
+    print(f"slice {label}: {len(ep)} epochs x {folds} folds, "
           f"epoch ms {[round(m, 3) for m in ep]}, steady {steady:.3f} ms/epoch, "
           f"run wall {wall:.1f} s, launches { {k: c for k, c in counts.items() if c} }, "
           f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -2163,6 +2209,334 @@ def mesh_only(smi_line):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4g: the big-graph path (the positional argmax) on the one card.
+# ---------------------------------------------------------------------------
+
+
+def big_inputs(graph):
+    """Layer 1's input at phase 4g's shape (K = 8 x 503) on the card: relu
+    of seeded bf16-representable values (ties at 0, the same in float32 and
+    bfloat16), an all-equal block (columns [0, BIG_TIES)), and in the next
+    BIG_MEGA_COLS columns the top row's maximum (50.0, above every other
+    value) at one rank past the rank cap a column.  Returns x, that row and
+    the ranks."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    x = torch.randn((graph.n_nodes, BIG_FOLDS * F_IN), generator=gen, device=DEVICE)
+    x = x.to(torch.bfloat16).float().relu_()
+    x[:, :BIG_TIES] = 1.5
+    deg = graph.in_degree.cpu().numpy()
+    top, cap = int(np.argmax(deg)), graph.rank_cap
+    if deg[top] < cap + 2 + BIG_MEGA_COLS:
+        fail(f"big graph: top in-degree {deg[top]} leaves no rank past the cap {cap}")
+    ranks = cap + 1 + np.arange(BIG_MEGA_COLS) * ((deg[top] - cap - 2) // BIG_MEGA_COLS)
+    at = int(graph.indptr[top]) + torch.from_numpy(ranks).to(DEVICE)
+    x[graph.src[at].long(), torch.arange(BIG_TIES, BIG_TIES + BIG_MEGA_COLS, device=DEVICE)] = 50.0
+    return x, top, ranks
+
+
+def sliced_library_ms(graph, x, g, arg_ids):
+    """The library yardsticks where the gathered (edges, K) operand does not
+    fit the card (10.3 M x 4,024 x 4 bytes = 166 GB): ``scatter_reduce_``
+    amax (forward) and ``index_add_`` of the masked gradient (backward),
+    each over column slices whose gathered operand fits LIB_SLICE_BYTES;
+    one call a slice after a warm-up, summed, the gathers untimed as in
+    phase 3.
+    Returns (forward ms, backward ms, columns a slice)."""
+    import torch
+
+    n, k = x.shape
+    w = max(1, min(k, LIB_SLICE_BYTES // (graph.n_edges * 4)))
+    src_l, dst_l = graph.src.long(), graph.dst.long()
+    src_i = graph.src[:, None]
+    fwd = bwd = 0.0
+    for c0 in range(0, k, w):
+        c1 = min(c0 + w, k)
+        gathered = x[:, c0:c1][src_l]
+        idx = dst_l[:, None].expand(-1, c1 - c0)
+        out = torch.zeros((n, c1 - c0), dtype=x.dtype, device=DEVICE)
+        fwd += median_ms(lambda: out.scatter_reduce_(0, idx, gathered, "amax",
+                                                     include_self=False), 1)
+        del gathered, out
+        masked = torch.where(arg_ids[dst_l, c0:c1] == src_i, g[dst_l, c0:c1].float(), 0.0)
+        dx = torch.zeros((n, c1 - c0), device=DEVICE)
+        bwd += median_ms(lambda: dx.index_add_(0, src_l, masked), 1)
+        del masked, dx
+    torch.cuda.empty_cache()
+    return fwd, bwd, w
+
+
+def big_fwd_check(graph, x, label):
+    """One argmax form's max forward on the big graph against its plain
+    version: out and argmax bit-exact with plain and run to run, the
+    argmax of the form's dtype and rows.  Returns (out, arg, the plain
+    version's ms)."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    out, arg = sk.spmm_max_fwd(graph, x)
+    out_2, arg_2 = sk.spmm_max_fwd(graph, x)
+    torch.cuda.synchronize()
+    if arg.dtype != sk.arg_dtype(graph) or arg.shape != (sk.arg_rows(graph), x.shape[1]):
+        fail(f"{label}: argmax {arg.dtype} {tuple(arg.shape)}")
+    if not (torch.equal(out.view(bits), out_2.view(bits)) and torch.equal(arg, arg_2)):
+        fail(f"{label}: forward not bit-identical run to run")
+    del out_2, arg_2
+    (out_p, arg_p), plain_ms = timed_ms(lambda: sk.spmm_max_fwd_plain(graph, x))
+    if not torch.equal(out, out_p):
+        fail(f"{label}: out differs from plain")
+    if not torch.equal(arg, arg_p):
+        fail(f"{label}: argmax differs from plain ({(arg != arg_p).sum().item()} elements)")
+    return out, arg, plain_ms
+
+
+def big_bwd_check(graph, g, arg, label, other=None):
+    """One argmax form's max backward on the big graph against its plain
+    version as phase 3 holds it: bit-identical run to run; float32 within
+    1e-5 of the summed hit magnitudes (the same hits summed in two orders),
+    bfloat16 within 1 ulp (small-integer gradients, one rounding at the
+    store).  ``other``, the other form's dx, is held to the same tolerance.
+    Returns (dx, max abs err against plain, the plain version's ms, whether
+    dx is bit-equal to ``other``)."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    bits = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+    dx = sk.spmm_max_bwd(graph, g, arg)
+    dx_2 = sk.spmm_max_bwd(graph, g, arg)
+    torch.cuda.synchronize()
+    if not torch.equal(dx.view(bits), dx_2.view(bits)):
+        fail(f"{label}: backward not bit-identical run to run")
+    del dx_2
+    dx_p, plain_ms = timed_ms(lambda: sk.spmm_max_bwd_plain(graph, g, arg))
+    if g.dtype == torch.float32:
+        tol = sk.spmm_max_bwd_plain(graph, g.abs(), arg).mul_(1e-5).add_(1e-7)
+    else:
+        tol = bf16_ulp(torch.maximum(dx.float().abs(), dx_p.float().abs()))
+    err = dx_p.float().sub_(dx.float()).abs_()
+    del dx_p
+    if bool((err > tol).any()):
+        fail(f"{label}: backward differs from plain beyond tolerance "
+             f"(max abs {err.max().item()})")
+    err_max = err.max().item()
+    del err
+    same = other is not None and torch.equal(dx.view(bits), other.view(bits))
+    if other is not None and not same:
+        if bool((other.float().sub_(dx.float()).abs_() > tol).any()):
+            fail(f"{label}: backward differs from the other argmax form's beyond tolerance")
+    return dx, err_max, plain_ms, same
+
+
+def check_big_kernels(gp, gi, x32, top, ranks, results):
+    """Phase 4g's kernel checks at every width the path aggregates (K = 8 x
+    503 / 400 / 300, each a column prefix of layer 1's input, so the
+    all-equal block and the mega-row columns are in each), float32 and
+    bfloat16: the positional kernels (graph ``gp``) and the id-based int32
+    kernels on the same graph (``gi``), each against its own plain version
+    as phase 3 holds them, and the two forms against each other.  At layer
+    1 each kernel is timed (median of 10) beside its plain version (its one
+    call in the check), the sliced library yardstick and its bytes bound."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    n = x32.shape[0]
+    e, cap = gp.n_edges, gp.rank_cap
+    m = int(gp.mega_of[top])
+    mega_cols = slice(BIG_TIES, BIG_TIES + BIG_MEGA_COLS)
+    want = torch.from_numpy(ranks).to(DEVICE)
+    live = gp.in_degree > 0
+    nonempty = int(live.sum().item())
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    for layer, width in enumerate(AGG_WIDTHS, start=1):
+        xw = x32 if width == F_IN else x32[:, :BIG_FOLDS * width].contiguous()
+        k = xw.shape[1]
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            label = f"big graph layer {layer} {tag} (K = {k})"
+            x = xw.to(dt)
+            bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+            esize = x.element_size()
+            out_k, arg_k, fwd_plain = big_fwd_check(gp, x, f"{label} positional")
+            out_i, arg_i, fwd_plain_i = big_fwd_check(gi, x, f"{label} id-based")
+            if not torch.equal(out_k.view(bits), out_i.view(bits)):
+                fail(f"{label}: positional out differs from the id-based kernel's")
+            del out_k, out_i
+            for c0 in range(0, k, 512):
+                if not torch.equal(sk._arg_sources(gp, arg_k[:, c0:c0 + 512]),
+                                   arg_i[:, c0:c0 + 512].long()):
+                    fail(f"{label}: positional argmax names other sources than the "
+                         f"id-based one in columns {c0}..{c0 + 511}")
+            if not bool((arg_k[:n][live, :BIG_TIES] == 0).all()):
+                fail(f"{label}: an all-equal column's argmax is not rank 0")
+            if not (torch.equal(arg_k[n + m, mega_cols].long(), want // cap)
+                    and torch.equal(arg_k[top, mega_cols].long(), want % cap)):
+                fail(f"{label}: the top row's maximum past rank {cap} is not its "
+                     "(segment, rank)")
+
+            if dt == torch.float32:
+                g = torch.randn((n, k), generator=gen, device=DEVICE)
+            else:
+                g = torch.randint(-8, 9, (n, k), generator=gen, device=DEVICE).to(dt)
+            dx_k, bwd_err, bwd_plain, _ = big_bwd_check(gp, g, arg_k, f"{label} positional")
+            dx_i, bwd_err_i, bwd_plain_i, same_as_pos = big_bwd_check(
+                gi, g, arg_i, f"{label} id-based", other=dx_k)
+            del dx_k, dx_i
+            torch.cuda.empty_cache()
+            print(f"{label}: each form's fwd out/argmax bit-exact with its plain version "
+                  f"and run to run, the positional out equal to the id-based int32 "
+                  f"kernel's and its argmax naming the same sources (all-equal block at "
+                  f"rank 0, the top row's maximum past rank {cap} as (segment, rank)); "
+                  f"bwd max abs err vs plain {bwd_err:.3e} positional, {bwd_err_i:.3e} "
+                  f"id-based, the two forms' dx "
+                  f"{'bit-equal' if same_as_pos else 'within tolerance'}", flush=True)
+            if width != F_IN:
+                del arg_k, arg_i, g, x
+                torch.cuda.empty_cache()
+                continue
+
+            # -- timings, at layer 1 ---------------------------------------------
+            times = {
+                "fwd_pos": median_ms(lambda: sk.spmm_max_fwd(gp, x), 10),
+                "fwd_id": median_ms(lambda: sk.spmm_max_fwd(gi, x), 10),
+                "bwd_pos": median_ms(lambda: sk.spmm_max_bwd(gp, g, arg_k), 10),
+                "bwd_id": median_ms(lambda: sk.spmm_max_bwd(gi, g, arg_i), 10),
+            }
+            torch.cuda.empty_cache()
+            fwd_lib, bwd_lib, slice_w = sliced_library_ms(gi, x, g, arg_i)
+            del arg_k, arg_i, g, x
+            torch.cuda.empty_cache()
+            idx_bytes = 4 * (n + 1 + e)
+            side = gp.n_mega * k * 2
+            # compulsory bytes, as phase 3 counts them, plus the positional
+            # form's inputs: mega_of (both) and t_rank (backward)
+            entries = [
+                (f"spmm_max_fwd_pos_{tag}", "spmm_max_fwd", 0.0, times["fwd_pos"],
+                 fwd_plain, fwd_lib,
+                 n * k * esize + idx_bytes + 4 * n + n * k * (esize + 2) + side, e * k),
+                (f"spmm_max_bwd_pos_{tag}", "spmm_max_bwd", bwd_err, times["bwd_pos"],
+                 bwd_plain, bwd_lib, n * k * (esize + 2) + side + idx_bytes + 4 * e + 4 * n
+                 + n * k * esize, e * k + nonempty * k),
+                (f"spmm_max_fwd_{tag}@n{n}", "spmm_max_fwd", 0.0, times["fwd_id"],
+                 fwd_plain_i, fwd_lib, n * k * esize + idx_bytes + n * k * (esize + 4),
+                 e * k),
+                (f"spmm_max_bwd_{tag}@n{n}", "spmm_max_bwd", bwd_err_i, times["bwd_id"],
+                 bwd_plain_i, bwd_lib, n * k * (esize + 4) + idx_bytes + n * k * esize,
+                 e * k + nonempty * k),
+            ]
+            for name, src, err_, ms, plain, lib, nbytes, ops in entries:
+                r = results[name] = kernel_entry(name, src, err_, ms, plain, lib, nbytes,
+                                                 ops, (n, k))
+                print(f"  {name}: {ms:.3f} ms (plain {plain:.3f}, library {lib:.3f} over "
+                      f"{-(-k // slice_w)} column slices of {slice_w}, bound "
+                      f"{r['bound_ms']:.3f} by {r['bound_by']}, no-reuse gather "
+                      f"{e * k * esize / HBM_BYTES_PER_S * 1e3:.3f})", flush=True)
+
+
+def big_peak_memory(gp, gi, feats):
+    """Peak device memory of one forward and backward of BatchedGNN32 at B =
+    BIG_FOLDS on the big graph in float32, with the positional argmax and
+    with the id-based (int32) one, beside the saving reckoned from the
+    saved argmax's bytes; each pass launches 3 forwards and 3 backwards of
+    its form and no other kernel."""
+    import torch
+
+    from plagnn_tpu_torch.train.engine import TrainConfig, init_fold_model
+    from plagnn_tpu_torch.utils.precision import set_aggregation_dtype
+
+    set_aggregation_dtype("float32")
+    x = torch.as_tensor(feats, device=DEVICE)
+    model = init_fold_model(TrainConfig(fold_batch=BIG_FOLDS), F_IN, range(BIG_FOLDS),
+                            DEVICE)
+    peaks = {}
+    for form, graph, counters in (
+            ("positional", gp, ("spmm_max_fwd_pos_f32", "spmm_max_bwd_pos_f32")),
+            ("id-based", gi, ("spmm_max_fwd_f32", "spmm_max_bwd_f32"))):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        model(graph, x).sum().backward()
+        torch.cuda.synchronize()
+        check_launches(f"big graph fwd+bwd, {form} argmax", {c: LAYERS for c in counters})
+        peaks[form] = torch.cuda.max_memory_allocated()
+        print(f"big graph BatchedGNN32 B={BIG_FOLDS} f32 forward+backward, {form} argmax: "
+              f"peak {peaks[form] / 2**30:.3f} GiB ({(peaks[form] - base) / 2**30:.3f} "
+              f"above the inputs and weights)", flush=True)
+    reckoned = gp.n_nodes * BIG_FOLDS * sum(AGG_WIDTHS) * 2
+    saving = peaks["id-based"] - peaks["positional"]
+    print(f"big graph argmax saving: measured {saving / 2**30:.3f} GiB, reckoned "
+          f"{reckoned / 2**30:.3f} GiB (N_pad x {BIG_FOLDS} x "
+          f"({' + '.join(map(str, AGG_WIDTHS))}) x 2 bytes)", flush=True)
+    del model, x
+    torch.cuda.empty_cache()
+
+
+def big_graph_phase(results, smi_line):
+    """Phase 4g: the big-graph path (module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from plagnn_tpu_torch import cli
+    from plagnn_tpu_torch.data.artifacts import load_condition
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_big_")
+    try:
+        t0 = time.perf_counter()
+        cli.main(["synth", "--data-root", tmp, "--nodes", str(BIG_NODES),
+                  "--edges", str(BIG_EDGES), "--seed", str(SEED)])
+        t1 = time.perf_counter()
+        bundle = load_condition(tmp, "GSE30931", "normal")
+        host = bundle.graph
+        t2 = time.perf_counter()
+        if not host.positional:
+            fail(f"big graph: N_pad {host.n_nodes} built without the positional argmax")
+        deg = np.sort(host.in_degree.numpy())[::-1]
+        print(f"big graph: N_pad {host.n_nodes}, E {host.n_edges} (self-loops included), "
+              f"top in-degrees {deg[:5].tolist()}, {host.n_mega} mega rows over rank cap "
+              f"{host.rank_cap}; forward chunks {host.chunks.n_chunks} ({host.chunks.n_split} "
+              f"split rows), transpose {host.t_chunks.n_chunks} ({host.t_chunks.n_split}); "
+              f"synth {t1 - t0:.1f} s, load_condition (graph build included) "
+              f"{t2 - t1:.1f} s", flush=True)
+        gp = host.to(DEVICE)
+        # the same graph's id-based form: the same tensors, no ranks
+        gi = dataclasses.replace(gp, positional=False, t_rank=None, mega_of=None, n_mega=0)
+        x32, top, ranks = big_inputs(gp)
+        t0 = time.perf_counter()
+        check_big_kernels(gp, gi, x32, top, ranks, results)
+        print(f"big graph kernel checks and times: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del x32
+        torch.cuda.empty_cache()
+        runs = (("train-normal", "normal", "float32", "f32"),
+                ("train-inter", "perturbation", "bfloat16", "bf16"))
+        for cmd, subdir, agg, tag in runs:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            stats = train_cli(tmp, cmd, agg, BIG_EPOCHS, BIG_FOLDS)
+            wall = time.perf_counter() - t0
+            pos = (f"spmm_max_fwd_pos_{tag}", f"spmm_max_bwd_pos_{tag}")
+            counts = check_launches(f"big graph {cmd} --agg-dtype {agg}",
+                                    {c: LAYERS * BIG_EPOCHS for c in pos})
+            record_launches(results, counts, pos)
+            check_artifacts(f"big graph {cmd}", os.path.join(tmp, "log", "GSE30931", subdir),
+                            BIG_FOLDS, BIG_NODES)
+            report_run(f"GNN32 big graph {cmd} {agg}", stats, wall, counts, smi_line,
+                       BIG_FOLDS)
+        big_peak_memory(gp, gi, bundle.feats)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def sweep_row_chunk(full):
     """Median times of the row-chunked kernels (float32 sum forward and
     transpose at K = 10 x 400 and 10 x 12, max forward and backward at 10 x
@@ -2254,6 +2628,9 @@ def main(argv=None):
     ap.add_argument("--only-mesh", action="store_true",
                     help="phases 1-2, the single-card train-normal float32 run "
                          "and phase 4m; prints no result line")
+    ap.add_argument("--only-big-graph", action="store_true",
+                    help="phases 1-2 and phase 4g (the big-graph path); prints "
+                         "no result line")
     ap.add_argument("--sweep-row-chunk", action="store_true",
                     help="after phase 3, time the row-chunked kernels on the "
                          "full graph at each chunk size and stop; prints no "
@@ -2288,6 +2665,10 @@ def main(argv=None):
     print(f"build: {build_s:.1f} s ({len(logs)} compiled)", flush=True)
     if args.only_mesh:
         mesh_only(smi_line)
+        return
+    if args.only_big_graph:
+        phase("4g big graph")
+        big_graph_phase({}, smi_line)
         return
 
     phase("3 kernels vs plain")
@@ -2385,6 +2766,8 @@ def main(argv=None):
     preprocess_phase(results, smi_line)
     phase("4o other ops at full width")
     other_ops_phase(results, smi_line)
+    phase("4g big graph")
+    big_graph_phase(results, smi_line)
 
     phase("5 summary")
     kernels = [results[k] for k in (
@@ -2394,8 +2777,10 @@ def main(argv=None):
         "spmm_sum_fwd_f32" + CONV2, "spmm_sum_bwd_f32" + CONV2,
         "pcc_diff_count_f64", "pcc_diff_hits_f64", "ecc_common_neighbors_i32",
         "pcc_diff_hist_f64", "spmm_sum_val_fwd_f32", "spmm_sum_val_bwd_f32",
-        "spmm_sum_val_fwd_bf16", "spmm_sum_val_bwd_bf16")]
-    kernels += [r for name, r in sorted(results.items()) if "@p" in name]
+        "spmm_sum_val_fwd_bf16", "spmm_sum_val_bwd_bf16",
+        "spmm_max_fwd_pos_f32", "spmm_max_fwd_pos_bf16",
+        "spmm_max_bwd_pos_f32", "spmm_max_bwd_pos_bf16")]
+    kernels += [r for name, r in sorted(results.items()) if "@" in name]
     for r in kernels:
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):
             fail(f"{r['name']}: non-finite timing")

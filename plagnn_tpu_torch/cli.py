@@ -386,6 +386,7 @@ def _write_synth(args):
     """Materialize a synthetic dataset under the reference artifact contract
     (the same files, bit for bit, as ``plagnn_tpu.cli synth``)."""
     import json
+    import shutil
 
     import numpy as np
     import scipy.sparse as sp
@@ -405,7 +406,8 @@ def _write_synth(args):
     with open(os.path.join(sm, "cellular_component.txt"), "w") as f:
         f.write("\n".join(cc_terms) + "\n")
     ppi = powerlaw_ppi(args.nodes, args.edges, args.seed)
-    sp.save_npz(os.path.join(gm, "PPI_normal"), ppi)
+    ppi_file = os.path.join(gm, "PPI_normal.npz")
+    sp.save_npz(ppi_file, ppi)
     protein_list = [f"SYN{i:06d}" for i in range(args.nodes)]
     with open(os.path.join(gm, "protein_ppi.json"), "w") as f:
         json.dump(protein_list, f)
@@ -422,7 +424,8 @@ def _write_synth(args):
         os.makedirs(d, exist_ok=True)
         np.save(os.path.join(d, "GCN_normal_pca"), feats[:, 3:253])
         np.save(os.path.join(d, "expr_normal"), feats[:, :3].astype(np.float64))
-        sp.save_npz(os.path.join(d, "PPI_inter"), ppi)
+        # PPI_inter = PPI_normal: the file copied, not compressed again
+        shutil.copyfile(ppi_file, os.path.join(d, "PPI_inter.npz"))
         np.save(os.path.join(d, "GCN_inter_pca"), feats[:, 3:253])
         np.save(os.path.join(d, "ECC_inter_pca"), feats[:, 253:])
         np.save(os.path.join(d, "expr_inter"), feats[:, :3].astype(np.float64))

@@ -10,7 +10,20 @@
 //   dx[s, k] = sum over edges s -> n of [arg[n, k] == s] * g[n, k]
 // accumulated in float32; the bf16 variant upcasts each hit and rounds dx
 // to bf16 once at the store.  arg is int16 (padded node count <= 2^15) or
-// int32; empty arg rows hold -1 and never hit.  A source row of at most
+// int32; empty arg rows hold -1 and never hit.
+//
+// Positional argmax (kPos; the JAX kernels' positional mode, which compare
+// ranks, not node ids): arg holds each row's first-maximum RANK (int16 at
+// any node count, spmm_max_fwd.cu), and t_rank gives each transpose edge
+// s -> n its rank r in n's forward row, so the hit test is
+//   arg[n, k] == r                                  (n an ordinary row)
+//   arg[n, k] == r % rank_cap && seg[m, k] == r / rank_cap
+//                                                   (n mega row m)
+// t_rank is read once per edge, beside t_dst (one word for the warp, as the
+// weighted sum reads its edge value), and holds -1 - r for an edge into a
+// mega row, so the warp-uniform branch to the segment test costs the
+// ordinary rows nothing; only a mega row's edges look up mega_of and read
+// the side table's vectors.  A source row of at most
 // ROW_CHUNK out-edges sums its hits in ascending n; a longer row in
 // ascending n within each chunk of the transpose chunk table
 // (row_chunks.cuh), its chunks' float32 partials then added in ascending
@@ -45,25 +58,48 @@ namespace {
 
 namespace rc = row_chunks;
 
-// dx[row] += g[n] where arg[n] == row, for each out-edge row -> n; J
-// vectors of V elements a lane.
-template <typename T, typename ArgT, int V, int J>
+// The positional argmax's extra inputs.
+struct PosArgs {
+  const int* t_rank;   // (E,) rank of each transpose edge; -1 - rank: mega row
+  const int* mega_of;  // (N_pad,) mega row index, -1 elsewhere
+  const int16_t* seg;  // (n_mega, K) segment of each mega row's argmax
+  int rank_cap;
+};
+
+// dx[row] += g[n] where arg[n] == row (kPos: the edge's rank), for each
+// out-edge row -> n; J vectors of V elements a lane.
+template <typename T, typename ArgT, int V, int J, bool kPos>
 struct MaxBwdOp {
   const T* g;
   const ArgT* arg;
   int64_t k_width;
+  PosArgs pos;
   int64_t k0;
   int nvec;
   int row;
   rc::Vec<ArgT, V> a[rc::kUnroll][J];
   rc::Vec<T, V> gv[rc::kUnroll][J];
+  int want[rc::kUnroll];   // kPos: the rank arg must hold
+  int mega[rc::kUnroll];   // kPos: n's mega row index, -1 for an ordinary row
+  int segw[rc::kUnroll];   // kPos: the segment seg must hold (mega rows)
 
   __device__ __forceinline__ void begin(int r, int64_t k, int n) {
     row = r;
     k0 = k;
     nvec = n;
   }
-  __device__ __forceinline__ void load(int u, int n, int) {
+  __device__ __forceinline__ void load(int u, int n, int e) {
+    if constexpr (kPos) {
+      const int tr = __ldg(pos.t_rank + e);
+      mega[u] = -1;
+      want[u] = tr;
+      if (tr < 0) {  // a mega row: warp-uniform, every lane holds edge e
+        const int r = -1 - tr;
+        segw[u] = r / pos.rank_cap;
+        want[u] = r - segw[u] * pos.rank_cap;
+        mega[u] = __ldg(pos.mega_of + n);
+      }
+    }
     const int64_t off = static_cast<int64_t>(n) * k_width + k0;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
@@ -73,25 +109,42 @@ struct MaxBwdOp {
     }
   }
   __device__ __forceinline__ void add(int u, float (&acc)[V * J]) {
+    const int w = kPos ? want[u] : row;
+    if (kPos && mega[u] >= 0) {
+      // the segment's vectors, loaded here: a mega row's edges are few
+      const int16_t* sp = pos.seg + static_cast<int64_t>(mega[u]) * k_width + k0;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (j >= nvec) break;
+        const rc::Vec<int16_t, V> sv = rc::load_vec<int16_t, V>(sp + j * 32 * V);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          if (rc::get(a[u][j], i) == w && rc::get(sv, i) == segw[u]) {
+            acc[j * V + i] += rc::get(gv[u][j], i);
+          }
+        }
+      }
+      return;
+    }
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       if (j >= nvec) break;
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        if (rc::get(a[u][j], i) == row) acc[j * V + i] += rc::get(gv[u][j], i);
+        if (rc::get(a[u][j], i) == w) acc[j * V + i] += rc::get(gv[u][j], i);
       }
     }
   }
 };
 
-template <typename T, typename ArgT, int V>
+template <typename T, typename ArgT, int V, bool kPos>
 __global__ void __launch_bounds__(rc::kThreads)
 spmm_max_bwd_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
                     rc::Table table, const int* __restrict__ t_dst,
                     T* __restrict__ dx, float* __restrict__ partial,
-                    int64_t k_width) {
+                    int64_t k_width, PosArgs pos) {
   constexpr int J = rc::vectors_per_lane<T, V>();
-  MaxBwdOp<T, ArgT, V, J> op{g, arg, k_width, 0, 0, 0};
+  MaxBwdOp<T, ArgT, V, J, kPos> op{g, arg, k_width, pos};
   rc::chunk_pass<T, V, J>(table, t_dst, k_width, dx, partial, op);
 }
 
@@ -104,11 +157,11 @@ spmm_max_bwd_combine_kernel(const int* __restrict__ split_row,
   rc::combine_pass<T>(split_row, split_ptr, partial, dx, k_width);
 }
 
-template <typename T, typename ArgT, int V>
+template <typename T, typename ArgT, int V, bool kPos>
 int launch_v(const void* g, const void* arg, const rc::Table& table,
              const int* t_dst, const int* split_row, const int* split_ptr,
              int64_t n_split, void* dx, void* partial, int64_t k_width,
-             cudaStream_t stream) {
+             const PosArgs& pos, cudaStream_t stream) {
   if constexpr (V * sizeof(T) > 16 || V * sizeof(ArgT) > 16) {
     return cudaErrorInvalidValue;  // never chosen: vector_width caps V
   } else {
@@ -117,9 +170,9 @@ int launch_v(const void* g, const void* arg, const rc::Table& table,
                                   32 * V * rc::vectors_per_lane<T, V>(), &grid,
                                   &combine_grid);
     if (rc_grid != cudaSuccess) return rc_grid;
-    spmm_max_bwd_kernel<T, ArgT, V><<<grid, rc::kThreads, 0, stream>>>(
+    spmm_max_bwd_kernel<T, ArgT, V, kPos><<<grid, rc::kThreads, 0, stream>>>(
         static_cast<const T*>(g), static_cast<const ArgT*>(arg), table, t_dst,
-        static_cast<T*>(dx), static_cast<float*>(partial), k_width);
+        static_cast<T*>(dx), static_cast<float*>(partial), k_width, pos);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 0) return err;
     spmm_max_bwd_combine_kernel<T><<<combine_grid, rc::kCombineThreads, 0, stream>>>(
@@ -129,43 +182,50 @@ int launch_v(const void* g, const void* arg, const rc::Table& table,
   }
 }
 
-template <typename T, typename ArgT>
+template <typename T, typename ArgT, bool kPos>
 int launch(const void* g, const void* arg, const rc::Table& table,
            const int* t_dst, const int* split_row, const int* split_ptr,
            int64_t n_split, void* dx, void* partial, int64_t k_width,
-           cudaStream_t stream) {
+           const PosArgs& pos, cudaStream_t stream) {
   constexpr int es = sizeof(T);
   constexpr int as = sizeof(ArgT);
   const int v = rc::vector_width(k_width, es > as ? es : as,
-                                 {{g, es}, {arg, as}, {dx, es}, {partial, 4}});
+                                 {{g, es}, {arg, as}, {pos.seg, 2}, {dx, es}, {partial, 4}});
   switch (v) {
     case 8:
-      return launch_v<T, ArgT, 8>(g, arg, table, t_dst, split_row, split_ptr,
-                                  n_split, dx, partial, k_width, stream);
+      return launch_v<T, ArgT, 8, kPos>(g, arg, table, t_dst, split_row, split_ptr,
+                                        n_split, dx, partial, k_width, pos, stream);
     case 4:
-      return launch_v<T, ArgT, 4>(g, arg, table, t_dst, split_row, split_ptr,
-                                  n_split, dx, partial, k_width, stream);
+      return launch_v<T, ArgT, 4, kPos>(g, arg, table, t_dst, split_row, split_ptr,
+                                        n_split, dx, partial, k_width, pos, stream);
     case 2:
-      return launch_v<T, ArgT, 2>(g, arg, table, t_dst, split_row, split_ptr,
-                                  n_split, dx, partial, k_width, stream);
+      return launch_v<T, ArgT, 2, kPos>(g, arg, table, t_dst, split_row, split_ptr,
+                                        n_split, dx, partial, k_width, pos, stream);
     default:
-      return launch_v<T, ArgT, 1>(g, arg, table, t_dst, split_row, split_ptr,
-                                  n_split, dx, partial, k_width, stream);
+      return launch_v<T, ArgT, 1, kPos>(g, arg, table, t_dst, split_row, split_ptr,
+                                        n_split, dx, partial, k_width, pos, stream);
   }
 }
 
 template <typename T>
-int launch_arg(int arg_bits, const void* g, const void* arg,
+int launch_arg(int arg_bits, bool positional, const void* g, const void* arg,
                const rc::Table& table, const int* t_dst, const int* split_row,
                const int* split_ptr, int64_t n_split, void* dx, void* partial,
-               int64_t k_width, cudaStream_t stream) {
+               int64_t k_width, const PosArgs& pos, cudaStream_t stream) {
+  if (positional) {
+    if (arg_bits != 16 || pos.t_rank == nullptr || pos.rank_cap < 1) {
+      return cudaErrorInvalidValue;
+    }
+    return launch<T, int16_t, true>(g, arg, table, t_dst, split_row, split_ptr,
+                                    n_split, dx, partial, k_width, pos, stream);
+  }
   switch (arg_bits) {
     case 16:
-      return launch<T, int16_t>(g, arg, table, t_dst, split_row, split_ptr,
-                                n_split, dx, partial, k_width, stream);
+      return launch<T, int16_t, false>(g, arg, table, t_dst, split_row, split_ptr,
+                                       n_split, dx, partial, k_width, pos, stream);
     case 32:
-      return launch<T, int32_t>(g, arg, table, t_dst, split_row, split_ptr,
-                                n_split, dx, partial, k_width, stream);
+      return launch<T, int32_t, false>(g, arg, table, t_dst, split_row, split_ptr,
+                                       n_split, dx, partial, k_width, pos, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -177,15 +237,20 @@ int launch_arg(int arg_bits, const void* g, const void* arg,
 // arg_bits: 16 or 32.  (chunk_row, chunk_ptr, chunk_slot, n_chunks,
 // split_row, split_ptr, n_split) is the chunk table of the transpose CSR
 // (t_indptr, t_dst).  partial is float32 scratch of (n_slots, k_width),
-// unused when n_split is 0.  Returns the CUDA error code of the launches;
-// cudaErrorInvalidValue for a grid that would not fit.
+// unused when n_split is 0.  positional (arg_bits 16 only): arg holds
+// ranks; mega_of (N_pad,) int32 (null: no mega rows), seg (n_mega,
+// k_width) int16, rank_cap and t_rank (E,) int32 as in graph_format.Graph.
+// Returns the CUDA error code of the launches; cudaErrorInvalidValue for a
+// grid that would not fit.
 extern "C" int spmm_max_bwd(int dtype, int arg_bits, const void* g,
                             const void* arg, const void* chunk_row,
                             const void* chunk_ptr, const void* chunk_slot,
                             long long n_chunks, const void* t_dst,
                             const void* split_row, const void* split_ptr,
                             long long n_split, void* dx, void* partial,
-                            long long k_width, void* stream) {
+                            long long k_width, int positional,
+                            const void* mega_of, const void* seg, int rank_cap,
+                            const void* t_rank, void* stream) {
   if (n_chunks == 0 || k_width == 0) return cudaSuccess;
   if (n_chunks > 2147483647LL) return cudaErrorInvalidValue;
   const rc::Table table{static_cast<const int*>(chunk_row),
@@ -196,13 +261,15 @@ extern "C" int spmm_max_bwd(int dtype, int arg_bits, const void* g,
   const auto* sr = static_cast<const int*>(split_row);
   const auto* sp = static_cast<const int*>(split_ptr);
   auto st = static_cast<cudaStream_t>(stream);
+  const PosArgs pos{static_cast<const int*>(t_rank), static_cast<const int*>(mega_of),
+                    static_cast<const int16_t*>(seg), rank_cap};
   switch (dtype) {
     case 0:
-      return launch_arg<float>(arg_bits, g, arg, table, dp, sr, sp, n_split, dx,
-                               partial, k_width, st);
+      return launch_arg<float>(arg_bits, positional != 0, g, arg, table, dp, sr, sp,
+                               n_split, dx, partial, k_width, pos, st);
     case 1:
-      return launch_arg<__nv_bfloat16>(arg_bits, g, arg, table, dp, sr, sp,
-                                       n_split, dx, partial, k_width, st);
+      return launch_arg<__nv_bfloat16>(arg_bits, positional != 0, g, arg, table, dp, sr,
+                                       sp, n_split, dx, partial, k_width, pos, st);
     default:
       return cudaErrorInvalidValue;
   }

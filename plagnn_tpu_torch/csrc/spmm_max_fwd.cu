@@ -16,11 +16,20 @@
 // Ties are common (relu gives many zeros), and the backward routes the
 // gradient to arg only, so the tie rule is part of the contract.
 //
+// Positional argmax (kPos; the JAX package's positional mode of the same
+// kernel, build_pallas_graph(positional=True), for graphs past 2^15 padded
+// nodes): arg records the first maximum's RANK within its row, e -
+// indptr[i], in place of its source, so it is int16 at any node count.  A
+// mega row (more than rank_cap in-edges, mega_of[i] = m >= 0) stores the
+// rank modulo rank_cap, and seg[m, k] its segment rank / rank_cap: a side
+// table of one row per mega row in place of the JAX package's sub-rows in
+// spare padding slots (_split_combine).
+//
 // Types: x/out float32 or bfloat16 (values compare as float; the value kept
 // is an input's, so out is exact in either type); arg int16 when the padded
-// node count is <= 2^15, else int32, or not written at all (kWithArg =
-// false, the primal of the custom VJP, which also drops the source
-// tracking).
+// node count is <= 2^15 or for ranks, else int32, or not written at all
+// (kWithArg = false, the primal of the custom VJP, which also drops the
+// source tracking).
 //
 // What bounds it on this card: memory.  The compulsory traffic (x read
 // once, out and arg written once) is ~0.36 ms at 3.35 TB/s at the slice's
@@ -43,12 +52,18 @@
 //    maximum, a value of -inf included.  A chunk that is its row's only one
 //    stores out and arg directly (an empty row's empty chunk stores
 //    empty_value and -1); a chunk of a split row stores a float32 value and
-//    an int32 source in its slot of two (n_slots, K) scratch buffers.
+//    an int32 source in its slot of two (n_slots, K) scratch buffers.  The
+//    positional form tracks the edge index e in place of the source, the
+//    same walk and compares; it stores e less the chunk's first edge, which
+//    for a row's only chunk is the rank, and for a split row's chunk the
+//    rank within the chunk.
 // 2. spmm_max_fwd_combine_kernel: one thread per (split row, k) starts from
 //    the row's first slot and takes a later slot only where its value is
 //    strictly greater.  Slots run in ascending chunk order, and a lower
 //    chunk holds lower sources, so a tie goes to the lower chunk and arg
-//    stays the first maximum in (dst, src) order.
+//    stays the first maximum in (dst, src) order.  Chunk j of a row starts
+//    at rank j * chunk_cap (graph_format.RowChunks), so the positional
+//    combine adds that to the winning slot's rank.
 // No atomics: every element is written by one thread in a fixed order, so
 // out and arg are bit-identical run to run.  The design it replaces, one
 // thread per (row, k) walking the whole row with 4-byte loads, walked the
@@ -58,6 +73,18 @@
 namespace {
 
 namespace rc = row_chunks;
+
+// The positional argmax's extra inputs (null mega_of: no mega rows).
+struct PosArgs {
+  const int* mega_of;  // (N_pad,) mega row index, -1 elsewhere
+  int16_t* seg;        // (n_mega, K) segment of each mega row's argmax
+  int rank_cap;        // a mega row's rank is cut at this many edges
+  int chunk_cap;       // edges a row chunk holds (chunk j starts at j*cap)
+};
+
+__device__ __forceinline__ int mega_index(const PosArgs& p, int row) {
+  return p.mega_of != nullptr ? __ldg(p.mega_of + row) : -1;
+}
 
 // Stores V ints at p as ArgT (int16 or int32), in pieces of at most 16
 // bytes.
@@ -91,8 +118,9 @@ __device__ __forceinline__ void store_ints(ArgT* p, const int* v) {
 }
 
 // The running first maximum of x[src] over a chunk's edges, J vectors of V
-// elements a lane: walk_chunk's `acc` holds the values, `src` the sources.
-template <typename T, int V, int J, bool kWithArg>
+// elements a lane: walk_chunk's `acc` holds the values, `src` the sources
+// (kPos: the edge indices).
+template <typename T, int V, int J, bool kWithArg, bool kPos>
 struct MaxFwdOp {
   const T* x;
   int64_t k_width;
@@ -110,8 +138,8 @@ struct MaxFwdOp {
 #pragma unroll
     for (int i = 0; i < V * J; ++i) src[i] = -1;
   }
-  __device__ __forceinline__ void load(int u, int s, int) {
-    nbr[u] = s;
+  __device__ __forceinline__ void load(int u, int s, int e) {
+    nbr[u] = kPos ? e : s;
     const T* p = x + static_cast<int64_t>(s) * k_width + k0;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
@@ -141,13 +169,13 @@ struct MaxFwdOp {
 // the bf16 16-byte form without the argmax into 64 registers and spills.
 constexpr int kMinBlocks = 4;
 
-template <typename T, typename ArgT, int V, bool kWithArg>
+template <typename T, typename ArgT, int V, bool kWithArg, bool kPos>
 __global__ void __launch_bounds__(rc::kThreads, kMinBlocks)
 spmm_max_fwd_kernel(const T* __restrict__ x, rc::Table t,
                     const int* __restrict__ src, T* __restrict__ out,
                     ArgT* __restrict__ arg, float* __restrict__ partial_val,
                     int* __restrict__ partial_src, int64_t k_width,
-                    float empty_value) {
+                    float empty_value, PosArgs pos) {
   constexpr int J = rc::vectors_per_lane<T, V>();
   const int lane = threadIdx.x & 31;
   const int64_t chunk =
@@ -157,16 +185,22 @@ spmm_max_fwd_kernel(const T* __restrict__ x, rc::Table t,
   const int64_t left = k_width > k0 ? (k_width - k0 + 32 * V - 1) / (32 * V) : 0;
   const int nvec = left < J ? static_cast<int>(left) : J;
   const int row = __ldg(t.row + chunk);
-  MaxFwdOp<T, V, J, kWithArg> op{x, k_width};
+  MaxFwdOp<T, V, J, kWithArg, kPos> op{x, k_width};
   op.begin(k0, nvec);
   // An empty chunk (empty row) keeps empty_value and source -1; a split
   // row's chunks are never empty, so the combine never sees it.
   float best[V * J];
 #pragma unroll
   for (int i = 0; i < V * J; ++i) best[i] = empty_value;
-  rc::walk_chunk(src, __ldg(t.ptr + chunk), __ldg(t.ptr + chunk + 1), lane,
-                 nvec > 0, op, best);
+  const int beg = __ldg(t.ptr + chunk);
+  rc::walk_chunk(src, beg, __ldg(t.ptr + chunk + 1), lane, nvec > 0, op, best);
   const int slot = __ldg(t.slot + chunk);
+  if (kPos) {  // edge index -> rank within the chunk
+#pragma unroll
+    for (int i = 0; i < V * J; ++i) op.src[i] = op.src[i] < 0 ? -1 : op.src[i] - beg;
+  }
+  // a whole mega row (rank_cap below the chunk size): rank -> (segment, rank)
+  const int m = kPos && slot < 0 ? mega_index(pos, row) : -1;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     if (j >= nvec) break;
@@ -174,6 +208,15 @@ spmm_max_fwd_kernel(const T* __restrict__ x, rc::Table t,
     if (slot < 0) {
       const int64_t o = static_cast<int64_t>(row) * k_width + k;
       rc::store_vec<T, V>(out + o, best + j * V);
+      if (kPos && m >= 0) {
+        int sg[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          sg[i] = op.src[j * V + i] / pos.rank_cap;
+          op.src[j * V + i] -= sg[i] * pos.rank_cap;
+        }
+        store_ints<int16_t, V>(pos.seg + static_cast<int64_t>(m) * k_width + k, sg);
+      }
       if (kWithArg) store_ints<ArgT, V>(arg + o, op.src + j * V);
     } else {
       const int64_t o = static_cast<int64_t>(slot) * k_width + k;
@@ -185,40 +228,51 @@ spmm_max_fwd_kernel(const T* __restrict__ x, rc::Table t,
 
 // Split row blockIdx.x, one k per thread: the first maximum over the row's
 // slots in ascending chunk order (a later slot only where strictly greater).
-template <typename T, typename ArgT, bool kWithArg>
+template <typename T, typename ArgT, bool kWithArg, bool kPos>
 __global__ void __launch_bounds__(rc::kCombineThreads)
 spmm_max_fwd_combine_kernel(const int* __restrict__ split_row,
                             const int* __restrict__ split_ptr,
                             const float* __restrict__ partial_val,
                             const int* __restrict__ partial_src,
                             T* __restrict__ out, ArgT* __restrict__ arg,
-                            int64_t k_width) {
+                            int64_t k_width, PosArgs pos) {
   const int i = blockIdx.x;
   const int64_t k = static_cast<int64_t>(blockIdx.y) * rc::kCombineThreads + threadIdx.x;
   if (k >= k_width) return;
-  int s = __ldg(split_ptr + i);
+  const int s0 = __ldg(split_ptr + i);
   const int s_end = __ldg(split_ptr + i + 1);
-  int64_t o = static_cast<int64_t>(s) * k_width + k;
+  int64_t o = static_cast<int64_t>(s0) * k_width + k;
   float best = __ldg(partial_val + o);
   int best_src = kWithArg ? __ldg(partial_src + o) : 0;
-  for (++s; s < s_end; ++s) {
+  for (int s = s0 + 1; s < s_end; ++s) {
     o = static_cast<int64_t>(s) * k_width + k;
     const float v = __ldg(partial_val + o);
     if (v > best) {
       best = v;
-      if (kWithArg) best_src = __ldg(partial_src + o);
+      // kPos: the slot's rank within its chunk, plus the chunk's first rank
+      if (kWithArg) best_src = __ldg(partial_src + o) + (kPos ? (s - s0) * pos.chunk_cap : 0);
     }
   }
-  const int64_t r = static_cast<int64_t>(__ldg(split_row + i)) * k_width + k;
+  const int row = __ldg(split_row + i);
+  const int64_t r = static_cast<int64_t>(row) * k_width + k;
   rc::store_vec<T, 1>(out + r, &best);
+  if (kPos) {
+    const int m = mega_index(pos, row);
+    if (m >= 0) {
+      const int sg = best_src / pos.rank_cap;
+      pos.seg[static_cast<int64_t>(m) * k_width + k] = static_cast<int16_t>(sg);
+      best_src -= sg * pos.rank_cap;
+    }
+  }
   if (kWithArg) arg[r] = static_cast<ArgT>(best_src);
 }
 
-template <typename T, typename ArgT, int V, bool kWithArg>
+template <typename T, typename ArgT, int V, bool kWithArg, bool kPos>
 int launch_v(const void* x, const rc::Table& table, const int* src,
              const int* split_row, const int* split_ptr, int64_t n_split,
              void* out, void* arg, void* partial_val, void* partial_src,
-             int64_t k_width, float empty_value, cudaStream_t stream) {
+             int64_t k_width, float empty_value, const PosArgs& pos,
+             cudaStream_t stream) {
   if constexpr (V * sizeof(T) > 16) {
     return cudaErrorInvalidValue;  // never chosen: vector_width caps V
   } else {
@@ -227,74 +281,85 @@ int launch_v(const void* x, const rc::Table& table, const int* src,
                                   32 * V * rc::vectors_per_lane<T, V>(), &grid,
                                   &combine_grid);
     if (rc_grid != cudaSuccess) return rc_grid;
-    spmm_max_fwd_kernel<T, ArgT, V, kWithArg><<<grid, rc::kThreads, 0, stream>>>(
+    spmm_max_fwd_kernel<T, ArgT, V, kWithArg, kPos><<<grid, rc::kThreads, 0, stream>>>(
         static_cast<const T*>(x), table, src, static_cast<T*>(out),
         static_cast<ArgT*>(arg), static_cast<float*>(partial_val),
-        static_cast<int*>(partial_src), k_width, empty_value);
+        static_cast<int*>(partial_src), k_width, empty_value, pos);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 0) return err;
-    spmm_max_fwd_combine_kernel<T, ArgT, kWithArg>
+    spmm_max_fwd_combine_kernel<T, ArgT, kWithArg, kPos>
         <<<combine_grid, rc::kCombineThreads, 0, stream>>>(
             split_row, split_ptr, static_cast<const float*>(partial_val),
             static_cast<const int*>(partial_src), static_cast<T*>(out),
-            static_cast<ArgT*>(arg), k_width);
+            static_cast<ArgT*>(arg), k_width, pos);
     return cudaGetLastError();
   }
 }
 
-template <typename T, typename ArgT, bool kWithArg>
+template <typename T, typename ArgT, bool kWithArg, bool kPos>
 int launch(const void* x, const rc::Table& table, const int* src,
            const int* split_row, const int* split_ptr, int64_t n_split,
            void* out, void* arg, void* partial_val, void* partial_src,
-           int64_t k_width, float empty_value, cudaStream_t stream) {
+           int64_t k_width, float empty_value, const PosArgs& pos,
+           cudaStream_t stream) {
   constexpr int es = sizeof(T);
   constexpr int as = sizeof(ArgT);
   const int v = rc::vector_width(
       k_width, es,
-      {{x, es}, {out, es}, {arg, as}, {partial_val, 4}, {partial_src, 4}});
+      {{x, es}, {out, es}, {arg, as}, {pos.seg, 2}, {partial_val, 4}, {partial_src, 4}});
   switch (v) {
     case 8:
-      return launch_v<T, ArgT, 8, kWithArg>(x, table, src, split_row, split_ptr,
-                                            n_split, out, arg, partial_val,
-                                            partial_src, k_width, empty_value,
-                                            stream);
+      return launch_v<T, ArgT, 8, kWithArg, kPos>(x, table, src, split_row, split_ptr,
+                                                  n_split, out, arg, partial_val,
+                                                  partial_src, k_width, empty_value,
+                                                  pos, stream);
     case 4:
-      return launch_v<T, ArgT, 4, kWithArg>(x, table, src, split_row, split_ptr,
-                                            n_split, out, arg, partial_val,
-                                            partial_src, k_width, empty_value,
-                                            stream);
+      return launch_v<T, ArgT, 4, kWithArg, kPos>(x, table, src, split_row, split_ptr,
+                                                  n_split, out, arg, partial_val,
+                                                  partial_src, k_width, empty_value,
+                                                  pos, stream);
     case 2:
-      return launch_v<T, ArgT, 2, kWithArg>(x, table, src, split_row, split_ptr,
-                                            n_split, out, arg, partial_val,
-                                            partial_src, k_width, empty_value,
-                                            stream);
+      return launch_v<T, ArgT, 2, kWithArg, kPos>(x, table, src, split_row, split_ptr,
+                                                  n_split, out, arg, partial_val,
+                                                  partial_src, k_width, empty_value,
+                                                  pos, stream);
     default:
-      return launch_v<T, ArgT, 1, kWithArg>(x, table, src, split_row, split_ptr,
-                                            n_split, out, arg, partial_val,
-                                            partial_src, k_width, empty_value,
-                                            stream);
+      return launch_v<T, ArgT, 1, kWithArg, kPos>(x, table, src, split_row, split_ptr,
+                                                  n_split, out, arg, partial_val,
+                                                  partial_src, k_width, empty_value,
+                                                  pos, stream);
   }
 }
 
 template <typename T>
-int launch_arg(int arg_bits, const void* x, const rc::Table& table,
+int launch_arg(int arg_bits, bool positional, const void* x, const rc::Table& table,
                const int* src, const int* split_row, const int* split_ptr,
                int64_t n_split, void* out, void* arg, void* partial_val,
                void* partial_src, int64_t k_width, float empty_value,
-               cudaStream_t stream) {
+               const PosArgs& pos, cudaStream_t stream) {
+  if (positional) {
+    if (arg_bits != 16 || pos.rank_cap < 1 || pos.chunk_cap < 1) return cudaErrorInvalidValue;
+    return launch<T, int16_t, true, true>(x, table, src, split_row, split_ptr,
+                                          n_split, out, arg, partial_val,
+                                          partial_src, k_width, empty_value, pos,
+                                          stream);
+  }
   switch (arg_bits) {
     case 0:
-      return launch<T, int16_t, false>(x, table, src, split_row, split_ptr,
-                                       n_split, out, nullptr, partial_val,
-                                       nullptr, k_width, empty_value, stream);
+      return launch<T, int16_t, false, false>(x, table, src, split_row, split_ptr,
+                                              n_split, out, nullptr, partial_val,
+                                              nullptr, k_width, empty_value, pos,
+                                              stream);
     case 16:
-      return launch<T, int16_t, true>(x, table, src, split_row, split_ptr,
-                                      n_split, out, arg, partial_val,
-                                      partial_src, k_width, empty_value, stream);
+      return launch<T, int16_t, true, false>(x, table, src, split_row, split_ptr,
+                                             n_split, out, arg, partial_val,
+                                             partial_src, k_width, empty_value,
+                                             pos, stream);
     case 32:
-      return launch<T, int32_t, true>(x, table, src, split_row, split_ptr,
-                                      n_split, out, arg, partial_val,
-                                      partial_src, k_width, empty_value, stream);
+      return launch<T, int32_t, true, false>(x, table, src, split_row, split_ptr,
+                                             n_split, out, arg, partial_val,
+                                             partial_src, k_width, empty_value,
+                                             pos, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -308,6 +373,9 @@ int launch_arg(int arg_bits, const void* x, const rc::Table& table,
 // destination-sorted CSR (indptr, src).  partial_val (float32) and
 // partial_src (int32) are scratch of (n_slots, k_width), unused when
 // n_split is 0.  empty_value is what an empty row stores (its argmax -1).
+// positional (arg_bits 16 only): arg holds ranks; mega_of (N_pad,) int32
+// (null: no mega rows), seg (n_mega, k_width) int16 and rank_cap as in
+// graph_format.Graph; chunk_cap is the chunk table's edges per chunk.
 // Returns the CUDA error code of the launches (0 =
 // launched); cudaErrorInvalidValue for a grid that would not fit.
 extern "C" int spmm_max_fwd(int dtype, int arg_bits, const void* x,
@@ -316,10 +384,13 @@ extern "C" int spmm_max_fwd(int dtype, int arg_bits, const void* x,
                             const void* src, const void* split_row,
                             const void* split_ptr, long long n_split, void* out,
                             void* arg, void* partial_val, void* partial_src,
-                            long long k_width, float empty_value,
-                            void* stream) {
+                            long long k_width, float empty_value, int positional,
+                            const void* mega_of, void* seg, int rank_cap,
+                            int chunk_cap, void* stream) {
   if (n_chunks == 0 || k_width == 0) return cudaSuccess;
   if (n_chunks > 2147483647LL) return cudaErrorInvalidValue;
+  const PosArgs pos{static_cast<const int*>(mega_of), static_cast<int16_t*>(seg),
+                    rank_cap, chunk_cap};
   const rc::Table table{static_cast<const int*>(chunk_row),
                         static_cast<const int*>(chunk_ptr),
                         static_cast<const int*>(chunk_slot),
@@ -330,13 +401,13 @@ extern "C" int spmm_max_fwd(int dtype, int arg_bits, const void* x,
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_arg<float>(arg_bits, x, table, sp, srow, sptr, n_split, out,
-                               arg, partial_val, partial_src, k_width,
-                               empty_value, st);
+      return launch_arg<float>(arg_bits, positional != 0, x, table, sp, srow, sptr,
+                               n_split, out, arg, partial_val, partial_src, k_width,
+                               empty_value, pos, st);
     case 1:
-      return launch_arg<__nv_bfloat16>(arg_bits, x, table, sp, srow, sptr,
-                                       n_split, out, arg, partial_val,
-                                       partial_src, k_width, empty_value, st);
+      return launch_arg<__nv_bfloat16>(arg_bits, positional != 0, x, table, sp, srow,
+                                       sptr, n_split, out, arg, partial_val,
+                                       partial_src, k_width, empty_value, pos, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -44,7 +44,10 @@ def powerlaw_ppi(
     a, b = a[keep], b[keep]
     lo = np.minimum(a, b)
     hi = np.maximum(a, b)
-    pairs = np.unique(np.stack([lo, hi], axis=1), axis=0)
+    # np.unique(np.stack([lo, hi], 1), axis=0), through one int64 key a
+    # pair: the same pairs in the same order, several times faster
+    key = np.unique(lo.astype(np.int64) * n_nodes + hi)
+    pairs = np.stack([key // n_nodes, key % n_nodes], axis=1)
     if len(pairs) > m:
         pairs = pairs[rng.choice(len(pairs), size=m, replace=False)]
     row = np.concatenate([pairs[:, 0], pairs[:, 1]])

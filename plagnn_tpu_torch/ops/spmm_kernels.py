@@ -13,6 +13,15 @@ Three kernels, each with a plain PyTorch version beside it:
   ``spmm_max_fwd_plain``.
 * ``spmm_max_bwd``: ``csrc/spmm_max_bwd.cu`` (``spmm_max_bwd_f32`` and
   ``spmm_max_bwd_bf16``).  Plain version: ``spmm_max_bwd_plain``.
+
+The argmax takes one of two forms, as the graph says (``Graph.positional``,
+on by default past 2^15 padded nodes): the source id of the first maximum
+(int16 up to 2^15 padded nodes, else int32), or its rank within the row,
+int16 at any size (the JAX package's positional argmax).  A positional
+argmax has ``Graph.n_mega`` more rows than the graph: a mega row stores its
+rank modulo ``Graph.rank_cap`` and its side-table row the segment, ``rank //
+rank_cap``; without mega rows it is (N_pad, K) int16.  The training path
+never decodes it; ``_arg_sources`` does, for the checks only.
 * ``spmm_sum_rows``: ``csrc/spmm_sum.cu``, one kernel over the
   destination-sorted CSR (forward) or its transpose (the VJP), float32 or
   bfloat16 with a float32 sum, each term optionally weighted by its edge
@@ -54,6 +63,11 @@ LAUNCHES: Dict[str, int] = {
     "spmm_max_fwd_noarg_empty_bf16": 0,
     "spmm_max_bwd_f32": 0,
     "spmm_max_bwd_bf16": 0,
+    # the positional argmax (a graph past 2^15 padded nodes)
+    "spmm_max_fwd_pos_f32": 0,
+    "spmm_max_fwd_pos_bf16": 0,
+    "spmm_max_bwd_pos_f32": 0,
+    "spmm_max_bwd_pos_bf16": 0,
     "spmm_sum_fwd_f32": 0,
     "spmm_sum_fwd_bf16": 0,
     "spmm_sum_bwd_f32": 0,
@@ -87,9 +101,51 @@ def _count(name: str, graph: Graph, k: int) -> None:
     LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
 
 
-def arg_dtype(n_pad_nodes: int) -> torch.dtype:
-    """int16 while every node id fits (N_pad <= 2^15), else int32."""
-    return torch.int16 if n_pad_nodes <= (1 << 15) else torch.int32
+def arg_dtype(graph: Graph) -> torch.dtype:
+    """The saved argmax's type: int16 for ranks (a positional graph) or
+    while every node id fits (N_pad <= 2^15), else int32."""
+    return torch.int16 if graph.positional or graph.n_nodes <= (1 << 15) else torch.int32
+
+
+def arg_rows(graph: Graph) -> int:
+    """Rows of the saved argmax: N_pad, plus the side table's one row per
+    mega row of a positional graph."""
+    return graph.n_nodes + graph.n_mega
+
+
+def _fwd_rank(graph: Graph, e0: int, e1: int) -> torch.Tensor:
+    """Each forward edge's rank within its row, edges [e0, e1)."""
+    e = torch.arange(e0, e1, device=graph.device)
+    return e - graph.indptr.long()[graph.dst[e0:e1].long()]
+
+
+def _arg_sources(graph: Graph, arg: torch.Tensor) -> torch.Tensor:
+    """The source id (int64) of each recorded argmax, -1 for an empty row:
+    the id-based argmax as it is, a positional one decoded from its rank
+    (and a mega row's segment).  Works on any column slice of ``arg``.  For
+    the checks (the tests, ``chip_smoke.py``) that hold the two forms to
+    the same sources; no code of the package calls it."""
+    n = graph.n_nodes
+    if not graph.positional:
+        return arg.long()
+    rank = arg[:n].long()
+    if graph.n_mega:
+        mega = torch.nonzero(graph.mega_of >= 0).squeeze(1)
+        rank[mega] += arg[n:].long() * graph.rank_cap
+    start = graph.indptr.long()[:n, None]
+    ids = graph.src.long()[(start + rank).clamp(0, max(graph.n_edges - 1, 0))]
+    return torch.where(rank >= 0, ids, -1)
+
+
+def _positional_arg(graph: Graph, rank: torch.Tensor) -> torch.Tensor:
+    """The positional argmax of first-max ranks (N_pad, K): a mega row's
+    rank modulo the cap, its segment appended as the side table's row."""
+    if graph.n_mega:
+        mega = torch.nonzero(graph.mega_of >= 0).squeeze(1)  # ascending = index order
+        r = rank[mega]
+        rank[mega] = r % graph.rank_cap
+        rank = torch.cat([rank, r // graph.rank_cap])
+    return rank.to(torch.int16)
 
 
 def _check(graph: Graph, t: torch.Tensor, what: str) -> None:
@@ -112,17 +168,22 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 # pointers and the stream as c_void_p, so ctypes passes them at full width.
 #   spmm_max_fwd: dtype, arg_bits, x, <chunk table>, src, split_row,
 #                 split_ptr, n_split, out, arg, partial_val, partial_src, k,
-#                 empty_value (float), stream
+#                 empty_value (float), <positional>, chunk_cap (int), stream
 #   spmm_max_bwd: dtype, arg_bits, g, arg, <chunk table>, t_dst,
-#                 split_row, split_ptr, n_split, dx, partial, k, stream
+#                 split_row, split_ptr, n_split, dx, partial, k,
+#                 <positional>, t_rank, stream
 #   spmm_sum:     dtype, x, <chunk table>, idx, val, split_row, split_ptr,
 #                 n_split, out, partial, k, stream
-# where <chunk table> is chunk_row, chunk_ptr, chunk_slot, n_chunks.
+# where <chunk table> is chunk_row, chunk_ptr, chunk_slot, n_chunks, and
+# <positional> is positional (int), mega_of, seg (the argmax's side table),
+# rank_cap (int).
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _CHUNKS = [_P, _P, _P, _LL]
+_POS = [_I, _P, _P, _I]
 _ARGTYPES = {
-    "spmm_max_fwd": [_I, _I, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _P, _P, _LL, _F, _P],
-    "spmm_max_bwd": [_I, _I, _P, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, _P],
+    "spmm_max_fwd": [_I, _I, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _P, _P, _LL, _F,
+                     *_POS, _I, _P],
+    "spmm_max_bwd": [_I, _I, _P, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, *_POS, _P, _P],
     "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _P, _LL, _P, _P, _LL, _P],
 }
 
@@ -149,6 +210,18 @@ def _chunk_args(graph: Graph, transpose: bool, k: int, device):
             idx.data_ptr(), ch.split_row.data_ptr(), ch.split_ptr.data_ptr(),
             ch.n_split)
     return args, partial
+
+
+def _pos_args(graph: Graph, arg: Optional[torch.Tensor]):
+    """<positional> of the C entry points: (1, mega_of, seg, rank_cap) for a
+    positional argmax, else (0, null, null, 0)."""
+    if arg is None or not graph.positional:
+        return 0, None, None, 0
+    if graph.t_rank is None:
+        raise ValueError("positional graph without t_rank: build it with build_graph")
+    mega = graph.mega_of.data_ptr() if graph.n_mega else None
+    seg = arg[graph.n_nodes:].data_ptr() if graph.n_mega else None
+    return 1, mega, seg, graph.rank_cap
 
 
 def _row_chunks(indptr: np.ndarray, k: int):
@@ -179,7 +252,8 @@ def spmm_max_fwd_plain(
     ``empty_value``, its argmax -1); the argmax is then the smallest
     source among the row's edges whose value equals the max
     (``scatter_reduce('amin')``), which is the first maximum because sources
-    ascend inside each row.  Computed in float32 (exact for bf16 input: the
+    ascend inside each row; on a positional graph the smallest rank,
+    which is the same edge.  Computed in float32 (exact for bf16 input: the
     max is one of the inputs) over row ranges, so the (edges, K) temporaries
     stay bounded.
     """
@@ -200,12 +274,14 @@ def spmm_max_fwd_plain(
         blk = out[r0:r1]
         blk.scatter_reduce_(0, idx, vals, "amax", include_self=False)
         if with_argmax:
-            cand = torch.where(vals == blk[d], s.int()[:, None],
-                               torch.full_like(s.int()[:, None], big))
+            key = _fwd_rank(graph, e0, e1) if graph.positional else s
+            cand = torch.where(vals == blk[d], key.int()[:, None],
+                               torch.full_like(key.int()[:, None], big))
             arg[r0:r1].scatter_reduce_(0, idx, cand, "amin", include_self=False)
     out = out.to(x.dtype)
     if with_argmax:
-        arg = arg.to(arg_dtype(graph.n_nodes))
+        arg = (_positional_arg(graph, arg) if graph.positional
+               else arg.to(arg_dtype(graph)))
     return out, arg
 
 
@@ -216,10 +292,15 @@ def spmm_max_fwd(
     """(out, arg) for x (N_pad, K); arg is None without ``with_argmax``; an
     empty row stores ``empty_value`` (in x's dtype) and argmax -1.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    On a positional graph the argmax is the rank form (``arg_rows`` rows of
+    int16).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     _check(graph, x, "x")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if with_argmax and graph.positional and empty_value != 0:
+        raise ValueError("the positional argmax serves a whole graph (empty_value "
+                         "0); a graph shard is id-based: build it with positional=False")
     if x.device.type == "cpu":
         return spmm_max_fwd_plain(graph, x, with_argmax, empty_value)
     lib = _lib("spmm_max_fwd")
@@ -230,20 +311,21 @@ def spmm_max_fwd(
     arg = partial_src = None
     bits = 0
     if with_argmax:
-        adt = arg_dtype(graph.n_nodes)
-        arg = torch.empty((n, k), dtype=adt, device=x.device)
+        adt = arg_dtype(graph)
+        arg = torch.empty((arg_rows(graph), k), dtype=adt, device=x.device)
         partial_src = torch.empty(partial_val.shape, dtype=torch.int32, device=x.device)
         bits = _ARG_BITS[adt]
+    pos = _pos_args(graph, arg)
     with torch.cuda.device(x.device):
         rc = lib.spmm_max_fwd(
             code, bits, x.data_ptr(), *chunks, out.data_ptr(),
             arg.data_ptr() if arg is not None else None, partial_val.data_ptr(),
             partial_src.data_ptr() if partial_src is not None else None, k,
-            float(empty_value), _stream(x))
+            float(empty_value), *pos, graph.chunks.cap, _stream(x))
     if rc != 0:
         raise RuntimeError(f"spmm_max_fwd launch failed: CUDA error {rc}")
-    _count(f"spmm_max_fwd_{'' if with_argmax else 'noarg_'}"
-           f"{'empty_' if empty_value != 0 else ''}{tag}", graph, k)
+    form = "pos_" if pos[0] else ("" if with_argmax else "noarg_")
+    _count(f"spmm_max_fwd_{form}{'empty_' if empty_value != 0 else ''}{tag}", graph, k)
     return out, arg
 
 
@@ -255,7 +337,9 @@ def spmm_max_fwd(
 def spmm_max_bwd_plain(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/spmm_max_bwd.cu``: ``index_add_`` of
     ``g[dst]`` masked by ``arg[dst] == src`` into ``src``, in float32, rounded
-    to g's dtype once."""
+    to g's dtype once.  On a positional graph the mask tests the edge's rank
+    r instead: ``arg[dst] == r % cap``, and for a mega row also the side
+    table's segment ``== r // cap``."""
     n, k = g.shape
     dx = torch.zeros((n, k), dtype=torch.float32, device=g.device)
     step = max(_PLAIN_CHUNK // max(k, 1), 1)
@@ -263,22 +347,36 @@ def spmm_max_bwd_plain(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torc
         e1 = min(e0 + step, graph.n_edges)
         s = graph.src[e0:e1].long()
         d = graph.dst[e0:e1].long()
-        hit = arg[d].long() == s[:, None]
+        if not graph.positional:
+            hit = arg[d].long() == s[:, None]
+        else:
+            r = _fwd_rank(graph, e0, e1)
+            cap = graph.rank_cap
+            hit = arg[d].long() == (r % cap)[:, None]
+            if graph.n_mega:
+                m = graph.mega_of[d].long()
+                seg = arg[n + m.clamp(min=0)].long() == (r // cap)[:, None]
+                hit &= (m < 0)[:, None] | seg
         dx.index_add_(0, s, torch.where(hit, g[d].float(), 0.0))
     return dx.to(g.dtype)
 
 
 def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
-    """dx (N_pad, K) in g's dtype.  CPU tensors take the plain version; CUDA
-    tensors launch ``spmm_max_bwd_f32`` or ``spmm_max_bwd_bf16``."""
+    """dx (N_pad, K) in g's dtype, for the argmax ``spmm_max_fwd`` gave on
+    this graph.  CPU tensors take the plain version; CUDA tensors launch
+    ``spmm_max_bwd_f32`` or ``spmm_max_bwd_bf16`` (``_pos_`` on a
+    positional graph)."""
     _check(graph, g, "g")
-    _check(graph, arg, "arg")
     if g.dtype not in _DTYPE_CODE:
         raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
-    if arg.dtype not in _ARG_BITS or arg.shape != g.shape:
-        raise TypeError(f"arg must be int16/int32 of g's shape, got "
+    rows = arg_rows(graph)
+    want = ("int16" if graph.positional else "int16/int32")
+    if (arg.dtype not in _ARG_BITS or (graph.positional and arg.dtype != torch.int16)
+            or arg.shape != (rows, g.shape[1])):
+        raise TypeError(f"arg must be {want} of shape ({rows}, {g.shape[1]}), got "
                         f"{arg.dtype} {tuple(arg.shape)}")
-    if arg.dtype == torch.int16 and graph.n_nodes > (1 << 15):
+    _check(graph, arg[:graph.n_nodes], "arg")
+    if arg.dtype == torch.int16 and not graph.positional and graph.n_nodes > (1 << 15):
         raise ValueError("int16 argmax cannot address more than 2^15 nodes")
     if g.device.type == "cpu":
         return spmm_max_bwd_plain(graph, g, arg)
@@ -287,13 +385,15 @@ def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tens
     k = g.shape[1]
     dx = torch.empty_like(g)
     chunks, partial = _chunk_args(graph, True, k, g.device)
+    pos = _pos_args(graph, arg)
     with torch.cuda.device(g.device):
         rc = lib.spmm_max_bwd(
             code, _ARG_BITS[arg.dtype], g.data_ptr(), arg.data_ptr(), *chunks,
-            dx.data_ptr(), partial.data_ptr(), k, _stream(g))
+            dx.data_ptr(), partial.data_ptr(), k, *pos,
+            graph.t_rank.data_ptr() if pos[0] else None, _stream(g))
     if rc != 0:
         raise RuntimeError(f"spmm_max_bwd launch failed: CUDA error {rc}")
-    _count(f"spmm_max_bwd_{tag}", graph, k)
+    _count(f"spmm_max_bwd_{'pos_' if pos[0] else ''}{tag}", graph, k)
     return dx
 
 
@@ -305,8 +405,9 @@ def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tens
 class SpmmMax(torch.autograd.Function):
     """``out[i] = max over in-edges j -> i of x[j]``; the gradient goes to the
     first maximum's source only (an empty row's argmax -1 routes nothing).
-    The forward saves the argmax (int16 up to 2^15 padded nodes, else int32)
-    for the backward kernel."""
+    The forward saves the argmax for the backward kernel: int16 ranks on a
+    positional graph (``build_graph``'s default past 2^15 padded nodes),
+    else source ids, int16 up to 2^15 padded nodes and int32 past."""
 
     @staticmethod
     def forward(ctx, graph: Graph, x: torch.Tensor,

@@ -121,8 +121,11 @@ class PartitionedGraph:
                              "partition with overlap=True")
 
         def graph(edges):
+            # id-based argmax at any size, as the JAX package's sharded path
+            # keeps it: a shard's passes take empty_value=-inf
             s, d = edges[rank]
-            return build_graph(s, d, self.n_local, node_multiple=NODE_PAD).to(device)
+            return build_graph(s, d, self.n_local, node_multiple=NODE_PAD,
+                               positional=False).to(device)
 
         def i32(a):
             return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)

@@ -505,6 +505,14 @@ def _write_tsv(
     """log.tsv (round, fold, flag-t0v1, index, true, pred) from the
     final-epoch predictions."""
     pred = protein_loc_correction_np(logits, node_alpha)
+    mapped = {}   # _res_mapping by row bytes: few distinct rows, many nodes
+
+    def mapping(row):
+        key = (row.dtype.str, row.tobytes())
+        if key not in mapped:
+            mapped[key] = _res_mapping(row)
+        return mapped[key]
+
     rows = []
     for flag, mask in ((0, tr_mask), (1, va_mask)):
         idxs = np.flatnonzero(mask[:n_real])
@@ -512,7 +520,7 @@ def _write_tsv(
             name = label_names[i] if label_names is not None else str(i)
             rows.append(
                 [round_idx, fold_flag, flag, name,
-                 _res_mapping(labels_np[i]), _res_mapping(pred[i])]
+                 mapping(labels_np[i]), mapping(pred[i])]
             )
     with open(tsv_path, "a+") as f:
         writer = csv.writer(f, delimiter="\t")

@@ -291,6 +291,82 @@ def test_chunked_grid_limit_raises(card):
 
 
 # ---------------------------------------------------------------------------
+# The positional argmax: the max kernels' rank form (a graph past 2^15
+# padded nodes), against the plain versions and the id-based kernels.
+# ---------------------------------------------------------------------------
+
+# (POS_RANK_CAP, row_chunk): no mega row (row 0's 773 edges split into 4
+# chunks); row 0 a mega row of 20 segments walked as one chunk's worth of
+# rows at a time (cap < chunk), as chunks of the cap's size, and split into
+# chunks of 8 across segments of 100.
+POS_LAYOUTS = [(None, ROW_CHUNK), (40, ROW_CHUNK), (40, 40), (100, 8)]
+
+
+@pytest.mark.parametrize("rank_cap,row_chunk", POS_LAYOUTS)
+@pytest.mark.parametrize("k", [5, 62, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_positional_kernels_match_plain_and_id_based(card, monkeypatch, dtype, k,
+                                                     rank_cap, row_chunk):
+    """On the cross-chunk tie graph: the positional forward's out and argmax
+    (side table included) bit-exact with the plain version and bit-identical
+    run to run, out equal to the id-based kernel's and the argmax naming its
+    sources; dx equal to the id-based kernel's (the same hits summed in the
+    same order) and bit-identical run to run, float32 within 1e-5 of the
+    plain version's hit magnitudes, bfloat16 (small-integer gradients)
+    within 1 ulp.  Row 0's ties go to its lowest rank."""
+    from plagnn_tpu_torch.ops import graph_format as gf
+
+    if rank_cap is not None:
+        monkeypatch.setattr(gf, "POS_RANK_CAP", rank_cap)
+    g0, x = _cross_chunk_graph()
+    src, dst = g0.src.numpy(), g0.dst.numpy()
+    n_real = g0.n_real_nodes
+    gp = build_graph(src, dst, n_real, positional=True, row_chunk=row_chunk).to(card)
+    gi = build_graph(src, dst, n_real, positional=False, row_chunk=row_chunk).to(card)
+    assert gp.n_mega == (0 if rank_cap is None else 1)
+    x = np.ascontiguousarray(np.concatenate([x, x], 1)[:, :k])
+    xd = torch.from_numpy(x).to(card, dtype)
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    before = (sk.LAUNCHES[f"spmm_max_fwd_pos_{tag}"], sk.LAUNCHES[f"spmm_max_bwd_pos_{tag}"])
+    out, arg = sk.spmm_max_fwd(gp, xd)
+    out_2, arg_2 = sk.spmm_max_fwd(gp, xd)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[f"spmm_max_fwd_pos_{tag}"] == before[0] + 2
+    assert arg.dtype == torch.int16 and arg.shape == (gp.n_nodes + gp.n_mega, k)
+    out_p, arg_p = sk.spmm_max_fwd_plain(gp, xd)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out, out_p) and torch.equal(arg, arg_p)
+    assert torch.equal(out.view(bits), out_2.view(bits)) and torch.equal(arg, arg_2)
+    out_i, arg_i = sk.spmm_max_fwd(gi, xd)
+    assert torch.equal(out.view(bits), out_i.view(bits))
+    assert torch.equal(sk._arg_sources(gp, arg), sk._arg_sources(gi, arg_i))
+    cols = np.arange(k) % 62
+    row0 = sk._arg_sources(gp, arg)[0].cpu().numpy()
+    np.testing.assert_array_equal(row0[cols % 4 < 2], 1)
+    np.testing.assert_array_equal(
+        row0[cols % 4 == 2], 1 + (1 + (cols[cols % 4 == 2] // 4) % 3) * ROW_CHUNK)
+
+    gen = torch.Generator(device=card).manual_seed(k)
+    if dtype == torch.float32:
+        gr = torch.randn((gp.n_nodes, k), generator=gen, device=card)
+    else:
+        gr = torch.randint(-8, 9, (gp.n_nodes, k), generator=gen, device=card).to(dtype)
+    dx = sk.spmm_max_bwd(gp, gr, arg)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[f"spmm_max_bwd_pos_{tag}"] == before[1] + 1
+    assert torch.equal(dx.view(bits), sk.spmm_max_bwd(gp, gr, arg).view(bits))
+    assert torch.equal(dx.view(bits), sk.spmm_max_bwd(gi, gr, arg_i).view(bits))
+    dx_p = sk.spmm_max_bwd_plain(gp, gr, arg)
+    err = (dx.float() - dx_p.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((err <= _bf16_ulp(torch.maximum(dx.float().abs(),
+                                                    dx_p.float().abs()))).all())
+    else:
+        mag = sk.spmm_max_bwd_plain(gp, gr.abs(), arg)
+        assert bool((err <= 1e-5 * mag + 1e-7).all())
+
+
+# ---------------------------------------------------------------------------
 # The ΔPCC scans (csrc/pcc_diff_scan.cu): exact against their plain versions.
 # ---------------------------------------------------------------------------
 

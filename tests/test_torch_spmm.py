@@ -153,10 +153,12 @@ def test_bf16_grad_matches_jax_bf16_route():
 
 
 def test_argmax_int32_above_int16_nodes():
-    """Past 2^15 padded nodes the saved argmax widens to int32."""
+    """Past 2^15 padded nodes the id-based argmax (``positional=False``;
+    the default there is the positional one, tests/test_torch_positional.py)
+    widens to int32."""
     src = np.array([40000, 5, 7], np.int64)
     dst = np.array([3, 3, 40000], np.int64)
-    g = build_graph(src, dst, 40001)
+    g = build_graph(src, dst, 40001, positional=False)
     x = torch.zeros(g.n_nodes, 2)
     x[40000] = torch.tensor([1.0, -1.0])
     out, arg = sk.spmm_max_fwd(g, x)
