@@ -28,6 +28,19 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    PyTorch library call at the first layer's shape of each path, the sum
    also at GCN2 conv2's K = 120, and the weighted sum beside the unweighted
    one.
+   3h. The hub cache's kernels on the full graph: the coverage by k (the
+   share of edges whose row the arena serves, each direction); at every
+   width each path aggregates (max: K = 10 x 503 / 400 / 300; sum: 10 x 400
+   and 10 x 12), float32 and bfloat16, at "auto"'s k where it has one and
+   at each of HUB_KS halved to fit (pick_hub_sizes), every hub kernel
+   against the same kernel without the hub (forward out and argmax
+   bit-exact, dx and sums bit-identical, and each run to run), and at the
+   first of those k against its own plain version with phase 3's
+   tolerances.  At the first layer's shapes each hub kernel is timed by k
+   beside the kernel without the hub (CUDA events, median of 10, in turns),
+   with the warps an SM holds of each (the card's occupancy calculator),
+   its plain version and its bytes bound (the kernel's without the hub;
+   the arenas' fill bytes in a field of their own) at HUB_MAIN_K's sizes.
 4. GNN32 at full width through the CLI: synth (24,041 nodes, 700k edges),
    train-normal (float32, 3 epochs, 10 folds in one batch), then
    train-inter with --agg-dtype bfloat16 (2 epochs).  Each run must launch
@@ -89,6 +102,16 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    group of one rank on cuda:0 (in this process): the exchange at P = 1
    and an all_reduce of CUDA tensors, then one epoch of the sharded runner
    on a graph axis of size 1 against the single-card runner.
+   4h. The hub on the main path, after 4m: train-normal (float32, 3
+   epochs) and train-inter --agg-dtype bfloat16 (2 epochs) through the CLI
+   with --hub-cache off and --hub-cache HUB_MAIN_K: the hub run launches
+   each hub max kernel 3 times an epoch and no max kernel without the hub,
+   and every file it writes (logits, log.tsv, txt_log.txt, fig_data) is
+   byte-identical to the run without the hub; then GCN2 through train()
+   with hub_cache "off" and HUB_MAIN_K (3 epochs, a checkpoint every 2):
+   the sum hub kernels 2 + 2 times an epoch, the same files.  Phases 4 and
+   4c run the default hub_cache="auto", their launch checks following what
+   it resolves to.
    4p. The preprocess stage at full width from synthetic raw files: a
    BioGRID mitab of powerlaw_ppi(24,041, 700k, seed 70)'s pairs (each of
    its 3 isolated nodes joined to one more node, so all 24,041 proteins
@@ -143,7 +166,13 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    the artifact contract.  Last, one forward and backward of BatchedGNN32
    at B = 8 with each argmax form, both peaks and the saving beside the
    one reckoned from the argmax's bytes.  The earlier phases' launch
-   checks hold every positional counter at 0.
+   checks hold every positional counter at 0.  The hub at this size: the
+   coverage by k, and the id-based layer-1 max forward and backward (int32
+   argmax) with a hub at HUB_MAIN_K's sizes against the same kernels
+   without it (out and argmax bit-exact, dx bit-identical) and their plain
+   versions, each timed beside the kernel without the hub.  No training run
+   takes the hub here: the engine turns it off past 2^15 nodes, as the JAX
+   package's does.
 5. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 """
@@ -174,6 +203,7 @@ KERNEL_SOURCE = {
     "common_neighbors": "plagnn_tpu_torch/csrc/common_neighbors.cu",
 }
 _FWD_BODY = "plagnn_tpu/ops/pallas/spmm_kernels.py:513"  # _spmm_fwd_kernel
+_HUB_FWD = "plagnn_tpu/ops/pallas/spmm_kernels.py:588"  # _spmm_fwd_kernel's hub groups
 CONV2 = "_k120"  # name suffix of the sum's entries at GCN2 conv2's width
 # the JAX package's edge-weighted sum: ell_reduce_sum(use_val=True), XLA
 _VAL_SUM = "plagnn_tpu/ops/spmm.py:105"
@@ -209,6 +239,15 @@ REPLACES = {
     "spmm_sum_val_fwd_bf16": _VAL_SUM,
     "spmm_sum_val_bwd_f32": _VAL_SUM,
     "spmm_sum_val_bwd_bf16": _VAL_SUM,
+    # the hub cache: the with_hub paths of the three bodies
+    "spmm_max_fwd_hub_f32": _HUB_FWD,
+    "spmm_max_fwd_hub_bf16": _HUB_FWD,
+    "spmm_max_bwd_hub_f32": "plagnn_tpu/ops/pallas/spmm_kernels.py:1009",
+    "spmm_max_bwd_hub_bf16": "plagnn_tpu/ops/pallas/spmm_kernels.py:1299",
+    "spmm_sum_fwd_hub_f32": _HUB_FWD,
+    "spmm_sum_fwd_hub_bf16": _HUB_FWD,
+    "spmm_sum_bwd_hub_f32": _HUB_FWD,
+    "spmm_sum_bwd_hub_bf16": _HUB_FWD,
 }
 NODES, EDGES, SEED = 24041, 700000, 70
 FOLDS, F_IN = 10, 503
@@ -250,6 +289,10 @@ BIG_NODES, BIG_EDGES, BIG_FOLDS, BIG_EPOCHS = 330000, 10_000_000, 8, 2
 BIG_TIES = 64           # phase 4g's all-equal column block: columns [0, 64)
 BIG_MEGA_COLS = 64      # then columns whose top row's maximum is past the rank cap
 LIB_SLICE_BYTES = 4 << 30  # phase 4g's library yardstick: gathered bytes a slice
+# phase 3h: the explicit hub sizes tried (each halved to fit by
+# pick_hub_sizes), and the k of the main path's hub runs (phase 4h)
+HUB_KS = (32, 64, 128, 226)
+HUB_MAIN_K = 128
 # per traced session: (the block's launches without a kernel event, its
 # launches, its earliest kernel start less its launch's in us, the
 # warm-up's launches without a kernel event)
@@ -384,9 +427,10 @@ def check_max_fwd(graph, x, label):
     return (*got[True], out_p)
 
 
-def check_kernels(graph, x32, label, results=None):
-    """Kernel vs plain version on one graph and input; with ``results``,
-    also time both and the library yardsticks at this shape."""
+def check_kernels(graph, x32, label, results=None, dtypes=None):
+    """Kernel vs plain version on one graph and input (float32 and bfloat16,
+    or ``dtypes``); with ``results``, also time both and the library
+    yardsticks at this shape."""
     import torch
 
     from plagnn_tpu_torch.ops import spmm_kernels as sk
@@ -395,6 +439,8 @@ def check_kernels(graph, x32, label, results=None):
     e = graph.n_edges
     gen = torch.Generator(device="cuda").manual_seed(5)
     for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        if dtypes is not None and dt not in dtypes:
+            continue
         x = x32.to(dt)
         esize = x.element_size()
         out_k, arg_k, out_p = check_max_fwd(graph, x, f"{label}: fwd {tag}")
@@ -491,7 +537,7 @@ def check_kernels(graph, x32, label, results=None):
                   f"{gather / HBM_BYTES_PER_S * 1e3:.3f})", flush=True)
 
 
-def check_sum_kernels(graph, k, label, results=None, suffix=""):
+def check_sum_kernels(graph, k, label, results=None, suffix="", dtypes=None):
     """The segment-sum kernel against its plain version, forward and
     transpose, at K elements per row; with ``results``, also time both
     directions, the plain version and ``torch.sparse.mm`` on the CSR
@@ -506,6 +552,8 @@ def check_sum_kernels(graph, k, label, results=None, suffix=""):
     x32 = torch.randn((n, k), generator=gen, device=dev)
     xint = torch.randint(-8, 9, (n, k), generator=gen, device=dev).float()
     for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        if dtypes is not None and dt not in dtypes:
+            continue
         for transpose in (False, True):
             direction = "bwd" if transpose else "fwd"
 
@@ -637,14 +685,15 @@ def check_val_sum_kernels(graph, k, label, results):
     torch.cuda.empty_cache()
 
 
-def train_cli(data_root, cmd, agg, epochs, folds=FOLDS):
+def train_cli(data_root, cmd, agg, epochs, folds=FOLDS, hub_cache="auto"):
     """One training run through the CLI, as a user calls it: one round of
     ``folds`` folds in one batch."""
     from plagnn_tpu_torch import cli
 
     return cli.main([cmd, "-data", "GSE30931", "--data-root", data_root,
                      "-e", str(epochs), "--rounds", "1", "-f", str(folds),
-                     "--fold-batch", str(folds), "--agg-dtype", agg])
+                     "--fold-batch", str(folds), "--agg-dtype", agg,
+                     "--hub-cache", hub_cache])
 
 
 def reset_launches():
@@ -675,11 +724,23 @@ def check_launches(label, expected):
     return counts
 
 
-def gnn32_launches(tag, epochs):
+def auto_hub(model, tag):
+    """(k_fwd, k_bwd) that hub_cache="auto" resolves to for a full-width
+    run of ``model`` with ``tag`` messages (train/engine.py: resolve_hub)."""
+    from plagnn_tpu_torch.ops.hub import pick_hub_sizes
+
+    if model == "gcn2":
+        return pick_hub_sizes("auto", FOLDS * GCN2_HIDDEN, 4)
+    return pick_hub_sizes("auto", FOLDS * F_IN, 4 if tag == "f32" else 2)
+
+
+def gnn32_launches(tag, epochs, hub=None):
     """A GNN32 run: its dtype's max forward (with argmax) and backward once
-    per SAGE-pool layer per epoch."""
-    return {f"spmm_max_fwd_{tag}": LAYERS * epochs,
-            f"spmm_max_bwd_{tag}": LAYERS * epochs}
+    per SAGE-pool layer per epoch, each the hub kernel where the run's hub
+    (default: what "auto" resolves to) has that direction."""
+    kf, kb = auto_hub("gnn32", tag) if hub is None else hub
+    return {f"spmm_max_fwd_{'hub_' if kf else ''}{tag}": LAYERS * epochs,
+            f"spmm_max_bwd_{'hub_' if kb else ''}{tag}": LAYERS * epochs}
 
 
 def note_trace(path, label):
@@ -826,11 +887,16 @@ def report_run(label, stats, wall, counts, smi_line, folds=FOLDS):
           f"on {smi_line}", flush=True)
 
 
-# 2 GraphConvs: one sum forward and one transpose each per epoch
-GCN2_LAUNCHES = {"spmm_sum_fwd_f32": 2 * EPOCHS_GCN2, "spmm_sum_bwd_f32": 2 * EPOCHS_GCN2}
+def gcn2_launches(hub=None):
+    """A GCN2 run: 2 GraphConvs, one sum forward and one transpose each per
+    epoch, the hub kernels where the run's hub (default: "auto"'s) has
+    that direction."""
+    kf, kb = auto_hub("gcn2", "f32") if hub is None else hub
+    return {f"spmm_sum_fwd_{'hub_' if kf else ''}f32": 2 * EPOCHS_GCN2,
+            f"spmm_sum_bwd_{'hub_' if kb else ''}f32": 2 * EPOCHS_GCN2}
 
 
-def train_gcn2(data_root, path, chunk_callback=None):
+def train_gcn2(data_root, path, chunk_callback=None, hub_cache="auto"):
     """GCN2 at full width through ``train()``, as a user of the JAX package
     calls it (``TrainConfig(model="gcn2")``), float32, with a mid-round
     checkpoint every 2 epochs; returns the chunk stats."""
@@ -844,7 +910,7 @@ def train_gcn2(data_root, path, chunk_callback=None):
     cfg = TrainConfig(model="gcn2", fold_num=FOLDS, fold_batch=FOLDS,
                       epoch_num=EPOCHS_GCN2, fold_seeds=FOLD_SEEDS[:1],
                       hidden=(GCN2_HIDDEN,), checkpoint_every=2,
-                      chunk_callback=chunk_callback)
+                      chunk_callback=chunk_callback, hub_cache=hub_cache)
     return train(bundle.graph, bundle.feats, bundle.labels, bundle.label_with_loc,
                  bundle.loc_mat, cfg, path + os.sep, label_names=bundle.uniprot,
                  device_name="cuda")
@@ -864,7 +930,7 @@ def check_gcn2(data_root, results, smi_line):
     stats = train_gcn2(data_root, path, lambda r, a, c0, done: seen.append(
         (done, os.path.exists(ck_file))))
     wall = time.perf_counter() - t0
-    counts = check_launches("GCN2 train()", GCN2_LAUNCHES)
+    counts = check_launches("GCN2 train()", gcn2_launches())
     record_launches(results, counts)
     check_artifacts("GCN2 train()", path)
     if not seen or seen[0] != (2, True):
@@ -2438,6 +2504,74 @@ def check_big_kernels(gp, gi, x32, top, ranks, results):
                       f"{e * k * esize / HBM_BYTES_PER_S * 1e3:.3f})", flush=True)
 
 
+def big_hub_check(host, gi, x32, results, smi_line):
+    """Phase 4g's hub check: the id-based layer-1 max forward and backward
+    (int32 argmax) with a hub at HUB_MAIN_K's sizes, against the same
+    kernels without it (out and argmax bit-exact, dx bit-identical) and
+    their plain versions, each timed beside the kernel without the hub;
+    the coverage by k at this size.  No training run takes the hub here:
+    the engine turns it off past 2^15 nodes, as the JAX package's does."""
+    import dataclasses
+
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+    from plagnn_tpu_torch.ops.hub import pick_hub_sizes
+
+    ids_host = dataclasses.replace(host, positional=False, t_rank=None, mega_of=None,
+                                   n_mega=0)
+    print(f"big graph hub coverage: {hub_coverage(ids_host, sorted({*HUB_KS, 256}))}",
+          flush=True)
+    n, k = x32.shape
+    e = gi.n_edges
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x = x32.to(dt)
+        esize = x.element_size()
+        pair = pick_hub_sizes(str(HUB_MAIN_K), k, esize, arg_size=4)
+        gh = ids_host.with_hub(*pair).to(DEVICE)
+        if dt == torch.float32:
+            g = torch.randn((n, k), generator=gen, device=DEVICE)
+        else:
+            g = torch.randint(-8, 9, (n, k), generator=gen, device=DEVICE).to(dt)
+        label = f"big graph hub {tag} (K = {k}, k = {pair})"
+        out_h, arg_h, dx_h = hub_max_equal(gi, gh, x, g, label)
+        (out_p, arg_p), fwd_plain = timed_ms(lambda: sk.spmm_max_fwd_plain(gh, x))
+        if not (torch.equal(out_h, out_p) and torch.equal(arg_h, arg_p)):
+            fail(f"{label}: forward differs from its plain version")
+        del out_h, out_p, arg_p
+        dx_p, bwd_plain = timed_ms(lambda: sk.spmm_max_bwd_plain(gh, g, arg_h))
+        bwd_err = (dx_h.float() - dx_p.float()).abs().max().item()
+        del dx_h, dx_p
+        times = {"fwd0": median_ms(lambda: sk.spmm_max_fwd(gi, x), 10),
+                 "fwd": median_ms(lambda: sk.spmm_max_fwd(gh, x), 10),
+                 "bwd": median_ms(lambda: sk.spmm_max_bwd(gh, g, arg_h), 10),
+                 "bwd0": median_ms(lambda: sk.spmm_max_bwd(gi, g, arg_h), 10)}
+        idx_bytes = 4 * (n + 1 + e)
+        nonempty = int((gi.in_degree > 0).sum().item())
+        for kind, kk, plain, err, ops in (
+                ("fwd", pair[0], fwd_plain, 0.0, e * k),
+                ("bwd", pair[1], bwd_plain, bwd_err, e * k + nonempty * k)):
+            fill = hub_fill_bytes(kk, k, esize, 4 if kind == "bwd" else 0)
+            nbytes = 2 * n * k * esize + idx_bytes + n * k * 4
+            name = f"spmm_max_{kind}_hub_{tag}@n{n}"
+            warps = sk.hub_warps(f"max_{kind}", dt, k, kk, torch.int32)
+            r = results[name] = hub_entry(
+                name, f"spmm_max_{kind}", err, times[kind], plain,
+                results[f"spmm_max_{kind}_{tag}@n{n}"]["library_ms"], nbytes, ops, (n, k),
+                kk, {kk: times[kind]}, {"hub": warps[0], "without": warps[1]}, fill)
+            print(f"  {name}: k={kk} {r['ms']:.3f} ms, without the hub "
+                  f"{times[kind + '0']:.3f}; warps an SM holds {warps[0]}, without the hub "
+                  f"{warps[1]}; plain {plain:.3f}, bound {r['bound_ms']:.3f} by "
+                  f"{r['bound_by']} (arena fill {fill / 1e6:.1f} MB); {smi_line}",
+                  flush=True)
+        print(f"{label}: forward bit-exact and backward bit-identical to the id-based "
+              f"kernels without the hub and run to run; forward equal to its plain "
+              f"version, dx max abs err {bwd_err:.3e}", flush=True)
+        del gh, g, x, arg_h
+        torch.cuda.empty_cache()
+
+
 def big_peak_memory(gp, gi, feats):
     """Peak device memory of one forward and backward of BatchedGNN32 at B =
     BIG_FOLDS on the big graph in float32, with the positional argmax and
@@ -2514,6 +2648,10 @@ def big_graph_phase(results, smi_line):
         check_big_kernels(gp, gi, x32, top, ranks, results)
         print(f"big graph kernel checks and times: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        big_hub_check(host, gi, x32, results, smi_line)
+        print(f"big graph hub checks and times: {time.perf_counter() - t0:.1f} s",
+              flush=True)
         del x32
         torch.cuda.empty_cache()
         runs = (("train-normal", "normal", "float32", "f32"),
@@ -2535,6 +2673,339 @@ def big_graph_phase(results, smi_line):
         big_peak_memory(gp, gi, bundle.feats)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3h: the hub cache's kernels; phase 4h: the hub on the main path.
+# ---------------------------------------------------------------------------
+
+
+def hub_sizes(k_width, esize, arg_size=2):
+    """The (k_fwd, k_bwd) pairs phase 3h runs at this K and message size:
+    "auto"'s where it has a hub, and each of HUB_KS halved to fit."""
+    from plagnn_tpu_torch.ops.hub import pick_hub_sizes
+
+    pairs = [pick_hub_sizes("auto", k_width, esize, arg_size)]
+    pairs += [pick_hub_sizes(str(k), k_width, esize, arg_size) for k in HUB_KS]
+    return sorted({p for p in pairs if p[0] and p[1]})
+
+
+def hub_fill_bytes(k, k_width, esize, arg_size=0):
+    """Bytes the hub kernels read to fill their arenas: k rows of each
+    K-slice (the gathered operand's, plus the argmax's), once a block, one
+    block per SM per slice."""
+    import torch
+
+    from plagnn_tpu_torch.ops.hub import HUB_SLICE_BYTES, arena_bytes
+
+    slices = -(-k_width // (HUB_SLICE_BYTES // esize))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_sm * slices * arena_bytes(k, k_width, esize, arg_size)
+
+
+def bits_of(t):
+    import torch
+
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def hub_max_equal(g0, gh, x, g, label):
+    """The hub max kernels against the same kernels without the hub: out
+    and argmax bit-exact, dx bit-identical, each bit-identical run to run
+    (one result held at a time: phase 4g's run at 330 k nodes).  Returns
+    the hub's (out, arg, dx)."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    def same(a, b):
+        return torch.equal(bits_of(a), bits_of(b))
+
+    out0, arg0 = sk.spmm_max_fwd(g0, x)
+    out, arg = sk.spmm_max_fwd(gh, x)
+    if not (same(out, out0) and torch.equal(arg, arg0)):
+        fail(f"{label}: hub forward differs from the kernel without the hub "
+             f"({(arg != arg0).sum().item()} argmax elements)")
+    del out0
+    out2, arg2 = sk.spmm_max_fwd(gh, x)
+    if not (same(out2, out) and torch.equal(arg2, arg)):
+        fail(f"{label}: hub forward not bit-identical run to run")
+    del out2, arg2
+    dx0 = sk.spmm_max_bwd(g0, g, arg0)
+    del arg0
+    dx = sk.spmm_max_bwd(gh, g, arg)
+    if not same(dx, dx0):
+        fail(f"{label}: hub backward differs from the kernel without the hub "
+             f"(max abs {(dx.float() - dx0.float()).abs().max().item()})")
+    del dx0
+    if not same(sk.spmm_max_bwd(gh, g, arg), dx):
+        fail(f"{label}: hub backward not bit-identical run to run")
+    torch.cuda.empty_cache()
+    return out, arg, dx
+
+
+def hub_sum_equal(g0, gh, x, label):
+    """The hub sum kernels, forward and transpose, bit-identical to the
+    kernels without the hub and run to run."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    for transpose in (False, True):
+        want = sk.spmm_sum_rows(g0, x, transpose)
+        for _ in range(2):
+            got = sk.spmm_sum_rows(gh, x, transpose)
+            if not torch.equal(bits_of(got), bits_of(want)):
+                fail(f"{label}: hub sum {'transpose' if transpose else 'forward'} differs "
+                     f"from the kernel without the hub "
+                     f"(max abs {(got.float() - want.float()).abs().max().item()})")
+
+
+def hub_coverage(full, ks):
+    """Share of edges whose row the arena serves, by k, each direction."""
+    parts = []
+    for k in ks:
+        gh = full.with_hub(k, k)
+        parts.append(f"k={k} forward {gh.hub.n_covered / full.n_edges:.4f} transpose "
+                     f"{gh.t_hub.n_covered / full.n_edges:.4f}")
+    return "; ".join(parts)
+
+
+def hub_kernel_phase(full, x_full, results, smi_line):
+    """Phase 3h (module docstring): every hub kernel at every width its
+    path aggregates, f32 and bf16, against the kernels without the hub and
+    its plain version; times and warps by k at the first layer's shapes."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    print(f"full graph hub coverage (share of edges whose row the arena serves): "
+          f"{hub_coverage(full, sorted({*HUB_KS, 256}))}", flush=True)
+    g0 = full.to("cuda")
+    hub_graphs = {}
+
+    def with_hub(pair):
+        if pair not in hub_graphs:
+            hub_graphs[pair] = full.with_hub(*pair).to("cuda")
+        return hub_graphs[pair]
+
+    n, e = full.n_nodes, full.n_edges
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        esize = torch.finfo(dt).bits // 8
+        # -- the max kernels at K = 10 x 503 / 400 / 300 ------------------------
+        for layer, width in enumerate(AGG_WIDTHS, start=1):
+            k = FOLDS * width
+            x = x_full[:, :k].contiguous().to(dt)
+            if dt == torch.float32:
+                g = torch.randn((n, k), generator=gen, device="cuda")
+            else:
+                g = torch.randint(-8, 9, (n, k), generator=gen, device="cuda").to(dt)
+            pairs = hub_sizes(k, esize)
+            for pair in pairs:
+                hub_max_equal(g0, with_hub(pair), x, g, f"hub {tag} max K={k} k={pair}")
+            check_kernels(with_hub(pairs[0]), x_full[:, :k].contiguous(),
+                          f"hub graph k={pairs[0]} layer {layer}", dtypes=(dt,))
+            print(f"hub {tag} max K={k}: forward bit-exact and backward bit-identical "
+                  f"to the kernels without the hub, and run to run, at (k_fwd, k_bwd) "
+                  f"{pairs}", flush=True)
+            if layer == 1:
+                hub_max_times(g0, with_hub, pairs, x, g, tag, results, smi_line)
+            del x, g
+        # -- the sum, forward and transpose, at K = 10 x 400 and 10 x 12 --------
+        for width in SUM_WIDTHS:
+            k = FOLDS * width
+            pairs = hub_sizes(k, esize, 0)
+            x = torch.randint(-8, 9, (n, k), generator=gen, device="cuda").to(dt)
+            if dt == torch.float32:
+                x = x + torch.randn((n, k), generator=gen, device="cuda")
+            for pair in pairs:
+                hub_sum_equal(g0, with_hub(pair), x, f"hub {tag} sum K={k} k={pair}")
+            check_sum_kernels(with_hub(pairs[0]), k, f"hub graph k={pairs[0]} sum",
+                              dtypes=(dt,))
+            print(f"hub {tag} sum K={k}: forward and transpose bit-identical to the "
+                  f"kernels without the hub, and run to run, at (k_fwd, k_bwd) {pairs}",
+                  flush=True)
+            if width == SUM_WIDTHS[0]:
+                hub_sum_times(g0, with_hub, pairs, x, tag, results, smi_line)
+            del x
+        torch.cuda.empty_cache()
+    del hub_graphs
+    torch.cuda.empty_cache()
+
+
+def _by_k(times):
+    return "{" + ", ".join(f"{k}: {v:.3f}" for k, v in times.items()) + "}"
+
+
+def hub_entry(name, source, err, ms, plain, lib, nbytes, ops, shape, k, by_k, warps,
+              fill):
+    """A hub kernel's ``kernels`` entry, with its arena size and, by k, its
+    times and the warps an SM holds (with the hub, without).  ``nbytes`` is
+    what the function must move, the same as the kernel's without the hub,
+    so the bound is that kernel's; the bytes the arenas' fill reads, a cost
+    of this design, are ``arena_fill_bytes`` beside it."""
+    r = kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape)
+    r.update(hub_k=k, ms_by_k=by_k, warps_per_sm=warps, arena_fill_bytes=fill)
+    return r
+
+
+def hub_max_times(g0, with_hub, pairs, x, g, tag, results, smi_line):
+    """Phase 3h's times at layer 1: each hub max kernel by k beside the
+    kernel without the hub (median of 10 each, in turns), the warps an SM
+    holds, and its plain version at HUB_MAIN_K's sizes; entries for the
+    kernels line at those sizes."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+    from plagnn_tpu_torch.ops.hub import pick_hub_sizes
+
+    n, k = x.shape
+    e = g0.n_edges
+    esize = x.element_size()
+    main = pick_hub_sizes(str(HUB_MAIN_K), k, esize)
+    _, arg0 = sk.spmm_max_fwd(g0, x)
+    t = {"fwd": {}, "bwd": {}, "fwd0": [], "bwd0": []}
+    for pair in pairs:
+        gh = with_hub(pair)
+        t["fwd0"].append(median_ms(lambda: sk.spmm_max_fwd(g0, x), 10))
+        t["fwd"][pair[0]] = median_ms(lambda: sk.spmm_max_fwd(gh, x), 10)
+        t["bwd"][pair[1]] = median_ms(lambda: sk.spmm_max_bwd(gh, g, arg0), 10)
+        t["bwd0"].append(median_ms(lambda: sk.spmm_max_bwd(g0, g, arg0), 10))
+    gh = with_hub(main)
+    (out_p, arg_p), fwd_plain = timed_ms(lambda: sk.spmm_max_fwd_plain(gh, x))
+    out_h, arg_h = sk.spmm_max_fwd(gh, x)
+    if not (torch.equal(out_h, out_p) and torch.equal(arg_h, arg_p)):
+        fail(f"hub max fwd {tag}: differs from its plain version")
+    dx_p, bwd_plain = timed_ms(lambda: sk.spmm_max_bwd_plain(gh, g, arg0))
+    bwd_err = (sk.spmm_max_bwd(gh, g, arg0).float() - dx_p.float()).abs().max().item()
+    del out_p, arg_p, dx_p
+    idx_bytes = 4 * (n + 1 + e)
+    for kind, kk, asize in (("fwd", main[0], 0), ("bwd", main[1], 2)):
+        warps = {kk_: sk.hub_warps(f"max_{kind}", x.dtype, k, kk_)[0] for kk_ in t[kind]}
+        warps0 = sk.hub_warps(f"max_{kind}", x.dtype, k, kk)[1]
+        base = results[f"spmm_max_{kind}_{tag}"]
+        fill = hub_fill_bytes(kk, k, esize, asize)
+        name = f"spmm_max_{kind}_hub_{tag}"
+        if kind == "fwd":
+            nbytes = n * k * esize + idx_bytes + n * k * (esize + 2)
+            ops, plain, err = e * k, fwd_plain, 0.0
+        else:
+            nonempty = int((g0.in_degree > 0).sum().item())
+            nbytes = n * k * (esize + 2) + idx_bytes + n * k * esize
+            ops, plain, err = e * k + nonempty * k, bwd_plain, bwd_err
+        r = results[name] = hub_entry(
+            name, f"spmm_max_{kind}", err, t[kind][kk], plain, base["library_ms"], nbytes,
+            ops, (n, k), kk, t[kind], {"hub": warps, "without": warps0}, fill)
+        without = statistics.median(t[f"{kind}0"])
+        print(f"  {name}: k={kk} {r['ms']:.3f} ms, without the hub {without:.3f} "
+              f"(runs {[round(v, 3) for v in t[f'{kind}0']]}); by k {_by_k(t[kind])}; "
+              f"warps an SM holds {warps}, without the hub {warps0}; plain {plain:.3f}, "
+              f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
+              f"{r['bound_by']} (arena fill {fill / 1e6:.1f} MB); {smi_line}", flush=True)
+
+
+def hub_sum_times(g0, with_hub, pairs, x, tag, results, smi_line):
+    """Phase 3h's times of the hub sum at GCN2 conv1's K, forward and
+    transpose, as hub_max_times does for the max."""
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+    from plagnn_tpu_torch.ops.hub import pick_hub_sizes
+
+    n, k = x.shape
+    e = g0.n_edges
+    esize = x.element_size()
+    main = pick_hub_sizes(str(HUB_MAIN_K), k, esize, 0)
+    for transpose, kk, direction in ((False, main[0], "fwd"), (True, main[1], "bwd")):
+        by_k, base_runs, warps = {}, [], {}
+        for pair in pairs:
+            kh = pair[1] if transpose else pair[0]
+            gh = with_hub(pair)
+            base_runs.append(median_ms(lambda: sk.spmm_sum_rows(g0, x, transpose), 10))
+            by_k[kh] = median_ms(lambda: sk.spmm_sum_rows(gh, x, transpose), 10)
+            warps[kh] = sk.hub_warps("sum", x.dtype, k, kh)[0]
+        gh = with_hub(main)
+        out_p, plain = timed_ms(lambda: sk.spmm_sum_plain(gh, x, transpose))
+        err = (sk.spmm_sum_rows(gh, x, transpose).float() - out_p.float()).abs().max().item()
+        fill = hub_fill_bytes(kk, k, esize)
+        base = results[f"spmm_sum_{direction}_{tag}"]
+        name = f"spmm_sum_{direction}_hub_{tag}"
+        r = results[name] = hub_entry(
+            name, "spmm_sum", err, by_k[kk], plain, base["library_ms"],
+            2 * n * k * esize + 4 * (n + 1 + e), e * k, (n, k), kk, by_k,
+            {"hub": warps, "without": sk.hub_warps("sum", x.dtype, k, kk)[1]}, fill)
+        print(f"  {name}: k={kk} {r['ms']:.3f} ms, without the hub "
+              f"{statistics.median(base_runs):.3f} (runs {[round(v, 3) for v in base_runs]}); "
+              f"by k {_by_k(by_k)}; warps an SM holds {r['warps_per_sm']}; plain "
+              f"{plain:.3f}, library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
+              f"{r['bound_by']} (arena fill {fill / 1e6:.1f} MB); {smi_line}", flush=True)
+
+
+def same_files(label, got_dir, want_dir):
+    """Every file of ``want_dir`` byte-identical in ``got_dir``."""
+    names = sorted(os.listdir(want_dir))
+    if sorted(os.listdir(got_dir)) != names:
+        fail(f"{label}: files {sorted(os.listdir(got_dir))} against {names}")
+    for f in names:
+        with open(os.path.join(got_dir, f), "rb") as a, open(os.path.join(want_dir, f), "rb") as b:
+            if a.read() != b.read():
+                fail(f"{label}: {f} differs from the run without the hub")
+    print(f"{label}: all {len(names)} files (logits included) byte-identical to the run "
+          f"without the hub", flush=True)
+
+
+def hub_train_phase(data_root, results, smi_line):
+    """Phase 4h: the hub on the main path.  train-normal (float32) and
+    train-inter --agg-dtype bfloat16 through the CLI with --hub-cache off
+    and --hub-cache HUB_MAIN_K: the hub run launches each hub max kernel 3
+    times an epoch and no max kernel without the hub, and writes every file
+    byte-identical to the run without it; then GCN2 through train() with
+    hub_cache off and HUB_MAIN_K: the sum hub kernels 2 + 2 times an
+    epoch, the same files."""
+    import torch
+
+    from plagnn_tpu_torch.ops.hub import pick_hub_sizes
+
+    runs = (("train-normal", "normal", "float32", EPOCHS_F32, "f32", 4),
+            ("train-inter", "perturbation", "bfloat16", EPOCHS_BF16, "bf16", 2))
+    log = os.path.join(data_root, "log")
+    for cmd, subdir, agg, epochs, tag, esize in runs:
+        dirs = {}
+        for hub in ("off", str(HUB_MAIN_K)):
+            shutil.rmtree(log, ignore_errors=True)
+            pair = pick_hub_sizes(hub, FOLDS * F_IN, esize)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            stats = train_cli(data_root, cmd, agg, epochs, hub_cache=hub)
+            wall = time.perf_counter() - t0
+            counts = check_launches(f"{cmd} --hub-cache {hub}",
+                                    gnn32_launches(tag, epochs, pair))
+            if hub != "off":
+                record_launches(results, counts,
+                                (f"spmm_max_fwd_hub_{tag}", f"spmm_max_bwd_hub_{tag}"))
+            dirs[hub] = os.path.join(data_root, f"log_hub_{hub}")
+            shutil.rmtree(dirs[hub], ignore_errors=True)
+            shutil.move(os.path.join(log, "GSE30931", subdir), dirs[hub])
+            report_run(f"GNN32 {cmd} {agg} --hub-cache {hub} {pair}", stats, wall, counts,
+                       smi_line)
+        same_files(f"{cmd} --hub-cache {HUB_MAIN_K}", dirs[str(HUB_MAIN_K)], dirs["off"])
+    shutil.rmtree(log, ignore_errors=True)
+    dirs = {}
+    for hub in ("off", str(HUB_MAIN_K)):
+        pair = pick_hub_sizes(hub, FOLDS * GCN2_HIDDEN, 4)
+        path = os.path.join(data_root, f"log_gcn2_hub_{hub}")
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = train_gcn2(data_root, path, hub_cache=hub)
+        wall = time.perf_counter() - t0
+        counts = check_launches(f"GCN2 train(hub_cache={hub!r})", gcn2_launches(pair))
+        if hub != "off":
+            record_launches(results, counts, ("spmm_sum_fwd_hub_f32", "spmm_sum_bwd_hub_f32"))
+        dirs[hub] = path
+        report_run(f"GCN2 train() float32 hub_cache={hub!r} {pair}", stats, wall, counts,
+                   smi_line)
+    same_files(f"GCN2 train(hub_cache={HUB_MAIN_K!r})", dirs[str(HUB_MAIN_K)], dirs["off"])
+
 
 
 def sweep_row_chunk(full):
@@ -2699,8 +3170,6 @@ def main(argv=None):
     for layer, width in enumerate(AGG_WIDTHS[1:], start=2):
         check_kernels(full_cuda, x_full[:, :FOLDS * width].contiguous(),
                       f"full graph layer {layer}")
-    del x_full
-    torch.cuda.empty_cache()
     # segment sum: GCN2's widths, conv1 timed
     check_sum_kernels(graph.to("cuda"), vals.shape[1], "tie graph")
     check_sum_kernels(full_cuda, FOLDS * SUM_WIDTHS[0], "full graph GCN2 conv1", results)
@@ -2708,6 +3177,10 @@ def main(argv=None):
     check_sum_kernels(full_cuda, FOLDS * SUM_WIDTHS[1], "full graph GCN2 conv2",
                       results, suffix=CONV2)
     del full_cuda
+    torch.cuda.empty_cache()
+    phase("3h hub cache kernels")
+    hub_kernel_phase(full, x_full, results, smi_line)
+    del x_full
     torch.cuda.empty_cache()
     # the edge-weighted sum at conv1's width
     check_val_sum_kernels(weighted_graph(powerlaw_ppi(NODES, EDGES, SEED), SEED),
@@ -2757,9 +3230,11 @@ def main(argv=None):
         check_gcn2(tmp, results, smi_line)
         profile_epochs("GCN2 train() f32",
                        lambda: train_gcn2(tmp, os.path.join(tmp, "log_gcn2_profiled")),
-                       GCN2_LAUNCHES, smi_line)
+                       gcn2_launches(), smi_line)
         # phase 4b's run is the single-card run of the sharded runs' jobs
         mesh_phase(tmp, results, smi_line)
+        phase("4h hub cache on the main path")
+        hub_train_phase(tmp, results, smi_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase("4p preprocess at full width")
@@ -2779,7 +3254,11 @@ def main(argv=None):
         "pcc_diff_hist_f64", "spmm_sum_val_fwd_f32", "spmm_sum_val_bwd_f32",
         "spmm_sum_val_fwd_bf16", "spmm_sum_val_bwd_bf16",
         "spmm_max_fwd_pos_f32", "spmm_max_fwd_pos_bf16",
-        "spmm_max_bwd_pos_f32", "spmm_max_bwd_pos_bf16")]
+        "spmm_max_bwd_pos_f32", "spmm_max_bwd_pos_bf16",
+        "spmm_max_fwd_hub_f32", "spmm_max_fwd_hub_bf16",
+        "spmm_max_bwd_hub_f32", "spmm_max_bwd_hub_bf16",
+        "spmm_sum_fwd_hub_f32", "spmm_sum_fwd_hub_bf16",
+        "spmm_sum_bwd_hub_f32", "spmm_sum_bwd_hub_bf16")]
     kernels += [r for name, r in sorted(results.items()) if "@" in name]
     for r in kernels:
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):

@@ -29,7 +29,10 @@ takes ``cuda:LOCAL_RANK``, NCCL, or the CPU under ``-d cpu``, gloo).  Run
 plainly, the CLI spawns F*P local ranks: one per visible card (NCCL; fewer
 cards than ranks raises), or gloo CPU ranks under ``-d cpu``.  ``--mesh
 auto`` and ``plan-mesh`` are refused: the JAX package's planner runs on TPU
-rates, and the port's waits for H100 anchors.
+rates, and the port's waits for H100 anchors.  ``--hub-cache auto|off|k``
+(the JAX CLI's flag) sets the aggregation kernels' hub cache
+(``TrainConfig.hub_cache``, ``ops/hub.py``); a mesh, fold-only included,
+takes none (its partition shards carry no hub table).
 """
 from __future__ import annotations
 
@@ -85,6 +88,11 @@ def _add_train_flags(p: argparse.ArgumentParser):
     p.add_argument("--no-mesh-balance", action="store_true",
                    help="contiguous node-id blocks instead of the balanced "
                         "(in-degree snake) partition")
+    p.add_argument("--hub-cache", default="auto",
+                   help="hub cache of the aggregation kernels: 'auto' (the "
+                        "measured policy, ops/hub.py), 'off', or an integer k "
+                        "(the k most-fetched rows of each direction read from "
+                        "a shared-memory arena)")
 
 
 def parse_mesh(spec: str):
@@ -115,7 +123,16 @@ def _train(args, condition: str):
     from .parallel.multihost import launcher_environment
 
     mesh_fold, mesh_graph = parse_mesh(args.mesh)
+    if args.hub_cache not in ("auto", "off") and not args.hub_cache.isdigit():
+        raise SystemExit(
+            f"invalid --hub-cache {args.hub_cache!r}: expected 'auto', "
+            "'off', or an integer k")
     n = mesh_fold * mesh_graph
+    if n > 1 and args.hub_cache not in ("auto", "off") and int(args.hub_cache):
+        from .train.engine import MESH_HUB_WAITS
+
+        raise SystemExit(f"--hub-cache {args.hub_cache} with --mesh {args.mesh!r}: "
+                         f"{MESH_HUB_WAITS}")
     if n == 1 and not launcher_environment():
         return _train_rank(0, args.d, args, condition)
     import torch
@@ -205,6 +222,7 @@ def _train_rank(rank: int, device, args, condition: str):
         mesh_fold=mesh_fold,
         mesh_graph=mesh_graph,
         mesh_balance=not args.no_mesh_balance,
+        hub_cache=args.hub_cache,
     )
     return train(
         bundle.graph,

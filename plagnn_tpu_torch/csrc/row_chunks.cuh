@@ -37,6 +37,7 @@
 
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 #include <utility>
 
 namespace row_chunks {
@@ -183,21 +184,15 @@ __device__ __forceinline__ void walk_chunk(const int* __restrict__ idx, int beg,
   }
 }
 
-// Kernel 1's body: this warp's (chunk, K-slice), a K-slice being 32*V*J
-// elements.  Lane l's vector j starts at k0 + j*32*V; the first `nvec` of
-// them lie inside K (K % V == 0, so a vector is wholly in or out).
-// `op.begin(row, k0, nvec)` tells the op its row and its elements.
+// One chunk's walk (chunk_pass's), for a lane whose first element is k0 and
+// whose first `nvec` vectors lie inside K (also the hub kernels' walk of a
+// chunk their block's ticket handed out).
 template <typename OutT, int V, int J, typename Op>
-__device__ __forceinline__ void chunk_pass(const Table& t, const int* __restrict__ idx,
-                                           int64_t k_width, OutT* __restrict__ out,
+__device__ __forceinline__ void chunk_body(const Table& t, int64_t chunk,
+                                           const int* __restrict__ idx, int lane,
+                                           int64_t k0, int nvec, int64_t k_width,
+                                           OutT* __restrict__ out,
                                            float* __restrict__ partial, Op& op) {
-  const int lane = threadIdx.x & 31;
-  const int64_t chunk =
-      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (chunk >= t.n_chunks) return;  // the whole warp
-  const int64_t k0 = (static_cast<int64_t>(blockIdx.y) * 32 * J + lane) * V;
-  const int64_t left = k_width > k0 ? (k_width - k0 + 32 * V - 1) / (32 * V) : 0;
-  const int nvec = left < J ? static_cast<int>(left) : J;
   const int row = __ldg(t.row + chunk);
   op.begin(row, k0, nvec);
   float acc[V * J];
@@ -216,6 +211,24 @@ __device__ __forceinline__ void chunk_pass(const Table& t, const int* __restrict
       store_vec<float, V>(partial + static_cast<int64_t>(slot) * k_width + k, acc + j * V);
     }
   }
+}
+
+// Kernel 1's body: this warp's (chunk, K-slice), a K-slice being 32*V*J
+// elements.  Lane l's vector j starts at k0 + j*32*V; the first `nvec` of
+// them lie inside K (K % V == 0, so a vector is wholly in or out).
+// `op.begin(row, k0, nvec)` tells the op its row and its elements.
+template <typename OutT, int V, int J, typename Op>
+__device__ __forceinline__ void chunk_pass(const Table& t, const int* __restrict__ idx,
+                                           int64_t k_width, OutT* __restrict__ out,
+                                           float* __restrict__ partial, Op& op) {
+  const int lane = threadIdx.x & 31;
+  const int64_t chunk =
+      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (chunk >= t.n_chunks) return;  // the whole warp
+  const int64_t k0 = (static_cast<int64_t>(blockIdx.y) * 32 * J + lane) * V;
+  const int64_t left = k_width > k0 ? (k_width - k0 + 32 * V - 1) / (32 * V) : 0;
+  const int nvec = left < J ? static_cast<int>(left) : J;
+  chunk_body<OutT, V, J>(t, chunk, idx, lane, k0, nvec, k_width, out, partial, op);
 }
 
 // Kernel 2's body: split row blockIdx.x, one k per thread; the row's
@@ -269,6 +282,294 @@ inline int grids(int64_t n_chunks, int64_t n_split, int64_t k_width,
   *chunk_grid = dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(slices));
   *combine_grid = dim3(static_cast<unsigned>(n_split), static_cast<unsigned>(tiles));
   return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// The hub cache: the hub instantiations of the three kernels.
+//
+// Replaces the TPU kernels' hub path (plagnn_tpu/ops/pallas/spmm_kernels.py:
+// HubStream, the `with_hub` branches of _spmm_fwd_kernel, _masked_bwd_kernel
+// and _masked_bwd16_kernel, the VMEM arenas of _run_spmm, _run_masked_bwd and
+// _run_masked_bwd16).  There, the edges whose source is one of the k
+// most-fetched rows form a second stream, served from a VMEM arena and
+// merged into the forward's result by a (value, then smaller id) tie rule.
+// Here they stay where they are in the one (dst, src)-ordered edge stream:
+// graph_format.HubTable codes a hub edge's neighbour index as -1 - slot,
+// and the warp reads that edge's row from the block's shared-memory arena
+// instead of device memory.  One edge at a time is the same for the whole
+// warp, so the branch does not diverge, and the compares and adds are the
+// kernels' own, in the same order: the forward is bit-exact and the sums
+// bit-identical to the kernels without the hub.
+//
+// What bounds it: the kernels without the hub serve their gather (E*K*esize
+// bytes, ~15x the compulsory traffic) from L2.  The arena takes the hub
+// edges' share of it (16-27% of the edges at k = 64-256 on the PPI-scale
+// graph) off L2, for k rows of the K-slice read once a block.
+//
+// Design, against a grid of one 4-warp block per 4 chunks (the kernels
+// without the hub), where a per-block arena fill would read more bytes than
+// the slice gathers:
+// * Persistent blocks: one block per SM per K-slice (grid.x = SMs, K-slices
+//   on y, outermost as before), each filling its arena once (every thread,
+//   8 loads in flight) and then walking its share of the chunk table:
+//   chunks blockIdx.x, blockIdx.x + gridDim.x, ..., in the table's order,
+//   handed to its warps one at a time by a shared-memory ticket, so a warp
+//   that drew short chunks takes more of them.
+// * The block holds as many warps as an SM holds of the kernel without the
+//   hub (kHubWarps, __launch_bounds__(.., 1)): the same registers a thread
+//   and the same loads in flight an SM, and the whole of the SM's shared
+//   memory for one arena (up to 227 KB).
+// * A lane's slice and walk are the kernels' own (32 bytes of the gathered
+//   operand, kUnroll edges in flight), so an arena row is 1 KB of the slice.
+// * Split rows: the chunk slots and combine kernels without the hub, as
+//   they are.
+// ---------------------------------------------------------------------------
+
+constexpr size_t kSmemBlockMax = 232448;  // shared memory a block may take
+
+// Elements of an arena row: the K-slice, or K where K is narrower.
+__host__ __device__ inline int hub_stride(int64_t k_width, int slice_width) {
+  return static_cast<int>(k_width < slice_width ? k_width : slice_width);
+}
+
+// Bytes of an arena of k rows of `stride` elements of size es, rounded up
+// to 16 (a second arena follows it in the backward).
+__host__ __device__ inline size_t arena_bytes(int k, int stride, int es) {
+  return (static_cast<size_t>(k) * stride * es + 15) / 16 * 16;
+}
+
+// A hub kernel's dynamic shared memory: an arena of hub_k rows of its
+// K-slice of T and, where arg_size > 0, one of the argmax's.
+template <typename T, int V>
+inline size_t hub_smem_bytes(int64_t k_width, int hub_k, int arg_size = 0) {
+  const int stride = hub_stride(k_width, 32 * V * vectors_per_lane<T, V>());
+  return arena_bytes(hub_k, stride, sizeof(T)) + arena_bytes(hub_k, stride, arg_size);
+}
+
+// The hub entry points' dispatch, each level written once for all its
+// cases: f(T{}) for dtype 0 (float) or 1 (bfloat16), f(ArgT{}) for an
+// argmax of 16 or 32 bits, f(integral_constant<int, V>) for a vector
+// width of 8, 4, 2 or 1 (vector_width's).
+template <typename F>
+inline int with_dtype(int dtype, F&& f) {
+  switch (dtype) {
+    case 0:
+      return f(float{});
+    case 1:
+      return f(__nv_bfloat16{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename F>
+inline int with_arg_bits(int arg_bits, F&& f) {
+  switch (arg_bits) {
+    case 16:
+      return f(int16_t{});
+    case 32:
+      return f(int32_t{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename F>
+inline int with_vector_width(int v, F&& f) {
+  switch (v) {
+    case 8:
+      return f(std::integral_constant<int, 8>{});
+    case 4:
+      return f(std::integral_constant<int, 4>{});
+    case 2:
+      return f(std::integral_constant<int, 2>{});
+    default:
+      return f(std::integral_constant<int, 1>{});
+  }
+}
+
+// The block's dynamic shared memory, 16-byte aligned.
+__device__ __forceinline__ unsigned char* hub_smem() {
+  extern __shared__ uint4 hub_smem_words[];
+  return reinterpret_cast<unsigned char*>(hub_smem_words);
+}
+
+// V elements of T from shared memory, as the words load_vec gives.
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> load_vec_shared(const T* p) {
+  Vec<T, V> out;
+  if constexpr (Vec<T, V>::kBytes == 16) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    out.w[0] = r.x;
+    out.w[1] = r.y;
+    out.w[2] = r.z;
+    out.w[3] = r.w;
+  } else if constexpr (Vec<T, V>::kBytes == 8) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    out.w[0] = r.x;
+    out.w[1] = r.y;
+  } else if constexpr (Vec<T, V>::kBytes == 4) {
+    out.w[0] = *reinterpret_cast<const unsigned int*>(p);
+  } else {
+    out.w[0] = *reinterpret_cast<const unsigned short*>(p);
+  }
+  return out;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec_shared(T* p, const Vec<T, V>& v) {
+  if constexpr (Vec<T, V>::kBytes == 16) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  } else if constexpr (Vec<T, V>::kBytes == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(v.w[0], v.w[1]);
+  } else if constexpr (Vec<T, V>::kBytes == 4) {
+    *reinterpret_cast<unsigned int*>(p) = v.w[0];
+  } else {
+    *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(v.w[0]);
+  }
+}
+
+// Fills arena rows 0..n) with the K-slice starting at element slice0 of
+// rows ids[0..n) of src (rows of k_width elements), V elements at a time,
+// every thread of the block, kFill loads in flight a thread; element e of
+// the slice goes to arena[slot * stride + e], the layout of a lane's
+// vectors in the slice.
+template <typename T, int V>
+__device__ __forceinline__ void fill_arena(T* arena, const T* __restrict__ src,
+                                           const int* __restrict__ ids, int n,
+                                           int stride, int64_t slice0,
+                                           int64_t k_width) {
+  constexpr int kFill = 8;
+  const int64_t left = k_width - slice0;
+  const int per_row = static_cast<int>(left < stride ? left : stride) / V;
+  const int total = n * per_row;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kFill * blockDim.x) {
+    Vec<T, V> v[kFill];
+#pragma unroll
+    for (int u = 0; u < kFill; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < total) {
+        const int s = i / per_row;
+        v[u] = load_vec<T, V>(src + static_cast<int64_t>(__ldg(ids + s)) * k_width +
+                              slice0 + (i - s * per_row) * V);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFill; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < total) {
+        const int s = i / per_row;
+        store_vec_shared<T, V>(arena + static_cast<int64_t>(s) * stride +
+                               (i - s * per_row) * V, v[u]);
+      }
+    }
+  }
+}
+
+// The J vectors of this lane for an edge whose coded neighbour is nbr: row
+// nbr of x in device memory, or arena slot -1 - nbr (`arena` is already at
+// this lane's first element).
+template <typename T, int V, int J>
+__device__ __forceinline__ void load_hub_row(Vec<T, V> (&v)[J], const T* __restrict__ x,
+                                             const T* arena, int nbr, int64_t k_width,
+                                             int64_t k0, int stride, int nvec) {
+  if (nbr >= 0) {
+    const T* p = x + static_cast<int64_t>(nbr) * k_width + k0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (j < nvec) v[j] = load_vec<T, V>(p + j * 32 * V);
+    }
+  } else {
+    const T* p = arena + static_cast<int64_t>(-1 - nbr) * stride;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (j < nvec) v[j] = load_vec_shared<T, V>(p + j * 32 * V);
+    }
+  }
+}
+
+// This lane's place in its block's K-slice: first element k0, the first
+// `nvec` of its J vectors inside K.
+struct HubLane {
+  int lane;
+  int64_t slice0;
+  int64_t k0;
+  int nvec;
+};
+
+template <int V, int J>
+__device__ __forceinline__ HubLane hub_lane(int64_t k_width) {
+  HubLane h;
+  h.lane = threadIdx.x & 31;
+  h.slice0 = static_cast<int64_t>(blockIdx.y) * 32 * V * J;
+  h.k0 = h.slice0 + h.lane * V;
+  const int64_t left = k_width > h.k0 ? (k_width - h.k0 + 32 * V - 1) / (32 * V) : 0;
+  h.nvec = left < J ? static_cast<int>(left) : J;
+  return h;
+}
+
+// Hands this warp the block's chunks (blockIdx.x, blockIdx.x + gridDim.x,
+// ... of the table) one at a time until they run out: body(chunk) for
+// each.  `ticket` is the block's shared counter, zeroed before the block's
+// barrier; lane 0 takes the next ticket before the warp walks its chunk,
+// so the atomic overlaps the walk.
+template <typename Body>
+__device__ __forceinline__ void hub_walk(const Table& t, int* ticket, Body&& body) {
+  const int lane = threadIdx.x & 31;
+  int mine = lane == 0 ? atomicAdd(ticket, 1) : 0;
+  int64_t c = blockIdx.x + static_cast<int64_t>(__shfl_sync(kFullMask, mine, 0)) * gridDim.x;
+  while (c < t.n_chunks) {
+    mine = lane == 0 ? atomicAdd(ticket, 1) : 0;
+    body(c);
+    c = blockIdx.x + static_cast<int64_t>(__shfl_sync(kFullMask, mine, 0)) * gridDim.x;
+  }
+}
+
+// A hub kernel's shared memory: `smem` bytes of dynamic shared memory (the
+// card refuses more than it has), and the SM's whole carveout for it.
+template <typename Kernel>
+inline cudaError_t hub_attributes(Kernel kernel, size_t smem) {
+  if (smem > kSmemBlockMax) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// Host side of a hub launch: the combine's grid as `grids` gives it, the
+// chunk grid (one block per SM per K-slice, fewer where the chunks are
+// fewer) and the kernel's shared memory.  An arena above the card's limit
+// is refused (cudaErrorInvalidValue), never cut.
+template <typename Kernel>
+inline int hub_setup(Kernel kernel, size_t smem, int warps, int64_t n_chunks,
+                     int64_t n_split, int64_t k_width, int slice_width, dim3* grid,
+                     dim3* combine_grid) {
+  dim3 chunk_grid;
+  const int rc_grid = grids(n_chunks, n_split, k_width, slice_width, &chunk_grid,
+                            combine_grid);
+  if (rc_grid != cudaSuccess) return rc_grid;
+  cudaError_t err = hub_attributes(kernel, smem);
+  int dev = 0, n_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t want = (n_chunks + warps - 1) / warps;
+  *grid = dim3(static_cast<unsigned>(want < n_sm ? want : n_sm), chunk_grid.y);
+  return cudaSuccess;
+}
+
+// Warps an SM holds with `kernel` at `threads` a block and `smem` bytes of
+// dynamic shared memory (-1 if the card will not say).
+template <typename Kernel>
+inline int warps_per_sm(Kernel kernel, int threads, size_t smem) {
+  if (smem > 0 && hub_attributes(kernel, smem) != cudaSuccess) return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return blocks * threads / 32;
 }
 
 }  // namespace row_chunks

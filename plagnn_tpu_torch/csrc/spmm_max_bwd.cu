@@ -52,6 +52,10 @@
 // walk.  Narrow K does not occur on this path (K = 3,000 to 5,030); where it
 // would, the warp-per-chunk layout keeps a block's 4 warps on 4 chunks
 // rather than idle threads.
+// The hub instantiation (spmm_max_bwd_hub_kernel, id-based argmax;
+// row_chunks.cuh's hub section) reads the g and arg rows of the hub
+// destinations -- the transpose's k most-fetched rows -- from a
+// shared-memory arena of both (the JAX kernels' fused grad + arg arena).
 #include "row_chunks.cuh"
 
 namespace {
@@ -157,6 +161,68 @@ spmm_max_bwd_combine_kernel(const int* __restrict__ split_row,
   rc::combine_pass<T>(split_row, split_ptr, partial, dx, k_width);
 }
 
+// dx[row] += g[n] where arg[n] == row, with the hub destinations' g and arg
+// rows from the arena.
+template <typename T, typename ArgT, int V, int J>
+struct MaxBwdHubOp {
+  const T* g;
+  const ArgT* arg;
+  const T* g_arena;      // at this lane's first element
+  const ArgT* a_arena;   // at this lane's first element
+  int stride;
+  int64_t k_width;
+  int64_t k0;
+  int nvec;
+  int row;
+  rc::Vec<ArgT, V> a[rc::kUnroll][J];
+  rc::Vec<T, V> gv[rc::kUnroll][J];
+
+  __device__ __forceinline__ void begin(int r, int64_t, int) { row = r; }
+  __device__ __forceinline__ void load(int u, int n, int) {
+    rc::load_hub_row<ArgT, V, J>(a[u], arg, a_arena, n, k_width, k0, stride, nvec);
+    rc::load_hub_row<T, V, J>(gv[u], g, g_arena, n, k_width, k0, stride, nvec);
+  }
+  __device__ __forceinline__ void add(int u, float (&acc)[V * J]) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (j >= nvec) break;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        if (rc::get(a[u][j], i) == row) acc[j * V + i] += rc::get(gv[u][j], i);
+      }
+    }
+  }
+};
+
+// Warps of a hub block: the warps an SM holds of the kernel without the
+// hub (24 in float32, 16 in bfloat16; chip_smoke.py phase 3h prints both).
+template <typename T>
+constexpr int kHubWarps = sizeof(T) == 4 ? 24 : 16;
+
+template <typename T, typename ArgT, int V>
+__global__ void __launch_bounds__(32 * kHubWarps<T>, 1)
+spmm_max_bwd_hub_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
+                        rc::Table table, const int* __restrict__ idx,
+                        const int* __restrict__ ids, int hub_k, T* __restrict__ dx,
+                        float* __restrict__ partial, int64_t k_width) {
+  constexpr int J = rc::vectors_per_lane<T, V>();
+  __shared__ int ticket;
+  const rc::HubLane h = rc::hub_lane<V, J>(k_width);
+  const int stride = rc::hub_stride(k_width, 32 * V * J);
+  T* g_arena = reinterpret_cast<T*>(rc::hub_smem());
+  ArgT* a_arena = reinterpret_cast<ArgT*>(rc::hub_smem() +
+                                          rc::arena_bytes(hub_k, stride, sizeof(T)));
+  rc::fill_arena<T, V>(g_arena, g, ids, hub_k, stride, h.slice0, k_width);
+  rc::fill_arena<ArgT, V>(a_arena, arg, ids, hub_k, stride, h.slice0, k_width);
+  if (threadIdx.x == 0) ticket = 0;
+  __syncthreads();
+  MaxBwdHubOp<T, ArgT, V, J> op{g, arg, g_arena + h.lane * V, a_arena + h.lane * V,
+                                stride, k_width, h.k0, h.nvec};
+  rc::hub_walk(table, &ticket, [&](int64_t c) {
+    rc::chunk_body<T, V, J>(table, c, idx, h.lane, h.k0, h.nvec, k_width, dx, partial, op);
+  });
+}
+
 template <typename T, typename ArgT, int V, bool kPos>
 int launch_v(const void* g, const void* arg, const rc::Table& table,
              const int* t_dst, const int* split_row, const int* split_ptr,
@@ -231,6 +297,47 @@ int launch_arg(int arg_bits, bool positional, const void* g, const void* arg,
   }
 }
 
+template <typename T, typename ArgT, int V>
+int launch_hub_v(const void* g, const void* arg, const rc::Table& table, const int* idx,
+                 const int* ids, int hub_k, const int* split_row, const int* split_ptr,
+                 int64_t n_split, void* dx, void* partial, int64_t k_width,
+                 cudaStream_t stream) {
+  if constexpr (V * sizeof(T) > 16 || V * sizeof(ArgT) > 16) {
+    return cudaErrorInvalidValue;  // never chosen: vector_width caps V
+  } else {
+    constexpr int J = rc::vectors_per_lane<T, V>();
+    auto kernel = spmm_max_bwd_hub_kernel<T, ArgT, V>;
+    const size_t smem = rc::hub_smem_bytes<T, V>(k_width, hub_k, sizeof(ArgT));
+    dim3 grid, combine_grid;
+    const int rc_setup = rc::hub_setup(kernel, smem, kHubWarps<T>, table.n_chunks, n_split,
+                                       k_width, 32 * V * J, &grid, &combine_grid);
+    if (rc_setup != cudaSuccess) return rc_setup;
+    kernel<<<grid, 32 * kHubWarps<T>, smem, stream>>>(
+        static_cast<const T*>(g), static_cast<const ArgT*>(arg), table, idx, ids, hub_k,
+        static_cast<T*>(dx), static_cast<float*>(partial), k_width);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || n_split == 0) return err;
+    spmm_max_bwd_combine_kernel<T><<<combine_grid, rc::kCombineThreads, 0, stream>>>(
+        split_row, split_ptr, static_cast<const float*>(partial),
+        static_cast<T*>(dx), k_width);
+    return cudaGetLastError();
+  }
+}
+
+// warps[0], warps[1]: the warps an SM holds of the hub kernel and of the
+// kernel without the hub.
+template <typename T, typename ArgT, int V>
+int hub_warps_v(int64_t k_width, int hub_k, int* warps) {
+  if constexpr (V * sizeof(T) > 16 || V * sizeof(ArgT) > 16) {
+    return cudaErrorInvalidValue;
+  } else {
+    warps[0] = rc::warps_per_sm(spmm_max_bwd_hub_kernel<T, ArgT, V>, 32 * kHubWarps<T>,
+                                rc::hub_smem_bytes<T, V>(k_width, hub_k, sizeof(ArgT)));
+    warps[1] = rc::warps_per_sm(spmm_max_bwd_kernel<T, ArgT, V, false>, rc::kThreads, 0);
+    return cudaSuccess;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (spmm_max_bwd_f32), 1 = bfloat16 (spmm_max_bwd_bf16).
@@ -273,4 +380,58 @@ extern "C" int spmm_max_bwd(int dtype, int arg_bits, const void* g,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The hub instantiation of spmm_max_bwd (id-based argmax, 16 or 32 bits):
+// the transpose chunk table and split rows as spmm_max_bwd's, idx the
+// coded t_dst and ids its k slots' node ids (the transpose's
+// graph_format.HubTable).  Returns the CUDA error code of the launches.
+extern "C" int spmm_max_bwd_hub(int dtype, int arg_bits, const void* g, const void* arg,
+                                const void* chunk_row, const void* chunk_ptr,
+                                const void* chunk_slot, long long n_chunks,
+                                const void* idx, const void* ids, int hub_k,
+                                const void* split_row, const void* split_ptr,
+                                long long n_split, void* dx, void* partial,
+                                long long k_width, void* stream) {
+  if (n_chunks == 0 || k_width == 0) return cudaSuccess;
+  if (n_chunks > 2147483647LL || hub_k < 0) return cudaErrorInvalidValue;
+  const rc::Table table{static_cast<const int*>(chunk_row),
+                        static_cast<const int*>(chunk_ptr),
+                        static_cast<const int*>(chunk_slot),
+                        static_cast<int>(n_chunks)};
+  return rc::with_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    return rc::with_arg_bits(arg_bits, [&](auto a) {
+      using ArgT = decltype(a);
+      constexpr int es = sizeof(T);
+      constexpr int as = sizeof(ArgT);
+      const int v = rc::vector_width(k_width, es > as ? es : as,
+                                     {{g, es}, {arg, as}, {dx, es}, {partial, 4}});
+      return rc::with_vector_width(v, [&](auto vw) {
+        return launch_hub_v<T, ArgT, decltype(vw)::value>(
+            g, arg, table, static_cast<const int*>(idx), static_cast<const int*>(ids), hub_k,
+            static_cast<const int*>(split_row), static_cast<const int*>(split_ptr), n_split,
+            dx, partial, k_width, static_cast<cudaStream_t>(stream));
+      });
+    });
+  });
+}
+
+// The warps an SM holds of spmm_max_bwd_hub's kernel (warps[0]) and of
+// the kernel without the hub (warps[1]) at this dtype, argmax, K and k, as
+// the card's occupancy calculator gives them; launches nothing.
+extern "C" int spmm_max_bwd_hub_warps(int dtype, int arg_bits, long long k_width, int hub_k,
+                                      int* warps) {
+  return rc::with_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    return rc::with_arg_bits(arg_bits, [&](auto a) {
+      using ArgT = decltype(a);
+      constexpr int es = sizeof(T);
+      constexpr int as = sizeof(ArgT);
+      const int v = rc::vector_width(k_width, es > as ? es : as, {});
+      return rc::with_vector_width(v, [&](auto vw) {
+        return hub_warps_v<T, ArgT, decltype(vw)::value>(k_width, hub_k, warps);
+      });
+    });
+  });
 }

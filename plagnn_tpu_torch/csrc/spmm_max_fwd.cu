@@ -68,6 +68,12 @@
 // out and arg are bit-identical run to run.  The design it replaces, one
 // thread per (row, k) walking the whole row with 4-byte loads, walked the
 // hub row (in-degree 10,505) serially in each of its blocks.
+// The hub instantiation (spmm_max_fwd_hub_kernel: the id-based argmax, the
+// training path's forward; row_chunks.cuh's hub section) reads the hub
+// sources' rows from a shared-memory arena of the k most-fetched rows.  It
+// tracks each maximum's coded neighbour (-1 - slot for an arena row) with
+// the same compares, and stores the slot's node id (HubTable.ids) as the
+// argmax, so out and arg are bit-exact against the kernel without the hub.
 #include "row_chunks.cuh"
 
 namespace {
@@ -162,43 +168,40 @@ struct MaxFwdOp {
       }
     }
   }
+  // The sources as the argmax stores them (kPos: edge index -> rank within
+  // the chunk starting at edge beg).
+  __device__ __forceinline__ void finish(int beg, int) {
+    if (kPos) {
+#pragma unroll
+      for (int i = 0; i < V * J; ++i) src[i] = src[i] < 0 ? -1 : src[i] - beg;
+    }
+  }
 };
 
-// At least kMinBlocks blocks an SM (at most 128 registers a thread) binds
-// none of the instantiations (92 at most); without the hint ptxas squeezes
-// the bf16 16-byte form without the argmax into 64 registers and spills.
-constexpr int kMinBlocks = 4;
-
-template <typename T, typename ArgT, int V, bool kWithArg, bool kPos>
-__global__ void __launch_bounds__(rc::kThreads, kMinBlocks)
-spmm_max_fwd_kernel(const T* __restrict__ x, rc::Table t,
-                    const int* __restrict__ src, T* __restrict__ out,
-                    ArgT* __restrict__ arg, float* __restrict__ partial_val,
-                    int* __restrict__ partial_src, int64_t k_width,
-                    float empty_value, PosArgs pos) {
-  constexpr int J = rc::vectors_per_lane<T, V>();
-  const int lane = threadIdx.x & 31;
-  const int64_t chunk =
-      static_cast<int64_t>(blockIdx.x) * rc::kWarps + (threadIdx.x >> 5);
-  if (chunk >= t.n_chunks) return;  // the whole warp
-  const int64_t k0 = (static_cast<int64_t>(blockIdx.y) * 32 * J + lane) * V;
-  const int64_t left = k_width > k0 ? (k_width - k0 + 32 * V - 1) / (32 * V) : 0;
-  const int nvec = left < J ? static_cast<int>(left) : J;
+// One chunk's first maximum and its store, spmm_max_fwd_kernel's and the
+// hub kernel's: the walk, op.finish, then the row's out and arg or the
+// chunk's partial slot.  An empty chunk (empty row) keeps empty_value and
+// source -1; a split row's chunks are never empty, so the combine never
+// sees it.
+template <typename T, typename ArgT, int V, int J, bool kWithArg, bool kPos, typename Op>
+__device__ __forceinline__ void max_fwd_chunk(const rc::Table& t, int64_t chunk,
+                                              const int* __restrict__ idx, int lane,
+                                              int64_t k0, int nvec, Op& op,
+                                              T* __restrict__ out, ArgT* __restrict__ arg,
+                                              float* __restrict__ partial_val,
+                                              int* __restrict__ partial_src,
+                                              int64_t k_width, float empty_value,
+                                              const PosArgs& pos) {
   const int row = __ldg(t.row + chunk);
-  MaxFwdOp<T, V, J, kWithArg, kPos> op{x, k_width};
   op.begin(k0, nvec);
-  // An empty chunk (empty row) keeps empty_value and source -1; a split
-  // row's chunks are never empty, so the combine never sees it.
   float best[V * J];
 #pragma unroll
   for (int i = 0; i < V * J; ++i) best[i] = empty_value;
   const int beg = __ldg(t.ptr + chunk);
-  rc::walk_chunk(src, beg, __ldg(t.ptr + chunk + 1), lane, nvec > 0, op, best);
+  const int end = __ldg(t.ptr + chunk + 1);
+  rc::walk_chunk(idx, beg, end, lane, nvec > 0, op, best);
   const int slot = __ldg(t.slot + chunk);
-  if (kPos) {  // edge index -> rank within the chunk
-#pragma unroll
-    for (int i = 0; i < V * J; ++i) op.src[i] = op.src[i] < 0 ? -1 : op.src[i] - beg;
-  }
+  op.finish(beg, end);
   // a whole mega row (rank_cap below the chunk size): rank -> (segment, rank)
   const int m = kPos && slot < 0 ? mega_index(pos, row) : -1;
 #pragma unroll
@@ -224,6 +227,86 @@ spmm_max_fwd_kernel(const T* __restrict__ x, rc::Table t,
       if (kWithArg) store_ints<int32_t, V>(partial_src + o, op.src + j * V);
     }
   }
+}
+
+// At least kMinBlocks blocks an SM (at most 128 registers a thread) binds
+// none of the instantiations (92 at most); without the hint ptxas squeezes
+// the bf16 16-byte form without the argmax into 64 registers and spills.
+constexpr int kMinBlocks = 4;
+
+template <typename T, typename ArgT, int V, bool kWithArg, bool kPos>
+__global__ void __launch_bounds__(rc::kThreads, kMinBlocks)
+spmm_max_fwd_kernel(const T* __restrict__ x, rc::Table t,
+                    const int* __restrict__ src, T* __restrict__ out,
+                    ArgT* __restrict__ arg, float* __restrict__ partial_val,
+                    int* __restrict__ partial_src, int64_t k_width,
+                    float empty_value, PosArgs pos) {
+  constexpr int J = rc::vectors_per_lane<T, V>();
+  const int lane = threadIdx.x & 31;
+  const int64_t chunk =
+      static_cast<int64_t>(blockIdx.x) * rc::kWarps + (threadIdx.x >> 5);
+  if (chunk >= t.n_chunks) return;  // the whole warp
+  const int64_t k0 = (static_cast<int64_t>(blockIdx.y) * 32 * J + lane) * V;
+  const int64_t left = k_width > k0 ? (k_width - k0 + 32 * V - 1) / (32 * V) : 0;
+  const int nvec = left < J ? static_cast<int>(left) : J;
+  MaxFwdOp<T, V, J, kWithArg, kPos> op{x, k_width};
+  max_fwd_chunk<T, ArgT, V, J, kWithArg, kPos>(t, chunk, src, lane, k0, nvec, op, out, arg,
+                                               partial_val, partial_src, k_width,
+                                               empty_value, pos);
+}
+
+// MaxFwdOp (id-based argmax) with the hub sources' rows from the arena:
+// `src` holds coded neighbours until `finish` turns them into node ids.
+template <typename T, int V, int J>
+struct MaxFwdHubOp : MaxFwdOp<T, V, J, true, false> {
+  const T* arena;  // at this lane's first element
+  int stride;
+  const int* ids;
+
+  __device__ __forceinline__ void load(int u, int s, int) {
+    this->nbr[u] = s;
+    rc::load_hub_row<T, V, J>(this->val[u], this->x, arena, s, this->k_width, this->k0,
+                              stride, this->nvec);
+  }
+  // coded neighbours -> node ids, for a chunk with edges (an empty chunk
+  // keeps -1)
+  __device__ __forceinline__ void finish(int beg, int end) {
+    if (beg < end) {
+#pragma unroll
+      for (int i = 0; i < V * J; ++i) {
+        if (this->src[i] < 0) this->src[i] = __ldg(ids + (-1 - this->src[i]));
+      }
+    }
+  }
+};
+
+// Warps of a hub block: the warps an SM holds of the kernel without the
+// hub (28 in float32, 20 in bfloat16; chip_smoke.py phase 3h prints both).
+template <typename T>
+constexpr int kHubWarps = sizeof(T) == 4 ? 28 : 20;
+
+template <typename T, typename ArgT, int V>
+__global__ void __launch_bounds__(32 * kHubWarps<T>, 1)
+spmm_max_fwd_hub_kernel(const T* __restrict__ x, rc::Table table,
+                        const int* __restrict__ idx, const int* __restrict__ ids,
+                        int hub_k, T* __restrict__ out, ArgT* __restrict__ arg,
+                        float* __restrict__ partial_val, int* __restrict__ partial_src,
+                        int64_t k_width, float empty_value) {
+  constexpr int J = rc::vectors_per_lane<T, V>();
+  __shared__ int ticket;
+  const rc::HubLane h = rc::hub_lane<V, J>(k_width);
+  const int stride = rc::hub_stride(k_width, 32 * V * J);
+  T* arena = reinterpret_cast<T*>(rc::hub_smem());
+  rc::fill_arena<T, V>(arena, x, ids, hub_k, stride, h.slice0, k_width);
+  if (threadIdx.x == 0) ticket = 0;
+  __syncthreads();
+  MaxFwdHubOp<T, V, J> op{{x, k_width}, arena + h.lane * V, stride, ids};
+  const PosArgs none{nullptr, nullptr, 0, 0};
+  rc::hub_walk(table, &ticket, [&](int64_t c) {
+    max_fwd_chunk<T, ArgT, V, J, true, false>(table, c, idx, h.lane, h.k0, h.nvec, op, out,
+                                              arg, partial_val, partial_src, k_width,
+                                              empty_value, none);
+  });
 }
 
 // Split row blockIdx.x, one k per thread: the first maximum over the row's
@@ -365,6 +448,52 @@ int launch_arg(int arg_bits, bool positional, const void* x, const rc::Table& ta
   }
 }
 
+template <typename T, typename ArgT, int V>
+int launch_hub_v(const void* x, const rc::Table& table, const int* idx, const int* ids,
+                 int hub_k, const int* split_row, const int* split_ptr, int64_t n_split,
+                 void* out, void* arg, void* partial_val, void* partial_src,
+                 int64_t k_width, float empty_value, cudaStream_t stream) {
+  if constexpr (V * sizeof(T) > 16) {
+    return cudaErrorInvalidValue;  // never chosen: vector_width caps V
+  } else {
+    constexpr int J = rc::vectors_per_lane<T, V>();
+    auto kernel = spmm_max_fwd_hub_kernel<T, ArgT, V>;
+    const size_t smem = rc::hub_smem_bytes<T, V>(k_width, hub_k);
+    dim3 grid, combine_grid;
+    const int rc_setup = rc::hub_setup(kernel, smem, kHubWarps<T>, table.n_chunks, n_split,
+                                       k_width, 32 * V * J, &grid, &combine_grid);
+    if (rc_setup != cudaSuccess) return rc_setup;
+    kernel<<<grid, 32 * kHubWarps<T>, smem, stream>>>(
+        static_cast<const T*>(x), table, idx, ids, hub_k, static_cast<T*>(out),
+        static_cast<ArgT*>(arg), static_cast<float*>(partial_val),
+        static_cast<int*>(partial_src), k_width, empty_value);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || n_split == 0) return err;
+    const PosArgs none{nullptr, nullptr, 0, 0};
+    spmm_max_fwd_combine_kernel<T, ArgT, true, false>
+        <<<combine_grid, rc::kCombineThreads, 0, stream>>>(
+            split_row, split_ptr, static_cast<const float*>(partial_val),
+            static_cast<const int*>(partial_src), static_cast<T*>(out),
+            static_cast<ArgT*>(arg), k_width, none);
+    return cudaGetLastError();
+  }
+}
+
+// warps[0], warps[1]: the warps an SM holds of the hub kernel and of the
+// kernel without the hub.
+template <typename T, typename ArgT, int V>
+int hub_warps_v(int64_t k_width, int hub_k, int* warps) {
+  if constexpr (V * sizeof(T) > 16) {
+    return cudaErrorInvalidValue;
+  } else {
+    warps[0] = rc::warps_per_sm(spmm_max_fwd_hub_kernel<T, ArgT, V>, 32 * kHubWarps<T>,
+                                rc::hub_smem_bytes<T, V>(k_width, hub_k));
+    warps[1] = rc::warps_per_sm(spmm_max_fwd_kernel<T, ArgT, V, true, false>, rc::kThreads,
+                                0);
+    return cudaSuccess;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  arg_bits: 0 (no argmax; arg and
@@ -411,4 +540,56 @@ extern "C" int spmm_max_fwd(int dtype, int arg_bits, const void* x,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The hub instantiation of spmm_max_fwd (with the id-based argmax, 16 or 32
+// bits): the chunk table and split rows as spmm_max_fwd's, idx the coded
+// src and ids its k slots' node ids (the forward's graph_format.HubTable).
+// Returns the CUDA error code of the launches.
+extern "C" int spmm_max_fwd_hub(int dtype, int arg_bits, const void* x,
+                                const void* chunk_row, const void* chunk_ptr,
+                                const void* chunk_slot, long long n_chunks,
+                                const void* idx, const void* ids, int hub_k,
+                                const void* split_row, const void* split_ptr,
+                                long long n_split, void* out, void* arg, void* partial_val,
+                                void* partial_src, long long k_width, float empty_value,
+                                void* stream) {
+  if (n_chunks == 0 || k_width == 0) return cudaSuccess;
+  if (n_chunks > 2147483647LL || hub_k < 0) return cudaErrorInvalidValue;
+  const rc::Table table{static_cast<const int*>(chunk_row),
+                        static_cast<const int*>(chunk_ptr),
+                        static_cast<const int*>(chunk_slot),
+                        static_cast<int>(n_chunks)};
+  return rc::with_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    return rc::with_arg_bits(arg_bits, [&](auto a) {
+      using ArgT = decltype(a);
+      constexpr int es = sizeof(T);
+      constexpr int as = sizeof(ArgT);
+      const int v = rc::vector_width(
+          k_width, es, {{x, es}, {out, es}, {arg, as}, {partial_val, 4}, {partial_src, 4}});
+      return rc::with_vector_width(v, [&](auto vw) {
+        return launch_hub_v<T, ArgT, decltype(vw)::value>(
+            x, table, static_cast<const int*>(idx), static_cast<const int*>(ids), hub_k,
+            static_cast<const int*>(split_row), static_cast<const int*>(split_ptr), n_split,
+            out, arg, partial_val, partial_src, k_width, empty_value,
+            static_cast<cudaStream_t>(stream));
+      });
+    });
+  });
+}
+
+// The warps an SM holds of spmm_max_fwd_hub's kernel (warps[0]) and of
+// the kernel without the hub (warps[1]) at this dtype, argmax, K and k, as
+// the card's occupancy calculator gives them; launches nothing.
+extern "C" int spmm_max_fwd_hub_warps(int dtype, int arg_bits, long long k_width, int hub_k,
+                                      int* warps) {
+  return rc::with_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    return rc::with_arg_bits(arg_bits, [&](auto a) {
+      return rc::with_vector_width(rc::vector_width(k_width, sizeof(T), {}), [&](auto vw) {
+        return hub_warps_v<T, decltype(a), decltype(vw)::value>(k_width, hub_k, warps);
+      });
+    });
+  });
 }

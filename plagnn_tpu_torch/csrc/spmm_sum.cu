@@ -111,6 +111,55 @@ spmm_sum_combine_kernel(const int* __restrict__ split_row,
   rc::combine_pass<T>(split_row, split_ptr, partial, out, k_width);
 }
 
+// out[row] += x[src] for each edge, with the hub edges' rows from the arena.
+template <typename T, int V, int J>
+struct SumHubOp {
+  const T* x;
+  const T* arena;  // at this lane's first element
+  int stride;
+  int64_t k_width;
+  int64_t k0;
+  int nvec;
+  rc::Vec<T, V> val[rc::kUnroll][J];
+
+  __device__ __forceinline__ void begin(int, int64_t, int) {}
+  __device__ __forceinline__ void load(int u, int nbr, int) {
+    rc::load_hub_row<T, V, J>(val[u], x, arena, nbr, k_width, k0, stride, nvec);
+  }
+  __device__ __forceinline__ void add(int u, float (&acc)[V * J]) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (j >= nvec) break;
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[j * V + i] += rc::get(val[u][j], i);
+    }
+  }
+};
+
+// Warps of a hub block: the warps an SM holds of the kernel without the
+// hub (32 in float32, 28 in bfloat16; chip_smoke.py phase 3h prints both).
+template <typename T>
+constexpr int kHubWarps = sizeof(T) == 4 ? 32 : 28;
+
+template <typename T, int V>
+__global__ void __launch_bounds__(32 * kHubWarps<T>, 1)
+spmm_sum_hub_kernel(const T* __restrict__ x, rc::Table table, const int* __restrict__ idx,
+                    const int* __restrict__ ids, int hub_k, T* __restrict__ out,
+                    float* __restrict__ partial, int64_t k_width) {
+  constexpr int J = rc::vectors_per_lane<T, V>();
+  __shared__ int ticket;
+  const rc::HubLane h = rc::hub_lane<V, J>(k_width);
+  const int stride = rc::hub_stride(k_width, 32 * V * J);
+  T* arena = reinterpret_cast<T*>(rc::hub_smem());
+  rc::fill_arena<T, V>(arena, x, ids, hub_k, stride, h.slice0, k_width);
+  if (threadIdx.x == 0) ticket = 0;
+  __syncthreads();
+  SumHubOp<T, V, J> op{x, arena + h.lane * V, stride, k_width, h.k0, h.nvec};
+  rc::hub_walk(table, &ticket, [&](int64_t c) {
+    rc::chunk_body<T, V, J>(table, c, idx, h.lane, h.k0, h.nvec, k_width, out, partial, op);
+  });
+}
+
 template <typename T, int V>
 int launch_v(const void* x, const rc::Table& table, const int* idx, const float* weight,
              const int* split_row, const int* split_ptr, int64_t n_split,
@@ -163,6 +212,46 @@ int launch(const void* x, const rc::Table& table, const int* idx, const float* w
   }
 }
 
+template <typename T, int V>
+int launch_hub_v(const void* x, const rc::Table& table, const int* idx, const int* ids,
+                 int hub_k, const int* split_row, const int* split_ptr, int64_t n_split,
+                 void* out, void* partial, int64_t k_width, cudaStream_t stream) {
+  if constexpr (V * sizeof(T) > 16) {
+    return cudaErrorInvalidValue;  // never chosen: vector_width caps V
+  } else {
+    constexpr int J = rc::vectors_per_lane<T, V>();
+    auto kernel = spmm_sum_hub_kernel<T, V>;
+    const size_t smem = rc::hub_smem_bytes<T, V>(k_width, hub_k);
+    dim3 grid, combine_grid;
+    const int rc_setup = rc::hub_setup(kernel, smem, kHubWarps<T>, table.n_chunks, n_split,
+                                       k_width, 32 * V * J, &grid, &combine_grid);
+    if (rc_setup != cudaSuccess) return rc_setup;
+    kernel<<<grid, 32 * kHubWarps<T>, smem, stream>>>(
+        static_cast<const T*>(x), table, idx, ids, hub_k, static_cast<T*>(out),
+        static_cast<float*>(partial), k_width);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || n_split == 0) return err;
+    spmm_sum_combine_kernel<T><<<combine_grid, rc::kCombineThreads, 0, stream>>>(
+        split_row, split_ptr, static_cast<const float*>(partial),
+        static_cast<T*>(out), k_width);
+    return cudaGetLastError();
+  }
+}
+
+// warps[0], warps[1]: the warps an SM holds of the hub kernel and of the
+// kernel without the hub.
+template <typename T, int V>
+int hub_warps_v(int64_t k_width, int hub_k, int* warps) {
+  if constexpr (V * sizeof(T) > 16) {
+    return cudaErrorInvalidValue;
+  } else {
+    warps[0] = rc::warps_per_sm(spmm_sum_hub_kernel<T, V>, 32 * kHubWarps<T>,
+                                rc::hub_smem_bytes<T, V>(k_width, hub_k));
+    warps[1] = rc::warps_per_sm(spmm_sum_kernel<T, V, false>, rc::kThreads, 0);
+    return cudaSuccess;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  (chunk_row, chunk_ptr, chunk_slot,
@@ -198,4 +287,44 @@ extern "C" int spmm_sum(int dtype, const void* x, const void* chunk_row,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The hub instantiation of spmm_sum (unweighted): the chunk table and
+// split rows as spmm_sum's, idx the direction's coded neighbour index and
+// ids its k slots' node ids (graph_format.HubTable).  Returns the CUDA
+// error code of the launches.
+extern "C" int spmm_sum_hub(int dtype, const void* x, const void* chunk_row,
+                            const void* chunk_ptr, const void* chunk_slot,
+                            long long n_chunks, const void* idx, const void* ids, int hub_k,
+                            const void* split_row, const void* split_ptr, long long n_split,
+                            void* out, void* partial, long long k_width, void* stream) {
+  if (n_chunks == 0 || k_width == 0) return cudaSuccess;
+  if (n_chunks > 2147483647LL || hub_k < 0) return cudaErrorInvalidValue;
+  const rc::Table table{static_cast<const int*>(chunk_row),
+                        static_cast<const int*>(chunk_ptr),
+                        static_cast<const int*>(chunk_slot),
+                        static_cast<int>(n_chunks)};
+  return rc::with_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    constexpr int es = sizeof(T);
+    const int v = rc::vector_width(k_width, es, {{x, es}, {out, es}, {partial, 4}});
+    return rc::with_vector_width(v, [&](auto vw) {
+      return launch_hub_v<T, decltype(vw)::value>(
+          x, table, static_cast<const int*>(idx), static_cast<const int*>(ids), hub_k,
+          static_cast<const int*>(split_row), static_cast<const int*>(split_ptr), n_split,
+          out, partial, k_width, static_cast<cudaStream_t>(stream));
+    });
+  });
+}
+
+// The warps an SM holds of spmm_sum_hub's kernel (warps[0]) and of the
+// kernel without the hub (warps[1]) at this dtype, K and k, as the card's
+// occupancy calculator gives them; launches nothing.
+extern "C" int spmm_sum_hub_warps(int dtype, long long k_width, int hub_k, int* warps) {
+  return rc::with_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    return rc::with_vector_width(rc::vector_width(k_width, sizeof(T), {}), [&](auto vw) {
+      return hub_warps_v<T, decltype(vw)::value>(k_width, hub_k, warps);
+    });
+  });
 }

@@ -31,6 +31,11 @@ Differences from the JAX container:
   JAX package moves the row's edges to sub-rows in spare padding slots).
   ``t_rank`` gives each transpose edge its forward rank, so the backward
   tests ranks and reads no node id; the argmax stays int16 at any size.
+* The hub cache (``build_blocked_csr(hub_k)``'s ``HubStream``; here
+  ``HubTable``, ``build_graph(hub_k=, hub_k_bwd=)`` or ``Graph.with_hub``)
+  keeps the JAX choice of rows, the k most-fetched sources of a direction,
+  but no second edge stream: a hub edge stays in its place in the (dst,
+  src) order, and its index names an arena slot in place of a node.
 """
 from __future__ import annotations
 
@@ -118,6 +123,69 @@ def chunk_table(indptr: np.ndarray, cap: int, device=None) -> RowChunks:
                      cap=cap, n_slots=int(split_ptr[-1]))
 
 
+def _to_device(obj, device):
+    """A copy of a frozen dataclass with its tensors on ``device``."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), (torch.Tensor, RowChunks, HubTable))})
+
+
+@dataclasses.dataclass(frozen=True)
+class HubTable:
+    """One direction's hub cache: the ``k`` most-fetched rows of the
+    gathered operand, read by the hub kernels from a shared-memory arena in
+    place of device memory (``plagnn_tpu/ops/pallas/spmm_kernels.py:
+    HubStream``, ``build_blocked_csr(hub_k)`` :384-415).
+
+    ids:   (k,)  int32 node id of each arena slot: the rows by descending
+           fetch count (ties to the lower id), rows fetched by no edge
+           dropped, padded with the dummy node ``N_pad - 1`` -- the JAX
+           package's ``HubStream.ids[:k]`` for the same edges.
+    idx:   (E,)  int32 the direction's neighbour index (``Graph.src``
+           forward, ``Graph.t_dst`` transpose) with each hub edge's entry
+           replaced by ``-1 - slot``.
+    n_hub: slots that hold a fetched row; the rest hold the dummy.
+    n_covered: edges whose row the arena serves.
+
+    The map from an edge to its slot is folded into the index the kernels
+    already load, 32 edges at a time, and shuffle to the warp: a hub edge
+    costs no byte and no load beyond the kernel without the hub (a per-edge
+    int16 slot array would add 2 bytes and a load per 32 edges; a per-node
+    ``slot_of`` one more dependent gather a chunk).  The max forward reads
+    ``ids`` once a chunk to store a hub edge's source as the argmax.
+    """
+
+    ids: torch.Tensor
+    idx: torch.Tensor
+    k: int
+    n_hub: int
+    n_covered: int
+
+    def to(self, device) -> "HubTable":
+        return _to_device(self, device)
+
+
+def hub_table(nbr: np.ndarray, n_pad: int, k: int, device=None) -> HubTable:
+    """The hub table of k slots over one direction's neighbour index
+    ``nbr`` (edges in that direction's CSR order)."""
+    nbr = np.asarray(nbr, np.int64)
+    fetch = np.bincount(nbr, minlength=n_pad)
+    top = np.argsort(-fetch, kind="stable")[:k]
+    top = top[fetch[top] > 0]
+    ids = np.full(k, n_pad - 1, np.int64)
+    ids[:len(top)] = top
+    slot_of = np.full(n_pad, -1, np.int64)
+    slot_of[top] = np.arange(len(top))
+    slot = slot_of[nbr]
+
+    def i32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+
+    return HubTable(ids=i32(ids), idx=i32(np.where(slot >= 0, -1 - slot, nbr)), k=k,
+                    n_hub=len(top), n_covered=int((slot >= 0).sum()))
+
+
 @dataclasses.dataclass(frozen=True)
 class Graph:
     """Destination-sorted CSR plus its transpose, as int32 tensors.
@@ -139,6 +207,10 @@ class Graph:
     mega_of:    (N_pad,) mega row m's index m, -1 elsewhere; None where
                 no row is a mega row.
     n_mega:     the number of mega rows, the side table's rows.
+
+    Hub cache (``with_hub``): ``hub`` serves the forward (the max forward
+    and the sum), ``t_hub`` the transpose (the max backward and the sum's
+    VJP); None where that direction has none.
     """
 
     src: torch.Tensor
@@ -160,18 +232,33 @@ class Graph:
     mega_of: Optional[torch.Tensor] = None
     n_mega: int = 0
     rank_cap: int = POS_RANK_CAP
+    hub: Optional[HubTable] = None
+    t_hub: Optional[HubTable] = None
 
     @property
     def device(self) -> torch.device:
         return self.src.device
 
     def to(self, device) -> "Graph":
-        fields = {
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), (torch.Tensor, RowChunks))
-        }
-        return dataclasses.replace(self, **fields)
+        return _to_device(self, device)
+
+    def with_hub(self, k_fwd: int, k_bwd: int) -> "Graph":
+        """This graph with a hub cache of ``k_fwd`` rows on the forward and
+        ``k_bwd`` on the transpose (0: none), for a graph built before the
+        run's configuration was known (``data/artifacts.py``).  A positional
+        graph takes no hub, as in the JAX package
+        (``build_pallas_graph``'s assertion, spmm_kernels.py:1784-1785)."""
+        k_fwd, k_bwd = int(k_fwd), int(k_bwd)
+        if k_fwd < 0 or k_bwd < 0:
+            raise ValueError(f"hub sizes must be >= 0, got ({k_fwd}, {k_bwd})")
+        if self.positional and (k_fwd or k_bwd):
+            raise ValueError("the positional argmax takes no hub cache (as in the JAX "
+                             "package); build the graph with positional=False")
+        def table(nbr, k):
+            return hub_table(nbr.cpu().numpy(), self.n_nodes, k, self.device) if k else None
+
+        return dataclasses.replace(self, hub=table(self.src, k_fwd),
+                                   t_hub=table(self.t_dst, k_bwd))
 
 
 def _csr(rows: np.ndarray, cols: np.ndarray, n: int):
@@ -194,6 +281,8 @@ def build_graph(
     row_chunk: int = ROW_CHUNK,
     edge_val: Optional[np.ndarray] = None,
     positional: Optional[bool] = None,
+    hub_k: int = 0,
+    hub_k_bwd: int = 0,
     device: Optional[torch.device] = None,
 ) -> Graph:
     """Host-side graph construction (``dgl.graph + dgl.add_self_loop``);
@@ -201,7 +290,9 @@ def build_graph(
     holds; ``edge_val`` (one value per edge, float32) gives ``val`` and
     ``t_val``, sorted with the edges.  ``positional`` records the max's
     argmax as ranks within rows (``t_rank``, ``mega_of``); None turns it on
-    exactly when N_pad > 2^15, as ``build_pallas_graph`` does."""
+    exactly when N_pad > 2^15, as ``build_pallas_graph`` does.  ``hub_k`` /
+    ``hub_k_bwd`` give the forward / transpose a hub cache of that many
+    rows (``Graph.with_hub``; ``build_pallas_graph(hub_k=, hub_k_bwd=)``)."""
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     if edge_val is not None:
@@ -254,7 +345,7 @@ def build_graph(
     def f32(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
 
-    return Graph(
+    graph = Graph(
         src=i32(src_s),
         dst=i32(dst_s),
         indptr=i32(indptr),
@@ -271,6 +362,7 @@ def build_graph(
         t_val=None if edge_val is None else f32(edge_val[t_order]),
         **pos,
     )
+    return graph.with_hub(hub_k, hub_k_bwd) if hub_k or hub_k_bwd else graph
 
 
 def from_scipy_coo(mat, **kwargs) -> Graph:

@@ -33,6 +33,18 @@ All three walk the graph's row chunks (``Graph.chunks`` / ``t_chunks``,
 and a float32 scratch for the partials of split rows (the max forward also
 an int32 scratch for the partials' sources).
 
+The hub cache (``Graph.hub`` / ``t_hub``, ``graph_format.HubTable``;
+``Graph.with_hub``): where the graph carries a direction's hub table, the
+wrapper launches that kernel's hub instantiation, which reads the hub
+edges' rows from a shared-memory arena of the k most-fetched rows
+(counted as ``*_hub_*``): the max forward that records the argmax, the max
+backward, and the unweighted sum in either direction.  The forward without
+the argmax and the weighted sum (``use_val``; an XLA sum with no hub in the
+JAX package) run the kernels without the hub on any graph.  Each plain
+version reads the same arena, ``x[ids]``, in place of ``x[src]`` for the
+hub edges, so the CPU tests run the hub's tables; its result is the one
+without the hub, bit for bit.
+
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.  ``LAUNCHES`` counts the kernel
 launches, so a run can show that its path went through the kernels, and
@@ -47,7 +59,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .graph_format import Graph
+from .graph_format import Graph, HubTable
 
 # spmm_max_fwd_* count forwards that record the argmax (the training
 # path), spmm_max_fwd_noarg_* those that do not; *_empty_* those whose
@@ -76,6 +88,15 @@ LAUNCHES: Dict[str, int] = {
     "spmm_sum_val_fwd_bf16": 0,
     "spmm_sum_val_bwd_f32": 0,
     "spmm_sum_val_bwd_bf16": 0,
+    # the hub cache (a graph with Graph.hub / t_hub)
+    "spmm_max_fwd_hub_f32": 0,
+    "spmm_max_fwd_hub_bf16": 0,
+    "spmm_max_bwd_hub_f32": 0,
+    "spmm_max_bwd_hub_bf16": 0,
+    "spmm_sum_fwd_hub_f32": 0,
+    "spmm_sum_fwd_hub_bf16": 0,
+    "spmm_sum_bwd_hub_f32": 0,
+    "spmm_sum_bwd_hub_bf16": 0,
 }
 
 # LAUNCHES by (counter, graph rows, graph edges, K): which shapes a run
@@ -176,25 +197,44 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 #                 n_split, out, partial, k, stream
 # where <chunk table> is chunk_row, chunk_ptr, chunk_slot, n_chunks, and
 # <positional> is positional (int), mega_of, seg (the argmax's side table),
-# rank_cap (int).
+# rank_cap (int).  The hub entries (*_hub) take <hub> = <chunk table>,
+# idx (the coded index), ids, hub_k (int) in place of the chunk table and
+# index:
+#   spmm_max_fwd_hub: dtype, arg_bits, x, <hub>, split_row, split_ptr,
+#                     n_split, out, arg, partial_val, partial_src, k,
+#                     empty_value (float), stream
+#   spmm_max_bwd_hub: dtype, arg_bits, g, arg, <hub>, split_row, split_ptr,
+#                     n_split, dx, partial, k, stream
+#   spmm_sum_hub:     dtype, x, <hub>, split_row, split_ptr, n_split, out,
+#                     partial, k, stream
+# and *_hub_warps (dtype, [arg_bits,] k, hub_k, a pointer to two ints)
+# launch nothing: they get the warps an SM holds with and without the hub.
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _CHUNKS = [_P, _P, _P, _LL]
 _POS = [_I, _P, _P, _I]
+_HUB = [*_CHUNKS, _P, _P, _I]
+_SPLIT = [_P, _P, _LL]
 _ARGTYPES = {
     "spmm_max_fwd": [_I, _I, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _P, _P, _LL, _F,
                      *_POS, _I, _P],
     "spmm_max_bwd": [_I, _I, _P, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, *_POS, _P, _P],
     "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _P, _LL, _P, _P, _LL, _P],
+    "spmm_max_fwd_hub": [_I, _I, _P, *_HUB, *_SPLIT, _P, _P, _P, _P, _LL, _F, _P],
+    "spmm_max_bwd_hub": [_I, _I, _P, _P, *_HUB, *_SPLIT, _P, _P, _LL, _P],
+    "spmm_sum_hub": [_I, _P, *_HUB, *_SPLIT, _P, _P, _LL, _P],
+    "spmm_max_fwd_hub_warps": [_I, _I, _LL, _I, _P],
+    "spmm_max_bwd_hub_warps": [_I, _I, _LL, _I, _P],
+    "spmm_sum_hub_warps": [_I, _LL, _I, _P],
 }
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    """The kernel library, its entry point's signature declared."""
-    lib = _build.load(name)
-    fn = getattr(lib, name)
-    fn.argtypes = _ARGTYPES[name]
+def _fn(lib_name: str, fn_name: Optional[str] = None):
+    """An entry point of a kernel library (by default the one named after
+    it), its signature declared."""
+    fn = getattr(_build.load(lib_name), fn_name or lib_name)
+    fn.argtypes = _ARGTYPES[fn_name or lib_name]
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _chunk_args(graph: Graph, transpose: bool, k: int, device):
@@ -237,6 +277,63 @@ def _row_chunks(indptr: np.ndarray, k: int):
         r0 = r1
 
 
+def _coded_rows(t: torch.Tensor, coded: torch.Tensor, hub: Optional[HubTable]):
+    """(rows of t for a run of a direction's neighbour entries, their node
+    ids): ``t[nbr]``, where a hub edge (``HubTable.idx``'s -1 - slot) reads
+    the arena ``t[ids]`` at its slot."""
+    coded = coded.long()
+    if hub is None:
+        return t[coded], coded
+    slot = -1 - coded
+    on = slot >= 0
+    ids = hub.ids.long()
+    rows = t[coded.clamp(min=0)]
+    rows[on] = t[ids][slot[on]]
+    return rows, torch.where(on, ids[slot.clamp(min=0)], coded)
+
+
+def _node_rows(t: torch.Tensor, nodes: torch.Tensor, hub: Optional[HubTable]):
+    """``t[nodes]``, the hub's rows read from its arena ``t[ids]`` (for a
+    plain version that walks the other direction's edge order)."""
+    nodes = nodes.long()
+    if hub is None:
+        return t[nodes]
+    slot_of = torch.full((t.shape[0],), -1, dtype=torch.long, device=t.device)
+    slot_of[hub.ids[:hub.n_hub].long()] = torch.arange(hub.n_hub, device=t.device)
+    slot = slot_of[nodes]
+    on = slot >= 0
+    rows = t[nodes]
+    rows[on] = t[hub.ids.long()][slot[on]]
+    return rows
+
+
+def _hub_args(chunks, hub: HubTable):
+    """The hub entries' arguments from ``_chunk_args``'s: the chunk table,
+    the direction's coded index in place of its index, the slots' ids and
+    k, the split rows."""
+    return (*chunks[:4], hub.idx.data_ptr(), hub.ids.data_ptr(), hub.k, *chunks[5:])
+
+
+def hub_warps(kind: str, dtype: torch.dtype, k_width: int, hub_k: int,
+              arg_type: torch.dtype = torch.int16) -> Tuple[int, int]:
+    """(warps an SM holds with the hub, without it) for ``kind``
+    ("max_fwd", "max_bwd", "sum") at this dtype, K and arena of ``hub_k``
+    rows, as the card's occupancy calculator gives them; launches nothing.
+    Needs the card and the built library."""
+    code = _DTYPE_CODE[dtype][0]
+    warps = (ctypes.c_int * 2)()
+    if kind in ("max_fwd", "max_bwd"):
+        rc = _fn(f"spmm_{kind}", f"spmm_{kind}_hub_warps")(
+            code, _ARG_BITS[arg_type], k_width, int(hub_k), warps)
+    elif kind == "sum":
+        rc = _fn("spmm_sum", "spmm_sum_hub_warps")(code, k_width, int(hub_k), warps)
+    else:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    if rc != 0:
+        raise RuntimeError(f"{kind} occupancy query failed: CUDA error {rc}")
+    return warps[0], warps[1]
+
+
 # ---------------------------------------------------------------------------
 # Forward: segment max with first-maximum argmax.
 # ---------------------------------------------------------------------------
@@ -255,7 +352,8 @@ def spmm_max_fwd_plain(
     ascend inside each row; on a positional graph the smallest rank,
     which is the same edge.  Computed in float32 (exact for bf16 input: the
     max is one of the inputs) over row ranges, so the (edges, K) temporaries
-    stay bounded.
+    stay bounded.  With a hub (``graph.hub``) the hub edges' rows and
+    sources come from the arena and its ids.
     """
     n, k = x.shape
     out = torch.full((n, k), float(empty_value), dtype=torch.float32, device=x.device)
@@ -267,9 +365,10 @@ def spmm_max_fwd_plain(
         e0, e1 = int(indptr[r0]), int(indptr[r1])
         if e0 == e1:
             continue
-        s = graph.src[e0:e1].long()
+        coded = (graph.src if graph.hub is None else graph.hub.idx)[e0:e1]
+        vals, s = _coded_rows(x, coded, graph.hub)
+        vals = vals.float()
         d = graph.dst[e0:e1].long() - r0
-        vals = x[s].float()
         idx = d[:, None].expand(-1, k)
         blk = out[r0:r1]
         blk.scatter_reduce_(0, idx, vals, "amax", include_self=False)
@@ -294,7 +393,8 @@ def spmm_max_fwd(
 
     On a positional graph the argmax is the rank form (``arg_rows`` rows of
     int16).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    kernel, its hub instantiation where the graph has a forward hub and the
+    argmax is recorded."""
     _check(graph, x, "x")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
@@ -303,7 +403,8 @@ def spmm_max_fwd(
                          "0); a graph shard is id-based: build it with positional=False")
     if x.device.type == "cpu":
         return spmm_max_fwd_plain(graph, x, with_argmax, empty_value)
-    lib = _lib("spmm_max_fwd")
+    use_hub = with_argmax and graph.hub is not None
+    fn = _fn("spmm_max_fwd", "spmm_max_fwd_hub" if use_hub else None)
     code, tag = _DTYPE_CODE[x.dtype]
     n, k = x.shape
     out = torch.empty_like(x)
@@ -315,9 +416,19 @@ def spmm_max_fwd(
         arg = torch.empty((arg_rows(graph), k), dtype=adt, device=x.device)
         partial_src = torch.empty(partial_val.shape, dtype=torch.int32, device=x.device)
         bits = _ARG_BITS[adt]
+    if use_hub:
+        with torch.cuda.device(x.device):
+            rc = fn(
+                code, bits, x.data_ptr(), *_hub_args(chunks, graph.hub),
+                out.data_ptr(), arg.data_ptr(), partial_val.data_ptr(),
+                partial_src.data_ptr(), k, float(empty_value), _stream(x))
+        if rc != 0:
+            raise RuntimeError(f"spmm_max_fwd_hub launch failed: CUDA error {rc}")
+        _count(f"spmm_max_fwd_hub_{tag}", graph, k)
+        return out, arg
     pos = _pos_args(graph, arg)
     with torch.cuda.device(x.device):
-        rc = lib.spmm_max_fwd(
+        rc = fn(
             code, bits, x.data_ptr(), *chunks, out.data_ptr(),
             arg.data_ptr() if arg is not None else None, partial_val.data_ptr(),
             partial_src.data_ptr() if partial_src is not None else None, k,
@@ -347,6 +458,10 @@ def spmm_max_bwd_plain(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torc
         e1 = min(e0 + step, graph.n_edges)
         s = graph.src[e0:e1].long()
         d = graph.dst[e0:e1].long()
+        if graph.t_hub is not None:     # id-based: a positional graph has no hub
+            hit = _node_rows(arg, d, graph.t_hub).long() == s[:, None]
+            dx.index_add_(0, s, torch.where(hit, _node_rows(g, d, graph.t_hub).float(), 0.0))
+            continue
         if not graph.positional:
             hit = arg[d].long() == s[:, None]
         else:
@@ -365,7 +480,7 @@ def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tens
     """dx (N_pad, K) in g's dtype, for the argmax ``spmm_max_fwd`` gave on
     this graph.  CPU tensors take the plain version; CUDA tensors launch
     ``spmm_max_bwd_f32`` or ``spmm_max_bwd_bf16`` (``_pos_`` on a
-    positional graph)."""
+    positional graph, ``_hub_`` where the graph has a transpose hub)."""
     _check(graph, g, "g")
     if g.dtype not in _DTYPE_CODE:
         raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
@@ -380,14 +495,24 @@ def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tens
         raise ValueError("int16 argmax cannot address more than 2^15 nodes")
     if g.device.type == "cpu":
         return spmm_max_bwd_plain(graph, g, arg)
-    lib = _lib("spmm_max_bwd")
+    fn = _fn("spmm_max_bwd", None if graph.t_hub is None else "spmm_max_bwd_hub")
     code, tag = _DTYPE_CODE[g.dtype]
     k = g.shape[1]
     dx = torch.empty_like(g)
     chunks, partial = _chunk_args(graph, True, k, g.device)
+    if graph.t_hub is not None:
+        with torch.cuda.device(g.device):
+            rc = fn(
+                code, _ARG_BITS[arg.dtype], g.data_ptr(), arg.data_ptr(),
+                *_hub_args(chunks, graph.t_hub), dx.data_ptr(), partial.data_ptr(), k,
+                _stream(g))
+        if rc != 0:
+            raise RuntimeError(f"spmm_max_bwd_hub launch failed: CUDA error {rc}")
+        _count(f"spmm_max_bwd_hub_{tag}", graph, k)
+        return dx
     pos = _pos_args(graph, arg)
     with torch.cuda.device(g.device):
-        rc = lib.spmm_max_bwd(
+        rc = fn(
             code, _ARG_BITS[arg.dtype], g.data_ptr(), arg.data_ptr(), *chunks,
             dx.data_ptr(), partial.data_ptr(), k, *pos,
             graph.t_rank.data_ptr() if pos[0] else None, _stream(g))
@@ -459,9 +584,11 @@ def spmm_sum_plain(graph: Graph, x: torch.Tensor, transpose: bool = False,
     """Plain PyTorch version of ``csrc/spmm_sum.cu``: ``index_add_`` of
     ``x[src]`` (with ``use_val``, times the edge's value, rounded to float32
     once) into ``dst`` (``transpose``: of ``x[dst]`` into ``src``), in
-    float32 over edge ranges, rounded to x's dtype once."""
+    float32 over edge ranges, rounded to x's dtype once.  Unweighted, the
+    direction's hub rows come from its arena."""
     n, k = x.shape
     val = _edge_values(graph, False) if use_val else None
+    hub = None if use_val else (graph.t_hub if transpose else graph.hub)
     out = torch.zeros((n, k), dtype=torch.float32, device=x.device)
     step = max(_PLAIN_CHUNK // max(k, 1), 1)
     for e0 in range(0, graph.n_edges, step):
@@ -470,7 +597,10 @@ def spmm_sum_plain(graph: Graph, x: torch.Tensor, transpose: bool = False,
         d = graph.dst[e0:e1].long()
         if transpose:
             s, d = d, s
-        terms = x[s].float()
+            terms = _node_rows(x, s, hub).float()
+        else:
+            coded = graph.src if hub is None else hub.idx
+            terms = _coded_rows(x, coded[e0:e1], hub)[0].float()
         if val is not None:
             terms = terms * val[e0:e1, None]
         out.index_add_(0, d, terms)
@@ -484,26 +614,37 @@ def spmm_sum_rows(graph: Graph, x: torch.Tensor, transpose: bool = False,
     same kernel over the transpose CSR; with ``use_val`` each term is
     weighted by its edge's value (``ValueError`` if the graph has none).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted as spmm_sum[_val]_fwd_* / _bwd_*)."""
+    (counted as spmm_sum[_val]_fwd_* / _bwd_*), unweighted its hub
+    instantiation where the direction has a hub (``spmm_sum_*_hub_*``; the
+    weighted sum takes none, as the JAX package's XLA one has none)."""
     _check(graph, x, "x")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     val = _edge_values(graph, transpose) if use_val else None
     if x.device.type == "cpu":
         return spmm_sum_plain(graph, x, transpose, use_val)
-    lib = _lib("spmm_sum")
+    hub = None if use_val else (graph.t_hub if transpose else graph.hub)
+    fn = _fn("spmm_sum", None if hub is None else "spmm_sum_hub")
     code, tag = _DTYPE_CODE[x.dtype]
     k = x.shape[1]
     out = torch.empty_like(x)
     chunks, partial = _chunk_args(graph, transpose, k, x.device)
+    direction = "bwd" if transpose else "fwd"
+    if hub is not None:
+        with torch.cuda.device(x.device):
+            rc = fn(code, x.data_ptr(), *_hub_args(chunks, hub), out.data_ptr(),
+                    partial.data_ptr(), k, _stream(x))
+        if rc != 0:
+            raise RuntimeError(f"spmm_sum_hub launch failed: CUDA error {rc}")
+        _count(f"spmm_sum_{direction}_hub_{tag}", graph, k)
+        return out
     val_ptr = None if val is None else val.data_ptr()
     with torch.cuda.device(x.device):
-        rc = lib.spmm_sum(code, x.data_ptr(), *chunks[:5], val_ptr, *chunks[5:],
-                          out.data_ptr(), partial.data_ptr(), k, _stream(x))
+        rc = fn(code, x.data_ptr(), *chunks[:5], val_ptr, *chunks[5:],
+                out.data_ptr(), partial.data_ptr(), k, _stream(x))
     if rc != 0:
         raise RuntimeError(f"spmm_sum launch failed: CUDA error {rc}")
-    _count(f"spmm_sum_{'val_' if use_val else ''}{'bwd' if transpose else 'fwd'}_{tag}",
-           graph, k)
+    _count(f"spmm_sum_{'val_' if use_val else ''}{direction}_{tag}", graph, k)
     return out
 
 

@@ -68,6 +68,11 @@ class TrainConfig:
     mesh_fold: int = 1
     mesh_graph: int = 1
     mesh_balance: bool = True
+    # The hub cache of the aggregation kernels (ops/hub.py): "auto" (the
+    # measured policy), "off", or k rows of each direction's arena.
+    # Resolved at the run's worst aggregation width; 0 past 2^15 padded
+    # nodes (as the JAX package's engine) and on a mesh.
+    hub_cache: str = "auto"
 
 
 METRIC_KEYS = ("aim", "cov", "acc", "loss")
@@ -110,6 +115,41 @@ def init_fold_model(cfg: TrainConfig, in_feats: int, seeds: Sequence[int],
         for s in seeds
     ]
     return stack_folds(models).to(device)
+
+
+# Why a mesh run takes no hub: every mesh, a fold-only one too, aggregates
+# through the sharded runner over partition shards (graph=1 is one shard),
+# whose tables carry none.
+MESH_HUB_WAITS = ("a mesh run, fold-only included, aggregates over partition shards "
+                  "(graph=1 is one shard) whose tables carry no hub: stacked per-shard "
+                  "hubs (ROADMAP Queue 2 item 1) are not ported; pass --hub-cache off")
+
+
+def resolve_hub(cfg: TrainConfig, graph: Graph, in_feats: int) -> Tuple[int, int]:
+    """(k_fwd, k_bwd) of a run: ``pick_hub_sizes`` at its worst aggregation
+    width (the JAX engine's rule, ``plagnn_tpu/train/engine.py:573-581``):
+    GNN32's max over (in_feats, h1, h2) in the aggregation dtype, GCN2's
+    float32 sums over (min(in_feats, h), min(h, classes)), times the fold
+    batch.  0 past 2^15 padded nodes, as the JAX engine's guard (positional
+    graphs take no hub); on any mesh "auto" is 0 and a k raises
+    (``MESH_HUB_WAITS``)."""
+    from ..ops.hub import pick_hub_sizes
+
+    if cfg.mesh_fold * cfg.mesh_graph > 1:
+        if cfg.hub_cache != "auto" and pick_hub_sizes(cfg.hub_cache, 1, 4) != (0, 0):
+            raise ValueError(f"hub_cache={cfg.hub_cache!r} on mesh fold={cfg.mesh_fold},"
+                             f"graph={cfg.mesh_graph}: {MESH_HUB_WAITS}")
+        return 0, 0
+    if cfg.model == "gcn2":
+        h = cfg.hidden[0]
+        widths, esize = (min(in_feats, h), min(h, cfg.num_classes)), 4
+    else:
+        widths = (in_feats, *cfg.hidden[:2])
+        esize = 2 if aggregation_dtype() is not None else 4
+    kf, kb = pick_hub_sizes(cfg.hub_cache, cfg.fold_batch * max(widths), esize)
+    if graph.n_nodes > (1 << 15):
+        kf = kb = 0
+    return kf, kb
 
 
 def make_batched_fold_runner(graph: Graph, feats: torch.Tensor,
@@ -176,16 +216,20 @@ def train(
     class_weight = weight_cal(loc_mat_full)
     n_real = graph.n_real_nodes
     mesh = None
+    hub_k = resolve_hub(cfg, graph, in_feats)
     if cfg.mesh_fold * cfg.mesh_graph > 1:
         mesh, run = _mesh_runner(graph, feats, labels, class_weight, cfg, device)
     else:
         feats_t = torch.as_tensor(np.asarray(feats, np.float32), device=device)
         labels_t = torch.as_tensor(np.asarray(labels, np.float32), device=device)
         node_valid = torch.arange(graph.n_nodes, device=device) < n_real
-        run = make_batched_fold_runner(graph.to(device), feats_t, labels_t,
+        run_graph = graph.with_hub(*hub_k) if any(hub_k) else graph
+        run = make_batched_fold_runner(run_graph.to(device), feats_t, labels_t,
                                        class_weight, node_valid, cfg)
     is_main = mesh is None or mesh.rank == 0
     verbose = cfg.verbose and is_main
+    if verbose:
+        print(f"hub cache: k_fwd={hub_k[0]} k_bwd={hub_k[1]} (hub_cache={cfg.hub_cache!r})")
 
     labels_np = np.asarray(labels)[:n_real]
     p_label_num = labels_np.astype(int).sum(0)
@@ -413,7 +457,10 @@ def _checkpoint_fingerprint(cfg: TrainConfig) -> dict:
     agg_dtype changes the numerical trajectory; seed/lr/fold_num/model/
     hidden change the parameters the state continues from.  Resuming across
     any of these would load mismatched state or silently diverge.  A mesh
-    with a fold axis adds mesh_fold, which pads a partial last chunk."""
+    with a fold axis adds mesh_fold, which pads a partial last chunk.
+    hub_cache is kept as the JAX package keeps it (its hub changes its add
+    order); the port's hub kernels keep the add order, but a resume across
+    it refuses all the same."""
     fp = {
         "fold_batch": int(cfg.fold_batch),
         "epoch_num": int(cfg.epoch_num),
@@ -425,6 +472,7 @@ def _checkpoint_fingerprint(cfg: TrainConfig) -> dict:
         "lr": float(cfg.lr),
         "model": str(cfg.model),
         "hidden": tuple(int(h) for h in cfg.hidden),
+        "hub_cache": str(cfg.hub_cache),
     }
     if cfg.mesh_fold > 1:
         fp["mesh_fold"] = int(cfg.mesh_fold)

@@ -46,3 +46,16 @@ def fold_node_masks(
         train_masks[f, label_indices[va]] = False
         val_masks[f, label_indices[va]] = True
     return train_masks, val_masks
+
+
+def all_round_masks(
+    label_indices: Sequence[int],
+    n_pad_nodes: int,
+    fold_num: int,
+    fold_seeds: Sequence[int] = FOLD_SEEDS,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(rounds, fold_num, N_pad) train/val masks of every round, stacked
+    (``plagnn_tpu/train/kfold.py: all_round_masks``)."""
+    trs, vas = zip(*(fold_node_masks(label_indices, n_pad_nodes, fold_num, s)
+                     for s in fold_seeds))
+    return np.stack(trs), np.stack(vas)

@@ -846,3 +846,157 @@ def test_empty_value_max_kernel_on_shard_graphs(card, p, dtype, with_argmax):
             mag = sk.spmm_max_bwd_plain(g, gr.abs(), arg)
             assert bool((err <= 1e-5 * mag + 1e-7).all()), label
     assert splits > 0
+
+
+# ---------------------------------------------------------------------------
+# The hub cache: each hub kernel against the same kernel without the hub and
+# against its plain version.
+# ---------------------------------------------------------------------------
+
+
+def _hub_fixture_graph(row_chunk=ROW_CHUNK):
+    """tests/test_pallas_kernels.py's _hub_graph (200 nodes, 5 hot sources)."""
+    rng = np.random.default_rng(7)
+    src = rng.integers(0, 200, 3000)
+    dst = rng.integers(0, 200, 3000)
+    src = np.where(rng.random(3000) < 0.3, rng.integers(0, 5, 3000), src)
+    pairs = np.unique(np.stack([src, dst], 1), axis=0)
+    return pairs[:, 0], pairs[:, 1], 200
+
+
+# k = 100 at K = 1,024: a 100 KB arena forward (150 KB backward in float32),
+# past the 48 KB a launch gets without the opt-in
+HUB_CASES = [(8, 1024, ROW_CHUNK), (100, 1024, ROW_CHUNK), (16, 111, 8), (64, 5030, ROW_CHUNK)]
+
+
+def _hub_pair(src, dst, n, k, row_chunk, card):
+    g0 = build_graph(src, dst, n, row_chunk=row_chunk)
+    return g0.to(card), g0.with_hub(k, k).to(card)
+
+
+def _tag(dtype):
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hub_k,k,row_chunk", HUB_CASES)
+def test_hub_max_kernels_match_no_hub_and_plain(card, dtype, hub_k, k, row_chunk):
+    """Forward out and argmax bit-exact against the kernel without the hub
+    and the plain version; dx bit-identical to the kernel without the hub,
+    against plain within 1e-5 of the hit magnitudes (float32) or 1 ulp
+    (bfloat16, small-integer gradients)."""
+    g0, gh = _hub_pair(*_hub_fixture_graph(), hub_k, row_chunk, card)
+    gen = torch.Generator(device=card).manual_seed(k)
+    x = (torch.round(torch.randn((g0.n_nodes, k), generator=gen, device=card) * 4) / 4)
+    x = x.relu_().to(dtype)
+    before = {n: sk.LAUNCHES[n] for n in (f"spmm_max_fwd_hub_{_tag(dtype)}",
+                                           f"spmm_max_bwd_hub_{_tag(dtype)}")}
+    out0, arg0 = sk.spmm_max_fwd(g0, x)
+    out, arg = sk.spmm_max_fwd(gh, x)
+    if dtype == torch.float32:
+        gr = torch.randn((g0.n_nodes, k), generator=gen, device=card)
+    else:
+        gr = torch.randint(-8, 9, (g0.n_nodes, k), generator=gen, device=card).to(dtype)
+    dx0 = sk.spmm_max_bwd(g0, gr, arg0)
+    dx = sk.spmm_max_bwd(gh, gr, arg)
+    torch.cuda.synchronize()
+    assert all(sk.LAUNCHES[n] == c + 1 for n, c in before.items())
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), out0.view(bits)) and torch.equal(arg, arg0)
+    assert torch.equal(dx.view(bits), dx0.view(bits))
+    assert torch.equal(dx.view(bits), sk.spmm_max_bwd(gh, gr, arg).view(bits))
+    out_p, arg_p = sk.spmm_max_fwd_plain(gh, x)
+    assert torch.equal(out, out_p) and torch.equal(arg, arg_p)
+    dx_p = sk.spmm_max_bwd_plain(gh, gr, arg)
+    err = (dx.float() - dx_p.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((err <= _bf16_ulp(torch.maximum(dx.float().abs(),
+                                                    dx_p.float().abs()))).all())
+    else:
+        assert bool((err <= 1e-5 * sk.spmm_max_bwd_plain(gh, gr.abs(), arg) + 1e-7).all())
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hub_k,k,row_chunk", HUB_CASES)
+def test_hub_sum_kernels_match_no_hub_and_plain(card, dtype, transpose, hub_k, k, row_chunk):
+    """Bit-identical to the kernel without the hub; against plain within
+    1e-5 of the summed magnitudes (float32) or exact (bfloat16 on small
+    integers)."""
+    g0, gh = _hub_pair(*_hub_fixture_graph(), hub_k, row_chunk, card)
+    gen = torch.Generator(device=card).manual_seed(k + 1)
+    if dtype == torch.float32:
+        x = torch.randn((g0.n_nodes, k), generator=gen, device=card)
+    else:
+        x = torch.randint(-8, 9, (g0.n_nodes, k), generator=gen, device=card).to(dtype)
+    name = f"spmm_sum_{'bwd' if transpose else 'fwd'}_hub_{_tag(dtype)}"
+    before = sk.LAUNCHES[name]
+    out = sk.spmm_sum_rows(gh, x, transpose)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[name] == before + 1
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), sk.spmm_sum_rows(g0, x, transpose).view(bits))
+    out_p = sk.spmm_sum_plain(gh, x, transpose)
+    if dtype == torch.bfloat16:
+        assert torch.equal(out, out_p)
+    else:
+        mag = sk.spmm_sum_plain(gh, x.abs(), transpose)
+        assert bool(((out - out_p).abs() <= 1e-5 * mag + 1e-7).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hub_max_cross_chunk_ties(card, dtype):
+    """The cross-chunk tie graph with row 0's first sources in the arena:
+    bit-exact against the kernel without the hub and the plain version, and
+    ties across row 0's chunks still go to the lower chunk."""
+    g, x = _cross_chunk_graph()
+    src, dst = g.src.numpy(), g.dst.numpy()
+    # row 0's first 16 sources in the arena: extra out-edges make them the
+    # most fetched
+    ids = np.arange(1, 17)
+    extra = np.repeat(ids, 40)
+    gh = build_graph(np.concatenate([src, extra]),
+                     np.concatenate([dst, 500 + np.arange(len(extra)) % 300]),
+                     g.n_real_nodes)
+    g0 = gh.to(card)
+    ghh = gh.with_hub(16, 16)
+    assert set(ghh.hub.ids.tolist()) == set(ids.tolist())
+    xd = torch.from_numpy(x).to(card, dtype)
+    out0, arg0 = sk.spmm_max_fwd(g0, xd)
+    out, arg = sk.spmm_max_fwd(ghh.to(card), xd)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), out0.view(bits)) and torch.equal(arg, arg0)
+    out_p, arg_p = sk.spmm_max_fwd_plain(ghh, x_cpu := torch.from_numpy(x).to(dtype))
+    assert torch.equal(out.cpu(), out_p) and torch.equal(arg.cpu(), arg_p)
+    cols = np.arange(x.shape[1])
+    row0 = arg[0].cpu().numpy()
+    np.testing.assert_array_equal(row0[cols % 4 < 2], 1)
+    np.testing.assert_array_equal(
+        row0[cols % 4 == 2], 1 + (1 + (cols[cols % 4 == 2] // 4) % 3) * ROW_CHUNK)
+    gr = torch.randint(-8, 9, x_cpu.shape, generator=torch.Generator().manual_seed(3))
+    gr = gr.to(card, dtype)
+    assert torch.equal(sk.spmm_max_bwd(ghh.to(card), gr, arg).view(bits),
+                       sk.spmm_max_bwd(g0, gr, arg0).view(bits))
+
+
+def test_hub_arena_past_the_card_refused(card):
+    """An arena above the card's 227 KB a block is refused, never cut: the
+    wrapper raises (500 rows x 1 KB forward)."""
+    g0, gh = _hub_pair(*_hub_fixture_graph(), 500, ROW_CHUNK, card)
+    x = torch.ones((g0.n_nodes, 1024), device=card)
+    with pytest.raises(RuntimeError, match="spmm_max_fwd_hub launch failed"):
+        sk.spmm_max_fwd(gh, x)
+    with pytest.raises(RuntimeError, match="spmm_sum_hub launch failed"):
+        sk.spmm_sum_rows(gh, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hub_warps_query(card, dtype):
+    """The occupancy entry points: a hub block holds as many warps of an SM
+    as the kernel without the hub at the path's first-layer widths, and
+    the query launches nothing."""
+    before = dict(sk.LAUNCHES)
+    for kind, k_width in (("max_fwd", 5030), ("max_bwd", 5030), ("sum", 4000)):
+        with_hub, without = sk.hub_warps(kind, dtype, k_width, 64)
+        assert with_hub == without > 0, (kind, with_hub, without)
+    assert sk.LAUNCHES == before
