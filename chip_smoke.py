@@ -157,13 +157,19 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    id-based int32 kernels on the same graph, each against its own plain
    version as phase 3 holds them, and against each other: out bit-exact,
    the argmax naming the same sources, dx within phase 3's tolerances
-   (bit-equal expected).  At layer 1 each is timed (CUDA events, median
-   of 10) beside its plain version, a ``scatter_reduce_`` /
+   (bit-equal expected).  Each form runs at the K-slice its rule gives
+   (ops/spmm_kernels.py: slice_bytes: at this size 1 KB, but 512 B for the
+   bf16 backward and the id-based ones) and at the forced 1 KB slice, out,
+   argmax and dx bit-equal between the two.  At layer 1 each is timed at
+   both (CUDA events, median of 10) beside its plain version, a ``scatter_reduce_`` /
    ``index_add_`` yardstick over column slices (the whole gathered
-   operand does not fit) and its bytes bound.  Then GNN32 at 8 folds in one batch, 2 epochs,
+   operand does not fit) and its bytes bound, with the index bytes its
+   K-slices re-read.  Then GNN32 at 8 folds in one batch, 2 epochs,
    train-normal float32 and train-inter bfloat16: exactly 3 positional
    forwards and 3 positional backwards an epoch, no id-based max kernel,
-   the artifact contract.  Last, one forward and backward of BatchedGNN32
+   the artifact contract; the float32 run once more under
+   utils.profiling.trace, with the max kernels' device ms per epoch.
+   Last, one forward and backward of BatchedGNN32
    at B = 8 with each argmax form, both peaks and the saving beside the
    one reckoned from the argmax's bytes.  The earlier phases' launch
    checks hold every positional counter at 0.  The hub at this size: the
@@ -173,8 +179,14 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    versions, each timed beside the kernel without the hub.  No training run
    takes the hub here: the engine turns it off past 2^15 nodes, as the JAX
    package's does.
-5. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+5. A ``{"kernels": [...]}`` line (each entry with its K-slice width,
+   ``slice_bytes``), the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
+
+``--sweep-slice`` runs phases 1-2 and then times the max kernels at every
+K-slice width at layer 1 on the 24k-node graph and on phase 4g's graph
+(each width bit-equal to 1 KB; the narrow ones also with the chunks in row
+order), and stops.
 """
 import json
 import math
@@ -370,13 +382,31 @@ def ptxas_report(log):
     return rows
 
 
+def slice_width(name, source, shape):
+    """The K-slice width (bytes of the gathered operand a row) an entry's
+    kernel walked: the max kernels' rule (ops/spmm_kernels.py: slice_bytes)
+    at the entry's shape, the hub instantiations' and the sum's fixed 1 KB,
+    None for the kernels that have no K-slice."""
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    if source == "spmm_sum" or "_hub_" in name:
+        return 1024
+    if not source.startswith("spmm_max"):
+        return None
+    n = shape[0]
+    es = 2 if "bf16" in name else 4
+    if source == "spmm_max_fwd":
+        return sk.slice_bytes(n, es)
+    return sk.slice_bytes(n, es, 2 if "_pos_" in name or n <= (1 << 15) else 4)
+
+
 def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape,
                  ops_per_s=FP32_OPS_PER_S):
     """One entry of the ``kernels`` line; ``bound_ms`` from the compulsory
     bytes (each input read once, each output written once) at the HBM rate
     and the operations at their type's rate (float32 unless given),
-    whichever is larger.  Launches are filled in from the main path's
-    runs."""
+    whichever is larger; ``slice_bytes`` the K-slice it walked.  Launches
+    are filled in from the main path's runs."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return {
@@ -392,6 +422,7 @@ def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib,
         "shape": list(shape),
+        "slice_bytes": slice_width(name, source, shape),
     }
 
 
@@ -773,7 +804,7 @@ def profiled(fn, label):
     return out, rows
 
 
-def profile_epochs(label, run, expected, smi_line):
+def profile_epochs(label, run, expected, smi_line, folds=FOLDS):
     """utils.profiling.trace over one training run (``run()`` returns its
     chunk stats), which must launch the ``expected`` kernels: device time per
     epoch by kernel group, and the device's idle share against the steady
@@ -809,7 +840,7 @@ def profile_epochs(label, run, expected, smi_line):
     if busy <= 0:
         print("profile: no device time in the trace (not measured)")
         return {}
-    print(f"profile ({label}, {len(ms)} epochs x {FOLDS} folds, AUC sampled "
+    print(f"profile ({label}, {len(ms)} epochs x {folds} folds, AUC sampled "
           f"at epochs 0 and {len(ms) - 1}, {smi_line}): steady {steady:.3f} ms/epoch "
           f"wall, {busy:.3f} ms/epoch device busy, idle share "
           f"{max(0.0, 1 - busy / steady):.3f}", flush=True)
@@ -2432,6 +2463,16 @@ def check_big_kernels(gp, gi, x32, top, ranks, results):
             out_i, arg_i, fwd_plain_i = big_fwd_check(gi, x, f"{label} id-based")
             if not torch.equal(out_k.view(bits), out_i.view(bits)):
                 fail(f"{label}: positional out differs from the id-based kernel's")
+            widths = {}
+            for form, graph, out_r, arg_r in (("positional", gp, out_k, arg_k),
+                                              ("id-based", gi, out_i, arg_i)):
+                out_1, arg_1 = sk.spmm_max_fwd(graph, x, force_slice=1024)
+                if not (torch.equal(out_1.view(bits), out_r.view(bits))
+                        and torch.equal(arg_1, arg_r)):
+                    fail(f"{label} {form}: forward at the rule's width differs from 1 KB")
+                widths[form] = [sk.slice_bytes(n, esize),
+                                sk.slice_bytes(n, esize, arg_r.element_size())]
+                del out_1, arg_1
             del out_k, out_i
             for c0 in range(0, k, 512):
                 if not torch.equal(sk._arg_sources(gp, arg_k[:, c0:c0 + 512]),
@@ -2452,6 +2493,12 @@ def check_big_kernels(gp, gi, x32, top, ranks, results):
             dx_k, bwd_err, bwd_plain, _ = big_bwd_check(gp, g, arg_k, f"{label} positional")
             dx_i, bwd_err_i, bwd_plain_i, same_as_pos = big_bwd_check(
                 gi, g, arg_i, f"{label} id-based", other=dx_k)
+            for form, graph, dx_r, arg_r in (("positional", gp, dx_k, arg_k),
+                                             ("id-based", gi, dx_i, arg_i)):
+                dx_1 = sk.spmm_max_bwd(graph, g, arg_r, force_slice=1024)
+                if not torch.equal(dx_1.view(bits), dx_r.view(bits)):
+                    fail(f"{label} {form}: backward at the rule's width differs from 1 KB")
+                del dx_1
             del dx_k, dx_i
             torch.cuda.empty_cache()
             print(f"{label}: each form's fwd out/argmax bit-exact with its plain version "
@@ -2460,18 +2507,26 @@ def check_big_kernels(gp, gi, x32, top, ranks, results):
                   f"rank 0, the top row's maximum past rank {cap} as (segment, rank)); "
                   f"bwd max abs err vs plain {bwd_err:.3e} positional, {bwd_err_i:.3e} "
                   f"id-based, the two forms' dx "
-                  f"{'bit-equal' if same_as_pos else 'within tolerance'}", flush=True)
+                  f"{'bit-equal' if same_as_pos else 'within tolerance'}; at the rule's "
+                  f"K-slices (fwd, bwd bytes: {widths}) out, argmax and dx bit-equal to "
+                  f"the 1 KB slice's", flush=True)
             if width != F_IN:
                 del arg_k, arg_i, g, x
                 torch.cuda.empty_cache()
                 continue
 
             # -- timings, at layer 1 ---------------------------------------------
-            times = {
+            times = {   # the rule's K-slice, then the forced 1 KB one
                 "fwd_pos": median_ms(lambda: sk.spmm_max_fwd(gp, x), 10),
                 "fwd_id": median_ms(lambda: sk.spmm_max_fwd(gi, x), 10),
                 "bwd_pos": median_ms(lambda: sk.spmm_max_bwd(gp, g, arg_k), 10),
                 "bwd_id": median_ms(lambda: sk.spmm_max_bwd(gi, g, arg_i), 10),
+                "fwd_pos_1kb": median_ms(lambda: sk.spmm_max_fwd(gp, x, force_slice=1024), 10),
+                "fwd_id_1kb": median_ms(lambda: sk.spmm_max_fwd(gi, x, force_slice=1024), 10),
+                "bwd_pos_1kb": median_ms(
+                    lambda: sk.spmm_max_bwd(gp, g, arg_k, force_slice=1024), 10),
+                "bwd_id_1kb": median_ms(
+                    lambda: sk.spmm_max_bwd(gi, g, arg_i, force_slice=1024), 10),
             }
             torch.cuda.empty_cache()
             fwd_lib, bwd_lib, slice_w = sliced_library_ms(gi, x, g, arg_i)
@@ -2482,23 +2537,32 @@ def check_big_kernels(gp, gi, x32, top, ranks, results):
             # compulsory bytes, as phase 3 counts them, plus the positional
             # form's inputs: mega_of (both) and t_rank (backward)
             entries = [
-                (f"spmm_max_fwd_pos_{tag}", "spmm_max_fwd", 0.0, times["fwd_pos"],
+                (f"spmm_max_fwd_pos_{tag}", "spmm_max_fwd", 0.0, "fwd_pos",
                  fwd_plain, fwd_lib,
                  n * k * esize + idx_bytes + 4 * n + n * k * (esize + 2) + side, e * k),
-                (f"spmm_max_bwd_pos_{tag}", "spmm_max_bwd", bwd_err, times["bwd_pos"],
+                (f"spmm_max_bwd_pos_{tag}", "spmm_max_bwd", bwd_err, "bwd_pos",
                  bwd_plain, bwd_lib, n * k * (esize + 2) + side + idx_bytes + 4 * e + 4 * n
                  + n * k * esize, e * k + nonempty * k),
-                (f"spmm_max_fwd_{tag}@n{n}", "spmm_max_fwd", 0.0, times["fwd_id"],
+                (f"spmm_max_fwd_{tag}@n{n}", "spmm_max_fwd", 0.0, "fwd_id",
                  fwd_plain_i, fwd_lib, n * k * esize + idx_bytes + n * k * (esize + 4),
                  e * k),
-                (f"spmm_max_bwd_{tag}@n{n}", "spmm_max_bwd", bwd_err_i, times["bwd_id"],
+                (f"spmm_max_bwd_{tag}@n{n}", "spmm_max_bwd", bwd_err_i, "bwd_id",
                  bwd_plain_i, bwd_lib, n * k * (esize + 4) + idx_bytes + n * k * esize,
                  e * k + nonempty * k),
             ]
-            for name, src, err_, ms, plain, lib, nbytes, ops in entries:
+            for name, src, err_, key, plain, lib, nbytes, ops in entries:
+                ms = times[key]
                 r = results[name] = kernel_entry(name, src, err_, ms, plain, lib, nbytes,
                                                  ops, (n, k))
-                print(f"  {name}: {ms:.3f} ms (plain {plain:.3f}, library {lib:.3f} over "
+                # the K-slice's re-reads of the chunks' index (and t_rank), not in
+                # the bound: E x 4 bytes a slice
+                slices = sk.slice_layout(r["slice_bytes"], k, esize)[2]
+                r["index_reread_bytes"] = (2 if key == "bwd_pos" else 1) * 4 * e * slices
+                r["ms_1kb"] = times[key + "_1kb"]
+                print(f"  {name}: {ms:.3f} ms at the rule's {r['slice_bytes']} B K-slice, "
+                      f"{r['ms_1kb']:.3f} ms at 1 KB (index re-read "
+                      f"{r['index_reread_bytes'] / 1e9:.2f} GB; plain {plain:.3f}, library "
+                      f"{lib:.3f} over "
                       f"{-(-k // slice_w)} column slices of {slice_w}, bound "
                       f"{r['bound_ms']:.3f} by {r['bound_by']}, no-reuse gather "
                       f"{e * k * esize / HBM_BYTES_PER_S * 1e3:.3f})", flush=True)
@@ -2670,6 +2734,22 @@ def big_graph_phase(results, smi_line):
                             BIG_FOLDS, BIG_NODES)
             report_run(f"GNN32 big graph {cmd} {agg}", stats, wall, counts, smi_line,
                        BIG_FOLDS)
+        # the float32 run once more under the profiler: the max kernels' device
+        # ms per epoch (the earlier run's artifacts would make it resume)
+        shutil.rmtree(os.path.join(tmp, "log"))
+        pos = ("spmm_max_fwd_pos_f32", "spmm_max_bwd_pos_f32")
+        per_kernel = profile_epochs(
+            "GNN32 big graph train-normal f32",
+            lambda: train_cli(tmp, "train-normal", "float32", BIG_EPOCHS, BIG_FOLDS),
+            {c: LAYERS * BIG_EPOCHS for c in pos}, smi_line, BIG_FOLDS)
+        for kind in ("fwd", "bwd"):
+            rows = [(t, c, name) for name, (t, c) in per_kernel.items()
+                    if f"spmm_max_{kind}" in name]
+            print(f"big graph max {kind} kernels (profile, f32): "
+                  f"{sum(t for t, _, _ in rows):.3f} ms/epoch device in "
+                  f"{sum(c for _, c, _ in rows):.0f} launches an epoch, combines included: "
+                  + "; ".join(f"{name[:70]} {t:.3f} ms x{c:.0f}" for t, c, name in rows)
+                  + f" ({smi_line})", flush=True)
         big_peak_memory(gp, gi, bundle.feats)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3037,6 +3117,92 @@ def sweep_row_chunk(full):
         print("row-chunk sweep: " + json.dumps(row), flush=True)
 
 
+def sweep_slice_shape(label, graph, x32, g32, smi_line):
+    """``--sweep-slice`` at one shape (layer 1): each max kernel at every
+    K-slice width, float32 and bfloat16, every result bit-equal to the 1 KB
+    width's; median of 10 by CUDA events, the widths in turns, 1 KB timed
+    first and last; each narrow width also with the chunks in row order in
+    place of RowChunks.order (longest first)."""
+    import dataclasses
+
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    n, k = x32.shape
+    row_order = dataclasses.replace(graph, **{
+        name: dataclasses.replace(ch, order=torch.arange(ch.n_chunks, dtype=torch.int32,
+                                                         device=ch.order.device))
+        for name, ch in (("chunks", graph.chunks), ("t_chunks", graph.t_chunks))})
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x = x32.to(dt)
+        g = g32.to(dt) if dt == torch.float32 else g32.round().clamp_(-8, 8).to(dt)
+        bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+        out0, arg0 = sk.spmm_max_fwd(graph, x, force_slice=1024)
+        dx0 = sk.spmm_max_bwd(graph, g, arg0, force_slice=1024)
+        esize, asize = x.element_size(), arg0.element_size()
+        print(f"slice sweep {label} {tag} K={k}: the rule's widths fwd "
+              f"{sk.slice_bytes(n, esize)} B, bwd {sk.slice_bytes(n, esize, asize)} B "
+              f"({smi_line})", flush=True)
+        for w in (*sk.SLICE_WIDTHS, 1024):
+            out, arg = sk.spmm_max_fwd(graph, x, force_slice=w)
+            dx = sk.spmm_max_bwd(graph, g, arg0, force_slice=w)
+            if not (torch.equal(out.view(bits), out0.view(bits)) and torch.equal(arg, arg0)
+                    and torch.equal(dx.view(bits), dx0.view(bits))):
+                fail(f"slice sweep {label} {tag} {w} B: differs from the 1 KB width")
+            del out, arg, dx
+            groups, per, slices = sk.slice_layout(w, k, esize, asize)
+            cell = {"width": w, "lanes": groups, "elements": per, "slices": slices,
+                    "fwd": median_ms(lambda: sk.spmm_max_fwd(graph, x, force_slice=w), 10),
+                    "bwd": median_ms(lambda: sk.spmm_max_bwd(graph, g, arg0, force_slice=w),
+                                     10)}
+            if groups < 32:
+                cell["fwd_row_order"] = median_ms(
+                    lambda: sk.spmm_max_fwd(row_order, x, force_slice=w), 10)
+                cell["bwd_row_order"] = median_ms(
+                    lambda: sk.spmm_max_bwd(row_order, g, arg0, force_slice=w), 10)
+            print(f"slice sweep {label} {tag}: " + json.dumps(cell), flush=True)
+        del out0, arg0, dx0
+        torch.cuda.empty_cache()
+
+
+def sweep_slice(smi_line):
+    """``--sweep-slice``: the max kernels' layer-1 times at every K-slice
+    layout on the 24k-node graph (K = 10 x 503) and on BASELINE.json config
+    5's graph (330 k nodes, K = 8 x 503, the positional argmax)."""
+    import numpy as np
+    import torch
+
+    from plagnn_tpu_torch import cli
+    from plagnn_tpu_torch.data.artifacts import load_condition
+    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+    from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    full = from_scipy_coo(powerlaw_ppi(NODES, EDGES, SEED), add_self_loops=True).to("cuda")
+    n, k = full.n_nodes, FOLDS * F_IN
+    x = torch.randn((n, k), generator=gen, device="cuda").to(torch.bfloat16).float().relu_()
+    g = torch.randn((n, k), generator=gen, device="cuda")
+    sweep_slice_shape(f"n{n}", full, x, g, smi_line)
+    del full, x, g
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    try:
+        cli.main(["synth", "--data-root", tmp, "--nodes", str(BIG_NODES),
+                  "--edges", str(BIG_EDGES), "--seed", str(SEED)])
+        gp = load_condition(tmp, "GSE30931", "normal").graph.to("cuda")
+        x, _, _ = big_inputs(gp)
+        g = torch.randn(x.shape, generator=gen, device="cuda")
+        ch = gp.chunks
+        lens = np.diff(ch.ptr.cpu().numpy())
+        print(f"slice sweep big graph: N_pad {gp.n_nodes}, E {gp.n_edges}, forward chunks "
+              f"{ch.n_chunks} (mean {lens.mean():.1f} edges, longest first by "
+              f"RowChunks.order)", flush=True)
+        sweep_slice_shape(f"n{gp.n_nodes}", gp, x, g, smi_line)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def tie_graph():
     """Small graph with a hub row, empty rows and many tied values."""
     import numpy as np
@@ -3106,6 +3272,11 @@ def main(argv=None):
                     help="after phase 3, time the row-chunked kernels on the "
                          "full graph at each chunk size and stop; prints no "
                          "result line")
+    ap.add_argument("--sweep-slice", action="store_true",
+                    help="phases 1-2, then time the max kernels at every K-slice "
+                         "width at layer 1 on the 24k-node and the 330k-node "
+                         "graphs (each width bit-equal to the 1 KB one) and stop; "
+                         "prints no result line")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "plagnn_tpu_torch")):
         fail("the plagnn_tpu_torch package is not beside chip_smoke.py")
@@ -3140,6 +3311,10 @@ def main(argv=None):
     if args.only_big_graph:
         phase("4g big graph")
         big_graph_phase({}, smi_line)
+        return
+    if args.sweep_slice:
+        phase("K-slice sweep")
+        sweep_slice(smi_line)
         return
 
     phase("3 kernels vs plain")

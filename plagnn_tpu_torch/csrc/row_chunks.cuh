@@ -28,8 +28,15 @@
 // is taken in a fixed order, so the result is bit-identical run to run.
 //
 // The grid puts chunks on x (fastest) and K-slices on y, so the blocks that
-// run together share one K-slice and its working set (N_pad x slice bytes:
-// 25 MB at 24,064 rows x 1 KB) stays in the 50 MB L2.
+// run together share one K-slice and its working set (N_pad x slice bytes).
+// That working set stays in the 50 MB L2 only while N_pad is small: 25 MB
+// at 24,064 rows x 1 KB, but 338 MB at 330,112 rows, where almost every
+// gathered row comes from HBM.  So the two max kernels also take narrower
+// K-slices (the grouped walk below): a group of G lanes (G = 16, 8, 4, 2 or
+// 1) owns one (chunk, K-slice), a warp 32 / G of them, and the slice is G
+// lanes' 32 bytes.  The wrapper picks the width from N_pad and the bytes a
+// row of the slice gathers (ops/spmm_kernels.py: slice_bytes); the sum
+// kernel and the hub instantiations keep the 1 KB slice.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -184,27 +191,129 @@ __device__ __forceinline__ void walk_chunk(const int* __restrict__ idx, int beg,
   }
 }
 
+// The grouped walk of edges [beg, end) of one chunk by a group of 1 << lg
+// lanes (the narrow K-slices' walk; `mask` names the group's lanes, `s` is
+// this lane's place in it): walk_chunk with the group's width for the
+// warp's.  The group loads 1 << lg neighbour ids at a time, lane s the s-th,
+// the next window's before this one's edges, with a streaming load (the
+// index is read once per K-slice, so it should not push the slice's rows
+// out of L2), and hands them out with __shfl_sync over the group's lanes.
+// An op whose edges carry a second index (op.aux_index(), the positional
+// backward's t_rank; null for none) has it loaded and handed out beside the
+// ids: op.load(u, nbr, e, aux).  The groups of a warp walk chunks of any
+// lengths: every shuffle names only its group's lanes, which walk the same
+// chunk; lanes without k (`active` false) still take part in them.  (A
+// lane loading every id itself, one L2 request a lane an edge, ran the
+// kernels up to 2x slower on the card.)
+template <int N, typename Op>
+__device__ __forceinline__ void walk_group(const int* __restrict__ idx, int beg, int end,
+                                           int s, int lg, unsigned mask, bool active,
+                                           Op& op, float (&acc)[N]) {
+  const int g = 1 << lg;
+  const int* __restrict__ aux = op.aux_index();
+  int mine = beg + s < end ? __ldcs(idx + beg + s) : 0;
+  int mine_aux = aux != nullptr && beg + s < end ? __ldcs(aux + beg + s) : 0;
+  for (int base = beg; base < end; base += g) {
+    const int n = min(g, end - base);
+    const int f = base + g + s;
+    const int next = f < end ? __ldcs(idx + f) : 0;
+    const int next_aux = aux != nullptr && f < end ? __ldcs(aux + f) : 0;
+    for (int j = 0; j < n; j += kUnroll) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int nbr = __shfl_sync(mask, mine, j + u, g);
+        const int ax = aux != nullptr ? __shfl_sync(mask, mine_aux, j + u, g) : 0;
+        if (active && j + u < n) op.load(u, nbr, base + j + u, ax);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (active && j + u < n) op.add(u, acc);
+      }
+    }
+    mine = next;
+    mine_aux = next_aux;
+  }
+}
+
+// A grouped lane's place: its group's chunk (the table's chunks taken in
+// the launch order `order`, -1 past the last), its lane within the group,
+// its first element k0 and the first `nvec` of its J vectors inside K.  A
+// group is 1 << lg lanes; its K-slice is (1 << lg) * V * J elements, lane s
+// holding vectors k0 + j * (1 << lg) * V with k0 = slice0 + s * V, so each
+// load of the group is one run of whole 32-byte sectors.  Groups run
+// fastest within a warp, then warps within the block, then blocks on x.
+struct GroupLane {
+  int64_t chunk;
+  int lane;
+  unsigned mask;  // the group's lanes of the warp
+  int64_t k0;
+  int nvec;
+};
+
+template <int V, int J>
+__device__ __forceinline__ GroupLane group_lane(const Table& t, const int* __restrict__ order,
+                                                int lg, int64_t k_width) {
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << lg;
+  const int64_t gi =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * (32 >> lg) +
+      (lane >> lg);
+  GroupLane h;
+  h.lane = lane & (g - 1);
+  h.mask = lg == 5 ? kFullMask : ((1u << g) - 1) << (lane & ~(g - 1));
+  h.chunk = gi < t.n_chunks ? __ldg(order + gi) : -1;
+  h.k0 = (static_cast<int64_t>(blockIdx.y) * g * J + h.lane) * V;
+  const int64_t step = static_cast<int64_t>(g) * V;
+  const int64_t left = k_width > h.k0 ? (k_width - h.k0 + step - 1) / step : 0;
+  h.nvec = left < J ? static_cast<int>(left) : J;
+  return h;
+}
+
+// The lanes of a group for a K-slice of `slice_bytes` bytes of T at vector
+// width V, as a log2: G = slice_bytes / a lane's bytes (J*V*sizeof(T),
+// vectors_per_lane), 1 to 32; -1 for a width that is not a power of two
+// from 32 to 1,024.
+template <typename T, int V>
+inline int group_log2(int slice_bytes) {
+  if (slice_bytes < 32 || slice_bytes > 1024 || (slice_bytes & (slice_bytes - 1)) != 0) {
+    return -1;
+  }
+  const int lane_bytes = vectors_per_lane<T, V>() * V * static_cast<int>(sizeof(T));
+  int lg = 0;
+  while (lg < 5 && (lane_bytes << (lg + 1)) <= slice_bytes) ++lg;
+  return lg;
+}
+
 // One chunk's walk (chunk_pass's), for a lane whose first element is k0 and
-// whose first `nvec` vectors lie inside K (also the hub kernels' walk of a
-// chunk their block's ticket handed out).
-template <typename OutT, int V, int J, typename Op>
+// whose first `nvec` vectors lie inside K, `vstride` elements apart (also
+// the hub kernels' walk of a chunk their block's ticket handed out, and with
+// kGrouped the grouped walk of the max backward's narrow K-slices by the
+// group of 1 << lg lanes `mask`, `lane` the lane's place in it).
+template <typename OutT, int V, int J, typename Op, bool kGrouped = false>
 __device__ __forceinline__ void chunk_body(const Table& t, int64_t chunk,
                                            const int* __restrict__ idx, int lane,
                                            int64_t k0, int nvec, int64_t k_width,
                                            OutT* __restrict__ out,
-                                           float* __restrict__ partial, Op& op) {
+                                           float* __restrict__ partial, Op& op,
+                                           int vstride = 32 * V, int lg = 5,
+                                           unsigned mask = kFullMask) {
   const int row = __ldg(t.row + chunk);
   op.begin(row, k0, nvec);
   float acc[V * J];
 #pragma unroll
   for (int i = 0; i < V * J; ++i) acc[i] = 0.0f;
-  walk_chunk(idx, __ldg(t.ptr + chunk), __ldg(t.ptr + chunk + 1), lane,
-             nvec > 0, op, acc);
+  if constexpr (kGrouped) {
+    walk_group(idx, __ldg(t.ptr + chunk), __ldg(t.ptr + chunk + 1), lane, lg, mask,
+               nvec > 0, op, acc);
+  } else {
+    walk_chunk(idx, __ldg(t.ptr + chunk), __ldg(t.ptr + chunk + 1), lane,
+               nvec > 0, op, acc);
+  }
   const int slot = __ldg(t.slot + chunk);
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     if (j >= nvec) break;
-    const int64_t k = k0 + j * 32 * V;
+    const int64_t k = k0 + j * vstride;
     if (slot < 0) {
       store_vec<OutT, V>(out + static_cast<int64_t>(row) * k_width + k, acc + j * V);
     } else {
@@ -269,11 +378,14 @@ inline int vector_width(int64_t k_width, int max_esize,
   return 1;
 }
 
-// Grids of the two kernels; cudaErrorInvalidValue where a dimension would
-// not fit (the launch is refused, never cut).
+// Grids of the two kernels (`per_warp` chunks a warp: 32 / G for the
+// grouped walk); cudaErrorInvalidValue where a dimension would not fit (the
+// launch is refused, never cut).
 inline int grids(int64_t n_chunks, int64_t n_split, int64_t k_width,
-                 int slice_width, dim3* chunk_grid, dim3* combine_grid) {
-  const int64_t blocks = (n_chunks + kWarps - 1) / kWarps;  // n_chunks < 2^31
+                 int slice_width, dim3* chunk_grid, dim3* combine_grid,
+                 int per_warp = 1) {
+  const int64_t per_block = static_cast<int64_t>(kWarps) * per_warp;
+  const int64_t blocks = (n_chunks + per_block - 1) / per_block;  // n_chunks < 2^31
   const int64_t slices = (k_width + slice_width - 1) / slice_width;
   const int64_t tiles = (k_width + kCombineThreads - 1) / kCombineThreads;
   if (slices > 65535 || tiles > 65535 || n_split > 2147483647LL) {
@@ -387,6 +499,7 @@ inline int with_vector_width(int v, F&& f) {
       return f(std::integral_constant<int, 1>{});
   }
 }
+
 
 // The block's dynamic shared memory, 16-byte aligned.
 __device__ __forceinline__ unsigned char* hub_smem() {

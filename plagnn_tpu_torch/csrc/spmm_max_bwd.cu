@@ -34,8 +34,13 @@
 // read once, dx written once) is ~0.36 ms at 3.35 TB/s at the slice's
 // layer-1 shape (E ~ 724k, N 24,064, K = 10*503, f32 g, int16 arg).  A
 // gather reads arg and g of every out-neighbour, E*K*(esize + argsize)
-// bytes (21.9 GB there), and serves the re-reads from L2: the grid runs
-// chunks fastest, so one K-slice's rows stay resident.
+// bytes (21.9 GB there), and serves the re-reads from L2 as far as one
+// K-slice's rows of g and arg fit it (the grid runs chunks fastest): 37 MB
+// at 24,064 rows x (1 KB of f32 g + 512 B of arg), but 507 MB at 330,112
+// rows, where most come from HBM.  The wrapper then may narrow the slice
+// (ops/spmm_kernels.py: slice_bytes), which groups of G < 32 lanes walk
+// (spmm_max_bwd_group_kernel); each slice re-reads the chunks' destinations
+// (and t_rank), E x 4 bytes each.
 //
 // Design: a gather, not a scatter, over the row-chunked traversal of
 // row_chunks.cuh: one warp per (chunk, K-slice), J vectors of V elements a
@@ -51,7 +56,12 @@
 // <= ROW_CHUNK edges on many warps at once instead of one thread's serial
 // walk.  Narrow K does not occur on this path (K = 3,000 to 5,030); where it
 // would, the warp-per-chunk layout keeps a block's 4 warps on 4 chunks
-// rather than idle threads.
+// rather than idle threads.  K-slices narrower than 32 lanes' run
+// spmm_max_bwd_group_kernel: the same walk of each transpose chunk by a
+// group of G lanes of 32 bytes of g (row_chunks.cuh: walk_group, t_rank
+// handed out beside the destinations), 32 / G chunks a warp, longest chunks
+// first (RowChunks.order); the same hit tests and float32 adds in the same
+// order, so dx is the same bits as the 32-lane kernel's.
 // The hub instantiation (spmm_max_bwd_hub_kernel, id-based argmax;
 // row_chunks.cuh's hub section) reads the g and arg rows of the hub
 // destinations -- the transpose's k most-fetched rows -- from a
@@ -71,8 +81,9 @@ struct PosArgs {
 };
 
 // dx[row] += g[n] where arg[n] == row (kPos: the edge's rank), for each
-// out-edge row -> n; J vectors of V elements a lane.
-template <typename T, typename ArgT, int V, int J, bool kPos>
+// out-edge row -> n; J vectors of V elements a lane, kStride elements apart
+// (0: `group_stride`, the grouped walk's, set at run time).
+template <typename T, typename ArgT, int V, int J, bool kPos, int kStride = 32 * V>
 struct MaxBwdOp {
   const T* g;
   const ArgT* arg;
@@ -86,6 +97,11 @@ struct MaxBwdOp {
   int want[rc::kUnroll];   // kPos: the rank arg must hold
   int mega[rc::kUnroll];   // kPos: n's mega row index, -1 for an ordinary row
   int segw[rc::kUnroll];   // kPos: the segment seg must hold (mega rows)
+  int group_stride;
+
+  __device__ __forceinline__ int vstride() const {
+    return kStride > 0 ? kStride : group_stride;
+  }
 
   __device__ __forceinline__ void begin(int r, int64_t k, int n) {
     row = r;
@@ -93,11 +109,17 @@ struct MaxBwdOp {
     nvec = n;
   }
   __device__ __forceinline__ void load(int u, int n, int e) {
+    load(u, n, e, kPos ? __ldg(pos.t_rank + e) : 0);
+  }
+  // The grouped walk hands out t_rank (kPos) beside the destinations.
+  __device__ __forceinline__ const int* aux_index() const {
+    return kPos ? pos.t_rank : nullptr;
+  }
+  __device__ __forceinline__ void load(int u, int n, int, int tr) {
     if constexpr (kPos) {
-      const int tr = __ldg(pos.t_rank + e);
       mega[u] = -1;
       want[u] = tr;
-      if (tr < 0) {  // a mega row: warp-uniform, every lane holds edge e
+      if (tr < 0) {  // a mega row: uniform over the lanes that walk the chunk
         const int r = -1 - tr;
         segw[u] = r / pos.rank_cap;
         want[u] = r - segw[u] * pos.rank_cap;
@@ -108,8 +130,8 @@ struct MaxBwdOp {
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       if (j >= nvec) break;
-      a[u][j] = rc::load_vec<ArgT, V>(arg + off + j * 32 * V);
-      gv[u][j] = rc::load_vec<T, V>(g + off + j * 32 * V);
+      a[u][j] = rc::load_vec<ArgT, V>(arg + off + j * vstride());
+      gv[u][j] = rc::load_vec<T, V>(g + off + j * vstride());
     }
   }
   __device__ __forceinline__ void add(int u, float (&acc)[V * J]) {
@@ -120,7 +142,7 @@ struct MaxBwdOp {
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         if (j >= nvec) break;
-        const rc::Vec<int16_t, V> sv = rc::load_vec<int16_t, V>(sp + j * 32 * V);
+        const rc::Vec<int16_t, V> sv = rc::load_vec<int16_t, V>(sp + j * vstride());
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           if (rc::get(a[u][j], i) == w && rc::get(sv, i) == segw[u]) {
@@ -150,6 +172,34 @@ spmm_max_bwd_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
   constexpr int J = rc::vectors_per_lane<T, V>();
   MaxBwdOp<T, ArgT, V, J, kPos> op{g, arg, k_width, pos};
   rc::chunk_pass<T, V, J>(table, t_dst, k_width, dx, partial, op);
+}
+
+// The blocks an SM a grouped kernel's registers are held to: 4 (at most
+// 128 registers a thread), 3 for the bfloat16 forms with an int32 argmax,
+// which take up to 145.  Tighter, ptxas spills (12-92 bytes on the card);
+// with no bound the float32 positional 16-byte form takes 96 and spills 12.
+template <typename T, typename ArgT>
+constexpr int kGroupMinBlocks = sizeof(T) == 2 && sizeof(ArgT) == 4 ? 3 : 4;
+
+// The grouped walk of a K-slice narrower than 32 lanes': each group of
+// 1 << lg lanes walks the transpose chunk the launch order `order` gives
+// it, exactly as a warp of spmm_max_bwd_kernel walks its chunk -- the same
+// edges, hit tests and float32 adds in the same order -- so dx is the same
+// bits.  A group past the last chunk has nothing to do.
+template <typename T, typename ArgT, int V, bool kPos>
+__global__ void __launch_bounds__(rc::kThreads, (kGroupMinBlocks<T, ArgT>))
+spmm_max_bwd_group_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
+                          rc::Table table, const int* __restrict__ order,
+                          const int* __restrict__ t_dst, T* __restrict__ dx,
+                          float* __restrict__ partial, int64_t k_width, PosArgs pos,
+                          int lg) {
+  constexpr int J = rc::vectors_per_lane<T, V>();
+  const rc::GroupLane h = rc::group_lane<V, J>(table, order, lg, k_width);
+  if (h.chunk < 0) return;  // the whole group
+  MaxBwdOp<T, ArgT, V, J, kPos, 0> op{g, arg, k_width, pos};
+  op.group_stride = V << lg;
+  rc::chunk_body<T, V, J, decltype(op), true>(table, h.chunk, t_dst, h.lane, h.k0, h.nvec,
+                                              k_width, dx, partial, op, V << lg, lg, h.mask);
 }
 
 template <typename T>
@@ -223,22 +273,33 @@ spmm_max_bwd_hub_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
   });
 }
 
+// spmm_max_bwd_kernel where the K-slice of slice_bytes covers 32 lanes,
+// else spmm_max_bwd_group_kernel over the launch order `order`; then the
+// combine.
 template <typename T, typename ArgT, int V, bool kPos>
-int launch_v(const void* g, const void* arg, const rc::Table& table,
+int launch_v(const void* g, const void* arg, const rc::Table& table, const int* order,
              const int* t_dst, const int* split_row, const int* split_ptr,
              int64_t n_split, void* dx, void* partial, int64_t k_width,
-             const PosArgs& pos, cudaStream_t stream) {
+             const PosArgs& pos, int slice_bytes, cudaStream_t stream) {
   if constexpr (V * sizeof(T) > 16 || V * sizeof(ArgT) > 16) {
     return cudaErrorInvalidValue;  // never chosen: vector_width caps V
   } else {
+    constexpr int J = rc::vectors_per_lane<T, V>();
+    const int lg = rc::group_log2<T, V>(slice_bytes);
+    if (lg < 0 || (lg < 5 && order == nullptr)) return cudaErrorInvalidValue;
     dim3 grid, combine_grid;
-    const int rc_grid = rc::grids(table.n_chunks, n_split, k_width,
-                                  32 * V * rc::vectors_per_lane<T, V>(), &grid,
-                                  &combine_grid);
+    const int rc_grid = rc::grids(table.n_chunks, n_split, k_width, (V * J) << lg, &grid,
+                                  &combine_grid, 32 >> lg);
     if (rc_grid != cudaSuccess) return rc_grid;
-    spmm_max_bwd_kernel<T, ArgT, V, kPos><<<grid, rc::kThreads, 0, stream>>>(
-        static_cast<const T*>(g), static_cast<const ArgT*>(arg), table, t_dst,
-        static_cast<T*>(dx), static_cast<float*>(partial), k_width, pos);
+    if (lg == 5) {
+      spmm_max_bwd_kernel<T, ArgT, V, kPos><<<grid, rc::kThreads, 0, stream>>>(
+          static_cast<const T*>(g), static_cast<const ArgT*>(arg), table, t_dst,
+          static_cast<T*>(dx), static_cast<float*>(partial), k_width, pos);
+    } else {
+      spmm_max_bwd_group_kernel<T, ArgT, V, kPos><<<grid, rc::kThreads, 0, stream>>>(
+          static_cast<const T*>(g), static_cast<const ArgT*>(arg), table, order, t_dst,
+          static_cast<T*>(dx), static_cast<float*>(partial), k_width, pos, lg);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 0) return err;
     spmm_max_bwd_combine_kernel<T><<<combine_grid, rc::kCombineThreads, 0, stream>>>(
@@ -249,49 +310,44 @@ int launch_v(const void* g, const void* arg, const rc::Table& table,
 }
 
 template <typename T, typename ArgT, bool kPos>
-int launch(const void* g, const void* arg, const rc::Table& table,
+int launch(const void* g, const void* arg, const rc::Table& table, const int* order,
            const int* t_dst, const int* split_row, const int* split_ptr,
            int64_t n_split, void* dx, void* partial, int64_t k_width,
-           const PosArgs& pos, cudaStream_t stream) {
+           const PosArgs& pos, int slice_bytes, cudaStream_t stream) {
   constexpr int es = sizeof(T);
   constexpr int as = sizeof(ArgT);
   const int v = rc::vector_width(k_width, es > as ? es : as,
                                  {{g, es}, {arg, as}, {pos.seg, 2}, {dx, es}, {partial, 4}});
-  switch (v) {
-    case 8:
-      return launch_v<T, ArgT, 8, kPos>(g, arg, table, t_dst, split_row, split_ptr,
-                                        n_split, dx, partial, k_width, pos, stream);
-    case 4:
-      return launch_v<T, ArgT, 4, kPos>(g, arg, table, t_dst, split_row, split_ptr,
-                                        n_split, dx, partial, k_width, pos, stream);
-    case 2:
-      return launch_v<T, ArgT, 2, kPos>(g, arg, table, t_dst, split_row, split_ptr,
-                                        n_split, dx, partial, k_width, pos, stream);
-    default:
-      return launch_v<T, ArgT, 1, kPos>(g, arg, table, t_dst, split_row, split_ptr,
-                                        n_split, dx, partial, k_width, pos, stream);
-  }
+  return rc::with_vector_width(v, [&](auto vw) {
+    return launch_v<T, ArgT, decltype(vw)::value, kPos>(g, arg, table, order, t_dst,
+                                                        split_row, split_ptr, n_split, dx,
+                                                        partial, k_width, pos, slice_bytes,
+                                                        stream);
+  });
 }
 
 template <typename T>
 int launch_arg(int arg_bits, bool positional, const void* g, const void* arg,
-               const rc::Table& table, const int* t_dst, const int* split_row,
-               const int* split_ptr, int64_t n_split, void* dx, void* partial,
-               int64_t k_width, const PosArgs& pos, cudaStream_t stream) {
+               const rc::Table& table, const int* order, const int* t_dst,
+               const int* split_row, const int* split_ptr, int64_t n_split, void* dx,
+               void* partial, int64_t k_width, const PosArgs& pos, int slice_bytes,
+               cudaStream_t stream) {
   if (positional) {
     if (arg_bits != 16 || pos.t_rank == nullptr || pos.rank_cap < 1) {
       return cudaErrorInvalidValue;
     }
-    return launch<T, int16_t, true>(g, arg, table, t_dst, split_row, split_ptr,
-                                    n_split, dx, partial, k_width, pos, stream);
+    return launch<T, int16_t, true>(g, arg, table, order, t_dst, split_row, split_ptr,
+                                    n_split, dx, partial, k_width, pos, slice_bytes, stream);
   }
   switch (arg_bits) {
     case 16:
-      return launch<T, int16_t, false>(g, arg, table, t_dst, split_row, split_ptr,
-                                       n_split, dx, partial, k_width, pos, stream);
+      return launch<T, int16_t, false>(g, arg, table, order, t_dst, split_row, split_ptr,
+                                       n_split, dx, partial, k_width, pos, slice_bytes,
+                                       stream);
     case 32:
-      return launch<T, int32_t, false>(g, arg, table, t_dst, split_row, split_ptr,
-                                       n_split, dx, partial, k_width, pos, stream);
+      return launch<T, int32_t, false>(g, arg, table, order, t_dst, split_row, split_ptr,
+                                       n_split, dx, partial, k_width, pos, slice_bytes,
+                                       stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -347,8 +403,12 @@ int hub_warps_v(int64_t k_width, int hub_k, int* warps) {
 // unused when n_split is 0.  positional (arg_bits 16 only): arg holds
 // ranks; mega_of (N_pad,) int32 (null: no mega rows), seg (n_mega,
 // k_width) int16, rank_cap and t_rank (E,) int32 as in graph_format.Graph.
-// Returns the CUDA error code of the launches; cudaErrorInvalidValue for a
-// grid that would not fit.
+// order (n_chunks,) int32 is the transpose chunk table's launch order
+// (RowChunks.order) and slice_bytes the K-slice's bytes of g (a power of
+// two, 32 to 1,024; ops/spmm_kernels.py: slice_bytes): a slice that covers
+// 32 lanes runs spmm_max_bwd_kernel, a narrower one
+// spmm_max_bwd_group_kernel.  Returns the CUDA error code of the launches;
+// cudaErrorInvalidValue for a grid that would not fit or a width not taken.
 extern "C" int spmm_max_bwd(int dtype, int arg_bits, const void* g,
                             const void* arg, const void* chunk_row,
                             const void* chunk_ptr, const void* chunk_slot,
@@ -357,7 +417,8 @@ extern "C" int spmm_max_bwd(int dtype, int arg_bits, const void* g,
                             long long n_split, void* dx, void* partial,
                             long long k_width, int positional,
                             const void* mega_of, const void* seg, int rank_cap,
-                            const void* t_rank, void* stream) {
+                            const void* t_rank, const void* order, int slice_bytes,
+                            void* stream) {
   if (n_chunks == 0 || k_width == 0) return cudaSuccess;
   if (n_chunks > 2147483647LL) return cudaErrorInvalidValue;
   const rc::Table table{static_cast<const int*>(chunk_row),
@@ -370,16 +431,11 @@ extern "C" int spmm_max_bwd(int dtype, int arg_bits, const void* g,
   auto st = static_cast<cudaStream_t>(stream);
   const PosArgs pos{static_cast<const int*>(t_rank), static_cast<const int*>(mega_of),
                     static_cast<const int16_t*>(seg), rank_cap};
-  switch (dtype) {
-    case 0:
-      return launch_arg<float>(arg_bits, positional != 0, g, arg, table, dp, sr, sp,
-                               n_split, dx, partial, k_width, pos, st);
-    case 1:
-      return launch_arg<__nv_bfloat16>(arg_bits, positional != 0, g, arg, table, dp, sr,
-                                       sp, n_split, dx, partial, k_width, pos, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const auto* ord = static_cast<const int*>(order);
+  return rc::with_dtype(dtype, [&](auto t) {
+    return launch_arg<decltype(t)>(arg_bits, positional != 0, g, arg, table, ord, dp, sr,
+                                   sp, n_split, dx, partial, k_width, pos, slice_bytes, st);
+  });
 }
 
 // The hub instantiation of spmm_max_bwd (id-based argmax, 16 or 32 bits):

@@ -35,9 +35,13 @@
 // once, out and arg written once) is ~0.36 ms at 3.35 TB/s at the slice's
 // layer-1 shape (E ~ 724k, N 24,064, K = 10*503, f32 x, int16 arg).  A
 // gather reads one source row per edge, E*K*esize bytes (~14.6 GB there),
-// and serves the re-reads from L2: the grid runs chunks fastest, so the
-// blocks in flight share one K-slice, whose rows (24,064 x 1 KB) stay in
-// the 50 MB L2.
+// and serves the re-reads from L2 as far as one K-slice's rows fit it: the
+// grid runs chunks fastest, so the blocks in flight share one K-slice.  At
+// 24,064 rows x 1 KB (25 MB) they fit the 50 MB L2; at 330,112 rows x 1 KB
+// (338 MB) they do not, and most gathered rows come from HBM.  The wrapper
+// then may narrow the slice (ops/spmm_kernels.py: slice_bytes), which
+// groups of G < 32 lanes walk (kernel 1g); each slice re-reads the chunks'
+// source ids, E x 4 bytes.
 //
 // Design: the row-chunked traversal of row_chunks.cuh over the forward
 // chunk table (graph_format.RowChunks: every row cut into chunks of at most
@@ -64,6 +68,14 @@
 //    stays the first maximum in (dst, src) order.  Chunk j of a row starts
 //    at rank j * chunk_cap (graph_format.RowChunks), so the positional
 //    combine adds that to the winning slot's rank.
+// 1g. spmm_max_fwd_group_kernel, for K-slices narrower than 32 lanes' (a
+//    group of G lanes of 32 bytes, 32 / G chunks a warp): the same walk of
+//    each chunk by its group (row_chunks.cuh: walk_group), the group's ids
+//    loaded G at a time and shuffled over its lanes only, so the groups of
+//    a warp walk chunks of any lengths; the chunks taken longest first
+//    (RowChunks.order) so that the groups of a warp end together.  Every
+//    element is still computed by one lane over the same edges in the same
+//    order, so out and arg are the bits of kernel 1's.
 // No atomics: every element is written by one thread in a fixed order, so
 // out and arg are bit-identical run to run.  The design it replaces, one
 // thread per (row, k) walking the whole row with 4-byte loads, walked the
@@ -124,9 +136,10 @@ __device__ __forceinline__ void store_ints(ArgT* p, const int* v) {
 }
 
 // The running first maximum of x[src] over a chunk's edges, J vectors of V
-// elements a lane: walk_chunk's `acc` holds the values, `src` the sources
-// (kPos: the edge indices).
-template <typename T, int V, int J, bool kWithArg, bool kPos>
+// elements a lane, kStride elements apart (0: `group_stride`, the grouped
+// walk's, set at run time): walk_chunk's `acc` holds the values, `src` the
+// sources (kPos: the edge indices).
+template <typename T, int V, int J, bool kWithArg, bool kPos, int kStride = 32 * V>
 struct MaxFwdOp {
   const T* x;
   int64_t k_width;
@@ -136,6 +149,11 @@ struct MaxFwdOp {
   rc::Vec<T, V> val[rc::kUnroll][J];
   int nbr[rc::kUnroll];
   int src[V * J];
+  int group_stride;
+
+  __device__ __forceinline__ int vstride() const {
+    return kStride > 0 ? kStride : group_stride;
+  }
 
   __device__ __forceinline__ void begin(int64_t k, int n) {
     k0 = k;
@@ -149,9 +167,12 @@ struct MaxFwdOp {
     const T* p = x + static_cast<int64_t>(s) * k_width + k0;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      if (j < nvec) val[u][j] = rc::load_vec<T, V>(p + j * 32 * V);
+      if (j < nvec) val[u][j] = rc::load_vec<T, V>(p + j * vstride());
     }
   }
+  // the grouped walk's: no second index
+  __device__ __forceinline__ const int* aux_index() const { return nullptr; }
+  __device__ __forceinline__ void load(int u, int s, int e, int) { load(u, s, e); }
   __device__ __forceinline__ void add(int u, float (&best)[V * J]) {
     const bool take_all = first;
     first = false;
@@ -178,12 +199,14 @@ struct MaxFwdOp {
   }
 };
 
-// One chunk's first maximum and its store, spmm_max_fwd_kernel's and the
-// hub kernel's: the walk, op.finish, then the row's out and arg or the
-// chunk's partial slot.  An empty chunk (empty row) keeps empty_value and
-// source -1; a split row's chunks are never empty, so the combine never
-// sees it.
-template <typename T, typename ArgT, int V, int J, bool kWithArg, bool kPos, typename Op>
+// One chunk's first maximum and its store, spmm_max_fwd_kernel's, the
+// hub kernel's and (kGrouped: walk_group by the group of 1 << lg lanes
+// `mask`, `lane` this lane's place in it) the grouped kernel's: the walk,
+// op.finish, then the row's out and arg or the chunk's partial slot.  An
+// empty chunk (empty row) keeps empty_value and source -1; a split row's
+// chunks are never empty, so the combine never sees it.
+template <typename T, typename ArgT, int V, int J, bool kWithArg, bool kPos,
+          bool kGrouped = false, typename Op>
 __device__ __forceinline__ void max_fwd_chunk(const rc::Table& t, int64_t chunk,
                                               const int* __restrict__ idx, int lane,
                                               int64_t k0, int nvec, Op& op,
@@ -191,7 +214,8 @@ __device__ __forceinline__ void max_fwd_chunk(const rc::Table& t, int64_t chunk,
                                               float* __restrict__ partial_val,
                                               int* __restrict__ partial_src,
                                               int64_t k_width, float empty_value,
-                                              const PosArgs& pos) {
+                                              const PosArgs& pos, int lg = 5,
+                                              unsigned mask = rc::kFullMask) {
   const int row = __ldg(t.row + chunk);
   op.begin(k0, nvec);
   float best[V * J];
@@ -199,7 +223,11 @@ __device__ __forceinline__ void max_fwd_chunk(const rc::Table& t, int64_t chunk,
   for (int i = 0; i < V * J; ++i) best[i] = empty_value;
   const int beg = __ldg(t.ptr + chunk);
   const int end = __ldg(t.ptr + chunk + 1);
-  rc::walk_chunk(idx, beg, end, lane, nvec > 0, op, best);
+  if constexpr (kGrouped) {
+    rc::walk_group(idx, beg, end, lane, lg, mask, nvec > 0, op, best);
+  } else {
+    rc::walk_chunk(idx, beg, end, lane, nvec > 0, op, best);
+  }
   const int slot = __ldg(t.slot + chunk);
   op.finish(beg, end);
   // a whole mega row (rank_cap below the chunk size): rank -> (segment, rank)
@@ -207,7 +235,7 @@ __device__ __forceinline__ void max_fwd_chunk(const rc::Table& t, int64_t chunk,
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     if (j >= nvec) break;
-    const int64_t k = k0 + j * 32 * V;
+    const int64_t k = k0 + j * op.vstride();
     if (slot < 0) {
       const int64_t o = static_cast<int64_t>(row) * k_width + k;
       rc::store_vec<T, V>(out + o, best + j * V);
@@ -253,6 +281,28 @@ spmm_max_fwd_kernel(const T* __restrict__ x, rc::Table t,
   max_fwd_chunk<T, ArgT, V, J, kWithArg, kPos>(t, chunk, src, lane, k0, nvec, op, out, arg,
                                                partial_val, partial_src, k_width,
                                                empty_value, pos);
+}
+
+// Kernel 1g, the grouped walk of a K-slice narrower than 32 lanes': each
+// group of 1 << lg lanes walks the chunk the launch order `order` gives it,
+// exactly as a warp of spmm_max_fwd_kernel walks its chunk -- the same
+// edges in the same order, the same compares, the same stores -- so out and
+// arg are the same bits.  A group past the last chunk has nothing to do.
+template <typename T, typename ArgT, int V, bool kWithArg, bool kPos>
+__global__ void __launch_bounds__(rc::kThreads, kMinBlocks)
+spmm_max_fwd_group_kernel(const T* __restrict__ x, rc::Table t,
+                          const int* __restrict__ order, const int* __restrict__ src,
+                          T* __restrict__ out, ArgT* __restrict__ arg,
+                          float* __restrict__ partial_val, int* __restrict__ partial_src,
+                          int64_t k_width, float empty_value, PosArgs pos, int lg) {
+  constexpr int J = rc::vectors_per_lane<T, V>();
+  const rc::GroupLane h = rc::group_lane<V, J>(t, order, lg, k_width);
+  if (h.chunk < 0) return;  // the whole group
+  MaxFwdOp<T, V, J, kWithArg, kPos, 0> op{x, k_width};
+  op.group_stride = V << lg;
+  max_fwd_chunk<T, ArgT, V, J, kWithArg, kPos, true>(t, h.chunk, src, h.lane, h.k0, h.nvec,
+                                                     op, out, arg, partial_val, partial_src,
+                                                     k_width, empty_value, pos, lg, h.mask);
 }
 
 // MaxFwdOp (id-based argmax) with the hub sources' rows from the arena:
@@ -350,24 +400,36 @@ spmm_max_fwd_combine_kernel(const int* __restrict__ split_row,
   if (kWithArg) arg[r] = static_cast<ArgT>(best_src);
 }
 
+// Kernel 1 where the K-slice of slice_bytes covers 32 lanes, else kernel
+// 1g over the launch order `order`; then the combine.
 template <typename T, typename ArgT, int V, bool kWithArg, bool kPos>
-int launch_v(const void* x, const rc::Table& table, const int* src,
+int launch_v(const void* x, const rc::Table& table, const int* order, const int* src,
              const int* split_row, const int* split_ptr, int64_t n_split,
              void* out, void* arg, void* partial_val, void* partial_src,
-             int64_t k_width, float empty_value, const PosArgs& pos,
+             int64_t k_width, float empty_value, const PosArgs& pos, int slice_bytes,
              cudaStream_t stream) {
   if constexpr (V * sizeof(T) > 16) {
     return cudaErrorInvalidValue;  // never chosen: vector_width caps V
   } else {
+    constexpr int J = rc::vectors_per_lane<T, V>();
+    const int lg = rc::group_log2<T, V>(slice_bytes);
+    if (lg < 0 || (lg < 5 && order == nullptr)) return cudaErrorInvalidValue;
     dim3 grid, combine_grid;
-    const int rc_grid = rc::grids(table.n_chunks, n_split, k_width,
-                                  32 * V * rc::vectors_per_lane<T, V>(), &grid,
-                                  &combine_grid);
+    const int rc_grid = rc::grids(table.n_chunks, n_split, k_width, (V * J) << lg, &grid,
+                                  &combine_grid, 32 >> lg);
     if (rc_grid != cudaSuccess) return rc_grid;
-    spmm_max_fwd_kernel<T, ArgT, V, kWithArg, kPos><<<grid, rc::kThreads, 0, stream>>>(
-        static_cast<const T*>(x), table, src, static_cast<T*>(out),
-        static_cast<ArgT*>(arg), static_cast<float*>(partial_val),
-        static_cast<int*>(partial_src), k_width, empty_value, pos);
+    if (lg == 5) {
+      spmm_max_fwd_kernel<T, ArgT, V, kWithArg, kPos><<<grid, rc::kThreads, 0, stream>>>(
+          static_cast<const T*>(x), table, src, static_cast<T*>(out),
+          static_cast<ArgT*>(arg), static_cast<float*>(partial_val),
+          static_cast<int*>(partial_src), k_width, empty_value, pos);
+    } else {
+      spmm_max_fwd_group_kernel<T, ArgT, V, kWithArg, kPos>
+          <<<grid, rc::kThreads, 0, stream>>>(
+              static_cast<const T*>(x), table, order, src, static_cast<T*>(out),
+              static_cast<ArgT*>(arg), static_cast<float*>(partial_val),
+              static_cast<int*>(partial_src), k_width, empty_value, pos, lg);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 0) return err;
     spmm_max_fwd_combine_kernel<T, ArgT, kWithArg, kPos>
@@ -380,69 +442,51 @@ int launch_v(const void* x, const rc::Table& table, const int* src,
 }
 
 template <typename T, typename ArgT, bool kWithArg, bool kPos>
-int launch(const void* x, const rc::Table& table, const int* src,
+int launch(const void* x, const rc::Table& table, const int* order, const int* src,
            const int* split_row, const int* split_ptr, int64_t n_split,
            void* out, void* arg, void* partial_val, void* partial_src,
-           int64_t k_width, float empty_value, const PosArgs& pos,
+           int64_t k_width, float empty_value, const PosArgs& pos, int slice_bytes,
            cudaStream_t stream) {
   constexpr int es = sizeof(T);
   constexpr int as = sizeof(ArgT);
   const int v = rc::vector_width(
       k_width, es,
       {{x, es}, {out, es}, {arg, as}, {pos.seg, 2}, {partial_val, 4}, {partial_src, 4}});
-  switch (v) {
-    case 8:
-      return launch_v<T, ArgT, 8, kWithArg, kPos>(x, table, src, split_row, split_ptr,
-                                                  n_split, out, arg, partial_val,
-                                                  partial_src, k_width, empty_value,
-                                                  pos, stream);
-    case 4:
-      return launch_v<T, ArgT, 4, kWithArg, kPos>(x, table, src, split_row, split_ptr,
-                                                  n_split, out, arg, partial_val,
-                                                  partial_src, k_width, empty_value,
-                                                  pos, stream);
-    case 2:
-      return launch_v<T, ArgT, 2, kWithArg, kPos>(x, table, src, split_row, split_ptr,
-                                                  n_split, out, arg, partial_val,
-                                                  partial_src, k_width, empty_value,
-                                                  pos, stream);
-    default:
-      return launch_v<T, ArgT, 1, kWithArg, kPos>(x, table, src, split_row, split_ptr,
-                                                  n_split, out, arg, partial_val,
-                                                  partial_src, k_width, empty_value,
-                                                  pos, stream);
-  }
+  return rc::with_vector_width(v, [&](auto vw) {
+    return launch_v<T, ArgT, decltype(vw)::value, kWithArg, kPos>(
+        x, table, order, src, split_row, split_ptr, n_split, out, arg, partial_val,
+        partial_src, k_width, empty_value, pos, slice_bytes, stream);
+  });
 }
 
 template <typename T>
 int launch_arg(int arg_bits, bool positional, const void* x, const rc::Table& table,
-               const int* src, const int* split_row, const int* split_ptr,
-               int64_t n_split, void* out, void* arg, void* partial_val,
-               void* partial_src, int64_t k_width, float empty_value,
-               const PosArgs& pos, cudaStream_t stream) {
+               const int* order, const int* src, const int* split_row,
+               const int* split_ptr, int64_t n_split, void* out, void* arg,
+               void* partial_val, void* partial_src, int64_t k_width, float empty_value,
+               const PosArgs& pos, int slice_bytes, cudaStream_t stream) {
   if (positional) {
     if (arg_bits != 16 || pos.rank_cap < 1 || pos.chunk_cap < 1) return cudaErrorInvalidValue;
-    return launch<T, int16_t, true, true>(x, table, src, split_row, split_ptr,
-                                          n_split, out, arg, partial_val,
-                                          partial_src, k_width, empty_value, pos,
-                                          stream);
+    return launch<T, int16_t, true, true>(x, table, order, src, split_row, split_ptr,
+                                          n_split, out, arg, partial_val, partial_src,
+                                          k_width, empty_value, pos, slice_bytes, stream);
   }
   switch (arg_bits) {
     case 0:
-      return launch<T, int16_t, false, false>(x, table, src, split_row, split_ptr,
-                                              n_split, out, nullptr, partial_val,
-                                              nullptr, k_width, empty_value, pos,
+      return launch<T, int16_t, false, false>(x, table, order, src, split_row, split_ptr,
+                                              n_split, out, nullptr, partial_val, nullptr,
+                                              k_width, empty_value, pos, slice_bytes,
                                               stream);
     case 16:
-      return launch<T, int16_t, true, false>(x, table, src, split_row, split_ptr,
-                                             n_split, out, arg, partial_val,
-                                             partial_src, k_width, empty_value,
-                                             pos, stream);
+      return launch<T, int16_t, true, false>(x, table, order, src, split_row, split_ptr,
+                                             n_split, out, arg, partial_val, partial_src,
+                                             k_width, empty_value, pos, slice_bytes,
+                                             stream);
     case 32:
-      return launch<T, int32_t, true, false>(x, table, src, split_row, split_ptr,
-                                             n_split, out, arg, partial_val,
-                                             partial_src, k_width, empty_value,
-                                             pos, stream);
+      return launch<T, int32_t, true, false>(x, table, order, src, split_row, split_ptr,
+                                             n_split, out, arg, partial_val, partial_src,
+                                             k_width, empty_value, pos, slice_bytes,
+                                             stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -505,8 +549,12 @@ int hub_warps_v(int64_t k_width, int hub_k, int* warps) {
 // positional (arg_bits 16 only): arg holds ranks; mega_of (N_pad,) int32
 // (null: no mega rows), seg (n_mega, k_width) int16 and rank_cap as in
 // graph_format.Graph; chunk_cap is the chunk table's edges per chunk.
-// Returns the CUDA error code of the launches (0 =
-// launched); cudaErrorInvalidValue for a grid that would not fit.
+// order (n_chunks,) int32 is the chunk table's launch order (RowChunks.order)
+// and slice_bytes the K-slice's bytes of x (a power of two, 32 to 1,024;
+// ops/spmm_kernels.py: slice_bytes): a slice that covers 32 lanes runs
+// spmm_max_fwd_kernel, a narrower one spmm_max_fwd_group_kernel.
+// Returns the CUDA error code of the launches (0 = launched);
+// cudaErrorInvalidValue for a grid that would not fit or a width not taken.
 extern "C" int spmm_max_fwd(int dtype, int arg_bits, const void* x,
                             const void* chunk_row, const void* chunk_ptr,
                             const void* chunk_slot, long long n_chunks,
@@ -515,7 +563,8 @@ extern "C" int spmm_max_fwd(int dtype, int arg_bits, const void* x,
                             void* arg, void* partial_val, void* partial_src,
                             long long k_width, float empty_value, int positional,
                             const void* mega_of, void* seg, int rank_cap,
-                            int chunk_cap, void* stream) {
+                            int chunk_cap, const void* order, int slice_bytes,
+                            void* stream) {
   if (n_chunks == 0 || k_width == 0) return cudaSuccess;
   if (n_chunks > 2147483647LL) return cudaErrorInvalidValue;
   const PosArgs pos{static_cast<const int*>(mega_of), static_cast<int16_t*>(seg),
@@ -527,19 +576,13 @@ extern "C" int spmm_max_fwd(int dtype, int arg_bits, const void* x,
   const auto* sp = static_cast<const int*>(src);
   const auto* srow = static_cast<const int*>(split_row);
   const auto* sptr = static_cast<const int*>(split_ptr);
+  const auto* ord = static_cast<const int*>(order);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_arg<float>(arg_bits, positional != 0, x, table, sp, srow, sptr,
-                               n_split, out, arg, partial_val, partial_src, k_width,
-                               empty_value, pos, st);
-    case 1:
-      return launch_arg<__nv_bfloat16>(arg_bits, positional != 0, x, table, sp, srow,
-                                       sptr, n_split, out, arg, partial_val,
-                                       partial_src, k_width, empty_value, pos, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return rc::with_dtype(dtype, [&](auto t) {
+    return launch_arg<decltype(t)>(arg_bits, positional != 0, x, table, ord, sp, srow, sptr,
+                                   n_split, out, arg, partial_val, partial_src, k_width,
+                                   empty_value, pos, slice_bytes, st);
+  });
 }
 
 // The hub instantiation of spmm_max_fwd (with the id-based argmax, 16 or 32

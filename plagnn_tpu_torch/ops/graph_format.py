@@ -72,6 +72,13 @@ class RowChunks:
     split_row: (S,)     the rows of more than ``cap`` edges, ascending.
     split_ptr: (S + 1,) split row i owns the slots
                         ``[split_ptr[i], split_ptr[i+1])``, in chunk order.
+    order:     (C,)     the launch order of the max kernels' grouped walk
+                        (narrow K-slices, several chunks a warp): the
+                        chunks by edge count, longest first (ties in
+                        chunk order), so the chunks of one warp end
+                        together.  Each chunk writes only its own row or
+                        slot, so the order changes no result; the 32-lane
+                        walks and the hub kernels take chunk order.
     """
 
     row: torch.Tensor
@@ -79,6 +86,7 @@ class RowChunks:
     slot: torch.Tensor
     split_row: torch.Tensor
     split_ptr: torch.Tensor
+    order: torch.Tensor
     cap: int
     n_slots: int
 
@@ -118,9 +126,10 @@ def chunk_table(indptr: np.ndarray, cap: int, device=None) -> RowChunks:
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
 
+    order = np.argsort(-np.diff(ptr), kind="stable")
     return RowChunks(row=i32(row), ptr=i32(ptr), slot=i32(slot),
                      split_row=i32(split_row), split_ptr=i32(split_ptr),
-                     cap=cap, n_slots=int(split_ptr[-1]))
+                     order=i32(order), cap=cap, n_slots=int(split_ptr[-1]))
 
 
 def _to_device(obj, device):

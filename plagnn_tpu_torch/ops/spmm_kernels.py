@@ -33,6 +33,16 @@ All three walk the graph's row chunks (``Graph.chunks`` / ``t_chunks``,
 and a float32 scratch for the partials of split rows (the max forward also
 an int32 scratch for the partials' sources).
 
+The K-slice of the two max kernels: a block walks one slice of the rows'
+columns for its chunks, and the blocks in flight share it, so that the
+gathered rows of that slice are served from L2.  ``slice_bytes`` picks the
+width from N_pad and the bytes a row of the slice gathers (the rule and its
+budget below): 1 KB, 32 lanes of 32 bytes, wherever that fits the budget
+(every 24k-node shape, and at 330 k nodes the forward and the float32
+backward), narrower where it does not (the bfloat16 backward at 330 k
+nodes: 512 B), where groups of fewer lanes walk several chunks a warp.
+The sum and the hub instantiations keep the 1 KB slice.
+
 The hub cache (``Graph.hub`` / ``t_hub``, ``graph_format.HubTable``;
 ``Graph.with_hub``): where the graph carries a direction's hub table, the
 wrapper launches that kernel's hub instantiation, which reads the hub
@@ -108,6 +118,64 @@ _ARG_BITS = {torch.int16: 16, torch.int32: 32}
 # Elements of the (edges, K) temporaries the plain versions materialize at
 # once, so they run at the slice's full width on the card too.
 _PLAIN_CHUNK = 1 << 26
+
+
+# The L2 budget of a max kernel's K-slice (bytes): ``slice_bytes`` takes the
+# widest width of SLICE_WIDTHS whose working set, N_pad rows x (the slice's
+# bytes of x in the forward; of g and of the argmax in the backward), is at
+# most this.  Twelve L2s (50 MiB each), from the layer-1 times at 330,112
+# rows (chip_smoke.py --sweep-slice and a sweep of the grouped backward's
+# register bound, NVIDIA H100 80GB HBM3, 700 W): the forward's 1 KB slice
+# (338 MB) ran 37.42 ms f32 / 20.27 bf16 against 36.17 / 23.51 at 512 B, so
+# it stays, as does the f32 backward's (507 MB: 58.7 against 59.6 at 512 B,
+# spill-free); the bf16 backward's (676 MB) ran 39.9 against 38.2 at 512 B.
+# Every narrower width ran slower than 1 KB.  Every 24k-node shape keeps
+# 1 KB (at most 49.3 MB: 24,064 x (1 KB of bf16 g + 1 KB of int16 argmax)).
+SLICE_L2_BUDGET = 12 * 50 * 2**20
+# Slice widths the kernels take, in bytes of the gathered operand a row
+# (x forward, g backward): 32 lanes' 32 bytes down to one lane's.
+SLICE_WIDTHS = (1024, 512, 256, 128, 64, 32)
+
+
+def slice_bytes(n_rows: int, esize: int, arg_size: int = 0) -> int:
+    """The max kernels' K-slice width in bytes of the gathered operand a row
+    (x of ``esize`` bytes an element in the forward; g in the backward, whose
+    argmax of ``arg_size`` bytes an element is gathered beside it): the
+    widest of SLICE_WIDTHS whose ``n_rows`` rows fit SLICE_L2_BUDGET, the
+    narrowest where none does."""
+    for w in SLICE_WIDTHS:
+        if n_rows * (w + w // esize * arg_size) <= SLICE_L2_BUDGET:
+            return w
+    return SLICE_WIDTHS[-1]
+
+
+def vector_width(k_width: int, max_esize: int) -> int:
+    """The lane vector the kernels take at K (row_chunks.cuh: vector_width,
+    for pointers aligned as a tensor's own storage is): the widest of 8, 4,
+    2 elements dividing K within 16 bytes of the largest element, else 1."""
+    for v in (8, 4, 2):
+        if k_width % v == 0 and v * max_esize <= 16:
+            return v
+    return 1
+
+
+def slice_layout(width: int, k_width: int, esize: int, max_esize: int = 0):
+    """(lanes a group, elements a K-slice, K-slices) of a max kernel at this
+    width (bytes of the gathered operand, elements of ``esize`` bytes; the
+    lane vector also counts ``max_esize``, the backward's argmax): a lane
+    holds J vectors of V elements, 32 bytes or 8 vectors
+    (row_chunks.cuh: vectors_per_lane), and a group as many lanes, 1 to 32,
+    as the width holds (group_log2)."""
+    _check_slice(width)
+    v = vector_width(k_width, max(esize, max_esize))
+    j = min(max(32 // (v * esize), 1), 8)
+    g = min(max(width // (j * v * esize), 1), 32)
+    return g, g * j * v, -(-k_width // (g * j * v))
+
+
+def _check_slice(width: Optional[int]) -> None:
+    if width is not None and width not in SLICE_WIDTHS:
+        raise ValueError(f"K-slice width must be one of {SLICE_WIDTHS} bytes, got {width}")
 
 
 def reset_launches() -> None:
@@ -189,10 +257,11 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 # pointers and the stream as c_void_p, so ctypes passes them at full width.
 #   spmm_max_fwd: dtype, arg_bits, x, <chunk table>, src, split_row,
 #                 split_ptr, n_split, out, arg, partial_val, partial_src, k,
-#                 empty_value (float), <positional>, chunk_cap (int), stream
+#                 empty_value (float), <positional>, chunk_cap (int), order,
+#                 slice_bytes (int), stream
 #   spmm_max_bwd: dtype, arg_bits, g, arg, <chunk table>, t_dst,
 #                 split_row, split_ptr, n_split, dx, partial, k,
-#                 <positional>, t_rank, stream
+#                 <positional>, t_rank, order, slice_bytes (int), stream
 #   spmm_sum:     dtype, x, <chunk table>, idx, val, split_row, split_ptr,
 #                 n_split, out, partial, k, stream
 # where <chunk table> is chunk_row, chunk_ptr, chunk_slot, n_chunks, and
@@ -216,8 +285,9 @@ _HUB = [*_CHUNKS, _P, _P, _I]
 _SPLIT = [_P, _P, _LL]
 _ARGTYPES = {
     "spmm_max_fwd": [_I, _I, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _P, _P, _LL, _F,
-                     *_POS, _I, _P],
-    "spmm_max_bwd": [_I, _I, _P, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, *_POS, _P, _P],
+                     *_POS, _I, _P, _I, _P],
+    "spmm_max_bwd": [_I, _I, _P, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, *_POS, _P,
+                     _P, _I, _P],
     "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _P, _LL, _P, _P, _LL, _P],
     "spmm_max_fwd_hub": [_I, _I, _P, *_HUB, *_SPLIT, _P, _P, _P, _P, _LL, _F, _P],
     "spmm_max_bwd_hub": [_I, _I, _P, _P, *_HUB, *_SPLIT, _P, _P, _LL, _P],
@@ -386,24 +456,30 @@ def spmm_max_fwd_plain(
 
 def spmm_max_fwd(
     graph: Graph, x: torch.Tensor, with_argmax: bool = True,
-    empty_value: float = 0.0,
+    empty_value: float = 0.0, *, force_slice: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(out, arg) for x (N_pad, K); arg is None without ``with_argmax``; an
     empty row stores ``empty_value`` (in x's dtype) and argmax -1.
 
     On a positional graph the argmax is the rank form (``arg_rows`` rows of
     int16).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel, its hub instantiation where the graph has a forward hub and the
-    argmax is recorded."""
+    kernel at ``slice_bytes``'s K-slice (``force_slice``: that width in
+    bytes, for the checks and timings that compare widths), its hub
+    instantiation where the graph has a forward hub and the argmax is
+    recorded."""
     _check(graph, x, "x")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if with_argmax and graph.positional and empty_value != 0:
         raise ValueError("the positional argmax serves a whole graph (empty_value "
                          "0); a graph shard is id-based: build it with positional=False")
+    _check_slice(force_slice)
+    use_hub = with_argmax and graph.hub is not None
+    if use_hub and force_slice is not None:
+        raise ValueError("the hub kernels take the 1 KB K-slice: force_slice applies "
+                         "to a graph without a hub")
     if x.device.type == "cpu":
         return spmm_max_fwd_plain(graph, x, with_argmax, empty_value)
-    use_hub = with_argmax and graph.hub is not None
     fn = _fn("spmm_max_fwd", "spmm_max_fwd_hub" if use_hub else None)
     code, tag = _DTYPE_CODE[x.dtype]
     n, k = x.shape
@@ -427,12 +503,14 @@ def spmm_max_fwd(
         _count(f"spmm_max_fwd_hub_{tag}", graph, k)
         return out, arg
     pos = _pos_args(graph, arg)
+    width = force_slice or slice_bytes(n, x.element_size())
     with torch.cuda.device(x.device):
         rc = fn(
             code, bits, x.data_ptr(), *chunks, out.data_ptr(),
             arg.data_ptr() if arg is not None else None, partial_val.data_ptr(),
             partial_src.data_ptr() if partial_src is not None else None, k,
-            float(empty_value), *pos, graph.chunks.cap, _stream(x))
+            float(empty_value), *pos, graph.chunks.cap, graph.chunks.order.data_ptr(),
+            width, _stream(x))
     if rc != 0:
         raise RuntimeError(f"spmm_max_fwd launch failed: CUDA error {rc}")
     form = "pos_" if pos[0] else ("" if with_argmax else "noarg_")
@@ -476,11 +554,14 @@ def spmm_max_bwd_plain(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torc
     return dx.to(g.dtype)
 
 
-def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
+def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor, *,
+                 force_slice: Optional[int] = None) -> torch.Tensor:
     """dx (N_pad, K) in g's dtype, for the argmax ``spmm_max_fwd`` gave on
     this graph.  CPU tensors take the plain version; CUDA tensors launch
     ``spmm_max_bwd_f32`` or ``spmm_max_bwd_bf16`` (``_pos_`` on a
-    positional graph, ``_hub_`` where the graph has a transpose hub)."""
+    positional graph, ``_hub_`` where the graph has a transpose hub) at
+    ``slice_bytes``'s K-slice (``force_slice``: that width in bytes of g,
+    for the checks and timings that compare widths)."""
     _check(graph, g, "g")
     if g.dtype not in _DTYPE_CODE:
         raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
@@ -493,6 +574,10 @@ def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tens
     _check(graph, arg[:graph.n_nodes], "arg")
     if arg.dtype == torch.int16 and not graph.positional and graph.n_nodes > (1 << 15):
         raise ValueError("int16 argmax cannot address more than 2^15 nodes")
+    _check_slice(force_slice)
+    if graph.t_hub is not None and force_slice is not None:
+        raise ValueError("the hub kernels take the 1 KB K-slice: force_slice applies to a "
+                         "graph without a hub")
     if g.device.type == "cpu":
         return spmm_max_bwd_plain(graph, g, arg)
     fn = _fn("spmm_max_bwd", None if graph.t_hub is None else "spmm_max_bwd_hub")
@@ -511,11 +596,13 @@ def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor) -> torch.Tens
         _count(f"spmm_max_bwd_hub_{tag}", graph, k)
         return dx
     pos = _pos_args(graph, arg)
+    width = force_slice or slice_bytes(graph.n_nodes, g.element_size(), arg.element_size())
     with torch.cuda.device(g.device):
         rc = fn(
             code, _ARG_BITS[arg.dtype], g.data_ptr(), arg.data_ptr(), *chunks,
             dx.data_ptr(), partial.data_ptr(), k, *pos,
-            graph.t_rank.data_ptr() if pos[0] else None, _stream(g))
+            graph.t_rank.data_ptr() if pos[0] else None, graph.t_chunks.order.data_ptr(),
+            width, _stream(g))
     if rc != 0:
         raise RuntimeError(f"spmm_max_bwd launch failed: CUDA error {rc}")
     _count(f"spmm_max_bwd_{'pos_' if pos[0] else ''}{tag}", graph, k)

@@ -1000,3 +1000,82 @@ def test_hub_warps_query(card, dtype):
         with_hub, without = sk.hub_warps(kind, dtype, k_width, 64)
         assert with_hub == without > 0, (kind, with_hub, without)
     assert sk.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The max kernels' K-slice widths (ops/spmm_kernels.py: slice_bytes): at every
+# forced width the forward is bit-exact and dx bit-identical to the 1 KB
+# width's (the same lanes' walks over the same edges in the same order), and
+# both hold against the plain versions.
+# ---------------------------------------------------------------------------
+
+def _slice_graph(card, monkeypatch, form):
+    """The cross-chunk tie graph as ``form``: positional with row 0 a mega row
+    (POS_RANK_CAP 40: 20 segments, the cap below the chunk), id-based with an
+    int16 argmax, or id-based over 33,000 nodes (int32 argmax)."""
+    from plagnn_tpu_torch.ops import graph_format as gf
+
+    g0, x = _cross_chunk_graph()
+    src, dst = g0.src.numpy(), g0.dst.numpy()
+    if form == "pos":
+        monkeypatch.setattr(gf, "POS_RANK_CAP", 40)
+        g = build_graph(src, dst, g0.n_real_nodes, positional=True)
+        assert g.n_mega == 1
+    else:
+        n = g0.n_real_nodes if form == "id16" else 33000
+        g = build_graph(src, dst, n, positional=False)
+    return g.to(card), x
+
+
+@pytest.mark.parametrize("width", sk.SLICE_WIDTHS)
+@pytest.mark.parametrize("k", [111, 1024, 4024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["pos", "id16", "id32"])
+def test_slice_widths_match_1kb_and_plain(card, monkeypatch, form, dtype, k, width):
+    g, x = _slice_graph(card, monkeypatch, form)
+    n = g.n_nodes
+    if x.shape[0] < n:   # id32: the extra nodes have no edges; their rows are 0
+        x = np.concatenate([x, np.zeros((n - x.shape[0], x.shape[1]), np.float32)])
+    xv = np.ascontiguousarray(np.tile(x[:n], (1, -(-k // x.shape[1])))[:, :k])
+    xd = torch.from_numpy(xv).to(card, dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    kw = {"force_slice": width}
+    out, arg = sk.spmm_max_fwd(g, xd, **kw)
+    out0, arg0 = sk.spmm_max_fwd(g, xd, force_slice=1024)
+    torch.cuda.synchronize()
+    assert arg.dtype == (torch.int32 if form == "id32" else torch.int16)
+    assert torch.equal(out.view(bits), out0.view(bits)) and torch.equal(arg, arg0)
+    out_p, arg_p = sk.spmm_max_fwd_plain(g, xd)
+    assert torch.equal(out, out_p) and torch.equal(arg, arg_p)
+    out_n, _ = sk.spmm_max_fwd(g, xd, with_argmax=False, **kw)
+    assert torch.equal(out_n.view(bits), out0.view(bits))
+
+    gen = torch.Generator(device=card).manual_seed(k)
+    if dtype == torch.float32:
+        gr = torch.randn((n, k), generator=gen, device=card)
+    else:
+        gr = torch.randint(-8, 9, (n, k), generator=gen, device=card).to(dtype)
+    dx = sk.spmm_max_bwd(g, gr, arg, **kw)
+    dx0 = sk.spmm_max_bwd(g, gr, arg, force_slice=1024)
+    assert torch.equal(dx.view(bits), dx0.view(bits))
+    dx_p = sk.spmm_max_bwd_plain(g, gr, arg)
+    err = (dx.float() - dx_p.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((err <= _bf16_ulp(torch.maximum(dx.float().abs(),
+                                                    dx_p.float().abs()))).all())
+    else:
+        mag = sk.spmm_max_bwd_plain(g, gr.abs(), arg)
+        assert bool((err <= 1e-5 * mag + 1e-7).all())
+
+
+def test_slice_width_refusals(card):
+    """A width the kernels do not take raises; the C entry refuses a grid
+    past 65,535 K-slices at a narrow width as at 1 KB."""
+    g = build_graph(np.arange(5), np.arange(1, 6), 10).to(card)
+    x = torch.zeros((g.n_nodes, 64), device=card)
+    with pytest.raises(ValueError, match="K-slice width"):
+        sk.spmm_max_fwd(g, x, force_slice=48)
+    k = 65535 * 8 + 8     # f32 at 32 B: one lane of 2 x 4 elements, 65,536 slices
+    xw = torch.zeros((g.n_nodes, k), device=card)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sk.spmm_max_fwd(g, xw, force_slice=32)

@@ -217,7 +217,25 @@ def test_t_rank_names_each_edge_in_its_forward_row(monkeypatch, cap):
         assert g.mega_of is None
 
 
-def _replay_pos_fwd(g, xf):
+def _lane_columns(k, esize, width, arg_size=0):
+    """The columns of each (K-slice, lane of a group) at a K-slice of
+    ``width`` bytes, as csrc/row_chunks.cuh assigns them (group_lane): a
+    group of G lanes, lane s holding J vectors of V elements at k0 + j G V,
+    k0 = (slice G J + s) V.  Checks that every column is held exactly once."""
+    lanes, per_slice, slices = sk.slice_layout(width, k, esize, arg_size)
+    v = sk.vector_width(k, max(esize, arg_size))
+    j = per_slice // (lanes * v)
+    cols = []
+    for y in range(slices):
+        for s in range(lanes):
+            k0 = (y * lanes * j + s) * v
+            c = np.concatenate([np.arange(v) + k0 + jj * lanes * v for jj in range(j)])
+            cols.append(c[c < k])
+    np.testing.assert_array_equal(np.sort(np.concatenate(cols)), np.arange(k))
+    return [c for c in cols if len(c)]
+
+
+def _replay_pos_fwd(g, xf, width=None):
     """The positional forward's traversal in numpy, as csrc/spmm_max_fwd.cu
     computes it: each chunk walks its edges in ascending order (the first
     taken whatever its value, a later one only where strictly greater) and
@@ -225,7 +243,10 @@ def _replay_pos_fwd(g, xf):
     (the rank), a split row's chunk the rank within the chunk; the combine
     takes a later slot only where strictly greater and adds its chunk's
     first rank, j * chunk_cap.  A mega row stores rank % rank_cap and its
-    segment in the side table."""
+    segment in the side table.  With ``width`` (bytes of float32 x), the
+    grouped walk of a narrower K-slice: the chunks in the launch order
+    RowChunks.order, each walked by every lane of a group for its own
+    columns (_lane_columns)."""
     ch = g.chunks
     row, ptr, slot = ch.row.numpy(), ch.ptr.numpy(), ch.slot.numpy()
     n, k = xf.shape
@@ -236,27 +257,30 @@ def _replay_pos_fwd(g, xf):
     arg = np.full((n + g.n_mega, k), -1, np.int64)
     p_val = np.zeros((ch.n_slots, k), np.float32)
     p_rank = np.zeros((ch.n_slots, k), np.int64)
+    launch = range(ch.n_chunks) if width is None else ch.order.numpy()
+    lanes = [np.arange(k)] if width is None else _lane_columns(k, 4, width)
 
-    def store(r, best, rank):
-        out[r] = best
+    def store(r, cols, best, rank):
+        out[r, cols] = best
         if mega_of[r] >= 0:
-            arg[n + mega_of[r]] = rank // cap
+            arg[n + mega_of[r], cols] = rank // cap
             rank = rank % cap
-        arg[r] = rank
+        arg[r, cols] = rank
 
-    for c in range(ch.n_chunks):
-        best = np.zeros(k, np.float32)
-        e_best = np.full(k, -1, np.int64)
-        for e in range(ptr[c], ptr[c + 1]):
-            v = xf[src[e]]
-            take = np.ones(k, bool) if e == ptr[c] else v > best
-            best = np.where(take, v, best)
-            e_best = np.where(take, e, e_best)
-        rank = np.where(e_best < 0, -1, e_best - ptr[c])
-        if slot[c] < 0:
-            store(row[c], best, rank)
-        else:
-            p_val[slot[c]], p_rank[slot[c]] = best, rank
+    for c in launch:
+        for cols in lanes:
+            best = np.zeros(len(cols), np.float32)
+            e_best = np.full(len(cols), -1, np.int64)
+            for e in range(ptr[c], ptr[c + 1]):
+                v = xf[src[e], cols]
+                take = np.ones(len(cols), bool) if e == ptr[c] else v > best
+                best = np.where(take, v, best)
+                e_best = np.where(take, e, e_best)
+            rank = np.where(e_best < 0, -1, e_best - ptr[c])
+            if slot[c] < 0:
+                store(row[c], cols, best, rank)
+            else:
+                p_val[slot[c], cols], p_rank[slot[c], cols] = best, rank
     sp = ch.split_ptr.numpy()
     for i, r in enumerate(ch.split_row.numpy()):
         best, rank = p_val[sp[i]].copy(), p_rank[sp[i]].copy()
@@ -264,17 +288,19 @@ def _replay_pos_fwd(g, xf):
             take = p_val[s] > best
             best = np.where(take, p_val[s], best)
             rank = np.where(take, p_rank[s] + (s - sp[i]) * ch.cap, rank)
-        store(r, best, rank)
+        store(r, np.arange(k), best, rank)
     return out, arg
 
 
-def _replay_pos_bwd(g, arg, gn):
+def _replay_pos_bwd(g, arg, gn, width=None):
     """The positional backward's traversal in numpy, as csrc/spmm_max_bwd.cu
     computes it: over the transpose chunks, edge s -> n hits where arg[n]
     equals its t_rank, or for t_rank = -1 - r (a mega row m) where arg[n]
     == r % rank_cap and the side table's seg[m] == r // rank_cap; float32
     sums in ascending edge order, split rows' partials added in chunk
-    order."""
+    order.  With ``width`` (bytes of float32 g beside the int16 argmax), the
+    grouped walk: the chunks in RowChunks.order, each lane of a group
+    summing its own columns (_lane_columns)."""
     ch = g.t_chunks
     row, ptr, slot = ch.row.numpy(), ch.ptr.numpy(), ch.slot.numpy()
     n, k = gn.shape
@@ -283,20 +309,23 @@ def _replay_pos_bwd(g, arg, gn):
     cap = g.rank_cap
     dx = np.zeros((n, k), np.float32)
     partial = np.zeros((ch.n_slots, k), np.float32)
-    for c in range(ch.n_chunks):
-        acc = np.zeros(k, np.float32)
-        for e in range(ptr[c], ptr[c + 1]):
-            m, tr = t_dst[e], t_rank[e]
-            if tr >= 0:
-                hit = arg[m] == tr
+    launch = range(ch.n_chunks) if width is None else ch.order.numpy()
+    lanes = [np.arange(k)] if width is None else _lane_columns(k, 4, width, 2)
+    for c in launch:
+        for cols in lanes:
+            acc = np.zeros(len(cols), np.float32)
+            for e in range(ptr[c], ptr[c + 1]):
+                m, tr = t_dst[e], t_rank[e]
+                if tr >= 0:
+                    hit = arg[m, cols] == tr
+                else:
+                    r = -1 - tr
+                    hit = (arg[m, cols] == r % cap) & (arg[n + mega_of[m], cols] == r // cap)
+                acc += np.where(hit, gn[m, cols], np.float32(0))
+            if slot[c] < 0:
+                dx[row[c], cols] = acc
             else:
-                r = -1 - tr
-                hit = (arg[m] == r % cap) & (arg[n + mega_of[m]] == r // cap)
-            acc += np.where(hit, gn[m], np.float32(0))
-        if slot[c] < 0:
-            dx[row[c]] = acc
-        else:
-            partial[slot[c]] = acc
+                partial[slot[c], cols] = acc
     sp = ch.split_ptr.numpy()
     for i, r in enumerate(ch.split_row.numpy()):
         acc = np.zeros(k, np.float32)
@@ -339,6 +368,42 @@ def test_kernel_replays_match_plain(monkeypatch, rank_cap, row_chunk):
     _, arg_i = sk.spmm_max_fwd_plain(gi, xt)
     assert torch.equal(sk._arg_sources(g, arg_p), sk._arg_sources(gi, arg_i))
     assert torch.equal(dx_p, sk.spmm_max_bwd_plain(gi, torch.from_numpy(gn), arg_i))
+
+
+@pytest.mark.parametrize("rank_cap,row_chunk", [(40, 256), (40, 8), (3, 5)])
+@pytest.mark.parametrize("k,width", [(9, 32), (30, 64), (64, 32), (64, 128), (130, 256)])
+def test_grouped_replays_match_plain(monkeypatch, rank_cap, row_chunk, k, width):
+    """The grouped walk of a narrow K-slice (groups of fewer lanes, chunks in
+    the launch order, longest first), replayed in numpy at a forced width:
+    the forward's out and argmax (side table included) and the backward's
+    dx bit-equal to the plain versions and to the 32-lane walk's replay, on
+    mega rows, ties, all-equal and -inf columns and a maximum first reached
+    past the rank cap."""
+    monkeypatch.setattr(gf, "POS_RANK_CAP", rank_cap)
+    src, dst, rng = _mega_row_edges()
+    g = build_graph(src, dst, 90, positional=True, row_chunk=row_chunk)
+    assert g.n_mega > 0
+    assert not np.array_equal(g.chunks.order.numpy(), np.arange(g.chunks.n_chunks))
+    assert sk.slice_layout(width, k, 4, 2)[0] < 32
+    x = np.maximum(np.round(rng.standard_normal((g.n_nodes, k)) * 2) / 2, 0)
+    x[:, 0] = 1.5
+    x[:, 1] = -np.inf
+    indptr, srcs = g.indptr.numpy(), g.src.numpy()
+    x[:, 2] = np.minimum(x[:, 2], 2.0)
+    x[srcs[indptr[4] - 1], 2] = 5.0
+    xt = torch.from_numpy(x.astype(np.float32))
+    out_r, arg_r = _replay_pos_fwd(g, xt.numpy(), width)
+    out_p, arg_p = sk.spmm_max_fwd_plain(g, xt)
+    assert torch.equal(torch.from_numpy(out_r), out_p)
+    assert torch.equal(torch.from_numpy(arg_r).to(torch.int16), arg_p)
+    out_w, arg_w = _replay_pos_fwd(g, xt.numpy())
+    np.testing.assert_array_equal(out_r.view(np.int32), out_w.view(np.int32))
+    np.testing.assert_array_equal(arg_r, arg_w)
+    gn = rng.integers(-8, 9, (g.n_nodes, k)).astype(np.float32)
+    dx_r = _replay_pos_bwd(g, arg_r, gn, width)
+    assert torch.equal(torch.from_numpy(dx_r), sk.spmm_max_bwd_plain(g, torch.from_numpy(gn),
+                                                                      arg_p))
+    np.testing.assert_array_equal(dx_r.view(np.int32), _replay_pos_bwd(g, arg_r, gn).view(np.int32))
 
 
 def test_wrappers_refuse_what_the_positional_argmax_does_not_take():
