@@ -176,8 +176,9 @@ spmm_max_bwd_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
 
 // The blocks an SM a grouped kernel's registers are held to: 4 (at most
 // 128 registers a thread), 3 for the bfloat16 forms with an int32 argmax,
-// which take up to 145.  Tighter, ptxas spills (12-92 bytes on the card);
-// with no bound the float32 positional 16-byte form takes 96 and spills 12.
+// which take up to 145: bound to 4 blocks they spill 48-84 bytes on the
+// card, and with no bound the float32 positional 16-byte form takes 96
+// registers and spills 12 bytes.
 template <typename T, typename ArgT>
 constexpr int kGroupMinBlocks = sizeof(T) == 2 && sizeof(ArgT) == 4 ? 3 : 4;
 

@@ -124,13 +124,14 @@ _PLAIN_CHUNK = 1 << 26
 # widest width of SLICE_WIDTHS whose working set, N_pad rows x (the slice's
 # bytes of x in the forward; of g and of the argmax in the backward), is at
 # most this.  Twelve L2s (50 MiB each), from the layer-1 times at 330,112
-# rows (chip_smoke.py --sweep-slice and a sweep of the grouped backward's
-# register bound, NVIDIA H100 80GB HBM3, 700 W): the forward's 1 KB slice
-# (338 MB) ran 37.42 ms f32 / 20.27 bf16 against 36.17 / 23.51 at 512 B, so
-# it stays, as does the f32 backward's (507 MB: 58.7 against 59.6 at 512 B,
-# spill-free); the bf16 backward's (676 MB) ran 39.9 against 38.2 at 512 B.
-# Every narrower width ran slower than 1 KB.  Every 24k-node shape keeps
-# 1 KB (at most 49.3 MB: 24,064 x (1 KB of bf16 g + 1 KB of int16 argmax)).
+# rows (chip_smoke.py --sweep-slice, NVIDIA H100 80GB HBM3, 700 W).  The
+# forward's 1 KB slice (338 MB) stays: 37.44 ms f32 / 20.36 bf16 against
+# 36.18 / 23.57 at 512 B, and both dtypes gather the same bytes.  So does
+# the f32 backward's (507 MB): 58.08 against 59.26 at 512 B.  The bf16
+# backward's (676 MB) narrows: 39.88 against 38.56 at 512 B.  Narrower
+# widths ran slower than 512 B but for the f32 forward at 256 B (36.12).
+# Every 24k-node shape keeps 1 KB (at most 49.3 MB: 24,064 x (1 KB of bf16
+# g + 1 KB of int16 argmax)).
 SLICE_L2_BUDGET = 12 * 50 * 2**20
 # Slice widths the kernels take, in bytes of the gathered operand a row
 # (x forward, g backward): 32 lanes' 32 bytes down to one lane's.
