@@ -158,9 +158,9 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    version as phase 3 holds them, and against each other: out bit-exact,
    the argmax naming the same sources, dx within phase 3's tolerances
    (bit-equal expected).  Each form runs at the K-slice its rule gives
-   (ops/spmm_kernels.py: slice_bytes: at this size 1 KB, but 512 B for the
-   bf16 backward and the id-based ones) and at the forced 1 KB slice, out,
-   argmax and dx bit-equal between the two.  At layer 1 each is timed at
+   (ops/spmm_kernels.py: slice_bytes, past the L2 WIDE_SLICE's width) and
+   at the forced 1 KB slice, out, argmax and dx bit-equal between the two;
+   the widths printed are those the wrappers passed to their kernels.  At layer 1 each is timed at
    both (CUDA events, median of 10) beside its plain version, a ``scatter_reduce_`` /
    ``index_add_`` yardstick over column slices (the whole gathered
    operand does not fit) and its bytes bound, with the index bytes its
@@ -179,14 +179,17 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    versions, each timed beside the kernel without the hub.  No training run
    takes the hub here: the engine turns it off past 2^15 nodes, as the JAX
    package's does.
-5. A ``{"kernels": [...]}`` line (each entry with its K-slice width,
-   ``slice_bytes``), the nvidia-smi line, and last the
+5. A ``{"kernels": [...]}`` line (each entry with the K-slice width its
+   timed launch walked, ``slice_bytes``, as its wrapper recorded it), the
+   nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 
 ``--sweep-slice`` runs phases 1-2 and then times the max kernels at every
-K-slice width at layer 1 on the 24k-node graph and on phase 4g's graph
-(each width bit-equal to 1 KB; the narrow ones also with the chunks in row
-order), and stops.
+K-slice width at layer 1 on the 24k-node graph, the mesh path's shards, a
+165 k-node graph and phase 4g's graph (each width bit-equal to 1 KB; at 24k
+and 330 k nodes the narrow ones also with the chunks in row order), then
+the grouped backward built under each register bound of SWEEP_MIN_BLOCKS
+at 330 k nodes, and stops.
 """
 import json
 import math
@@ -298,6 +301,11 @@ FANOUTS = (10, 25)      # phase 4o's sampled graphs
 # phase 4g: BASELINE.json config 5, the synthetic 10M-edge PPI-like graph
 # (benchmarks/big_graph.py: run_rate), 8 folds in one batch
 BIG_NODES, BIG_EDGES, BIG_FOLDS, BIG_EPOCHS = 330000, 10_000_000, 8, 2
+# --sweep-slice: a positional graph between the L2 and config 5 (half its
+# nodes and edges), and the grouped backward's register bounds it compares
+# (blocks an SM; 1 leaves 255 registers a thread)
+SWEEP_MID_NODES, SWEEP_MID_EDGES = 165_000, 5_000_000
+SWEEP_MIN_BLOCKS = (1, 3, 4, 5, 6)
 BIG_TIES = 64           # phase 4g's all-equal column block: columns [0, 64)
 BIG_MEGA_COLS = 64      # then columns whose top row's maximum is past the rank cap
 LIB_SLICE_BYTES = 4 << 30  # phase 4g's library yardstick: gathered bytes a slice
@@ -382,31 +390,19 @@ def ptxas_report(log):
     return rows
 
 
-def slice_width(name, source, shape):
-    """The K-slice width (bytes of the gathered operand a row) an entry's
-    kernel walked: the max kernels' rule (ops/spmm_kernels.py: slice_bytes)
-    at the entry's shape, the hub instantiations' and the sum's fixed 1 KB,
-    None for the kernels that have no K-slice."""
-    from plagnn_tpu_torch.ops import spmm_kernels as sk
-
-    if source == "spmm_sum" or "_hub_" in name:
-        return 1024
-    if not source.startswith("spmm_max"):
-        return None
-    n = shape[0]
-    es = 2 if "bf16" in name else 4
-    if source == "spmm_max_fwd":
-        return sk.slice_bytes(n, es)
-    return sk.slice_bytes(n, es, 2 if "_pos_" in name or n <= (1 << 15) else 4)
-
-
 def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape,
-                 ops_per_s=FP32_OPS_PER_S):
+                 ops_per_s=FP32_OPS_PER_S, slice_bytes=None):
     """One entry of the ``kernels`` line; ``bound_ms`` from the compulsory
     bytes (each input read once, each output written once) at the HBM rate
     and the operations at their type's rate (float32 unless given),
-    whichever is larger; ``slice_bytes`` the K-slice it walked.  Launches
-    are filled in from the main path's runs."""
+    whichever is larger; ``slice_bytes`` the K-slice width its timed launch
+    walked: as given, else as its wrapper recorded its last launch at this
+    shape (spmm_kernels.LAUNCH_SLICES; None for a kernel without K-slices).
+    Launches are filled in from the main path's runs."""
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    if slice_bytes is None:
+        slice_bytes = sk.LAUNCH_SLICES.get((counter_of(name), *shape))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return {
@@ -422,7 +418,7 @@ def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib,
         "shape": list(shape),
-        "slice_bytes": slice_width(name, source, shape),
+        "slice_bytes": slice_bytes,
     }
 
 
@@ -2430,6 +2426,14 @@ def big_bwd_check(graph, g, arg, label, other=None):
     return dx, err_max, plain_ms, same
 
 
+def launched_slice(counter, n, k):
+    """The K-slice width the max wrapper passed to its kernel at the last
+    launch of ``counter`` at N_pad ``n`` and K ``k``."""
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    return sk.LAUNCH_SLICES[counter, n, k]
+
+
 def check_big_kernels(gp, gi, x32, top, ranks, results):
     """Phase 4g's kernel checks at every width the path aggregates (K = 8 x
     503 / 400 / 300, each a column prefix of layer 1's input, so the
@@ -2464,14 +2468,13 @@ def check_big_kernels(gp, gi, x32, top, ranks, results):
             if not torch.equal(out_k.view(bits), out_i.view(bits)):
                 fail(f"{label}: positional out differs from the id-based kernel's")
             widths = {}
-            for form, graph, out_r, arg_r in (("positional", gp, out_k, arg_k),
-                                              ("id-based", gi, out_i, arg_i)):
+            for form, pre, graph, out_r, arg_r in (("positional", "pos_", gp, out_k, arg_k),
+                                                   ("id-based", "", gi, out_i, arg_i)):
+                widths[form] = [launched_slice(f"spmm_max_fwd_{pre}{tag}", n, k)]
                 out_1, arg_1 = sk.spmm_max_fwd(graph, x, force_slice=1024)
                 if not (torch.equal(out_1.view(bits), out_r.view(bits))
                         and torch.equal(arg_1, arg_r)):
                     fail(f"{label} {form}: forward at the rule's width differs from 1 KB")
-                widths[form] = [sk.slice_bytes(n, esize),
-                                sk.slice_bytes(n, esize, arg_r.element_size())]
                 del out_1, arg_1
             del out_k, out_i
             for c0 in range(0, k, 512):
@@ -2493,8 +2496,9 @@ def check_big_kernels(gp, gi, x32, top, ranks, results):
             dx_k, bwd_err, bwd_plain, _ = big_bwd_check(gp, g, arg_k, f"{label} positional")
             dx_i, bwd_err_i, bwd_plain_i, same_as_pos = big_bwd_check(
                 gi, g, arg_i, f"{label} id-based", other=dx_k)
-            for form, graph, dx_r, arg_r in (("positional", gp, dx_k, arg_k),
-                                             ("id-based", gi, dx_i, arg_i)):
+            for form, pre, graph, dx_r, arg_r in (("positional", "pos_", gp, dx_k, arg_k),
+                                                  ("id-based", "", gi, dx_i, arg_i)):
+                widths[form].append(launched_slice(f"spmm_max_bwd_{pre}{tag}", n, k))
                 dx_1 = sk.spmm_max_bwd(graph, g, arg_r, force_slice=1024)
                 if not torch.equal(dx_1.view(bits), dx_r.view(bits)):
                     fail(f"{label} {form}: backward at the rule's width differs from 1 KB")
@@ -2521,6 +2525,11 @@ def check_big_kernels(gp, gi, x32, top, ranks, results):
                 "fwd_id": median_ms(lambda: sk.spmm_max_fwd(gi, x), 10),
                 "bwd_pos": median_ms(lambda: sk.spmm_max_bwd(gp, g, arg_k), 10),
                 "bwd_id": median_ms(lambda: sk.spmm_max_bwd(gi, g, arg_i), 10),
+            }
+            timed_slice = {key: launched_slice(counter, n, k) for key, counter in (
+                ("fwd_pos", f"spmm_max_fwd_pos_{tag}"), ("fwd_id", f"spmm_max_fwd_{tag}"),
+                ("bwd_pos", f"spmm_max_bwd_pos_{tag}"), ("bwd_id", f"spmm_max_bwd_{tag}"))}
+            times |= {
                 "fwd_pos_1kb": median_ms(lambda: sk.spmm_max_fwd(gp, x, force_slice=1024), 10),
                 "fwd_id_1kb": median_ms(lambda: sk.spmm_max_fwd(gi, x, force_slice=1024), 10),
                 "bwd_pos_1kb": median_ms(
@@ -2553,7 +2562,7 @@ def check_big_kernels(gp, gi, x32, top, ranks, results):
             for name, src, err_, key, plain, lib, nbytes, ops in entries:
                 ms = times[key]
                 r = results[name] = kernel_entry(name, src, err_, ms, plain, lib, nbytes,
-                                                 ops, (n, k))
+                                                 ops, (n, k), slice_bytes=timed_slice[key])
                 # the K-slice's re-reads of the chunks' index (and t_rank), not in
                 # the bound: E x 4 bytes a slice
                 slices = sk.slice_layout(r["slice_bytes"], k, esize)[2]
@@ -3117,12 +3126,13 @@ def sweep_row_chunk(full):
         print("row-chunk sweep: " + json.dumps(row), flush=True)
 
 
-def sweep_slice_shape(label, graph, x32, g32, smi_line):
-    """``--sweep-slice`` at one shape (layer 1): each max kernel at every
-    K-slice width, float32 and bfloat16, every result bit-equal to the 1 KB
-    width's; median of 10 by CUDA events, the widths in turns, 1 KB timed
-    first and last; each narrow width also with the chunks in row order in
-    place of RowChunks.order (longest first)."""
+def sweep_slice_shape(label, graph, x32, g32, smi_line, widths=None, row_order=True):
+    """``--sweep-slice`` at one shape (layer 1): each max kernel at each
+    K-slice width of ``widths`` (default every one), float32 and bfloat16,
+    every result bit-equal to the 1 KB width's; median of 10 by CUDA events,
+    the widths in turns, 1 KB timed first and last; with ``row_order`` each
+    narrow width also with the chunks in row order in place of
+    RowChunks.order (longest first)."""
     import dataclasses
 
     import torch
@@ -3130,7 +3140,7 @@ def sweep_slice_shape(label, graph, x32, g32, smi_line):
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     n, k = x32.shape
-    row_order = dataclasses.replace(graph, **{
+    in_rows = dataclasses.replace(graph, **{
         name: dataclasses.replace(ch, order=torch.arange(ch.n_chunks, dtype=torch.int32,
                                                          device=ch.order.device))
         for name, ch in (("chunks", graph.chunks), ("t_chunks", graph.t_chunks))})
@@ -3144,7 +3154,7 @@ def sweep_slice_shape(label, graph, x32, g32, smi_line):
         print(f"slice sweep {label} {tag} K={k}: the rule's widths fwd "
               f"{sk.slice_bytes(n, esize)} B, bwd {sk.slice_bytes(n, esize, asize)} B "
               f"({smi_line})", flush=True)
-        for w in (*sk.SLICE_WIDTHS, 1024):
+        for w in (*(widths or sk.SLICE_WIDTHS), 1024):
             out, arg = sk.spmm_max_fwd(graph, x, force_slice=w)
             dx = sk.spmm_max_bwd(graph, g, arg0, force_slice=w)
             if not (torch.equal(out.view(bits), out0.view(bits)) and torch.equal(arg, arg0)
@@ -3156,20 +3166,84 @@ def sweep_slice_shape(label, graph, x32, g32, smi_line):
                     "fwd": median_ms(lambda: sk.spmm_max_fwd(graph, x, force_slice=w), 10),
                     "bwd": median_ms(lambda: sk.spmm_max_bwd(graph, g, arg0, force_slice=w),
                                      10)}
-            if groups < 32:
+            if groups < 32 and row_order:
                 cell["fwd_row_order"] = median_ms(
-                    lambda: sk.spmm_max_fwd(row_order, x, force_slice=w), 10)
+                    lambda: sk.spmm_max_fwd(in_rows, x, force_slice=w), 10)
                 cell["bwd_row_order"] = median_ms(
-                    lambda: sk.spmm_max_bwd(row_order, g, arg0, force_slice=w), 10)
+                    lambda: sk.spmm_max_bwd(in_rows, g, arg0, force_slice=w), 10)
             print(f"slice sweep {label} {tag}: " + json.dumps(cell), flush=True)
         del out0, arg0, dx0
         torch.cuda.empty_cache()
 
 
+def sweep_min_blocks(graphs, x32, g32, smi_line):
+    """``--sweep-slice``'s register bounds of the grouped backward:
+    spmm_max_bwd.cu built again for each of SWEEP_MIN_BLOCKS
+    (MAX_BWD_GROUP_MIN_BLOCKS: every grouped form held to that many blocks
+    an SM; 1 leaves it 255 registers a thread), each build's ptxas registers
+    and spills of its grouped instantiations, and the layer-1 backward of
+    each (form, graph) of ``graphs`` at 512 and 256 B with each build,
+    float32 and bfloat16, every dx bit-equal to the 1 KB width's.  Median
+    of 10 by CUDA events: the default build at 1 KB and 512 B, then the
+    builds in turns, then the default build's 1 KB again."""
+    import torch
+
+    from plagnn_tpu_torch.ops import _build
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    t0 = time.perf_counter()
+    builds = _build.build_variants(
+        "spmm_max_bwd", [[f"MAX_BWD_GROUP_MIN_BLOCKS={b}"] for b in SWEEP_MIN_BLOCKS])
+    print(f"min-blocks sweep: {len(builds)} builds of spmm_max_bwd.cu in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for b, (_, log) in zip(SWEEP_MIN_BLOCKS, builds):
+        for fn, line in ptxas_report(log):
+            if "group_kernel" in fn:
+                print(f"min-blocks sweep {b} blocks: {fn}: {line}", flush=True)
+    default = _build.load("spmm_max_bwd")
+    n, k = x32.shape
+    try:
+        for form, graph in graphs:
+            for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                x = x32.to(dt)
+                g = g32.to(dt) if dt == torch.float32 else g32.round().clamp_(-8, 8).to(dt)
+                bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+                _, arg = sk.spmm_max_fwd(graph, x)
+                dx0 = sk.spmm_max_bwd(graph, g, arg, force_slice=1024)
+                cell = {w: median_ms(lambda: sk.spmm_max_bwd(graph, g, arg, force_slice=w), 10)
+                        for w in (1024, 512)}
+                cell = {f"default_{w}": ms for w, ms in cell.items()}
+                for b, (lib, _) in zip(SWEEP_MIN_BLOCKS, builds):
+                    _build._LIBS["spmm_max_bwd"] = lib
+                    for w in (512, 256):
+                        dx = sk.spmm_max_bwd(graph, g, arg, force_slice=w)
+                        if not torch.equal(dx.view(bits), dx0.view(bits)):
+                            fail(f"min-blocks sweep {b} blocks {form} {tag} {w} B: dx "
+                                 "differs from the 1 KB width's")
+                        del dx
+                        cell[f"{b}_blocks_{w}"] = median_ms(
+                            lambda: sk.spmm_max_bwd(graph, g, arg, force_slice=w), 10)
+                    _build._LIBS["spmm_max_bwd"] = default
+                cell["default_1024_last"] = median_ms(
+                    lambda: sk.spmm_max_bwd(graph, g, arg, force_slice=1024), 10)
+                print(f"min-blocks sweep n{n} {form} {tag} K={k} ({smi_line}): "
+                      + json.dumps(cell), flush=True)
+                del x, g, arg, dx0
+                torch.cuda.empty_cache()
+    finally:
+        _build._LIBS["spmm_max_bwd"] = default
+
+
 def sweep_slice(smi_line):
     """``--sweep-slice``: the max kernels' layer-1 times at every K-slice
-    layout on the 24k-node graph (K = 10 x 503) and on BASELINE.json config
-    5's graph (330 k nodes, K = 8 x 503, the positional argmax)."""
+    layout on the 24k-node graph (K = 10 x 503), on the mesh path's graph
+    shards (rank 0's interior at P = 2 and 4, id-based), on a positional
+    graph between the L2 and config 5 (SWEEP_MID_NODES), and on BASELINE.json
+    config 5's graph (330 k nodes, K = 8 x 503; the positional argmax at
+    every width, the id-based int32 form at 1 KB to 128 B); then the grouped
+    backward's register bounds there (sweep_min_blocks)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -3177,14 +3251,34 @@ def sweep_slice(smi_line):
     from plagnn_tpu_torch.data.artifacts import load_condition
     from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
     from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
+    from plagnn_tpu_torch.parallel.partition import partition_graph
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    full = from_scipy_coo(powerlaw_ppi(NODES, EDGES, SEED), add_self_loops=True).to("cuda")
+
+    def inputs(n, k):
+        x = torch.randn((n, k), generator=gen, device="cuda").to(torch.bfloat16)
+        return x.float().relu_(), torch.randn((n, k), generator=gen, device="cuda")
+
+    ppi = powerlaw_ppi(NODES, EDGES, SEED)
+    full = from_scipy_coo(ppi, add_self_loops=True).to("cuda")
     n, k = full.n_nodes, FOLDS * F_IN
-    x = torch.randn((n, k), generator=gen, device="cuda").to(torch.bfloat16).float().relu_()
-    g = torch.randn((n, k), generator=gen, device="cuda")
-    sweep_slice_shape(f"n{n}", full, x, g, smi_line)
-    del full, x, g
+    sweep_slice_shape(f"n{n}", full, *inputs(n, k), smi_line)
+    del full
+    for p in SHARD_PARTS:
+        pg = partition_graph(ppi.row, ppi.col, NODES, p, add_self_loops=True, balance=True)
+        shard = pg.shard(0, "cuda").interior
+        sweep_slice_shape(f"shard P={p} rank 0 interior n{shard.n_nodes} E {shard.n_edges}",
+                          shard, *inputs(shard.n_nodes, k), smi_line, row_order=False)
+        del pg, shard
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mid = from_scipy_coo(powerlaw_ppi(SWEEP_MID_NODES, SWEEP_MID_EDGES, SEED),
+                         add_self_loops=True).to("cuda")
+    print(f"slice sweep mid graph: N_pad {mid.n_nodes}, E {mid.n_edges}, positional "
+          f"{mid.positional}, built in {time.perf_counter() - t0:.1f} s", flush=True)
+    sweep_slice_shape(f"n{mid.n_nodes}", mid, *inputs(mid.n_nodes, BIG_FOLDS * F_IN),
+                      smi_line, widths=(1024, 512, 256, 128), row_order=False)
+    del mid
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
     try:
@@ -3199,6 +3293,10 @@ def sweep_slice(smi_line):
               f"{ch.n_chunks} (mean {lens.mean():.1f} edges, longest first by "
               f"RowChunks.order)", flush=True)
         sweep_slice_shape(f"n{gp.n_nodes}", gp, x, g, smi_line)
+        gi = dataclasses.replace(gp, positional=False, t_rank=None, mega_of=None, n_mega=0)
+        sweep_slice_shape(f"n{gp.n_nodes} id-based", gi, x, g, smi_line,
+                          widths=(1024, 512, 256, 128), row_order=False)
+        sweep_min_blocks((("positional", gp), ("id-based", gi)), x, g, smi_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3274,8 +3372,10 @@ def main(argv=None):
                          "result line")
     ap.add_argument("--sweep-slice", action="store_true",
                     help="phases 1-2, then time the max kernels at every K-slice "
-                         "width at layer 1 on the 24k-node and the 330k-node "
-                         "graphs (each width bit-equal to the 1 KB one) and stop; "
+                         "width at layer 1 on the 24k-node graph, its shards, a "
+                         "165k-node and the 330k-node graph (each width bit-equal "
+                         "to the 1 KB one), and the grouped backward under each "
+                         "register bound and stop; "
                          "prints no result line")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "plagnn_tpu_torch")):

@@ -29,14 +29,18 @@
 //
 // The grid puts chunks on x (fastest) and K-slices on y, so the blocks that
 // run together share one K-slice and its working set (N_pad x slice bytes).
-// That working set stays in the 50 MB L2 only while N_pad is small: 25 MB
-// at 24,064 rows x 1 KB, but 338 MB at 330,112 rows, where almost every
+// That working set fits the 50 MB L2 only while N_pad is small: 25 MB at
+// 24,064 rows x 1 KB, but 338 MB at 330,112 rows, where almost every
 // gathered row comes from HBM.  So the two max kernels also take narrower
 // K-slices (the grouped walk below): a group of G lanes (G = 16, 8, 4, 2 or
 // 1) owns one (chunk, K-slice), a warp 32 / G of them, and the slice is G
-// lanes' 32 bytes.  The wrapper picks the width from N_pad and the bytes a
-// row of the slice gathers (ops/spmm_kernels.py: slice_bytes); the sum
-// kernel and the hub instantiations keep the 1 KB slice.
+// lanes' 32 bytes.  A narrower slice cuts the L2 misses but issues more
+// requests a byte, so which width wins is measured, not derived: the
+// wrapper keeps 1 KB up to a working set the card's sweeps set (1 KB won at
+// 2.1 L2s, on the mesh path's shards) and past it takes the width measured
+// fastest on the 165 k- and 330 k-row graphs (ops/spmm_kernels.py:
+// slice_bytes).  The sum kernel and the hub instantiations keep the 1 KB
+// slice.
 #pragma once
 
 #include <cuda_bf16.h>

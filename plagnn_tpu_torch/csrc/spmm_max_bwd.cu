@@ -34,13 +34,16 @@
 // read once, dx written once) is ~0.36 ms at 3.35 TB/s at the slice's
 // layer-1 shape (E ~ 724k, N 24,064, K = 10*503, f32 g, int16 arg).  A
 // gather reads arg and g of every out-neighbour, E*K*(esize + argsize)
-// bytes (21.9 GB there), and serves the re-reads from L2 as far as one
-// K-slice's rows of g and arg fit it (the grid runs chunks fastest): 37 MB
-// at 24,064 rows x (1 KB of f32 g + 512 B of arg), but 507 MB at 330,112
-// rows, where most come from HBM.  The wrapper then may narrow the slice
-// (ops/spmm_kernels.py: slice_bytes), which groups of G < 32 lanes walk
-// (spmm_max_bwd_group_kernel); each slice re-reads the chunks' destinations
-// (and t_rank), E x 4 bytes each.
+// bytes (21.9 GB there).  The grid runs chunks fastest, so the blocks in
+// flight share one K-slice's rows of g and arg: 37 MB at 24,064 rows x (1 KB
+// of f32 g + 512 B of arg), within the 50 MB L2, but 507 MB at 330,112
+// rows.  Past a working set the card's sweeps set (ops/spmm_kernels.py:
+// slice_bytes, WIDE_SLICE_FROM) the wrapper takes the K-slice width that
+// ran fastest at 165 k and 330 k rows for the dtype and argmax
+// (WIDE_SLICE), measured, not derived from the L2: a narrow slice cuts the
+// misses but issues more requests a byte.  Groups of G < 32 lanes walk a
+// narrow slice (spmm_max_bwd_group_kernel); each slice re-reads the chunks'
+// destinations (and t_rank), E x 4 bytes each.
 //
 // Design: a gather, not a scatter, over the row-chunked traversal of
 // row_chunks.cuh: one warp per (chunk, K-slice), J vectors of V elements a
@@ -176,11 +179,21 @@ spmm_max_bwd_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
 
 // The blocks an SM a grouped kernel's registers are held to: 4 (at most
 // 128 registers a thread), 3 for the bfloat16 forms with an int32 argmax,
-// which take up to 145: bound to 4 blocks they spill 48-84 bytes on the
-// card, and with no bound the float32 positional 16-byte form takes 96
-// registers and spills 12 bytes.
+// which take up to 145 (bound to 4, one spills 84 bytes).  Every form is
+// spill-free so.  chip_smoke.py --sweep-slice builds each bound of 1, 3,
+// 4, 5 and 6 (MAX_BWD_GROUP_MIN_BLOCKS=n holds every form to n blocks) and
+// times the layer-1 backward at 330 k rows with each (PERF.md, PR 13): 5
+// blocks (96 registers) spills in 14 of the 24 forms, the float32
+// positional 16-byte one 12 bytes, though at 512 B that one then ran 57.40
+// ms against 58.25 at 1 KB; 1 or 3 blocks left it at the 106 registers and
+// the time (59.3 ms) of 4; 6 blocks spilled more and ran slower in all.
+#ifdef MAX_BWD_GROUP_MIN_BLOCKS
+template <typename T, typename ArgT>
+constexpr int kGroupMinBlocks = MAX_BWD_GROUP_MIN_BLOCKS;
+#else
 template <typename T, typename ArgT>
 constexpr int kGroupMinBlocks = sizeof(T) == 2 && sizeof(ArgT) == 4 ? 3 : 4;
+#endif
 
 // The grouped walk of a K-slice narrower than 32 lanes': each group of
 // 1 << lg lanes walks the transpose chunk the launch order `order` gives

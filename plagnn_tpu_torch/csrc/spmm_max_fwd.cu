@@ -38,10 +38,14 @@
 // and serves the re-reads from L2 as far as one K-slice's rows fit it: the
 // grid runs chunks fastest, so the blocks in flight share one K-slice.  At
 // 24,064 rows x 1 KB (25 MB) they fit the 50 MB L2; at 330,112 rows x 1 KB
-// (338 MB) they do not, and most gathered rows come from HBM.  The wrapper
-// then may narrow the slice (ops/spmm_kernels.py: slice_bytes), which
-// groups of G < 32 lanes walk (kernel 1g); each slice re-reads the chunks'
-// source ids, E x 4 bytes.
+// (338 MB) they do not, and most gathered rows come from HBM.  Past a
+// working set the card's sweeps set (ops/spmm_kernels.py: slice_bytes,
+// WIDE_SLICE_FROM) the wrapper takes the K-slice width that ran fastest at
+// 165 k and 330 k rows for the dtype (WIDE_SLICE: 256 B in f32, 1 KB in
+// bf16), measured, not derived from the L2: a narrow slice cuts the misses
+// but issues more requests a byte.  Groups of G < 32 lanes walk a
+// narrow slice (kernel 1g); each slice re-reads the chunks' source ids, E x
+// 4 bytes.
 //
 // Design: the row-chunked traversal of row_chunks.cuh over the forward
 // chunk table (graph_format.RowChunks: every row cut into chunks of at most

@@ -34,14 +34,15 @@ and a float32 scratch for the partials of split rows (the max forward also
 an int32 scratch for the partials' sources).
 
 The K-slice of the two max kernels: a block walks one slice of the rows'
-columns for its chunks, and the blocks in flight share it, so that the
-gathered rows of that slice are served from L2.  ``slice_bytes`` picks the
-width from N_pad and the bytes a row of the slice gathers (the rule and its
-budget below): 1 KB, 32 lanes of 32 bytes, wherever that fits the budget
-(every 24k-node shape, and at 330 k nodes the forward and the float32
-backward), narrower where it does not (the bfloat16 backward at 330 k
-nodes: 512 B), where groups of fewer lanes walk several chunks a warp.
-The sum and the hub instantiations keep the 1 KB slice.
+columns for its chunks, and the grid runs the chunks fastest, so the blocks
+in flight share the slice's rows.  ``slice_bytes`` picks the width: 1 KB,
+32 lanes of 32 bytes, up to a working set (N_pad rows of the 1 KB slice)
+past which the card's sweeps measured narrower slices faster
+(``WIDE_SLICE_FROM``; every 24k-node shape and the mesh path's shards stay
+below it), and past it the width measured fastest on the 165 k- and 330
+k-node graphs for that direction and dtype (``WIDE_SLICE``), where groups
+of fewer lanes walk several chunks a warp.  The sum and the hub instantiations keep
+the 1 KB slice.
 
 The hub cache (``Graph.hub`` / ``t_hub``, ``graph_format.HubTable``;
 ``Graph.with_hub``): where the graph carries a direction's hub table, the
@@ -112,6 +113,10 @@ LAUNCHES: Dict[str, int] = {
 # LAUNCHES by (counter, graph rows, graph edges, K): which shapes a run
 # launched each kernel at (a graph shard's interior or boundary pass).
 LAUNCH_SHAPES: Dict[Tuple[str, int, int, int], int] = {}
+# The K-slice width (bytes of the gathered operand a row) of the last launch
+# by (counter, graph rows, K): the width a max wrapper passed to its kernel,
+# the fixed 1 KB of the sum and the hub kernels.
+LAUNCH_SLICES: Dict[Tuple[str, int, int], int] = {}
 
 _DTYPE_CODE = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16")}
 _ARG_BITS = {torch.int16: 16, torch.int32: 32}
@@ -120,34 +125,42 @@ _ARG_BITS = {torch.int16: 16, torch.int32: 32}
 _PLAIN_CHUNK = 1 << 26
 
 
-# The L2 budget of a max kernel's K-slice (bytes): ``slice_bytes`` takes the
-# widest width of SLICE_WIDTHS whose working set, N_pad rows x (the slice's
-# bytes of x in the forward; of g and of the argmax in the backward), is at
-# most this.  Twelve L2s (50 MiB each), from the layer-1 times at 330,112
-# rows (chip_smoke.py --sweep-slice, NVIDIA H100 80GB HBM3, 700 W).  The
-# forward's 1 KB slice (338 MB) stays: 37.44 ms f32 / 20.36 bf16 against
-# 36.18 / 23.57 at 512 B, and both dtypes gather the same bytes.  So does
-# the f32 backward's (507 MB): 58.08 against 59.26 at 512 B.  The bf16
-# backward's (676 MB) narrows: 39.88 against 38.56 at 512 B.  Narrower
-# widths ran slower than 512 B but for the f32 forward at 256 B (36.12).
-# Every 24k-node shape keeps 1 KB (at most 49.3 MB: 24,064 x (1 KB of bf16
-# g + 1 KB of int16 argmax)).
-SLICE_L2_BUDGET = 12 * 50 * 2**20
-# Slice widths the kernels take, in bytes of the gathered operand a row
+# Slice widths the max kernels take, in bytes of the gathered operand a row
 # (x forward, g backward): 32 lanes' 32 bytes down to one lane's.
 SLICE_WIDTHS = (1024, 512, 256, 128, 64, 32)
+# The working set (N_pad rows x the 1 KB slice's bytes of x, or of g and
+# argmax) past which a max kernel leaves the 1 KB slice: a threshold between
+# two measured sizes (chip_smoke.py --sweep-slice, NVIDIA H100 80GB HBM3,
+# 700 W), not an L2 budget.  At 110 MB and below, 2.1 times the 50 MiB L2
+# (the mesh path's shards: 35,936 rows at P = 2), 1 KB ran fastest in every
+# form; at 169 MB and above (165,120 and 330,112 rows) WIDE_SLICE's widths
+# did.  Sizes between are not measured.
+WIDE_SLICE_FROM = 128 * 2**20
+# Past WIDE_SLICE_FROM: the width that ran fastest at layer 1 (K = 8 x 503)
+# on the 165,120- and 330,112-row graphs (BASELINE.json config 5: E 10.33 M),
+# by (bytes of an element of the gathered operand, bytes of an argmax
+# element gathered beside it: 0 in the forward).  No byte count alone picks
+# these: the f32 and bf16 forwards gather the same bytes and go opposite
+# ways.  Layer-1 ms at 330 k rows, 1 KB in brackets (PERF.md, PR 13):
+WIDE_SLICE = {
+    (4, 0): 256,    # forward f32: 36.41 positional, 35.90 id-based (37.49, 38.33)
+    (2, 0): 1024,   # forward bf16: 23.47 at 512 B (20.33)
+    (4, 2): 1024,   # positional backward f32: 59.53 at 512 B (58.25)
+    (2, 2): 512,    # positional backward bf16: 38.17 (39.96)
+    (4, 4): 256,    # id-based int32 backward f32: 70.15 (76.46)
+    (2, 4): 256,    # id-based int32 backward bf16: 55.55 (59.99)
+}
 
 
 def slice_bytes(n_rows: int, esize: int, arg_size: int = 0) -> int:
     """The max kernels' K-slice width in bytes of the gathered operand a row
-    (x of ``esize`` bytes an element in the forward; g in the backward, whose
-    argmax of ``arg_size`` bytes an element is gathered beside it): the
-    widest of SLICE_WIDTHS whose ``n_rows`` rows fit SLICE_L2_BUDGET, the
-    narrowest where none does."""
-    for w in SLICE_WIDTHS:
-        if n_rows * (w + w // esize * arg_size) <= SLICE_L2_BUDGET:
-            return w
-    return SLICE_WIDTHS[-1]
+    (x of ``esize`` bytes an element in the forward, ``arg_size`` 0; g in
+    the backward, whose argmax of ``arg_size`` bytes an element is gathered
+    beside it): 1 KB while ``n_rows`` rows of the 1 KB slice come to at most
+    WIDE_SLICE_FROM bytes, else WIDE_SLICE's width."""
+    if n_rows * (1024 + 1024 // esize * arg_size) <= WIDE_SLICE_FROM:
+        return 1024
+    return WIDE_SLICE[esize, arg_size]
 
 
 def vector_width(k_width: int, max_esize: int) -> int:
@@ -185,10 +198,11 @@ def reset_launches() -> None:
     LAUNCH_SHAPES.clear()
 
 
-def _count(name: str, graph: Graph, k: int) -> None:
+def _count(name: str, graph: Graph, k: int, width: int = 1024) -> None:
     LAUNCHES[name] += 1
     key = (name, graph.n_nodes, graph.n_edges, k)
     LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
+    LAUNCH_SLICES[name, graph.n_nodes, k] = width
 
 
 def arg_dtype(graph: Graph) -> torch.dtype:
@@ -515,7 +529,7 @@ def spmm_max_fwd(
     if rc != 0:
         raise RuntimeError(f"spmm_max_fwd launch failed: CUDA error {rc}")
     form = "pos_" if pos[0] else ("" if with_argmax else "noarg_")
-    _count(f"spmm_max_fwd_{form}{'empty_' if empty_value != 0 else ''}{tag}", graph, k)
+    _count(f"spmm_max_fwd_{form}{'empty_' if empty_value != 0 else ''}{tag}", graph, k, width)
     return out, arg
 
 
@@ -606,7 +620,7 @@ def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor, *,
             width, _stream(g))
     if rc != 0:
         raise RuntimeError(f"spmm_max_bwd launch failed: CUDA error {rc}")
-    _count(f"spmm_max_bwd_{'pos_' if pos[0] else ''}{tag}", graph, k)
+    _count(f"spmm_max_bwd_{'pos_' if pos[0] else ''}{tag}", graph, k, width)
     return dx
 
 

@@ -1079,3 +1079,19 @@ def test_slice_width_refusals(card):
     xw = torch.zeros((g.n_nodes, k), device=card)
     with pytest.raises(RuntimeError, match="CUDA error"):
         sk.spmm_max_fwd(g, xw, force_slice=32)
+
+
+def test_launch_slices_record_the_width(card):
+    """Each max wrapper records the K-slice width it passed to its kernel
+    (chip_smoke.py's ``slice_bytes``): the forced width, else the rule's;
+    the sum kernel its fixed 1 KB."""
+    g = build_graph(np.arange(50), (np.arange(50) * 7) % 50, 60).to(card)
+    n, k = g.n_nodes, 96
+    x = torch.rand((n, k), device=card)
+    for w in (None, 256, 1024):
+        _, arg = sk.spmm_max_fwd(g, x, force_slice=w)
+        assert sk.LAUNCH_SLICES["spmm_max_fwd_f32", n, k] == (w or sk.slice_bytes(n, 4))
+        sk.spmm_max_bwd(g, x, arg, force_slice=w)
+        assert sk.LAUNCH_SLICES["spmm_max_bwd_f32", n, k] == (w or sk.slice_bytes(n, 4, 2))
+    sk.spmm_sum_rows(g, x)
+    assert sk.LAUNCH_SLICES["spmm_sum_fwd_f32", n, k] == 1024

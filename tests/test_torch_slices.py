@@ -1,9 +1,11 @@
 """The max kernels' K-slice rule (``ops/spmm_kernels.py: slice_bytes``).
 
 The two max kernels walk a K-slice of the rows' columns at a time, and the
-blocks in flight share it so that its rows are served from L2.  The wrapper
-picks the slice's width from N_pad and the bytes a row of the slice gathers
-(x in the forward; g and the argmax in the backward).  Here, on the CPU:
+blocks in flight share it.  The wrapper keeps the 1 KB slice while N_pad
+rows of it (x in the forward; g and the argmax in the backward) come to at
+most ``WIDE_SLICE_FROM`` bytes, and past that takes the width measured
+fastest on the 165 k- and 330 k-node graphs for the direction and dtype
+(``WIDE_SLICE``).  Here, on the CPU:
 the width the rule gives at every shape a path launches, that each width is
 whole lane vectors and its grid fits, the launch order of the chunks, and
 the refusals of the forcing keyword.
@@ -59,6 +61,15 @@ def test_24k_shapes_keep_1kb(ppi, dtype, k):
         assert lanes == 32 and per_slice * es == (1024 if k % 2 == 0 or es == 4 else 512)
 
 
+# (P, dtype) -> (forward width, backward width) at the shard gather spaces
+SHARD_WIDTHS = {
+    (2, torch.float32): (1024, 1024),
+    (2, torch.bfloat16): (1024, 1024),
+    (4, torch.float32): (1024, 1024),
+    (4, torch.bfloat16): (1024, 1024),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p,ks", [(2, [FOLDS * w for w in WIDTHS] + [5 * w for w in WIDTHS]),
                                   (4, [FOLDS * w for w in WIDTHS])])
@@ -66,61 +77,69 @@ def test_shard_gather_spaces(ppi, dtype, p, ks):
     """The graph shards of the mesh path (the balanced partitions of phase
     4m: gather spaces of 35,928 rows at P = 2, 28,928 at P = 4; id-based,
     an int32 argmax past 2^15 rows) take the width the rule gives their
-    gather space: 1 KB at both, forward and backward."""
+    gather space: 1 KB at both, forward and backward, where the card
+    measured it fastest (the largest working set, P = 2's bf16 backward,
+    35,928 x 3 KB, stays under WIDE_SLICE_FROM)."""
     pg = partition_graph(ppi.row, ppi.col, NODES, p, add_self_loops=True, balance=True)
     assert pg.n_local == {2: 35928, 4: 28928}[p]
     graph = pg.shard(0).interior
     n_pad = graph.n_nodes
     es = ESIZE[dtype]
-    for arg_size in (0, torch.empty(0, dtype=sk.arg_dtype(graph)).element_size()):
-        width = sk.slice_bytes(n_pad, es, arg_size)
-        assert width == 1024
-        for k in ks:
-            _check_layout(width, k, es, arg_size)
+    arg_size = torch.empty(0, dtype=sk.arg_dtype(graph)).element_size()
+    assert arg_size == {2: 4, 4: 2}[p]
+    fwd, bwd = SHARD_WIDTHS[p, dtype]
+    assert sk.slice_bytes(n_pad, es) == fwd
+    assert sk.slice_bytes(n_pad, es, arg_size) == bwd
+    assert n_pad * (1024 + 1024 // es * arg_size) <= sk.WIDE_SLICE_FROM
+    for k in ks:
+        _check_layout(fwd, k, es)
+        _check_layout(bwd, k, es, arg_size)
 
 
 # (dtype, argmax bytes) -> (forward width, backward width) at N_pad 330,112
 BIG_WIDTHS = {
-    (torch.float32, 2): (1024, 1024),   # positional: the training path
+    (torch.float32, 2): (256, 1024),    # positional: the training path
     (torch.bfloat16, 2): (1024, 512),
-    (torch.float32, 4): (1024, 512),    # id-based int32 (phase 4g's check)
-    (torch.bfloat16, 4): (1024, 512),
+    (torch.float32, 4): (256, 256),     # id-based int32 (phase 4g's check)
+    (torch.bfloat16, 4): (1024, 256),
 }
 
 
 @pytest.mark.parametrize("dtype,arg_size", sorted(BIG_WIDTHS, key=str))
 @pytest.mark.parametrize("k", [BIG_FOLDS * w for w in WIDTHS])
 def test_big_graph_widths(dtype, arg_size, k):
-    """At 330,112 rows the forward's 1 KB slice (338 MB of x) and the f32
-    positional backward's (507 MB of g and int16 argmax) fit the budget; the
-    bf16 backward's (676 MB) and the id-based int32 ones' do not, and narrow
-    to 512 B, groups of 16 lanes."""
+    """At 330,112 rows every 1 KB working set is past WIDE_SLICE_FROM (338
+    MB of x, 507-1,014 MB of g and argmax), and each kernel takes the width
+    measured fastest there: 256 B (groups of 8 lanes) for the f32 forward
+    and the id-based backwards, 512 B (16 lanes) for the bf16 positional
+    backward, 1 KB for the bf16 forward and the f32 positional backward."""
     es = ESIZE[dtype]
     fwd, bwd = BIG_WIDTHS[dtype, arg_size]
-    assert sk.slice_bytes(BIG_N_PAD, es) == fwd
-    assert sk.slice_bytes(BIG_N_PAD, es, arg_size) == bwd
-    assert BIG_N_PAD * bwd * (es + arg_size) // es <= sk.SLICE_L2_BUDGET
-    assert BIG_N_PAD * 2 * bwd * (es + arg_size) // es > sk.SLICE_L2_BUDGET
+    assert BIG_N_PAD * 1024 > sk.WIDE_SLICE_FROM
+    assert sk.slice_bytes(BIG_N_PAD, es) == fwd == sk.WIDE_SLICE[es, 0]
+    assert sk.slice_bytes(BIG_N_PAD, es, arg_size) == bwd == sk.WIDE_SLICE[es, arg_size]
     _check_layout(fwd, k, es)
     _check_layout(bwd, k, es, arg_size)
+    assert sk.slice_layout(fwd, k, es)[0] == fwd // 32
     assert sk.slice_layout(bwd, k, es, arg_size)[0] == bwd // 32
 
 
 def test_rule_narrows_with_rows():
-    """The width never grows with N_pad, is 1 KB while the rows fit the
-    budget, and stops at 32 bytes; each width holds whole vectors at every
-    K parity and fits the grid at GNN32's widths."""
-    for es, arg_size in ((4, 0), (2, 0), (4, 2), (2, 2), (4, 4), (2, 4)):
-        prev = 1024
-        for n in (128, 24064, 65536, 330112, 10**6, 10**7, 10**9):
+    """The width is 1 KB exactly while N_pad rows of the 1 KB slice come to
+    at most WIDE_SLICE_FROM bytes, and WIDE_SLICE's width for the direction
+    and dtype at every size past it; every width the rule gives holds whole
+    vectors at every K parity and fits the grid at GNN32's widths."""
+    for (es, arg_size), wide in sk.WIDE_SLICE.items():
+        assert wide in sk.SLICE_WIDTHS
+        row = 1024 + 1024 // es * arg_size
+        fit = sk.WIDE_SLICE_FROM // row
+        assert sk.slice_bytes(fit, es, arg_size) == 1024
+        assert sk.slice_bytes(fit + 1, es, arg_size) == wide
+        for n in (128, 24064, fit, fit + 1, 65536, 330112, 10**6, 10**7):
             w = sk.slice_bytes(n, es, arg_size)
-            assert w in sk.SLICE_WIDTHS and w <= prev
-            prev = w
+            assert w == (1024 if n <= fit else wide)
             for k in (111, 1024, 4024, 5030):
                 _check_layout(w, k, es, arg_size)
-        assert sk.slice_bytes(10**9, es, arg_size) == 32
-    assert sk.slice_bytes(sk.SLICE_L2_BUDGET // 1024, 4) == 1024
-    assert sk.slice_bytes(sk.SLICE_L2_BUDGET // 1024 + 1, 4) == 512
 
 
 def test_chunk_launch_order():
