@@ -100,8 +100,27 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    within 2 flipped rows); ms/epoch, the halo buffer bytes and received
    rows per layer, and the exchange alone timed per layer.  (c) A NCCL
    group of one rank on cuda:0 (in this process): the exchange at P = 1
-   and an all_reduce of CUDA tensors, then one epoch of the sharded runner
-   on a graph axis of size 1 against the single-card runner.
+   and an all_reduce of CUDA tensors, then TAX_EPOCHS epochs of the sharded
+   runner on a graph axis of size 1 against the single-card runner.
+   4q. The mesh planner's anchors and --mesh auto, after 4m.  (a) On the
+   full synthetic graph, the max forward (with the argmax) and backward at
+   layer 1's K = B x 503 for each B of PLAN_BS, bfloat16 and float32 (CUDA
+   events, median of 10), checked against the plain versions as phase 3
+   checks them at PLAN_CHECK_BS; the bfloat16 pair's edge-folds/s (E x B
+   over the two times) beside the pair's bytes bound.  (b) The peak device
+   memory of one GNN32 training epoch (the single-card runner) at each B of
+   CEILING_BS, float32 and bfloat16; the per-fold slope of the allocator's
+   reserve against the memory it can reach gives each dtype's ceiling, and
+   one epoch at the smaller of the two must fit.  (c) The structure tax:
+   4m (c)'s sharded runner over the single-card runner, the median of the
+   steady epochs each (1 where it falls below 1).  (d) The anchors written
+   with parallel/planner.write_anchors to ANCHORS_FILE (under
+   chiprun_out/), ``plan-mesh --devices D`` through the CLI on them for each
+   D of PLAN_DEVICES (each summary must name the file), and ``train-normal
+   --mesh auto`` (D = 1 here) for 2 epochs of PLAN_ROUNDS rounds x 10
+   folds: the planner's line, the plan's fold batch in every chunk, 3 max
+   forwards and 3 backwards an epoch and no other kernel, the artifact
+   contract.
    4h. The hub on the main path, after 4m: train-normal (float32, 3
    epochs) and train-inter --agg-dtype bfloat16 (2 epochs) through the CLI
    with --hub-cache off and --hub-cache HUB_MAIN_K: the hub run launches
@@ -183,6 +202,9 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    timed launch walked, ``slice_bytes``, as its wrapper recorded it), the
    nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
+
+``--only-planner`` runs phases 1-2, 4m (c) and 4q on a synthetic bundle
+of its own and stops.
 
 ``--sweep-slice`` runs phases 1-2 and then times the max kernels at every
 K-slice width at layer 1 on the 24k-node graph, the mesh path's shards, a
@@ -313,6 +335,17 @@ LIB_SLICE_BYTES = 4 << 30  # phase 4g's library yardstick: gathered bytes a slic
 # pick_hub_sizes), and the k of the main path's hub runs (phase 4h)
 HUB_KS = (32, 64, 128, 226)
 HUB_MAIN_K = 128
+# phase 4q: the rate sweep's fold batches (those checked against the plain
+# versions), the fold batches of the peak-memory epochs, the plans' card
+# counts and the --mesh auto run's rounds; phase 4m (c)'s epochs (the first
+# warms up; the tax is the median of the rest)
+PLAN_BS = (10, 16, 20, 24, 28, 32, 48, 64)
+PLAN_CHECK_BS = (10, 64)
+CEILING_BS = (10, 20)
+PLAN_DEVICES = (1, 2, 4, 8)
+PLAN_ROUNDS = 3
+TAX_EPOCHS = 5
+ANCHORS_FILE = os.path.join(HERE, "chiprun_out", "planner_anchors.json")
 # per traced session: (the block's launches without a kernel event, its
 # launches, its earliest kernel start less its launch's in us, the
 # warm-up's launches without a kernel event)
@@ -886,18 +919,21 @@ def record_launches(results, counts, names=None):
             r["launches"] = c
 
 
-def check_artifacts(label, d, folds=FOLDS, nodes=NODES):
-    """The artifact contract of one round of ``folds`` folds, finite logits."""
+def check_artifacts(label, d, folds=FOLDS, nodes=NODES, rounds=1):
+    """The artifact contract of ``rounds`` rounds of ``folds`` folds, finite
+    logits."""
     import numpy as np
 
-    for f in range(1, folds + 1):
-        p = os.path.join(d, f"1_{f}_loc_logits.npy")
-        if not os.path.exists(p):
-            fail(f"{label}: missing {p}")
-        lg = np.load(p)
-        if lg.shape != (nodes, CLASSES) or not np.isfinite(lg).all():
-            fail(f"{label}: {p} has shape {lg.shape} or non-finite values")
-    for fname in ("log.tsv", "txt_log.txt", "fig_data_1.json"):
+    for r in range(1, rounds + 1):
+        for f in range(1, folds + 1):
+            p = os.path.join(d, f"{r}_{f}_loc_logits.npy")
+            if not os.path.exists(p):
+                fail(f"{label}: missing {p}")
+            lg = np.load(p)
+            if lg.shape != (nodes, CLASSES) or not np.isfinite(lg).all():
+                fail(f"{label}: {p} has shape {lg.shape} or non-finite values")
+    for fname in ("log.tsv", "txt_log.txt",
+                  *(f"fig_data_{r}.json" for r in range(1, rounds + 1))):
         if not os.path.exists(os.path.join(d, fname)):
             fail(f"{label}: missing {fname}")
 
@@ -2209,9 +2245,11 @@ def mesh_train_phase(data_root, want_dir, results, smi_line):
 def nccl_phase(data_root, smi_line):
     """Phase 4m (c): a NCCL group of one rank on cuda:0 (in this process):
     the halo exchange at P = 1 (all slots padding: zeros, and a zero
-    gradient) and an all_reduce of CUDA tensors; then one epoch of the
-    sharded runner on a graph axis of size 1 (the local pass, no exchange)
-    against the single-card runner from the same models."""
+    gradient) and an all_reduce of CUDA tensors; then TAX_EPOCHS epochs of
+    the sharded runner on a graph axis of size 1 (the local pass, no
+    exchange) against the single-card runner from the same models.  Returns
+    (the sharded runner's epoch ms, the single-card runner's): phase 4q's
+    structure tax."""
     import datetime
 
     import numpy as np
@@ -2247,7 +2285,7 @@ def nccl_phase(data_root, smi_line):
         if bool(x.grad.any()) or not torch.equal(
                 t, torch.arange(1024, dtype=torch.float32, device="cuda")):
             fail("NCCL: the exchange's gradient or the all_reduce is wrong")
-        cfg = TrainConfig(fold_num=FOLDS, epoch_num=1, verbose=False)
+        cfg = TrainConfig(fold_num=FOLDS, epoch_num=TAX_EPOCHS, verbose=False)
         tr, va = fold_node_masks(b.label_with_loc, g.n_nodes, FOLDS, FOLD_SEEDS[0])
         seeds = [fold_seed(cfg.seed, 1, f + 1, 0) for f in range(FOLDS)]
         w = weight_cal(b.loc_mat)
@@ -2270,22 +2308,25 @@ def nccl_phase(data_root, smi_line):
         if d > MESH_ATOL or dl > MESH_ATOL:
             fail(f"NCCL graph=1 step: probabilities differ by {d}, losses by {dl}")
         print(f"NCCL (1 rank, cuda:0, {smi_line}): halo exchange at P = 1 and "
-              f"all_reduce on CUDA tensors ran; graph=1 step {ms_s[0]:.3f} ms against "
-              f"the single-card runner's {ms_1[0]:.3f} ms, probabilities max abs diff "
-              f"{d:.3e}, losses {dl:.3e}", flush=True)
+              f"all_reduce on CUDA tensors ran; graph=1 epochs "
+              f"{[round(m, 3) for m in ms_s]} ms against the single-card runner's "
+              f"{[round(m, 3) for m in ms_1]}, probabilities max abs diff {d:.3e}, "
+              f"losses {dl:.3e}", flush=True)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(rdzv, ignore_errors=True)
+    return ms_s, ms_1
 
 
 def mesh_phase(data_root, results, smi_line):
     """Phase 4m, on a synthetic bundle whose log holds the single-card
-    train-normal float32 run of MESH_EPOCHS epochs."""
+    train-normal float32 run of MESH_EPOCHS epochs; returns 4m (c)'s epoch
+    times."""
     phase("4m multi-device path on one card")
     shard_kernel_phase(results, smi_line)
     mesh_train_phase(data_root, os.path.join(data_root, "log", "GSE30931", "normal"),
                      results, smi_line)
-    nccl_phase(data_root, smi_line)
+    return nccl_phase(data_root, smi_line)
 
 
 def mesh_only(smi_line):
@@ -2300,6 +2341,257 @@ def mesh_only(smi_line):
         mesh_phase(tmp, {}, smi_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def planner_only(smi_line):
+    """``--only-planner``: phase 4m (c) for the structure tax, then 4q."""
+    from plagnn_tpu_torch import cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        cli.main(["synth", "--data-root", tmp, "--nodes", str(NODES),
+                  "--edges", str(EDGES), "--seed", str(SEED)])
+        phase("4m (c) NCCL group of one rank")
+        tax_ms = nccl_phase(tmp, smi_line)
+        phase("4q planner anchors and --mesh auto")
+        planner_phase(tmp, tax_ms, smi_line)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4q: the mesh planner's anchors, measured here, and --mesh auto.
+# ---------------------------------------------------------------------------
+
+
+def rate_sweep(graph, smi_line):
+    """Phase 4q (a): the max forward (with the argmax) and backward at layer
+    1's K = B x 503 for each B of PLAN_BS, bfloat16 and float32, each the
+    median of 10 launches by CUDA events; at PLAN_CHECK_BS checked against
+    the plain versions as phase 3 checks them.  Returns {B: the bfloat16
+    pair's edge-folds/s}, E x B over the two kernels' time."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    n, e = graph.n_nodes, graph.n_edges
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rates = {}
+    for b in PLAN_BS:
+        k = b * F_IN
+        # relu of bf16-representable values: ties at 0, the same in both dtypes
+        x32 = torch.randn((n, k), generator=gen, device="cuda").to(torch.bfloat16)
+        x32 = x32.float().relu_()
+        if b in PLAN_CHECK_BS:
+            check_kernels(graph, x32, f"4q B = {b}")
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x = x32.to(dt)
+            _, arg = sk.spmm_max_fwd(graph, x)
+            g = torch.randn((n, k), generator=gen, device="cuda").to(dt)
+            fwd = median_ms(lambda: sk.spmm_max_fwd(graph, x), 10)
+            bwd = median_ms(lambda: sk.spmm_max_bwd(graph, g, arg), 10)
+            # each direction reads its rows once and writes its rows once
+            # (forward: x in, out and argmax out; backward: g and argmax in,
+            # dx out), plus the CSR
+            nbytes = 2 * (n * k * (2 * x.element_size() + arg.element_size())
+                          + 4 * (n + 1 + e))
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            rate = e * b / ((fwd + bwd) / 1e3)
+            if dt == torch.bfloat16:
+                rates[b] = rate
+            print(f"4q rate B = {b} (K {k}) {tag}: fwd {fwd:.3f} + bwd {bwd:.3f} ms = "
+                  f"{rate:.4e} edge-folds/s; bytes bound {bound:.3f} ms "
+                  f"({(fwd + bwd) / bound:.2f}x; {smi_line})", flush=True)
+            del x, arg, g
+        del x32
+        torch.cuda.empty_cache()
+    return rates
+
+
+def fold_ceiling(data_root, smi_line):
+    """Phase 4q (b): the peak device memory of one GNN32 training epoch
+    (the single-card runner at full width, float32 and bfloat16 messages)
+    at each B of CEILING_BS; the per-fold slope of the larger peak (the
+    caching allocator's reserve) against the memory the allocator can reach
+    gives each dtype's ceiling; one epoch at the smaller of the two must
+    fit.  Returns that B."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from plagnn_tpu_torch.data.artifacts import load_condition
+    from plagnn_tpu_torch.train.engine import (
+        TrainConfig, fold_seed, init_fold_model, make_batched_fold_runner)
+    from plagnn_tpu_torch.train.kfold import fold_node_masks
+    from plagnn_tpu_torch.train.losses import weight_cal
+    from plagnn_tpu_torch.utils.precision import set_aggregation_dtype
+
+    bundle = load_condition(data_root, "GSE30931", "normal")
+    graph = bundle.graph.to("cuda")
+    feats = torch.as_tensor(np.asarray(bundle.feats, np.float32), device="cuda")
+    labels = torch.as_tensor(np.asarray(bundle.labels, np.float32), device="cuda")
+    weight = weight_cal(bundle.loc_mat)
+    valid = torch.arange(graph.n_nodes, device="cuda") < graph.n_real_nodes
+
+    def epoch_peak(b, agg):
+        """(peak allocated, peak reserved, epoch ms) of one epoch at B = b:
+        b jobs of ceil(b / 10) rounds of 10 folds, the data resident."""
+        set_aggregation_dtype(agg)
+        cfg = TrainConfig(fold_num=FOLDS, epoch_num=1, fold_batch=b, verbose=False)
+        masks = [fold_node_masks(bundle.label_with_loc, graph.n_nodes, FOLDS, 1 + r)
+                 for r in range(-(-b // FOLDS))]
+        tr = torch.as_tensor(np.concatenate([m[0] for m in masks])[:b], device="cuda")
+        va = torch.as_tensor(np.concatenate([m[1] for m in masks])[:b], device="cuda")
+        seeds = [fold_seed(cfg.seed, 1 + j // FOLDS, 1 + j % FOLDS, 0) for j in range(b)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            run = make_batched_fold_runner(graph, feats, labels, weight, valid, cfg)
+            out = run(init_fold_model(cfg, F_IN, seeds, "cuda"), None, tr, va, 0.1)
+            torch.cuda.synchronize()
+            return (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved(),
+                    out[-1][0])
+        finally:
+            set_aggregation_dtype("float32")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    reach = free + torch.cuda.memory_reserved()
+    print(f"4q memory: card total {total / 2**30:.2f} GiB, the allocator can reach "
+          f"{reach / 2**30:.2f} GiB ({smi_line})", flush=True)
+    ceilings = {}
+    for agg in ("float32", "bfloat16"):
+        peaks = {b: epoch_peak(b, agg) for b in CEILING_BS}
+        (b0, (a0, r0, _)), (b1, (a1, r1, _)) = sorted(peaks.items())
+        slope = (r1 - r0) / (b1 - b0)
+        ceilings[agg] = b0 + int((reach - r0) // slope)
+        for b, (a, r, ms) in sorted(peaks.items()):
+            print(f"4q {agg} epoch at B = {b}: peak {a / 2**30:.3f} GiB allocated, "
+                  f"{r / 2**30:.3f} reserved; {ms:.1f} ms", flush=True)
+        print(f"4q {agg}: {(a1 - a0) / (b1 - b0) / 2**20:.2f} MiB allocated, "
+              f"{slope / 2**20:.2f} reserved a fold; ceiling B = {ceilings[agg]}",
+              flush=True)
+    ceiling = min(ceilings.values())
+    agg = min(ceilings, key=ceilings.get)
+    try:
+        a, r, ms = epoch_peak(ceiling, agg)
+    except torch.cuda.OutOfMemoryError as exc:
+        fail(f"4q: one {agg} epoch at the reckoned ceiling B = {ceiling} does not "
+             f"fit: {exc}")
+    print(f"4q {agg} epoch at the ceiling B = {ceiling}: peak {a / 2**30:.3f} GiB "
+          f"allocated, {r / 2**30:.3f} reserved of {reach / 2**30:.2f}; {ms:.1f} ms "
+          f"({smi_line})", flush=True)
+    return ceiling
+
+
+class _Tee:
+    """A stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def planner_phase(data_root, tax_ms, smi_line):
+    """Phase 4q, on phase 4's synthetic bundle: (a) the rate sweep, (b) the
+    fold ceiling, (c) the structure tax from phase 4m (c)'s epochs (``tax_ms``:
+    the sharded runner's and the single-card runner's epoch ms), (d) the
+    anchors written to ANCHORS_FILE with planner.write_anchors, ``plan-mesh
+    --devices D`` through the CLI for each D of PLAN_DEVICES on them, and
+    ``train-normal --mesh auto`` (D = 1 here) for 2 epochs of PLAN_ROUNDS
+    rounds: the planner's line, the plan's fold batch in every chunk, 3 max
+    forwards and 3 backwards an epoch, the artifact contract."""
+    import contextlib
+    import re
+
+    import torch
+
+    from plagnn_tpu_torch import cli
+    from plagnn_tpu_torch.data.artifacts import load_condition
+    from plagnn_tpu_torch.parallel import planner
+
+    graph = load_condition(data_root, "GSE30931", "normal").graph
+    rates = rate_sweep(graph.to("cuda"), smi_line)
+    ceiling = fold_ceiling(data_root, smi_line)
+    ms_s, ms_1 = tax_ms
+    measured_tax = statistics.median(ms_s[1:]) / statistics.median(ms_1[1:])
+    tax = max(1.0, measured_tax)
+    print(f"4q structure tax: sharded runner at graph=1 (NCCL, 1 rank) steady "
+          f"{statistics.median(ms_s[1:]):.3f} ms/epoch {[round(m, 3) for m in ms_s]}, "
+          f"single-card runner {statistics.median(ms_1[1:]):.3f} "
+          f"{[round(m, 3) for m in ms_1]}: {measured_tax:.4f} (written {tax:.4f})",
+          flush=True)
+
+    if os.path.exists(ANCHORS_FILE):
+        os.remove(ANCHORS_FILE)
+    planner.write_anchors({"bf16_rates": {str(b): r for b, r in rates.items()},
+                           "structure_tax": tax, "hbm_fold_ceiling_full_graph": ceiling},
+                          f"chip_smoke.py phase 4q on {smi_line}", ANCHORS_FILE)
+    anc = planner.load_anchors(ANCHORS_FILE)
+    if anc["source"] != ANCHORS_FILE or anc["rates"] != rates:
+        fail(f"4q: {ANCHORS_FILE} does not read back ({anc['source']})")
+    baked = planner.load_anchors("baked")
+    print(f"4q anchors written to {ANCHORS_FILE}; measured / baked: rates "
+          + ", ".join(f"B = {b} {r / baked['rates'].get(b, float('nan')):.3f}"
+                      for b, r in sorted(rates.items()))
+          + f"; tax {tax:.4f} / {baked['tax']}; ceiling {ceiling} / "
+          f"{baked['hbm_ceiling']}", flush=True)
+
+    os.environ[planner.ANCHORS_ENV] = ANCHORS_FILE
+    try:
+        for d in PLAN_DEVICES:
+            t0 = time.perf_counter()
+            plan = cli.main(["plan-mesh", "--devices", str(d), "--data-root", data_root])
+            if (plan.anchors_source != ANCHORS_FILE
+                    or f"anchors: {ANCHORS_FILE}" not in plan.summary()):
+                fail(f"4q: plan-mesh --devices {d} read {plan.anchors_source}")
+            print(f"4q plan-mesh --devices {d}: {time.perf_counter() - t0:.1f} s "
+                  f"(modeled, not measured)", flush=True)
+
+        # --mesh auto: the counts from 0 just before the run, read just after
+        shutil.rmtree(os.path.join(data_root, "log"), ignore_errors=True)
+        tee = _Tee(sys.stdout)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            stats = cli.main(["train-normal", "-data", "GSE30931", "--data-root", data_root,
+                              "-e", "2", "--rounds", str(PLAN_ROUNDS), "-f", str(FOLDS),
+                              "--mesh", "auto"])
+        wall = time.perf_counter() - t0
+        epochs = sum(len(s.epoch_ms) for s in stats)
+        counts = check_launches("train-normal --mesh auto", gnn32_launches("f32", epochs))
+        m = re.search(r"mesh planner: D=(\d+) -> fold=(\d+) x graph=(\d+) "
+                      r"\(b_local=(\d+), fold_batch=(\d+)", "".join(tee.text))
+        if m is None:
+            fail("4q: train-normal --mesh auto printed no planner line")
+        d, fold, graph_p, _, fold_batch = map(int, m.groups())
+        jobs = PLAN_ROUNDS * FOLDS
+        want = planner.plan_mesh(1, graph.src.numpy(), graph.dst.numpy(),
+                                 graph.n_real_nodes, total_jobs=jobs)
+        widths = [s.folds for s in stats]
+        if ((d, fold, graph_p) != (1, 1, 1) or fold_batch != want.chosen.fold_batch
+                or widths[0] != min(fold_batch, jobs) or max(widths) > fold_batch
+                or sum(widths) != jobs):
+            fail(f"4q: --mesh auto planned D={d} fold={fold} graph={graph_p} "
+                 f"fold_batch={fold_batch} (want {want.chosen.fold_batch}) and ran "
+                 f"chunks of {widths} folds")
+        check_artifacts("train-normal --mesh auto",
+                        os.path.join(data_root, "log", "GSE30931", "normal"),
+                        rounds=PLAN_ROUNDS)
+        report_run(f"GNN32 train-normal --mesh auto (fold_batch {fold_batch}, chunks "
+                   f"{widths})", stats, wall, counts, smi_line, folds=fold_batch)
+    finally:
+        del os.environ[planner.ANCHORS_ENV]
 
 
 # ---------------------------------------------------------------------------
@@ -3363,6 +3655,9 @@ def main(argv=None):
     ap.add_argument("--only-mesh", action="store_true",
                     help="phases 1-2, the single-card train-normal float32 run "
                          "and phase 4m; prints no result line")
+    ap.add_argument("--only-planner", action="store_true",
+                    help="phases 1-2, phase 4m (c) and phase 4q (the planner's "
+                         "anchors and --mesh auto); prints no result line")
     ap.add_argument("--only-big-graph", action="store_true",
                     help="phases 1-2 and phase 4g (the big-graph path); prints "
                          "no result line")
@@ -3407,6 +3702,9 @@ def main(argv=None):
     print(f"build: {build_s:.1f} s ({len(logs)} compiled)", flush=True)
     if args.only_mesh:
         mesh_only(smi_line)
+        return
+    if args.only_planner:
+        planner_only(smi_line)
         return
     if args.only_big_graph:
         phase("4g big graph")
@@ -3507,7 +3805,9 @@ def main(argv=None):
                        lambda: train_gcn2(tmp, os.path.join(tmp, "log_gcn2_profiled")),
                        gcn2_launches(), smi_line)
         # phase 4b's run is the single-card run of the sharded runs' jobs
-        mesh_phase(tmp, results, smi_line)
+        tax_ms = mesh_phase(tmp, results, smi_line)
+        phase("4q planner anchors and --mesh auto")
+        planner_phase(tmp, tax_ms, smi_line)
         phase("4h hub cache on the main path")
         hub_train_phase(tmp, results, smi_line)
     finally:

@@ -9,7 +9,7 @@
     python -m plagnn_tpu_torch.cli performance    (CV metrics, random baselines)
     python -m plagnn_tpu_torch.cli statistics     (topology-change statistics)
     python -m plagnn_tpu_torch.cli figures        (the figures' data, as JSON)
-    python -m plagnn_tpu_torch.cli plan-mesh      (refused: the planner waits)
+    python -m plagnn_tpu_torch.cli plan-mesh      (the mesh planner's table)
 
 Flag names, defaults and artifact paths match ``plagnn_tpu.cli`` (-data,
 -lr 5e-5, -f 10, -e 200, -a [0.1], --no-dense-gcn).  ``-d`` is the torch
@@ -28,8 +28,11 @@ ranks split the graph, F groups of them split the fold batch.  Under
 takes ``cuda:LOCAL_RANK``, NCCL, or the CPU under ``-d cpu``, gloo).  Run
 plainly, the CLI spawns F*P local ranks: one per visible card (NCCL; fewer
 cards than ranks raises), or gloo CPU ranks under ``-d cpu``.  ``--mesh
-auto`` and ``plan-mesh`` are refused: the JAX package's planner runs on TPU
-rates, and the port's waits for H100 anchors.  ``--hub-cache auto|off|k``
+auto`` (or ``auto:D``) first plans D = F*P from the condition's graph
+(parallel/planner.py, on measured H100 anchors) and takes the plan's mesh
+and fold batch; D is the suffix, else torchrun's world size, else the
+visible cards, else 1 under ``-d cpu``.  ``plan-mesh`` prints the planner's
+table for ``--devices``.  ``--hub-cache auto|off|k``
 (the JAX CLI's flag) sets the aggregation kernels' hub cache
 (``TrainConfig.hub_cache``, ``ops/hub.py``); a mesh, fold-only included,
 takes none (its partition shards carry no hub table).
@@ -41,9 +44,7 @@ import os
 import sys
 
 SINGLE_DEVICE_MESH = "fold=1,graph=1"
-PLANNER_WAITS = ("the mesh planner (--mesh auto, plan-mesh) is not ported: its "
-                 "model runs on TPU rates, and the port's waits for measured H100 "
-                 "anchors; pass --mesh fold=F,graph=P")
+DEFAULT_FOLD_BATCH = 10
 
 
 def _add_train_flags(p: argparse.ArgumentParser):
@@ -58,8 +59,11 @@ def _add_train_flags(p: argparse.ArgumentParser):
     p.add_argument("-d", type=str, default="cuda",
                    help="torch device (cuda, cuda:N or cpu)")
     p.add_argument("--data-root", default="data")
-    p.add_argument("--fold-batch", type=int, default=10,
-                   help="folds trained together (batch axis width)")
+    # None: not given, so --mesh auto can tell a request from the default
+    p.add_argument("--fold-batch", type=int, default=None,
+                   help="folds trained together (batch axis width; default "
+                        f"{DEFAULT_FOLD_BATCH}).  Under --mesh auto the planner "
+                        "picks it; a value given constrains its candidates")
     p.add_argument("--rounds", type=int, default=10)
     p.add_argument("--seed", type=int, default=70)
     p.add_argument("--no-auc", action="store_true")
@@ -84,7 +88,9 @@ def _add_train_flags(p: argparse.ArgumentParser):
                         "destination blocks (a halo exchange per layer), F "
                         "groups of them split the fold batch (fold-batch %% F "
                         "== 0); F*P ranks: torchrun's, or spawned here, one "
-                        "per card (or CPU ranks under -d cpu)")
+                        "per card (or CPU ranks under -d cpu).  'auto' or "
+                        "'auto:D': the mesh planner picks F, P and the fold "
+                        "batch for D ranks (parallel/planner.py)")
     p.add_argument("--no-mesh-balance", action="store_true",
                    help="contiguous node-id blocks instead of the balanced "
                         "(in-degree snake) partition")
@@ -96,11 +102,19 @@ def _add_train_flags(p: argparse.ArgumentParser):
 
 
 def parse_mesh(spec: str):
-    """'fold=F,graph=P' (either key optional) -> (mesh_fold, mesh_graph),
-    the JAX CLI's cases; 'auto' / 'auto:D' exit (the planner waits)."""
+    """'fold=F,graph=P' (either key optional) -> (mesh_fold, mesh_graph);
+    'auto' / 'auto:D' -> ('auto', D or None), the JAX CLI's cases."""
     s = str(spec).strip()
     if s == "auto" or s.startswith("auto:"):
-        raise SystemExit(f"--mesh {spec!r}: {PLANNER_WAITS}")
+        n = None
+        if ":" in s:
+            try:
+                n = int(s.split(":", 1)[1])
+            except ValueError:
+                raise SystemExit(f"invalid --mesh {spec!r}: expected 'auto' or 'auto:D'")
+            if n < 1:
+                raise SystemExit(f"invalid --mesh {spec!r}: device count must be >= 1")
+        return ("auto", n)
     vals = {"fold": 1, "graph": 1}
     for part in s.split(","):
         part = part.strip()
@@ -118,10 +132,55 @@ def parse_mesh(spec: str):
     return vals["fold"], vals["graph"]
 
 
+def _plan_auto(args, condition: str, n_dev):
+    """--mesh auto / auto:D: plan D ranks from the condition's graph (its
+    edges with the self-loops, as training builds it) before any rank
+    starts; sets ``args.mesh`` to the plan's 'fold=F,graph=P' and
+    ``args.fold_batch`` to its fold batch.  An explicit --fold-batch
+    constrains the local fold batches to those that give it."""
+    import torch
+
+    from .data.artifacts import condition_ppi
+    from .parallel.multihost import launcher_environment
+    from .parallel.planner import plan_mesh
+    from .train.engine import resolve_device
+
+    if n_dev is None:
+        if launcher_environment():
+            n_dev = int(os.environ["WORLD_SIZE"])
+        elif resolve_device(args.d).type == "cuda":
+            n_dev = torch.cuda.device_count()
+        else:
+            n_dev = 1
+    src, dst, n = _edges_with_self_loops(condition_ppi(args.data_root, args.data,
+                                                       condition))
+    kw = {}
+    if args.fold_batch is not None:
+        kw["b_candidates"] = sorted({
+            args.fold_batch // f for f in range(1, n_dev + 1)
+            if n_dev % f == 0 and args.fold_batch % f == 0})
+    plan = plan_mesh(n_dev, src, dst, n, total_jobs=args.rounds * args.f, **kw)
+    chosen = plan.chosen
+    if int(os.environ.get("RANK", 0)) == 0:    # every rank plans the same
+        print(plan.summary())
+        if args.fold_batch is not None and chosen.fold_batch != args.fold_batch:
+            print(f"warning: --mesh auto chose fold_batch={chosen.fold_batch} (mesh "
+                  f"fold={chosen.mesh_fold} x graph={chosen.mesh_graph}); the "
+                  f"requested --fold-batch {args.fold_batch} is not achievable at "
+                  "the best factorization")
+    args.mesh = f"fold={chosen.mesh_fold},graph={chosen.mesh_graph}"
+    args.fold_batch = chosen.fold_batch
+
+
 def _train(args, condition: str):
     """A training subcommand: one device, or the mesh's ranks."""
     from .parallel.multihost import launcher_environment
 
+    spec = parse_mesh(args.mesh)
+    if spec[0] == "auto":
+        _plan_auto(args, condition, spec[1])
+    elif args.fold_batch is None:
+        args.fold_batch = DEFAULT_FOLD_BATCH
     mesh_fold, mesh_graph = parse_mesh(args.mesh)
     if args.hub_cache not in ("auto", "off") and not args.hub_cache.isdigit():
         raise SystemExit(
@@ -254,7 +313,7 @@ def _performance(args):
 def main(argv=None):
     """Run one subcommand.  Training returns its per-chunk epoch timings,
     ``preprocess`` its (step, wall seconds) list, ``performance`` and
-    ``statistics`` their results dicts."""
+    ``statistics`` their results dicts, ``plan-mesh`` its MeshPlan."""
     parser = argparse.ArgumentParser(prog="plagnn_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("preprocess", help="materialize graph/feature artifacts")
@@ -298,8 +357,24 @@ def main(argv=None):
                         "fig_alpha) as alpha_dist.json in each log directory")
     p.add_argument("-d", type=str, default="cuda",
                    help="torch device of the --diff-hist scan (cuda, cuda:N or cpu)")
-    what = "the mesh planner; refused: it waits for H100 anchors"
-    sub.add_parser("plan-mesh", help=what, description=what)
+    what = ("score the (fold, graph) meshes for D cards with the halo-bytes "
+            "model on measured H100 anchors and print the pick")
+    p = sub.add_parser("plan-mesh", help=what, description=what)
+    p.add_argument("--devices", type=int, required=True,
+                   help="number of cards to plan for")
+    p.add_argument("--data-root", default=None,
+                   help="plan over this dataset's PPI_normal.npz; default: the "
+                        "synthetic PPI-scale graph (--nodes, --edges)")
+    p.add_argument("--jobs", type=int, default=100,
+                   help="fold jobs in the run (rounds x folds; the reference's "
+                        "10 x 10)")
+    p.add_argument("--nodes", type=int, default=24041)
+    p.add_argument("--edges", type=int, default=700000)
+    p.add_argument("--include-2d", action="store_true",
+                   help="also model 2-D source x destination grid partitions "
+                        "(candidates only; no runner implements them)")
+    p.add_argument("--part", default="h100-sxm", choices=["h100-sxm", "h100-pcie"],
+                   help="the cards' link: NVLink 4 (SXM) or PCIe Gen5 x16")
     p = sub.add_parser("synth", help="write a synthetic dataset bundle")
     p.add_argument("--data-root", default="data")
     p.add_argument("--nodes", type=int, default=24041)
@@ -337,9 +412,42 @@ def main(argv=None):
     if args.cmd == "figures":
         return _figures(args)
     if args.cmd == "plan-mesh":
-        raise SystemExit(f"plan-mesh: {PLANNER_WAITS}")
+        return _plan_mesh(args)
     _write_synth(args)
     return None
+
+
+def _edges_with_self_loops(mat):
+    """(src, dst, n) of a sparse PPI matrix with a self-loop a node: the
+    edges training aggregates over, which the planner counts."""
+    import numpy as np
+
+    coo = mat.tocoo()
+    n = coo.shape[0]
+    loops = np.arange(n, dtype=np.int64)
+    return (np.concatenate([np.asarray(coo.row, np.int64), loops]),
+            np.concatenate([np.asarray(coo.col, np.int64), loops]), n)
+
+
+def _plan_mesh(args):
+    """``plan-mesh``: print and return the MeshPlan for ``--devices`` cards
+    over the dataset's PPI_normal.npz, or the synthetic PPI-scale graph,
+    with the self-loops."""
+    import scipy.sparse as sp
+
+    from .data.synthetic import powerlaw_ppi
+    from .parallel.planner import plan_mesh
+
+    if args.data_root:
+        ppi = sp.load_npz(os.path.join(args.data_root, "generate_materials",
+                                       "PPI_normal.npz"))
+    else:
+        ppi = powerlaw_ppi(args.nodes, args.edges, seed=70)
+    src, dst, n = _edges_with_self_loops(ppi)
+    plan = plan_mesh(args.devices, src, dst, n, total_jobs=args.jobs,
+                     include_2d=args.include_2d, part=args.part)
+    print(plan.summary())
+    return plan
 
 
 def _figures(args):

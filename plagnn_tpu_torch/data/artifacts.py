@@ -29,23 +29,32 @@ class DatasetBundle:
     n_real: int
 
 
+def condition_ppi(data_root: str, dataset: str, condition: str) -> sp.spmatrix:
+    """The PPI matrix of one (dataset, condition in {'normal', 'inter'}),
+    before self-loops: the graph ``load_condition`` builds and the mesh
+    planner counts."""
+    gm = os.path.join(data_root, "generate_materials")
+    if condition == "normal":
+        return sp.load_npz(os.path.join(gm, "PPI_normal.npz"))
+    if condition == "inter":
+        return sp.load_npz(os.path.join(gm, f"{dataset}_data", "PPI_inter.npz"))
+    raise ValueError(condition)
+
+
 def load_condition(data_root: str, dataset: str, condition: str) -> DatasetBundle:
     """Load one (dataset, condition in {'normal', 'inter'}) into a bundle."""
     gm = os.path.join(data_root, "generate_materials")
     ds_dir = os.path.join(gm, f"{dataset}_data")
 
+    ppi = condition_ppi(data_root, dataset, condition)
     if condition == "normal":
-        ppi = sp.load_npz(os.path.join(gm, "PPI_normal.npz"))
         ecc_pca = np.load(os.path.join(gm, "ECC_normal_pca.npy"))
         gcn_pca = np.load(os.path.join(ds_dir, "GCN_normal_pca.npy"))
         expr = np.load(os.path.join(ds_dir, "expr_normal.npy"))
-    elif condition == "inter":
-        ppi = sp.load_npz(os.path.join(ds_dir, "PPI_inter.npz")).tocoo()
+    else:
         ecc_pca = np.load(os.path.join(ds_dir, "ECC_inter_pca.npy"))
         gcn_pca = np.load(os.path.join(ds_dir, "GCN_inter_pca.npy"))
         expr = np.load(os.path.join(ds_dir, "expr_inter.npy"))
-    else:
-        raise ValueError(condition)
 
     loc = sp.load_npz(os.path.join(gm, "loc_matrix.npz"))
     with open(os.path.join(gm, "protein_ppi.json")) as f:

@@ -141,6 +141,22 @@ class PartitionedGraph:
         )
 
 
+def snake_rows(degree: np.ndarray, p: int, c: int) -> np.ndarray:
+    """The balanced node -> row relabelling: nodes sorted by descending
+    degree (stable: hubs first, ties by id) and dealt snake-wise over p
+    blocks of c rows.  Returns node_row (n,), int64.  ``partition_graph``
+    deals its blocks with it (by in-degree) and the mesh planner counts its
+    halos on it."""
+    n = len(degree)
+    order = np.argsort(-degree, kind="stable")
+    k = np.arange(n)
+    rnd, j = k // p, k % p
+    block = np.where(rnd % 2 == 0, j, p - 1 - j)
+    node_row = np.empty(n, np.int64)
+    node_row[order] = block * c + rnd
+    return node_row
+
+
 def partition_graph(
     src: np.ndarray,
     dst: np.ndarray,
@@ -168,13 +184,7 @@ def partition_graph(
 
     row_map = node_row = None
     if balance:
-        deg = np.bincount(dst, minlength=n_real).astype(np.int64)
-        order = np.argsort(-deg, kind="stable")  # hubs first
-        k = np.arange(n_real)
-        rnd, j = k // p, k % p
-        block = np.where(rnd % 2 == 0, j, p - 1 - j)  # snake dealing
-        node_row = np.empty(n_real, np.int64)
-        node_row[order] = block * c + rnd
+        node_row = snake_rows(np.bincount(dst, minlength=n_real).astype(np.int64), p, c)
         row_map = np.full(p * c, -1, np.int32)
         row_map[node_row] = np.arange(n_real)
         # every endpoint into row space: the block math below works on rows

@@ -1095,3 +1095,24 @@ def test_launch_slices_record_the_width(card):
         assert sk.LAUNCH_SLICES["spmm_max_bwd_f32", n, k] == (w or sk.slice_bytes(n, 4, 2))
     sk.spmm_sum_rows(g, x)
     assert sk.LAUNCH_SLICES["spmm_sum_fwd_f32", n, k] == 1024
+
+
+def test_mesh_auto_on_the_card_launches_the_max_kernels(card, tmp_path, monkeypatch):
+    """The planner on its baked H100 anchors picks fold=1,graph=1 for one
+    card, and a one-epoch ``--mesh auto:1`` run trains at its fold batch
+    through the max kernels, 3 forwards and 3 backwards an epoch."""
+    from plagnn_tpu_torch import cli
+    from plagnn_tpu_torch.parallel import planner
+
+    monkeypatch.delenv(planner.ANCHORS_ENV, raising=False)
+    root = str(tmp_path)
+    cli.main(["synth", "--data-root", root, "--nodes", "512", "--edges", "4000"])
+    plan = cli.main(["plan-mesh", "--devices", "1", "--data-root", root, "--jobs", "6"])
+    assert plan.anchors_source == "baked"
+    assert (plan.chosen.mesh_fold, plan.chosen.mesh_graph) == (1, 1)
+    sk.reset_launches()
+    stats = cli.main(["train-normal", "-data", "GSE30931", "--data-root", root,
+                      "-e", "1", "--rounds", "2", "-f", "3", "--mesh", "auto:1"])
+    torch.cuda.synchronize()
+    assert [s.folds for s in stats] == [min(plan.chosen.fold_batch, 6)]
+    assert sk.LAUNCHES["spmm_max_fwd_f32"] == sk.LAUNCHES["spmm_max_bwd_f32"] == 3
