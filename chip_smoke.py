@@ -131,6 +131,28 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    the sum hub kernels 2 + 2 times an epoch, the same files.  Phases 4 and
    4c run the default hub_cache="auto", their launch checks following what
    it resolves to.
+   4s. The hub on the mesh's interior pass, after 4h (its (b) in 4g).
+   (a) The full graph partitioned at P = 2 and 4 (balanced): every rank's
+   interior shard at layer 1's K = 10 x 503, float32 and bfloat16, with
+   each of SHARD_HUB_KS halved to fit for the shard's argmax (int32 at P =
+   2, whose gather space passes 2^15 rows; int16 at P = 4): the -inf
+   forward and the backward bit-equal to the kernels without the hub, run
+   to run, and to their plain versions (small-integer gradients), each
+   hub form timed beside the form without it (CUDA events, median of 10,
+   in turns), with the warps an SM holds (hub_warps); entries at
+   SHARD_HUB_K's sizes from the slowest rank, bound by the pass's work
+   (the bytes of the kernel without the hub; the arenas' fill beside it).
+   (b) In 4g, rank 0's interior shard of config 5 at P = 2 (int32 argmax),
+   float32 at K = 8 x 503 with HUB_MAIN_K's sizes, checked and timed the
+   same way.  (c) The sharded runner on a graph axis of size 1 over a NCCL
+   group of one rank (as 4m (c)), TAX_EPOCHS epochs with hub_cache "off"
+   and HUB_MAIN_K: the hub kernels 3 + 3 times an epoch, probabilities and
+   history bit-identical, each epoch's ms.  (d) ``train-normal --mesh
+   fold=1,graph=2`` with --hub-cache off and SHARD_HUB_K, float32 and
+   bfloat16, CLI_MESH_EPOCHS epochs, on 2 gloo ranks sharing cuda:0 (the
+   CLI's flags through its own parser, each rank in the CLI's rank entry):
+   every file byte-identical, and on every rank the hub kernels launched
+   by the interior pass only.
    4p. The preprocess stage at full width from synthetic raw files: a
    BioGRID mitab of powerlaw_ppi(24,041, 700k, seed 70)'s pairs (each of
    its 3 isolated nodes joined to one more node, so all 24,041 proteins
@@ -196,15 +218,18 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    argmax) with a hub at HUB_MAIN_K's sizes against the same kernels
    without it (out and argmax bit-exact, dx bit-identical) and their plain
    versions, each timed beside the kernel without the hub.  No training run
-   takes the hub here: the engine turns it off past 2^15 nodes, as the JAX
-   package's does.
+   takes the hub here: the engine turns it off past 2^15 nodes on one card,
+   as the JAX package's does.  Then phase 4s (b) on this graph's P = 2
+   shard.
 5. A ``{"kernels": [...]}`` line (each entry with the K-slice width its
    timed launch walked, ``slice_bytes``, as its wrapper recorded it), the
    nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 
 ``--only-planner`` runs phases 1-2, 4m (c) and 4q on a synthetic bundle
-of its own and stops.
+of its own and stops.  ``--only-mesh-hub`` runs phases 1-2 and 4s on a
+bundle of its own ((b) on config 5's edges from powerlaw_ppi), prints the
+phase's kernels entries and stops.
 
 ``--sweep-slice`` runs phases 1-2 and then times the max kernels at every
 K-slice width at layer 1 on the 24k-node graph, the mesh path's shards, a
@@ -213,6 +238,7 @@ and 330 k nodes the narrow ones also with the chunks in row order), then
 the grouped backward built under each register bound of SWEEP_MIN_BLOCKS
 at 330 k nodes, and stops.
 """
+import contextlib
 import json
 import math
 import os
@@ -335,6 +361,13 @@ LIB_SLICE_BYTES = 4 << 30  # phase 4g's library yardstick: gathered bytes a slic
 # pick_hub_sizes), and the k of the main path's hub runs (phase 4h)
 HUB_KS = (32, 64, 128, 226)
 HUB_MAIN_K = 128
+# phase 4s: the hub sizes tried on the 24k graph's interior shards (each
+# halved to fit), the k of their kernels-line entries and of the CLI mesh
+# runs (d), those runs' epochs and dtypes; (b) and (c) take HUB_MAIN_K
+SHARD_HUB_KS = (32, 64, 128)
+SHARD_HUB_K = 64
+CLI_MESH_EPOCHS = 2
+CLI_MESH_AGGS = (("float32", "f32", 4), ("bfloat16", "bf16", 2))
 # phase 4q: the rate sweep's fold batches (those checked against the plain
 # versions), the fold batches of the peak-memory epochs, the plans' card
 # counts and the --mesh auto run's rounds; phase 4m (c)'s epochs (the first
@@ -1930,6 +1963,23 @@ def shard_ks(p):
     return sorted(ks | {FOLDS * w for w in AGG_WIDTHS}, reverse=True)
 
 
+def shard_work(graph, own_rows, k, esize, asize):
+    """(forward bytes, backward bytes, forward operations, backward
+    operations) a shard pass must do at width K: the distinct source rows it
+    reads (the forward's x, the backward's dx) and the own rows whose output
+    the sharded layer keeps (out and arg, g and arg), each once, and the
+    index; a compare a gathered element, and the backward's one more a
+    non-empty row's element."""
+    import torch
+
+    e, c = graph.n_edges, own_rows
+    n_src = int(torch.unique(graph.src).numel())
+    nonempty = int((graph.in_degree > 0).sum().item())
+    return (n_src * k * esize + 4 * (c + 1 + e) + c * k * (esize + asize),
+            c * k * (esize + asize) + 4 * (n_src + 1 + e) + n_src * k * esize,
+            e * k, e * k + nonempty * k)
+
+
 def shard_max_entries(graph, own_rows, x32, label):
     """spmm_max(empty_value=-inf) on one shard graph at one K, both dtypes:
     forward (out, arg) and backward exactly equal to the plain versions
@@ -1947,8 +1997,6 @@ def shard_max_entries(graph, own_rows, x32, label):
     n, k = x32.shape
     e = graph.n_edges
     src_l, dst_l = graph.src.long(), graph.dst.long()
-    n_src = int(torch.unique(src_l).numel())
-    c = own_rows
     empty = graph.in_degree == 0
     gen = torch.Generator(device="cuda").manual_seed(k + e)
     rows = {}
@@ -1987,15 +2035,11 @@ def shard_max_entries(graph, own_rows, x32, label):
         lib_dx = torch.zeros((n, k), device="cuda")
         bwd_lib = median_ms(lambda: lib_dx.index_add_(0, src_l, masked), 3)
         del masked, lib_dx
-        nonempty = int((~empty).sum().item())
-        rows[("fwd", tag)] = dict(
-            err=0.0, ms=fwd_ms, plain=fwd_plain, lib=fwd_lib,
-            nbytes=n_src * k * esize + 4 * (c + 1 + e) + c * k * (esize + asize),
-            ops=e * k)
-        rows[("bwd", tag)] = dict(
-            err=0.0, ms=bwd_ms, plain=bwd_plain, lib=bwd_lib,
-            nbytes=c * k * (esize + asize) + 4 * (n_src + 1 + e) + n_src * k * esize,
-            ops=e * k + nonempty * k)
+        fwd_bytes, bwd_bytes, fwd_ops, bwd_ops = shard_work(graph, own_rows, k, esize, asize)
+        rows[("fwd", tag)] = dict(err=0.0, ms=fwd_ms, plain=fwd_plain, lib=fwd_lib,
+                                  nbytes=fwd_bytes, ops=fwd_ops)
+        rows[("bwd", tag)] = dict(err=0.0, ms=bwd_ms, plain=bwd_plain, lib=bwd_lib,
+                                  nbytes=bwd_bytes, ops=bwd_ops)
         del x, out_k, arg_k, out_2, arg_2, out_p, arg_p, g, dx_k, dx_p
         torch.cuda.empty_cache()
     return rows
@@ -2242,6 +2286,23 @@ def mesh_train_phase(data_root, want_dir, results, smi_line):
         results[name]["launches"] = c
 
 
+@contextlib.contextmanager
+def nccl_one_rank():
+    """A NCCL process group of one rank on cuda:0, in this process."""
+    import datetime
+
+    import torch.distributed as dist
+
+    rdzv = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}/rdzv", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+
+
 def nccl_phase(data_root, smi_line):
     """Phase 4m (c): a NCCL group of one rank on cuda:0 (in this process):
     the halo exchange at P = 1 (all slots padding: zeros, and a zero
@@ -2250,8 +2311,6 @@ def nccl_phase(data_root, smi_line):
     exchange) against the single-card runner from the same models.  Returns
     (the sharded runner's epoch ms, the single-card runner's): phase 4q's
     structure tax."""
-    import datetime
-
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2265,10 +2324,7 @@ def nccl_phase(data_root, smi_line):
     from plagnn_tpu_torch.train.kfold import FOLD_SEEDS, fold_node_masks
     from plagnn_tpu_torch.train.losses import weight_cal
 
-    rdzv = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
-    dist.init_process_group("nccl", init_method=f"file://{rdzv}/rdzv", world_size=1,
-                            rank=0, timeout=datetime.timedelta(seconds=300))
-    try:
+    with nccl_one_rank():
         mesh = make_mesh(1, 1)
         b = load_condition(data_root, "GSE30931", "normal")
         g = b.graph
@@ -2312,9 +2368,6 @@ def nccl_phase(data_root, smi_line):
               f"{[round(m, 3) for m in ms_s]} ms against the single-card runner's "
               f"{[round(m, 3) for m in ms_1]}, probabilities max abs diff {d:.3e}, "
               f"losses {dl:.3e}", flush=True)
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(rdzv, ignore_errors=True)
     return ms_s, ms_1
 
 
@@ -2510,7 +2563,6 @@ def planner_phase(data_root, tax_ms, smi_line):
     ``train-normal --mesh auto`` (D = 1 here) for 2 epochs of PLAN_ROUNDS
     rounds: the planner's line, the plan's fold batch in every chunk, 3 max
     forwards and 3 backwards an epoch, the artifact contract."""
-    import contextlib
     import re
 
     import torch
@@ -3019,6 +3071,10 @@ def big_graph_phase(results, smi_line):
               flush=True)
         del x32
         torch.cuda.empty_cache()
+        phase("4s (b) big graph shard with a hub")
+        big_shard_hub_check(host.src.numpy(), host.dst.numpy(), host.n_real_nodes, False,
+                            results, smi_line)
+        torch.cuda.empty_cache()
         runs = (("train-normal", "normal", "float32", "f32"),
                 ("train-inter", "perturbation", "bfloat16", "bf16"))
         for cmd, subdir, agg, tag in runs:
@@ -3090,11 +3146,12 @@ def bits_of(t):
     return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
 
 
-def hub_max_equal(g0, gh, x, g, label):
+def hub_max_equal(g0, gh, x, g, label, empty_value=0.0):
     """The hub max kernels against the same kernels without the hub: out
     and argmax bit-exact, dx bit-identical, each bit-identical run to run
-    (one result held at a time: phase 4g's run at 330 k nodes).  Returns
-    the hub's (out, arg, dx)."""
+    (one result held at a time: phase 4g's run at 330 k nodes); an empty
+    row stores ``empty_value`` (-inf: a mesh's interior pass).  Returns the
+    hub's (out, arg, dx)."""
     import torch
 
     from plagnn_tpu_torch.ops import spmm_kernels as sk
@@ -3102,13 +3159,13 @@ def hub_max_equal(g0, gh, x, g, label):
     def same(a, b):
         return torch.equal(bits_of(a), bits_of(b))
 
-    out0, arg0 = sk.spmm_max_fwd(g0, x)
-    out, arg = sk.spmm_max_fwd(gh, x)
+    out0, arg0 = sk.spmm_max_fwd(g0, x, empty_value=empty_value)
+    out, arg = sk.spmm_max_fwd(gh, x, empty_value=empty_value)
     if not (same(out, out0) and torch.equal(arg, arg0)):
         fail(f"{label}: hub forward differs from the kernel without the hub "
              f"({(arg != arg0).sum().item()} argmax elements)")
     del out0
-    out2, arg2 = sk.spmm_max_fwd(gh, x)
+    out2, arg2 = sk.spmm_max_fwd(gh, x, empty_value=empty_value)
     if not (same(out2, out) and torch.equal(arg2, arg)):
         fail(f"{label}: hub forward not bit-identical run to run")
     del out2, arg2
@@ -3389,6 +3446,400 @@ def hub_train_phase(data_root, results, smi_line):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 4s: the hub on the mesh's interior pass.
+# ---------------------------------------------------------------------------
+
+
+def shard_hub_times(host, own_rows, k, dt, pairs, label):
+    """One interior shard graph (``host``, on the host) at width K in dtype
+    ``dt`` with each hub pair of ``pairs``: the -inf forward (the interior
+    pass's) and the backward against the kernels without the hub
+    (hub_max_equal) and against their plain versions, out, argmax and dx
+    the same bits (small-integer gradients keep every float32 sum exact);
+    then each hub form timed beside the form without the hub (CUDA events,
+    median of 10, in turns).  Own rows relu'd and bf16-representable (ties),
+    the rest zero, as the interior pass's [own | 0].  Returns the times by
+    k, the forms without the hub, the plain versions' (first pair) and the
+    library's, and the argmax's element size."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    ninf = -math.inf
+    g0 = host.to(DEVICE)
+    n = g0.n_nodes
+    gen = torch.Generator(device=DEVICE).manual_seed(n + k)
+    x = torch.zeros((n, k), device=DEVICE)
+    x[:own_rows] = torch.randn((own_rows, k), generator=gen, device=DEVICE)
+    x = x.to(torch.bfloat16).float().relu_().to(dt)
+    g = torch.randint(-8, 9, (n, k), generator=gen, device=DEVICE).to(dt)
+    t = {"fwd": {}, "bwd": {}, "fwd0": [], "bwd0": []}
+    for i, pair in enumerate(pairs):
+        gh = host.with_hub(*pair).to(DEVICE)
+        lab = f"{label} k={pair}"
+        out, arg, dx = hub_max_equal(g0, gh, x, g, lab, ninf)
+        if arg.dtype != sk.arg_dtype(g0):
+            fail(f"{lab}: argmax {arg.dtype}, the graph's is {sk.arg_dtype(g0)}")
+        dx_p, bwd_plain = timed_ms(lambda: sk.spmm_max_bwd_plain(gh, g, arg))
+        if not torch.equal(bits_of(dx), bits_of(dx_p)):
+            fail(f"{lab}: hub backward differs from its plain version "
+                 f"(max abs {(dx.float() - dx_p.float()).abs().max().item()})")
+        del dx, dx_p
+        (out_p, arg_p), fwd_plain = timed_ms(
+            lambda: sk.spmm_max_fwd_plain(gh, x, empty_value=ninf))
+        if not (torch.equal(bits_of(out), bits_of(out_p)) and torch.equal(arg, arg_p)):
+            fail(f"{lab}: hub forward differs from its plain version")
+        empty = g0.in_degree == 0
+        if not (bool(torch.isneginf(out[empty].float()).all())
+                and bool((arg[empty] == -1).all())):
+            fail(f"{lab}: an empty row is not -inf with argmax -1")
+        del out, out_p, arg_p
+        if i == 0:
+            t["plain"] = (fwd_plain, bwd_plain)
+            t["lib"] = sliced_library_ms(g0, x, g, arg)[:2]
+            t["asize"] = arg.element_size()
+            # past WIDE_SLICE_FROM the forms without the hub take a narrower
+            # K-slice than the hub's 1 KB: those forms at 1 KB too
+            if sk.slice_bytes(n, x.element_size()) != 1024:
+                t["fwd0_1kb"] = median_ms(lambda: sk.spmm_max_fwd(
+                    g0, x, empty_value=ninf, force_slice=1024), 10)
+            if sk.slice_bytes(n, x.element_size(), t["asize"]) != 1024:
+                t["bwd0_1kb"] = median_ms(lambda: sk.spmm_max_bwd(
+                    g0, g, arg, force_slice=1024), 10)
+        t["fwd0"].append(median_ms(lambda: sk.spmm_max_fwd(g0, x, empty_value=ninf), 10))
+        t["fwd"][pair[0]] = median_ms(lambda: sk.spmm_max_fwd(gh, x, empty_value=ninf), 10)
+        t["bwd"][pair[1]] = median_ms(lambda: sk.spmm_max_bwd(gh, g, arg), 10)
+        t["bwd0"].append(median_ms(lambda: sk.spmm_max_bwd(g0, g, arg), 10))
+        del gh, arg
+        torch.cuda.empty_cache()
+    del x, g
+    torch.cuda.empty_cache()
+    return t
+
+
+def shard_hub_entries(results, prefix, host, own_rows, k, dt, tag, main, per_rank,
+                      smi_line):
+    """Kernels-line entries of the hub on an interior shard at the hub pair
+    ``main`` (the slowest rank's times by kind, of ``per_rank``'s
+    shard_hub_times): bound the pass's work (shard_work, the bytes the
+    kernel without the hub must move), the times by k, the form without
+    the hub, the warps an SM holds (hub_warps) and the arenas' fill."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    esize = torch.finfo(dt).bits // 8
+    for kind, kk, ix in (("fwd", main[0], 0), ("bwd", main[1], 1)):
+        r = max(per_rank, key=lambda rr: per_rank[rr][kind][kk])
+        tr = per_rank[r]
+        asize = tr["asize"]
+        arg_type = torch.int32 if asize == 4 else torch.int16
+        work = shard_work(host[r], own_rows, k, esize, asize)
+        warps = {k_: sk.hub_warps(f"max_{kind}", dt, k, k_, arg_type)[0] for k_ in tr[kind]}
+        warps0 = sk.hub_warps(f"max_{kind}", dt, k, kk, arg_type)[1]
+        fill = hub_fill_bytes(kk, k, esize, asize if kind == "bwd" else 0)
+        name = f"spmm_max_{kind}_hub_{tag}@{prefix}_interior_k{k}"
+        e = results[name] = hub_entry(
+            name, f"spmm_max_{kind}", 0.0, tr[kind][kk], tr["plain"][ix], tr["lib"][ix],
+            work[ix], work[2 + ix], (host[r].n_nodes, k), kk, tr[kind],
+            {"hub": warps, "without": warps0}, fill)
+        e.update(rank=r, ms_without=statistics.median(tr[f"{kind}0"]),
+                 argmax_bytes=asize, edges=host[r].n_edges)
+        w0 = sk.LAUNCH_SLICES.get(
+            (f"spmm_max_{kind}_{'empty_' if kind == 'fwd' else ''}{tag}", host[r].n_nodes, k))
+        at_1kb = ""
+        if f"{kind}0_1kb" in tr:
+            e["ms_without_1kb"] = tr[f"{kind}0_1kb"]
+            at_1kb = f", at 1 KB {e['ms_without_1kb']:.3f}"
+        print(f"  {name}: slowest rank {r} (E {host[r].n_edges}), k={kk} {e['ms']:.3f} ms, "
+              f"without the hub {e['ms_without']:.3f} at {w0} B{at_1kb}; by k "
+              f"{_by_k(tr[kind])}; warps an "
+              f"SM holds {warps}, without the hub {warps0}; plain {e['plain_ms']:.3f}, "
+              f"library {e['library_ms']:.3f}, bound {e['bound_ms']:.3f} by "
+              f"{e['bound_by']} (arena fill {fill / 1e6:.1f} MB); {smi_line}", flush=True)
+
+
+def shard_hub_kernel_phase(results, smi_line):
+    """Phase 4s (a): the 24k graph partitioned at P = 2 and 4 (balanced);
+    every rank's interior shard at layer 1's K = 10 x 503, f32 and bf16,
+    with each of SHARD_HUB_KS halved to fit (pick_hub_sizes with the
+    shard's argmax: int32 past 2^15 gather rows, as at P = 2)
+    (shard_hub_times); entries at SHARD_HUB_K's sizes from the slowest
+    rank."""
+    import torch
+
+    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+    from plagnn_tpu_torch.ops.hub import pick_hub_sizes
+    from plagnn_tpu_torch.ops.spmm_kernels import argmax_bytes
+    from plagnn_tpu_torch.parallel.partition import partition_graph
+
+    ppi = powerlaw_ppi(NODES, EDGES, SEED)
+    k = FOLDS * F_IN
+    for p in SHARD_PARTS:
+        pg = partition_graph(ppi.row, ppi.col, NODES, p, add_self_loops=True, balance=True)
+        asize = argmax_bytes(pg.n_pad)
+        host = {r: pg.shard(r).interior for r in range(p)}
+        cover = {r: host[r].with_hub(SHARD_HUB_K, SHARD_HUB_K) for r in range(p)}
+        print(f"P={p} interior shards (gather space {pg.n_pad} rows, argmax {8 * asize} "
+              f"bits): edges {[host[r].n_edges for r in range(p)]}, k={SHARD_HUB_K} "
+              f"coverage forward "
+              f"{[round(cover[r].hub.n_covered / host[r].n_edges, 4) for r in range(p)]}, "
+              f"transpose "
+              f"{[round(cover[r].t_hub.n_covered / host[r].n_edges, 4) for r in range(p)]}",
+              flush=True)
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            esize = torch.finfo(dt).bits // 8
+            pairs = sorted({pick_hub_sizes(str(kk), k, esize, asize) for kk in SHARD_HUB_KS})
+            per_rank = {}
+            for r in range(p):
+                t = per_rank[r] = shard_hub_times(host[r], pg.own_rows, k, dt, pairs,
+                                                  f"P={p} rank {r} interior {tag}")
+                print(f"  P={p} rank {r} interior {tag}: forward by k {_by_k(t['fwd'])} "
+                      f"(without {[round(v, 3) for v in t['fwd0']]}), backward by k "
+                      f"{_by_k(t['bwd'])} (without {[round(v, 3) for v in t['bwd0']]}); "
+                      f"bit-equal to the kernels without the hub and to the plain "
+                      f"versions at (k_fwd, k_bwd) {pairs}", flush=True)
+            main = pick_hub_sizes(str(SHARD_HUB_K), k, esize, asize)
+            shard_hub_entries(results, f"p{p}", host, pg.own_rows, k, dt, tag, main,
+                              per_rank, smi_line)
+
+
+def big_shard_hub_check(src, dst, n_real, add_self_loops, results, smi_line):
+    """Phase 4s (b), in phase 4g: rank 0's interior shard of BASELINE.json
+    config 5 at P = 2 (balanced), whose gather space passes 2^15 rows (an
+    int32 argmax), f32 at K = BIG_FOLDS x 503 with the hub at HUB_MAIN_K's
+    sizes for that argmax (shard_hub_times)."""
+    import torch
+
+    from plagnn_tpu_torch.ops.hub import pick_hub_sizes
+    from plagnn_tpu_torch.ops.spmm_kernels import argmax_bytes
+    from plagnn_tpu_torch.parallel.partition import partition_graph
+
+    t0 = time.perf_counter()
+    pg = partition_graph(src, dst, n_real, 2, add_self_loops=add_self_loops, balance=True)
+    host = pg.shard(0).interior
+    k = BIG_FOLDS * F_IN
+    asize = argmax_bytes(pg.n_pad)
+    if asize != 4:
+        fail(f"big graph P=2 shard: gather space {pg.n_pad} rows takes no int32 argmax")
+    pair = pick_hub_sizes(str(HUB_MAIN_K), k, 4, asize)
+    cover = host.with_hub(*pair)
+    print(f"big graph P=2 rank 0 interior: gather space {pg.n_pad} rows (C {pg.own_rows}), "
+          f"E {host.n_edges}, int32 argmax, hub {pair} covers forward "
+          f"{cover.hub.n_covered / host.n_edges:.4f}, transpose "
+          f"{cover.t_hub.n_covered / host.n_edges:.4f}; partition and build "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del cover
+    t = shard_hub_times(host, pg.own_rows, k, torch.float32, [pair],
+                        "big graph P=2 rank 0 interior f32")
+    shard_hub_entries(results, "big_p2", {0: host}, pg.own_rows, k, torch.float32, "f32",
+                      pair, {0: t}, smi_line)
+    print(f"big graph P=2 interior hub {pair}: forward and backward bit-equal to the "
+          f"kernels without the hub and to the plain versions ({smi_line})", flush=True)
+
+
+def same_history(a, b):
+    """Two runner histories equal element for element."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_history(a[k], b[k]) for k in a)
+    return np.array_equal(a, b)
+
+
+def nccl_hub_phase(data_root, smi_line):
+    """Phase 4s (c): the sharded runner on a graph axis of size 1 over a
+    NCCL group of one rank (as 4m (c)), TAX_EPOCHS epochs with hub_cache
+    "off" and HUB_MAIN_K from the same models: the local pass launches the
+    hub kernels (3 forwards and 3 backwards an epoch, no other max kernel),
+    and the probabilities and every history curve are the same bits."""
+    import torch
+
+    from plagnn_tpu_torch.data.artifacts import load_condition
+    from plagnn_tpu_torch.ops.hub import pick_hub_sizes
+    from plagnn_tpu_torch.ops.spmm_kernels import argmax_bytes
+    from plagnn_tpu_torch.parallel.partition import partition_graph
+    from plagnn_tpu_torch.parallel.sharded import make_mesh, make_sharded_fold_runner
+    from plagnn_tpu_torch.train.engine import TrainConfig, fold_seed, init_fold_model
+    from plagnn_tpu_torch.train.kfold import FOLD_SEEDS, fold_node_masks
+    from plagnn_tpu_torch.train.losses import weight_cal
+    from plagnn_tpu_torch.utils.precision import set_aggregation_dtype
+
+    set_aggregation_dtype("float32")
+    with nccl_one_rank():
+        mesh = make_mesh(1, 1)
+        b = load_condition(data_root, "GSE30931", "normal")
+        g = b.graph
+        pg = partition_graph(g.src.numpy(), g.dst.numpy(), g.n_real_nodes, 1)
+        cfg = TrainConfig(fold_num=FOLDS, epoch_num=TAX_EPOCHS, verbose=False)
+        tr, va = fold_node_masks(b.label_with_loc, g.n_nodes, FOLDS, FOLD_SEEDS[0])
+        seeds = [fold_seed(cfg.seed, 1, f + 1, 0) for f in range(FOLDS)]
+        w = weight_cal(b.loc_mat)
+        n = g.n_real_nodes
+        runs = {}
+        for hub in ("off", str(HUB_MAIN_K)):
+            pair = pick_hub_sizes(hub, FOLDS * F_IN, 4, argmax_bytes(pg.n_pad))
+            shard = pg.shard(0, DEVICE, *pair)
+            run = make_sharded_fold_runner(mesh, pg, shard, b.feats[:n], b.labels[:n], w,
+                                           cfg, torch.device(DEVICE))
+            reset_launches()
+            _, _, probs, hist, ms = run(init_fold_model(cfg, F_IN, seeds, DEVICE), None,
+                                        tr, va, 0.1)
+            torch.cuda.synchronize()
+            check_launches(f"NCCL graph=1 hub_cache={hub!r}",
+                           gnn32_launches("f32", TAX_EPOCHS, pair))
+            runs[hub] = (probs, hist, ms, pair)
+            del shard, run
+    (p0, h0, ms0, _), (p1, h1, ms1, pair) = runs["off"], runs[str(HUB_MAIN_K)]
+    if not (torch.equal(bits_of(p0), bits_of(p1)) and same_history(h0, h1)):
+        fail(f"NCCL graph=1 hub {pair}: probabilities or history differ from the run "
+             f"without the hub (max abs {(p0 - p1).abs().max().item()})")
+    print(f"NCCL graph=1 (1 rank, cuda:0, {smi_line}): hub_cache={HUB_MAIN_K!r} {pair} "
+          f"epochs {[round(m, 3) for m in ms1]} ms, steady {statistics.median(ms1[1:]):.3f}; "
+          f"'off' {[round(m, 3) for m in ms0]}, steady {statistics.median(ms0[1:]):.3f}; "
+          f"probabilities and every history curve bit-identical", flush=True)
+
+
+def cli_mesh_worker(rank, device, args, parts, result_dir):
+    """One gloo rank of phase 4s (d): the CLI's rank entry
+    (``cli._train_rank``, which a plain ``train-normal --mesh`` runs in
+    each rank it spawns) on the parsed flags; writes its launch counts by
+    counter and by pass (``parts[rank]``: interior or boundary by edge
+    count) and its epoch times to result_dir."""
+    from plagnn_tpu_torch import cli
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    stats = cli._train_rank(rank, device, args, "normal")
+    wall = time.perf_counter() - t0
+    by_pass = {}
+    for (name, _, n_edges, k), c in sk.LAUNCH_SHAPES.items():
+        key = f"{name}@{parts[rank].get(n_edges, f'unknown graph of {n_edges} edges')}_k{k}"
+        by_pass[key] = by_pass.get(key, 0) + c
+    with open(os.path.join(result_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"counts": dict(sk.LAUNCHES), "by_pass": by_pass, "wall_s": wall,
+                   "epoch_ms": [m for st in stats for m in st.epoch_ms]}, f)
+
+
+def cli_mesh_hub_phase(data_root, results, smi_line):
+    """Phase 4s (d): ``train-normal --mesh fold=1,graph=2`` with --hub-cache
+    off and SHARD_HUB_K on 2 gloo ranks sharing cuda:0 (the CLI's flags
+    through its own parser; each rank runs cli_mesh_worker, since the CLI
+    itself gives each rank a card of its own), CLI_MESH_EPOCHS epochs in
+    each of CLI_MESH_AGGS: every file byte-identical, and on every rank the
+    hub kernels launched by the interior pass only, the kernels without
+    the hub by the boundary pass (3 of each kind an epoch on each pass)."""
+    import argparse
+
+    from plagnn_tpu_torch import cli
+    from plagnn_tpu_torch.data.artifacts import load_condition
+    from plagnn_tpu_torch.ops import _build
+    from plagnn_tpu_torch.ops.hub import pick_hub_sizes
+    from plagnn_tpu_torch.ops.spmm_kernels import argmax_bytes
+    from plagnn_tpu_torch.parallel.launch import spawn_local
+    from plagnn_tpu_torch.parallel.partition import partition_graph
+
+    _build.build_all()     # the ranks load the libraries; none builds
+    g = load_condition(data_root, "GSE30931", "normal").graph
+    pg = partition_graph(g.src.numpy(), g.dst.numpy(), g.n_real_nodes, 2, balance=True)
+    parts = [{len(pg.interior_edges[r][0]): "interior", len(pg.boundary_edges[r][0]):
+              "boundary"} for r in range(2)]
+    k = FOLDS * F_IN
+    per = LAYERS * CLI_MESH_EPOCHS
+    log = os.path.join(data_root, "log")
+    for agg, tag, esize in CLI_MESH_AGGS:
+        dirs = {}
+        for hub in ("off", str(SHARD_HUB_K)):
+            shutil.rmtree(log, ignore_errors=True)
+            kf, kb = pick_hub_sizes(hub, k, esize, argmax_bytes(pg.n_pad))
+            ap = argparse.ArgumentParser()
+            cli._add_train_flags(ap)
+            args = ap.parse_args([
+                "-data", "GSE30931", "--data-root", data_root, "-e", str(CLI_MESH_EPOCHS),
+                "--rounds", "1", "-f", str(FOLDS), "--fold-batch", str(FOLDS),
+                "--agg-dtype", agg, "--mesh", "fold=1,graph=2", "--hub-cache", hub])
+            res_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_mesh_")
+            reset_launches()
+            t0 = time.perf_counter()
+            spawn_local(cli_mesh_worker, 2, backend="gloo", devices=[f"{DEVICE}:0"] * 2,
+                        rdzv_dir=res_dir, args=(args, parts, res_dir),
+                        timeout_s=MESH_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if any(launch_counts().values()):
+                fail(f"CLI mesh {tag} --hub-cache {hub}: the parent launched kernels")
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(res_dir, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            shutil.rmtree(res_dir, ignore_errors=True)
+            fwd_int = f"spmm_max_fwd_{'hub' if kf else 'empty'}_{tag}"
+            bwd_int = f"spmm_max_bwd_{'hub_' if kb else ''}{tag}"
+            want = {}
+            for name in (fwd_int, f"spmm_max_fwd_empty_{tag}", bwd_int,
+                         f"spmm_max_bwd_{tag}"):
+                want[name] = want.get(name, 0) + per
+            label = f"CLI mesh fold=1,graph=2 {agg} --hub-cache {hub} ({kf}, {kb})"
+            for r, rr in enumerate(ranks):
+                for name, c in rr["counts"].items():
+                    if c != want.get(name, 0):
+                        fail(f"{label}: rank {r} launched {name} {c} times, expected "
+                             f"{want.get(name, 0)}")
+                for key, c in rr["by_pass"].items():
+                    counter, where = key.split("@")
+                    if ("_hub_" in counter) != (kf > 0 and where.startswith("interior")):
+                        fail(f"{label}: rank {r} launched {counter} {c} times on the "
+                             f"{where} pass")
+            if kf:
+                for kind in ("fwd", "bwd"):
+                    name = f"spmm_max_{kind}_hub_{tag}@p2_interior_k{k}"
+                    c = sum(rr["by_pass"].get(f"spmm_max_{kind}_hub_{tag}@interior_k{k}", 0)
+                            for rr in ranks)
+                    if name in results:
+                        results[name]["launches"] = c
+            ep = ranks[0]["epoch_ms"]
+            print(f"{label}: 2 gloo ranks on one card ({smi_line}), epoch ms "
+                  f"{[round(m, 3) for m in ep]} (rank 0), run wall {wall:.1f} s with spawn, "
+                  f"launches by pass (rank 0) {ranks[0]['by_pass']}", flush=True)
+            dirs[hub] = os.path.join(data_root, f"log_cli_mesh_{tag}_{hub}")
+            shutil.rmtree(dirs[hub], ignore_errors=True)
+            shutil.move(os.path.join(log, "GSE30931", "normal"), dirs[hub])
+        same_files(f"CLI mesh fold=1,graph=2 {agg} --hub-cache {SHARD_HUB_K}",
+                   dirs[str(SHARD_HUB_K)], dirs["off"])
+    shutil.rmtree(log, ignore_errors=True)
+
+
+def mesh_hub_phase(data_root, results, smi_line):
+    """Phase 4s (a), (c) and (d) on a synthetic 24k bundle; (b) runs in
+    phase 4g on its graph."""
+    phase("4s hub cache on the mesh's interior pass")
+    shard_hub_kernel_phase(results, smi_line)
+    nccl_hub_phase(data_root, smi_line)
+    cli_mesh_hub_phase(data_root, results, smi_line)
+
+
+def mesh_hub_only(smi_line):
+    """``--only-mesh-hub``: phase 4s on a synthetic bundle of its own, (b)
+    on config 5's edges from powerlaw_ppi (the graph ``synth`` writes)
+    with their self-loops; prints the phase's kernels entries."""
+    from plagnn_tpu_torch import cli
+    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+
+    results = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        cli.main(["synth", "--data-root", tmp, "--nodes", str(NODES),
+                  "--edges", str(EDGES), "--seed", str(SEED)])
+        mesh_hub_phase(tmp, results, smi_line)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("4s (b) big graph shard")
+    ppi = powerlaw_ppi(BIG_NODES, BIG_EDGES, SEED)
+    big_shard_hub_check(ppi.row, ppi.col, BIG_NODES, True, results, smi_line)
+    print(json.dumps({"kernels": list(results.values())}))
+
+
 def sweep_row_chunk(full):
     """Median times of the row-chunked kernels (float32 sum forward and
     transpose at K = 10 x 400 and 10 x 12, max forward and backward at 10 x
@@ -3658,6 +4109,10 @@ def main(argv=None):
     ap.add_argument("--only-planner", action="store_true",
                     help="phases 1-2, phase 4m (c) and phase 4q (the planner's "
                          "anchors and --mesh auto); prints no result line")
+    ap.add_argument("--only-mesh-hub", action="store_true",
+                    help="phases 1-2 and phase 4s (the hub on the mesh's interior "
+                         "pass; its (b) on config 5's edges); prints its kernels "
+                         "entries and no result line")
     ap.add_argument("--only-big-graph", action="store_true",
                     help="phases 1-2 and phase 4g (the big-graph path); prints "
                          "no result line")
@@ -3705,6 +4160,9 @@ def main(argv=None):
         return
     if args.only_planner:
         planner_only(smi_line)
+        return
+    if args.only_mesh_hub:
+        mesh_hub_only(smi_line)
         return
     if args.only_big_graph:
         phase("4g big graph")
@@ -3810,6 +4268,7 @@ def main(argv=None):
         planner_phase(tmp, tax_ms, smi_line)
         phase("4h hub cache on the main path")
         hub_train_phase(tmp, results, smi_line)
+        mesh_hub_phase(tmp, results, smi_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase("4p preprocess at full width")

@@ -34,8 +34,10 @@ and fold batch; D is the suffix, else torchrun's world size, else the
 visible cards, else 1 under ``-d cpu``.  ``plan-mesh`` prints the planner's
 table for ``--devices``.  ``--hub-cache auto|off|k``
 (the JAX CLI's flag) sets the aggregation kernels' hub cache
-(``TrainConfig.hub_cache``, ``ops/hub.py``); a mesh, fold-only included,
-takes none (its partition shards carry no hub table).
+(``TrainConfig.hub_cache``, ``ops/hub.py``): on one device over the whole
+graph, on a mesh (fold-only included, and ``--mesh auto``) over each rank's
+interior pass, sized at the rank's fold batch; the boundary pass takes none.
+The planner models the aggregation without the hub (``auto`` resolves to 0).
 """
 from __future__ import annotations
 
@@ -179,6 +181,10 @@ def _train(args, condition: str):
     spec = parse_mesh(args.mesh)
     if spec[0] == "auto":
         _plan_auto(args, condition, spec[1])
+        if (args.hub_cache.isdigit() and int(args.hub_cache)
+                and int(os.environ.get("RANK", 0)) == 0):
+            print(f"note: the plan models the aggregation without the hub cache; "
+                  f"--hub-cache {args.hub_cache} runs it on each rank's interior pass")
     elif args.fold_batch is None:
         args.fold_batch = DEFAULT_FOLD_BATCH
     mesh_fold, mesh_graph = parse_mesh(args.mesh)
@@ -187,11 +193,6 @@ def _train(args, condition: str):
             f"invalid --hub-cache {args.hub_cache!r}: expected 'auto', "
             "'off', or an integer k")
     n = mesh_fold * mesh_graph
-    if n > 1 and args.hub_cache not in ("auto", "off") and int(args.hub_cache):
-        from .train.engine import MESH_HUB_WAITS
-
-        raise SystemExit(f"--hub-cache {args.hub_cache} with --mesh {args.mesh!r}: "
-                         f"{MESH_HUB_WAITS}")
     if n == 1 and not launcher_environment():
         return _train_rank(0, args.d, args, condition)
     import torch

@@ -16,7 +16,8 @@ What carries over and what does not:
   the kernels' K-slice, 32 bytes a lane (``HUB_SLICE_BYTES``, fewer where
   K is narrower), and the forward arena holds k such rows of the gathered
   operand; the backward's holds k rows of the gradient and k of the argmax
-  (int16, the id-based argmax of a graph up to 2^15 nodes), as the JAX
+  (``spmm_kernels.argmax_bytes``: int16 for the id-based argmax up to 2^15
+  padded rows, int32 past it, as a graph shard's gather space can be), as the JAX
   package's ``(kb + 1) * stride * 2 * esize`` holds fused gradient and
   argmax rows.  The budget is ``HUB_SMEM_BYTES``: the card's 227 KB a
   block (``SMEM_BLOCK_BYTES``) less 1 KB for the kernels' own shared
@@ -50,8 +51,10 @@ graph at the first layer's K, ms with the hub at k = 32 / 64 / 128 / 226
 
 with as many warps an SM as without the hub in each.  Phase 4g's
 330,112-node graph (id-based, K = 8 x 503) is no better: 42.918 against
-38.264 ms forward f32, 87.706 against 77.198 backward (engine: no hub past
-2^15 nodes there anyway).  An explicit k runs the hub kernels.
+38.264 ms forward f32, 87.706 against 77.198 backward (on one card the
+engine takes no hub past 2^15 nodes anyway: that graph is positional).  An
+explicit k runs the hub kernels; on a mesh, on each rank's interior pass
+(``parallel/partition.py``), whose shards are id-based at any size.
 """
 from __future__ import annotations
 
@@ -81,7 +84,8 @@ def pick_hub_sizes(hub_cache, k_width: int, esize: int,
                    arg_size: int = 2) -> Tuple[int, int]:
     """(k_fwd, k_bwd) for aggregations K = ``k_width`` elements wide of
     ``esize``-byte messages: the forward's arena (max forward, sum) and
-    the transpose's (max backward with an ``arg_size``-byte argmax; the
+    the transpose's (max backward with an ``arg_size``-byte argmax,
+    ``spmm_kernels.argmax_bytes`` of the graph that carries the hub; the
     sum's VJP needs less), each halved until it fits ``HUB_SMEM_BYTES``."""
     if hub_cache in ("off", "0", 0, None, "auto"):  # auto: the hub loses (above)
         return 0, 0

@@ -205,10 +205,19 @@ def _count(name: str, graph: Graph, k: int, width: int = 1024) -> None:
     LAUNCH_SLICES[name, graph.n_nodes, k] = width
 
 
+def argmax_bytes(n_rows: int) -> int:
+    """Bytes of an element of the id-based argmax over ``n_rows`` padded
+    rows: 2 (int16) while every row id fits, else 4 (int32).  Also sizes a
+    hub's backward arena before its graph is built (``ops/hub.py``)."""
+    return 2 if n_rows <= (1 << 15) else 4
+
+
 def arg_dtype(graph: Graph) -> torch.dtype:
-    """The saved argmax's type: int16 for ranks (a positional graph) or
-    while every node id fits (N_pad <= 2^15), else int32."""
-    return torch.int16 if graph.positional or graph.n_nodes <= (1 << 15) else torch.int32
+    """The saved argmax's type: int16 for ranks (a positional graph), else
+    the id-based argmax's (``argmax_bytes``)."""
+    if graph.positional or argmax_bytes(graph.n_nodes) == 2:
+        return torch.int16
+    return torch.int32
 
 
 def arg_rows(graph: Graph) -> int:

@@ -21,11 +21,21 @@ descending in-degree before the cut, so every rank owns about E/P in-edges
 (a power-law PPI's hubs cluster in id order); ``row_map`` / ``node_row``
 record the permutation.
 
+The hub cache (``Graph.with_hub``; JAX ``_stack_pallas_graphs(hub_k,
+hub_k_bwd)``): ``shard(rank, device, hub_k, hub_k_bwd)`` gives the rank's
+interior graph the k most-fetched rows of each direction, the JAX
+package's per-chip ``HubStream.ids[r][:k]`` (``pallas_interior`` with
+overlap, ``pallas_local`` on a graph axis of size 1, where the interior
+holds every edge), and its boundary graph none: the boundary stream is
+small, so its hub would not pay for itself (JAX ``partition_graph``).
+Interior sources are own rows, so every hub id is below C.  JAX stacks the
+P tables and pads them to the longest for ``shard_map``; here each rank
+builds its own table and only its shard goes to its device.
+
 What the port leaves out: the stacked per-chip ``Graph`` pytrees with their
-bucketed ELL and the ``pallas_*`` DMA-kernel layouts (with their hub
-caches), TPU formats with no Hopper counterpart.  ``PartitionedGraph.shard``
-builds one rank's interior and boundary CSR ``Graph``s with their
-row-chunk tables instead, and only that rank's shard goes to its device.
+bucketed ELL and the ``pallas_*`` DMA-kernel layouts, TPU formats with no
+Hopper counterpart.  ``PartitionedGraph.shard`` builds one rank's interior
+and boundary CSR ``Graph``s with their row-chunk tables instead.
 """
 from __future__ import annotations
 
@@ -110,22 +120,28 @@ class PartitionedGraph:
         """Own rows plus halo slots: C + P*S."""
         return self.own_rows + self.n_chips * self.halo_per_peer
 
-    def shard(self, rank: int, device=None) -> Shard:
+    @property
+    def n_pad(self) -> int:
+        """Rows of every shard's padded gather space (``Shard.n_nodes``)."""
+        return _round_up(self.n_local + 1, NODE_PAD)
+
+    def shard(self, rank: int, device=None, hub_k: int = 0, hub_k_bwd: int = 0) -> Shard:
         """Rank ``rank``'s interior and boundary graphs (with their row-chunk
         tables), halo table and degrees, built on the host and moved to
-        ``device``."""
+        ``device``; the interior with a hub of ``hub_k`` rows forward and
+        ``hub_k_bwd`` on the transpose (0: none), the boundary with none."""
         if not 0 <= rank < self.n_chips:
             raise ValueError(f"rank {rank} outside the {self.n_chips} graph ranks")
         if self.interior_edges is None:
             raise ValueError("a shard runs its interior and boundary passes: "
                              "partition with overlap=True")
 
-        def graph(edges):
+        def graph(edges, kf=0, kb=0):
             # id-based argmax at any size, as the JAX package's sharded path
             # keeps it: a shard's passes take empty_value=-inf
             s, d = edges[rank]
             return build_graph(s, d, self.n_local, node_multiple=NODE_PAD,
-                               positional=False).to(device)
+                               positional=False, hub_k=kf, hub_k_bwd=kb).to(device)
 
         def i32(a):
             return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
@@ -133,7 +149,7 @@ class PartitionedGraph:
         return Shard(
             rank=rank,
             own_rows=self.own_rows,
-            interior=graph(self.interior_edges),
+            interior=graph(self.interior_edges, hub_k, hub_k_bwd),
             boundary=graph(self.boundary_edges),
             send_idx=i32(self.send_idx[rank]),
             in_degree=i32(self.in_degree[rank]),

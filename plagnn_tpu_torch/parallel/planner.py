@@ -18,7 +18,10 @@ the link) + boundary pass on the busiest rank, a structure tax on every
 P > 1 candidate, an HBM bound on the local fold batch.  Two things differ
 by design: the per-layer stride is the port's K = b x f (its fold-batched
 rows carry no lane padding; ``STRIDE_ALIGN``), and the link is the card's
-(``LINK_EGRESS``).
+(``LINK_EGRESS``).  The rates are those of the max kernels without the hub
+cache, which ``auto`` resolves to (``ops/hub.py``); a run with an explicit
+``--hub-cache k`` takes the hub on each rank's interior pass, which the
+model does not price.
 
 Anchors: the measured numbers the model runs on (bf16 max forward +
 backward rate by fold batch, the structure tax, the HBM fold ceiling at

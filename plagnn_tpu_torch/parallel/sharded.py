@@ -19,7 +19,12 @@ fold-batched path stands for both JAX steps (``_sharded_xla_step`` and
 ``_sharded_pallas_step``), as the single-device runner stands for both JAX
 runners; each rank aggregates through the port's kernels
 (``ops/spmm_kernels.py``): the max forward with ``empty_value=-inf`` for the
-interior and boundary partial maxima.
+interior and boundary partial maxima.  With a hub cache
+(``TrainConfig.hub_cache``) the rank's interior graph carries its hub tables
+(``PartitionedGraph.shard``), so the interior pass, forward and autograd
+backward, launches the hub instantiations of the max kernels (on a graph
+axis of size 1, the local pass over all of the shard's edges); the boundary
+pass never does.
 """
 from __future__ import annotations
 
@@ -216,9 +221,13 @@ class ShardedMaxAgg:
     passes ``spmm_max(..., empty_value=-inf)``, their elementwise maximum,
     and -inf -> 0 (a row with no edge at all; the interior holds the
     self-loop, so none on the training path).  A graph axis of size 1 runs
-    the single local pass (``:236-241``).  Messages arrive in the
-    aggregation dtype (``models/layers.py: aggregate_max`` casts first), so
-    a bf16 run exchanges bf16 halos."""
+    the single local pass (``:236-241``).  The interior (or local) pass
+    takes the shard's hub where its interior graph carries one
+    (``spmm_max`` saves that graph for the backward, whose transpose hub
+    the backward kernel then reads), the boundary pass none, as the JAX
+    package's ``pallas_interior`` / ``pallas_boundary``.  Messages arrive in
+    the aggregation dtype (``models/layers.py: aggregate_max`` casts first),
+    so a bf16 run exchanges bf16 halos."""
 
     def __init__(self, shard: Shard, mesh: Mesh):
         self.shard, self.mesh = shard, mesh

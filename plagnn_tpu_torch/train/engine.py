@@ -70,8 +70,9 @@ class TrainConfig:
     mesh_balance: bool = True
     # The hub cache of the aggregation kernels (ops/hub.py): "auto" (the
     # measured policy), "off", or k rows of each direction's arena.
-    # Resolved at the run's worst aggregation width; 0 past 2^15 padded
-    # nodes (as the JAX package's engine) and on a mesh.
+    # Resolved at the run's worst aggregation width on one rank
+    # (resolve_hub); on one device 0 past 2^15 padded nodes (as the JAX
+    # package's engine), on a mesh each rank's interior pass takes it.
     hub_cache: str = "auto"
 
 
@@ -117,37 +118,39 @@ def init_fold_model(cfg: TrainConfig, in_feats: int, seeds: Sequence[int],
     return stack_folds(models).to(device)
 
 
-# Why a mesh run takes no hub: every mesh, a fold-only one too, aggregates
-# through the sharded runner over partition shards (graph=1 is one shard),
-# whose tables carry none.
-MESH_HUB_WAITS = ("a mesh run, fold-only included, aggregates over partition shards "
-                  "(graph=1 is one shard) whose tables carry no hub: stacked per-shard "
-                  "hubs (ROADMAP Queue 2 item 1) are not ported; pass --hub-cache off")
-
-
-def resolve_hub(cfg: TrainConfig, graph: Graph, in_feats: int) -> Tuple[int, int]:
+def resolve_hub(cfg: TrainConfig, graph: Graph, in_feats: int,
+                shard_rows: Optional[int] = None) -> Tuple[int, int]:
     """(k_fwd, k_bwd) of a run: ``pick_hub_sizes`` at its worst aggregation
-    width (the JAX engine's rule, ``plagnn_tpu/train/engine.py:573-581``):
-    GNN32's max over (in_feats, h1, h2) in the aggregation dtype, GCN2's
-    float32 sums over (min(in_feats, h), min(h, classes)), times the fold
-    batch.  0 past 2^15 padded nodes, as the JAX engine's guard (positional
-    graphs take no hub); on any mesh "auto" is 0 and a k raises
-    (``MESH_HUB_WAITS``)."""
-    from ..ops.hub import pick_hub_sizes
+    width on one rank (the JAX engine's rule,
+    ``plagnn_tpu/train/engine.py:527-535``, ``:573-581``): GNN32's max
+    over (in_feats, h1, h2) in the aggregation dtype, GCN2's float32 sums
+    over (min(in_feats, h), min(h, classes)), times the rank's fold batch
+    ``fold_batch // mesh_fold`` (JAX's ``b_local``).
 
-    if cfg.mesh_fold * cfg.mesh_graph > 1:
-        if cfg.hub_cache != "auto" and pick_hub_sizes(cfg.hub_cache, 1, 4) != (0, 0):
-            raise ValueError(f"hub_cache={cfg.hub_cache!r} on mesh fold={cfg.mesh_fold},"
-                             f"graph={cfg.mesh_graph}: {MESH_HUB_WAITS}")
-        return 0, 0
+    On one device the backward's arena holds the graph's argmax, and no hub
+    runs past 2^15 padded nodes (the JAX engine's guard: that graph is
+    positional).  On a mesh the hub goes to each rank's interior pass, and
+    ``shard_rows``, the rows of a shard's gather space
+    (``PartitionedGraph.n_pad``), sizes the backward's arena: the shards
+    are id-based at any size, so no guard applies, and past 2^15 rows their
+    argmax is int32 (``spmm_kernels.argmax_bytes``)."""
+    from ..ops.hub import pick_hub_sizes
+    from ..ops.spmm_kernels import argmax_bytes
+
+    mesh = cfg.mesh_fold * cfg.mesh_graph > 1
+    if mesh and shard_rows is None:
+        raise ValueError("a mesh run's hub is sized on its shards: pass shard_rows "
+                         "(PartitionedGraph.n_pad)")
     if cfg.model == "gcn2":
         h = cfg.hidden[0]
         widths, esize = (min(in_feats, h), min(h, cfg.num_classes)), 4
     else:
         widths = (in_feats, *cfg.hidden[:2])
         esize = 2 if aggregation_dtype() is not None else 4
-    kf, kb = pick_hub_sizes(cfg.hub_cache, cfg.fold_batch * max(widths), esize)
-    if graph.n_nodes > (1 << 15):
+    rows = shard_rows if mesh else graph.n_nodes
+    kf, kb = pick_hub_sizes(cfg.hub_cache, cfg.fold_batch // cfg.mesh_fold * max(widths),
+                            esize, argmax_bytes(rows))
+    if not mesh and graph.n_nodes > (1 << 15):
         kf = kb = 0
     return kf, kb
 
@@ -216,10 +219,11 @@ def train(
     class_weight = weight_cal(loc_mat_full)
     n_real = graph.n_real_nodes
     mesh = None
-    hub_k = resolve_hub(cfg, graph, in_feats)
     if cfg.mesh_fold * cfg.mesh_graph > 1:
-        mesh, run = _mesh_runner(graph, feats, labels, class_weight, cfg, device)
+        mesh, run, hub_k = _mesh_runner(graph, feats, labels, class_weight, cfg,
+                                        device)
     else:
+        hub_k = resolve_hub(cfg, graph, in_feats)
         feats_t = torch.as_tensor(np.asarray(feats, np.float32), device=device)
         labels_t = torch.as_tensor(np.asarray(labels, np.float32), device=device)
         node_valid = torch.arange(graph.n_nodes, device=device) < n_real
@@ -380,9 +384,10 @@ def train(
 
 def _mesh_runner(graph: Graph, feats, labels, class_weight, cfg: TrainConfig,
                  device):
-    """(mesh, sharded runner) of a mesh run: the destination-block
-    partition of the graph (its edges already hold the self-loops), this
-    rank's shard on its device and the runner over it."""
+    """(mesh, sharded runner, (k_fwd, k_bwd)) of a mesh run: the
+    destination-block partition of the graph (its edges already hold the
+    self-loops), the hub resolved on its shards, this rank's shard on its
+    device (its interior with the hub) and the runner over it."""
     import torch.distributed as dist
 
     from ..parallel.partition import partition_graph
@@ -396,16 +401,17 @@ def _mesh_runner(graph: Graph, feats, labels, class_weight, cfg: TrainConfig,
         raise RuntimeError(
             f"mesh fold={cfg.mesh_fold},graph={cfg.mesh_graph} needs a process "
             f"group of {n_mesh} ranks (parallel.launch.spawn_local or torchrun)")
-    mesh = make_mesh(cfg.mesh_graph, cfg.mesh_fold)
     n_real = graph.n_real_nodes
     pgraph = partition_graph(
         graph.src.cpu().numpy(), graph.dst.cpu().numpy(), n_real, cfg.mesh_graph,
         balance=bool(cfg.mesh_balance) and cfg.mesh_graph > 1)
-    shard = pgraph.shard(mesh.graph_index, device)
+    hub_k = resolve_hub(cfg, graph, np.shape(feats)[1], pgraph.n_pad)
+    mesh = make_mesh(cfg.mesh_graph, cfg.mesh_fold)
+    shard = pgraph.shard(mesh.graph_index, device, *hub_k)
     run = make_sharded_fold_runner(
         mesh, pgraph, shard, np.asarray(feats)[:n_real], np.asarray(labels)[:n_real],
         class_weight, cfg, device)
-    return mesh, run
+    return mesh, run, hub_k
 
 
 def _barrier(mesh) -> None:

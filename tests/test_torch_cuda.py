@@ -979,6 +979,76 @@ def test_hub_max_cross_chunk_ties(card, dtype):
                        sk.spmm_max_bwd(g0, gr, arg0).view(bits))
 
 
+def _hub_shard_interiors(form):
+    """Interior graphs of a balanced 2-way partition, the graphs a mesh's
+    hub runs on: a power-law graph's (int16 argmax), 70,000 nodes with few
+    edges and 40 hot sources (gather space past 2^15 rows: int32 argmax),
+    or a sparse graph without self-loops whose interiors have fewer
+    distinct sources than a 64-row hub (dummy slots)."""
+    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+    from plagnn_tpu_torch.parallel.partition import partition_graph
+
+    rng = np.random.default_rng(11)
+    loops = True
+    if form == "id16":
+        ppi = powerlaw_ppi(3000, 40000, 7)
+        src, dst, n = ppi.row, ppi.col, 3000
+    elif form == "id32":
+        n = 70_000
+        src = np.concatenate([rng.integers(0, 40, 6000), rng.integers(0, n, 6000)])
+        dst = rng.integers(0, n, 12000)
+    else:
+        n, loops = 400, False
+        src = np.concatenate([rng.integers(0, 12, 300), rng.integers(0, n, 60)])
+        dst = rng.integers(0, n, 360)
+    pg = partition_graph(src, dst, n, 2, add_self_loops=loops, balance=True)
+    return [pg.shard(r).interior for r in range(2)]
+
+
+# (argmax form, hub rows, K): int16 / int32 argmax at one and several
+# K-slices, and a hub with dummy slots
+HUB_SHARD_CASES = [("id16", 16, 130), ("id16", 64, 1024), ("id32", 64, 130),
+                   ("id32", 32, 1024), ("dummy", 64, 130)]
+
+
+@pytest.mark.parametrize("empty_value", [-np.inf, 0.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form,hub_k,k", HUB_SHARD_CASES)
+def test_hub_kernels_on_shards_match_no_hub_and_plain(card, form, hub_k, k, dtype,
+                                                      empty_value):
+    """The hub kernels on a mesh's interior graphs (``empty_value=-inf``, the
+    interior pass; 0, the local pass at graph=1): forward out and argmax
+    bit-exact against the kernel without the hub and the plain version
+    (empty rows empty_value and -1), dx on small-integer gradients (exact
+    float32 sums) bit-equal to both, one hub launch each."""
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    tag = _tag(dtype)
+    for i, g in enumerate(_hub_shard_interiors(form)):
+        gh = g.with_hub(hub_k, hub_k).to(card)
+        g0 = g.to(card)
+        assert sk.arg_dtype(g0) == (torch.int32 if form == "id32" else torch.int16)
+        assert (gh.hub.n_hub < hub_k) == (form == "dummy") and gh.hub.n_covered > 0
+        gen = torch.Generator(device=card).manual_seed(k + i)
+        x = torch.round(torch.randn((g0.n_nodes, k), generator=gen, device=card) * 4) / 4
+        x = x.relu_().to(dtype)
+        gr = torch.randint(-8, 9, (g0.n_nodes, k), generator=gen, device=card).to(dtype)
+        before = {d: sk.LAUNCHES[f"spmm_max_{d}_hub_{tag}"] for d in ("fwd", "bwd")}
+        out, arg = sk.spmm_max_fwd(gh, x, empty_value=empty_value)
+        dx = sk.spmm_max_bwd(gh, gr, arg)
+        torch.cuda.synchronize()
+        assert all(sk.LAUNCHES[f"spmm_max_{d}_hub_{tag}"] == c + 1 for d, c in before.items())
+        out0, arg0 = sk.spmm_max_fwd(g0, x, empty_value=empty_value)
+        out_p, arg_p = sk.spmm_max_fwd_plain(gh, x, empty_value=empty_value)
+        assert arg.dtype == sk.arg_dtype(g0)
+        for o, a in ((out0, arg0), (out_p, arg_p)):
+            assert torch.equal(out.view(bits), o.view(bits)) and torch.equal(arg, a)
+        empty = g0.in_degree == 0
+        assert bool(empty.any()) and bool((arg[empty] == -1).all())
+        assert bool((out[empty].float() == empty_value).all())
+        for want in (sk.spmm_max_bwd(g0, gr, arg0), sk.spmm_max_bwd_plain(gh, gr, arg)):
+            assert torch.equal(dx.view(bits), want.view(bits))
+
+
 def test_hub_arena_past_the_card_refused(card):
     """An arena above the card's 227 KB a block is refused, never cut: the
     wrapper raises (500 rows x 1 KB forward)."""

@@ -12,6 +12,7 @@ cotangents, the sums exact on integer-valued inputs (reassociation-proof,
 as ``tests/test_pallas_kernels.py``'s hub sum test has them).
 """
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -176,11 +177,16 @@ def test_positional_and_mesh_refuse_a_hub():
                       positional=False, hub_k=2)
     assert big.hub.ids.tolist() == [5, 7] and big.t_hub is None
     g = build_graph(src, dst, N_REAL)
+    # a mesh, fold-only included, takes the hub on its shards' interior
+    # passes, sized on a shard's gather space; "auto" stays 0 there too
     for mesh in ({"mesh_graph": 2}, {"mesh_fold": 2}):
-        with pytest.raises(ValueError, match="Queue 2 item 1"):
+        assert engine.resolve_hub(TrainConfig(hub_cache="8", **mesh), g, 5,
+                                  shard_rows=g.n_nodes) == (8, 8)
+        assert engine.resolve_hub(TrainConfig(hub_cache="auto", **mesh), g, 5,
+                                  shard_rows=g.n_nodes) == (0, 0)
+        with pytest.raises(ValueError, match="shard_rows"):
             engine.resolve_hub(TrainConfig(hub_cache="8", **mesh), g, 5)
-        assert engine.resolve_hub(TrainConfig(hub_cache="auto", **mesh), g, 5) == (0, 0)
-    # the JAX engine's guard: no hub past 2^15 padded nodes
+    # the JAX engine's guard: no hub past 2^15 padded nodes on one device
     assert engine.resolve_hub(TrainConfig(hub_cache="8"), big, 5) == (0, 0)
     assert engine.resolve_hub(TrainConfig(hub_cache="8"), g, 5) == (8, 8)
 
@@ -250,16 +256,18 @@ def test_resume_refuses_a_change_of_hub_cache(tmp_path):
     assert engine._checkpoint_fingerprint(TrainConfig(hub_cache="8"))["hub_cache"] == "8"
 
 
-def test_cli_hub_cache_flag(tmp_path, capsys):
-    """--hub-cache parses (the resolved k is in the run's log) and an invalid
-    value exits with the JAX CLI's message."""
+def test_cli_hub_cache_flag(tmp_path, capfd):
+    """--hub-cache parses (the resolved k is in the run's log), an invalid
+    value exits with the JAX CLI's message, and ``--mesh auto:2`` takes it
+    (2 gloo ranks; rank 0 prints the resolved k, and the planner's note
+    that its plan models no hub)."""
     root = str(tmp_path)
     cli.main(["synth", "--data-root", root, "--nodes", "256", "--edges", "1500",
               "--seed", "7"])
     flags = ["-data", "GSE30931", "--data-root", root, "-d", "cpu", "-e", "2",
              "--rounds", "1", "-f", "2", "--fold-batch", "2"]
     cli.main(["train-normal", "--hub-cache", "16"] + flags)
-    assert "hub cache: k_fwd=16 k_bwd=16 (hub_cache='16')" in capsys.readouterr().out
+    assert "hub cache: k_fwd=16 k_bwd=16 (hub_cache='16')" in capfd.readouterr().out
     for bad in ("abc", "-3"):
         with pytest.raises(SystemExit) as ours:
             cli.main(["train-normal", "--hub-cache", bad] + flags)
@@ -268,5 +276,12 @@ def test_cli_hub_cache_flag(tmp_path, capsys):
                           "--data-root", root, "-e", "1", "--rounds", "1", "-f", "2"])
         assert str(ours.value) == str(theirs.value) == (
             f"invalid --hub-cache {bad!r}: expected 'auto', 'off', or an integer k")
-    with pytest.raises(SystemExit, match="Queue 2 item 1"):
-        cli.main(["train-normal", "--hub-cache", "8", "--mesh", "graph=2"] + flags)
+    shutil.rmtree(os.path.join(root, "log"))     # else the run resumes past round 1
+    capfd.readouterr()
+    cli.main(["train-normal", "--hub-cache", "8", "--mesh", "auto:2"] + flags)
+    out = capfd.readouterr().out
+    assert "the plan models the aggregation without the hub cache" in out
+    assert out.count("hub cache: k_fwd=8 k_bwd=8 (hub_cache='8')") == 1
+    assert out.count("[round 1/1]") == 1
+    assert os.path.exists(os.path.join(root, "log", "GSE30931", "normal",
+                                       "1_2_loc_logits.npy"))
