@@ -41,6 +41,23 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    with the warps an SM holds of each (the card's occupancy calculator),
    its plain version and its bytes bound (the kernel's without the hub;
    the arenas' fill bytes in a field of their own) at HUB_MAIN_K's sizes.
+   3d. The gather probe (plagnn_tpu_torch/bench/dma_ceiling.py, the
+   counterpart of benchmarks/dma_ceiling.py: _dma_kernel): the kernel
+   bit-equal to its plain version at every shape of the module's
+   CHECK_SHAPES (rings of 1-16 slots of 1-8 rows of 16 B to 64 KB, window
+   counts not a multiple of the grid), random and sequential ids.  Then a
+   short sweep at ring depth 8 through the module's build_bench and
+   measure (CUDA events, median of DMA_REPS): rows of DMA_WIDTHS over
+   tables of DMA_TABLES rows (the graphs the phases run), random and
+   sequential, DMA_TARGET_MB MiB a launch at least (whole waves of the
+   grid's windows: 2.8 GB at 20,480 B), and the 24k graph's own source
+   ids in edge order (724,041, padded to a multiple of T_E) at
+   DMA_EDGE_WIDTHS.  At each point the kernel is bit-equal to its plain
+   version on the same inputs, and is timed beside its plain version,
+   ``torch.index_select`` into a buffer (which also writes every row: a
+   yardstick only) and the bound of its compulsory bytes (the distinct
+   rows read, the ids, slot 0 written) at 3.35 TB/s; its rate is a
+   service rate, not a roofline share.
 4. GNN32 at full width through the CLI: synth (24,041 nodes, 700k edges),
    train-normal (float32, 3 epochs, 10 folds in one batch), then
    train-inter with --agg-dtype bfloat16 (2 epochs).  Each run must launch
@@ -226,6 +243,9 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 
+``--only-dma-ceiling`` runs phases 1-2 and 3d, prints the phase's kernels
+entries and stops.
+
 ``--only-planner`` runs phases 1-2, 4m (c) and 4q on a synthetic bundle
 of its own and stops.  ``--only-mesh-hub`` runs phases 1-2 and 4s on a
 bundle of its own ((b) on config 5's edges from powerlaw_ppi), prints the
@@ -264,6 +284,7 @@ KERNEL_SOURCE = {
     "spmm_sum": "plagnn_tpu_torch/csrc/spmm_sum.cu",
     "pcc_diff_scan": "plagnn_tpu_torch/csrc/pcc_diff_scan.cu",
     "common_neighbors": "plagnn_tpu_torch/csrc/common_neighbors.cu",
+    "dma_ceiling": "plagnn_tpu_torch/csrc/dma_ceiling.cu",
 }
 _FWD_BODY = "plagnn_tpu/ops/pallas/spmm_kernels.py:513"  # _spmm_fwd_kernel
 _HUB_FWD = "plagnn_tpu/ops/pallas/spmm_kernels.py:588"  # _spmm_fwd_kernel's hub groups
@@ -311,6 +332,8 @@ REPLACES = {
     "spmm_sum_fwd_hub_bf16": _HUB_FWD,
     "spmm_sum_bwd_hub_f32": _HUB_FWD,
     "spmm_sum_bwd_hub_bf16": _HUB_FWD,
+    # the gather probe of the benchmark folder (build_bench :117 -> :152)
+    "dma_ring_f32": "benchmarks/dma_ceiling.py:47",
 }
 NODES, EDGES, SEED = 24041, 700000, 70
 FOLDS, F_IN = 10, 503
@@ -337,7 +360,7 @@ SETUP_COPIES = "host<->device copies (data in, history out; not per epoch)"
 ANALYSIS_DATASETS = (("GSE30931", 2.75), ("GSE74572", 2.91), ("GSE27182", 2.99))
 PERTURB_SIGMA = 0.1   # expr_inter = expr_normal x exp(0.1 N(0, 1)), seeded
 LIB_BLOCK_ROWS = 2048  # row block of the blocked-DGEMM yardstick
-DEVICE = "cuda"        # phases 4a and 4g ("cpu" runs their logic on the plain versions)
+DEVICE = "cuda"        # phases 3d, 4a and 4g ("cpu" runs their logic on the plain versions)
 CC_TERMS = ("GO:0005938", "GO:0005829", "GO:0015629", "GO:0005794", "GO:0005783",
             "GO:0005730", "GO:0005777", "GO:0005739", "GO:0005764", "GO:0005813",
             "GO:0005634", "GO:0005886")
@@ -379,6 +402,17 @@ PLAN_DEVICES = (1, 2, 4, 8)
 PLAN_ROUNDS = 3
 TAX_EPOCHS = 5
 ANCHORS_FILE = os.path.join(HERE, "chiprun_out", "planner_anchors.json")
+# phase 3d: the probe's row widths (the max kernels' 256 B and 1 KB
+# K-slices, a whole layer-1 row of 10 x 503 f32 padded to 20,480 B), its
+# tables (the 24k graph's N_pad, --sweep-slice's 165 k nodes, phase 4g's
+# N_pad), MiB fetched a launch, repetitions and ring depth; the widths of
+# the 24k graph's edge-order ids
+DMA_WIDTHS = (256, 1024, 20480)
+DMA_TABLES = (24064, 165000, 330112)
+DMA_TARGET_MB = 256
+DMA_REPS = 10
+DMA_RING = 8
+DMA_EDGE_WIDTHS = (256, 1024)
 # per traced session: (the block's launches without a kernel event, its
 # launches, its earliest kernel start less its launch's in us, the
 # warm-up's launches without a kernel event)
@@ -790,20 +824,24 @@ def train_cli(data_root, cmd, agg, epochs, folds=FOLDS, hub_cache="auto"):
 
 
 def reset_launches():
+    from plagnn_tpu_torch.bench import dma_ceiling
     from plagnn_tpu_torch.ops import common_neighbors, pcc_scan
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     sk.reset_launches()
     pcc_scan.reset_launches()
     common_neighbors.reset_launches()
+    dma_ceiling.reset_launches()
 
 
 def launch_counts():
     """Every kernel wrapper's launch count, by counter name."""
+    from plagnn_tpu_torch.bench import dma_ceiling
     from plagnn_tpu_torch.ops import common_neighbors, pcc_scan
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
-    return {**sk.LAUNCHES, **pcc_scan.LAUNCHES, **common_neighbors.LAUNCHES}
+    return {**sk.LAUNCHES, **pcc_scan.LAUNCHES, **common_neighbors.LAUNCHES,
+            **dma_ceiling.LAUNCHES}
 
 
 def check_launches(label, expected):
@@ -4044,6 +4082,103 @@ def sweep_slice(smi_line):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def dma_equal(dc, x, idx, ng, g, label):
+    """The probe's kernel against its plain version on the same inputs: bit
+    for bit (it copies rows).  Returns the largest difference."""
+    import torch
+
+    out = dc.dma_ring(x, idx, ng, g)
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    want = dc.dma_ring_plain(x, idx, ng, g)
+    err = float((out - want).abs().max())
+    if not torch.equal(out, want):
+        fail(f"{label}: dma_ring differs from its plain version (max |diff| {err})")
+    return err
+
+
+def dma_point(dc, bench, row_bytes, pattern, n_rows, results):
+    """One point of phase 3d's sweep on ``bench`` (a build_bench result):
+    the kernel against its plain version, then timed through ``measure``
+    with the launch counter set to 0 just before and read just after; its
+    plain version, ``torch.index_select`` into a buffer and the compulsory
+    bytes' bound on the same inputs."""
+    import torch
+
+    _, n_fetch, (idx, x, g) = bench
+    name = f"dma_ring_f32@{row_bytes}B/{n_rows}/{pattern}"
+    err = dma_equal(dc, x, idx, DMA_RING, g, name)
+    dc.reset_launches()
+    rec = dc.measure(row_bytes, DMA_RING, pattern, n_rows, reps=DMA_REPS, device=x.device,
+                     bench=bench)
+    launches = dc.LAUNCHES["dma_ring_f32"]
+    if not launches:
+        fail(f"{name}: the sweep launched no kernel")
+    plain = median_ms(lambda: dc.dma_ring_plain(x, idx, DMA_RING, g), 3)
+    buf = torch.empty((n_fetch, x.shape[1]), device=x.device)
+    lib = median_ms(lambda: torch.index_select(x, 0, idx, out=buf), DMA_REPS)
+    del buf
+    distinct = int(torch.unique(idx).numel())
+    nbytes = distinct * row_bytes + n_fetch * 4 + g * row_bytes
+    entry = kernel_entry(name, "dma_ceiling", err, rec["ms"], plain, lib, nbytes, 0,
+                         (n_rows, row_bytes // 4, n_fetch, DMA_RING, g))
+    entry.update(launches=launches, gbps=rec["gbps"], gbps_lo=rec["gbps_lo"],
+                 gbps_hi=rec["gbps_hi"], distinct_rows=distinct,
+                 table_bytes=rec["table_bytes"], fits_l2=rec["fits_l2"])
+    results[name] = entry
+    print(f"  {name}: {rec['ms']:.4f} ms ({rec['gbps']:.1f} GB/s service rate, "
+          f"[{rec['gbps_lo']:.1f}, {rec['gbps_hi']:.1f}]; g {g}, {n_fetch} rows, "
+          f"{distinct} distinct, table {rec['table_bytes'] / 2**20:.1f} MiB"
+          f"{'' if rec['fits_l2'] else ' > L2'}) | bound {entry['bound_ms']:.4f} | "
+          f"plain {plain:.4f} | index_select {lib:.4f} | launches {launches}", flush=True)
+
+
+def dma_phase(results, smi_line, full=None):
+    """Phase 3d: the gather probe checked at CHECK_SHAPES, then its short
+    sweep (the module docstring).  ``full``: the 24k synthetic graph (built
+    here where not given) for its edge-order ids."""
+    import torch
+
+    from plagnn_tpu_torch.bench import dma_ceiling as dc
+
+    t0 = time.perf_counter()
+    for row_bytes, ng, g, windows in dc.CHECK_SHAPES:
+        print(f"  check {row_bytes} B ng {ng} g {g}: {windows} windows over a grid of "
+              f"{dc.grid_blocks(row_bytes, ng, g, DEVICE)} blocks", flush=True)
+        for pattern in ("random", "sequential"):
+            _, _, (idx, x, _) = dc.build_bench(dc.CHECK_ROWS, row_bytes, windows * dc.T_E, ng,
+                                               pattern, device=DEVICE, g=g)
+            dma_equal(dc, x, idx, ng, g,
+                      f"{row_bytes} B ng {ng} g {g} {windows} windows {pattern}")
+    print(f"dma_ring bit-equal to its plain version at {len(dc.CHECK_SHAPES)} shapes x 2 "
+          f"orders ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"sweep at ring depth {DMA_RING}, {DMA_TARGET_MB} MiB a launch, median of "
+          f"{DMA_REPS} by CUDA events ({smi_line}):", flush=True)
+    for n_rows in DMA_TABLES:
+        for pattern in ("random", "sequential"):
+            for row_bytes in DMA_WIDTHS:
+                n_fetch = dc.sweep_fetch(row_bytes, DMA_RING, DMA_TARGET_MB, DEVICE)
+                dma_point(dc, dc.build_bench(n_rows, row_bytes, n_fetch, DMA_RING, pattern,
+                                             device=DEVICE, rng="torch"),
+                          row_bytes, pattern, n_rows, results)
+                if DEVICE == "cuda":
+                    torch.cuda.empty_cache()
+    if full is None:
+        from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+        from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
+
+        full = from_scipy_coo(powerlaw_ppi(NODES, EDGES, SEED), add_self_loops=True)
+    src = full.src.to(DEVICE)
+    for row_bytes in DMA_EDGE_WIDTHS:
+        dma_point(dc, dc.build_bench(full.n_nodes, row_bytes, 0, DMA_RING, "edges",
+                                     device=DEVICE, rng="torch", ids=src),
+                  row_bytes, "edges", full.n_nodes, results)
+    dc.reset_launches()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase 3d: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def tie_graph():
     """Small graph with a hub row, empty rows and many tied values."""
     import numpy as np
@@ -4113,6 +4248,10 @@ def main(argv=None):
                     help="phases 1-2 and phase 4s (the hub on the mesh's interior "
                          "pass; its (b) on config 5's edges); prints its kernels "
                          "entries and no result line")
+    ap.add_argument("--only-dma-ceiling", action="store_true",
+                    help="phases 1-2 and phase 3d (the gather probe: checks and "
+                         "its short sweep); prints its kernels entries and no "
+                         "result line")
     ap.add_argument("--only-big-graph", action="store_true",
                     help="phases 1-2 and phase 4g (the big-graph path); prints "
                          "no result line")
@@ -4163,6 +4302,12 @@ def main(argv=None):
         return
     if args.only_mesh_hub:
         mesh_hub_only(smi_line)
+        return
+    if args.only_dma_ceiling:
+        phase("3d dma ceiling")
+        results = {}
+        dma_phase(results, smi_line)
+        print(json.dumps({"kernels": list(results.values())}))
         return
     if args.only_big_graph:
         phase("4g big graph")
@@ -4217,6 +4362,8 @@ def main(argv=None):
     check_val_sum_kernels(weighted_graph(powerlaw_ppi(NODES, EDGES, SEED), SEED),
                           FOLDS * SUM_WIDTHS[0], "full graph weighted", results)
     torch.cuda.empty_cache()
+    phase("3d dma ceiling")
+    dma_phase(results, smi_line, full)
     if args.only_kernels or args.sweep_row_chunk:
         print(json.dumps({"kernels": list(results.values())}))
         if args.sweep_row_chunk:

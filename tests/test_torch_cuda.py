@@ -13,6 +13,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from plagnn_tpu_torch.bench import dma_ceiling as dc
 from plagnn_tpu_torch.ops import common_neighbors as cn
 from plagnn_tpu_torch.ops import pcc_scan
 from plagnn_tpu_torch.ops import spmm_kernels as sk
@@ -1186,3 +1187,56 @@ def test_mesh_auto_on_the_card_launches_the_max_kernels(card, tmp_path, monkeypa
     torch.cuda.synchronize()
     assert [s.folds for s in stats] == [min(plan.chosen.fold_batch, 6)]
     assert sk.LAUNCHES["spmm_max_fwd_f32"] == sk.LAUNCHES["spmm_max_bwd_f32"] == 3
+
+
+@pytest.mark.parametrize("pattern", ["random", "sequential"])
+@pytest.mark.parametrize("shape", dc.CHECK_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_dma_ring_kernel_matches_plain(card, shape, pattern):
+    """The gather probe's slot 0 equals its plain version's bit for bit, one
+    launch counted, run to run, at every (row_bytes, ng, g, windows) of
+    CHECK_SHAPES (window counts above and off a multiple of the grid)."""
+    row_bytes, ng, g, windows = shape
+    _, n_fetch, (idx, x, _) = dc.build_bench(dc.CHECK_ROWS, row_bytes, windows * dc.T_E, ng,
+                                             pattern, device=card, g=g)
+    before = dc.LAUNCHES["dma_ring_f32"]
+    out = dc.dma_ring(x, idx, ng, g)
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES["dma_ring_f32"] == before + 1
+    assert out.shape == (g, row_bytes // 4)
+    assert torch.equal(out, dc.dma_ring_plain(x, idx, ng, g))
+    assert torch.equal(dc.dma_ring(x, idx, ng, g), out)
+
+
+def test_dma_ring_kernel_on_a_pitched_table_and_build_bench_run(card):
+    """A table whose rows lie further apart than their width (a view), and
+    build_bench's run(), which launches on inputs it checked once."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    wide = torch.rand((500, 4 * 68), generator=gen, device=card)
+    x = wide[:, :256]                       # 1 KB rows, 1,088 B apart
+    idx = torch.randint(0, 500, (5 * dc.T_E,), generator=gen, device=card, dtype=torch.int32)
+    assert torch.equal(dc.dma_ring(x, idx, 5, 4), dc.dma_ring_plain(x, idx, 5, 4))
+    run, _, (idx, x, g) = dc.build_bench(24064, 1024, 40 * dc.T_E, 8, "random",
+                                         device=card, rng="torch")
+    before = dc.LAUNCHES["dma_ring_f32"]
+    out = run()
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES["dma_ring_f32"] == before + 1
+    assert torch.equal(out, dc.dma_ring_plain(x, idx, 8, g))
+    with pytest.raises(ValueError, match="ids must lie"):
+        dc.dma_ring(x, idx + 24064, 8, g)
+
+
+def test_dma_measure_on_the_card(card, tmp_path):
+    """measure's record and main's file on the card: CUDA events, the
+    launches counted, the reader reads the file back."""
+    dc.reset_launches()
+    rec = dc.measure(1024, 8, "random", 24064, target_mb=64, reps=3, device=card)
+    assert rec["timer"] == "cuda events" and rec["fits_l2"] and rec["g"] == 8
+    assert dc.LAUNCHES["dma_ring_f32"] == 1 + 1 + 3 * rec["launches_per_rep"]
+    assert 0 < rec["gbps_lo"] <= rec["gbps"] <= rec["gbps_hi"]
+    out = tmp_path / "sweep.json"
+    dc.main(["--rows-bytes", "256", "1024", "--n-rows", "24064", "--target-mb", "16",
+             "--reps", "2", "--depth-sweep", "--patterns", "random", "--out", str(out)])
+    rate = dc.load_achievable_rate(str(out))
+    assert [p[0] for p in rate.points] == [256, 1024] and rate.n_rows == 24064
+    assert rate.device

@@ -38,6 +38,7 @@ def test_import_closure_has_no_jax_or_reference_package():
         "assert {'plagnn_tpu_torch.parallel.' + m for m in\n"
         "        ('partition', 'multihost', 'launch', 'sharded', 'planner')\n"
         "        } <= set(mods), mods\n"
+        "assert 'plagnn_tpu_torch.bench.dma_ceiling' in mods, mods\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
