@@ -32,15 +32,18 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    share of edges whose row the arena serves, each direction); at every
    width each path aggregates (max: K = 10 x 503 / 400 / 300; sum: 10 x 400
    and 10 x 12), float32 and bfloat16, at "auto"'s k where it has one and
-   at each of HUB_KS halved to fit (pick_hub_sizes), every hub kernel
-   against the same kernel without the hub (forward out and argmax
-   bit-exact, dx and sums bit-identical, and each run to run), and at the
-   first of those k against its own plain version with phase 3's
-   tolerances.  At the first layer's shapes each hub kernel is timed by k
-   beside the kernel without the hub (CUDA events, median of 10, in turns),
-   with the warps an SM holds of each (the card's occupancy calculator),
-   its plain version and its bytes bound (the kernel's without the hub;
-   the arenas' fill bytes in a field of their own) at HUB_MAIN_K's sizes.
+   at each of HUB_KS halved to fit (pick_hub_sizes: the max kernels' two
+   stages, the sum's one), every hub kernel against the same kernel
+   without the hub (forward out and argmax bit-exact, dx and sums
+   bit-identical, and each run to run), and at the first of those k
+   against its own plain version with phase 3's tolerances; the fill route
+   (TMA or cp.async) each max width takes.  At the first layer's shapes
+   each hub kernel is timed by k, and each max one at k = 0 (its structure
+   with an empty arena), beside the kernel without the hub (CUDA events,
+   median of 10, in turns), with the warps an SM holds of each (the card's
+   occupancy calculator), the max arena's stages and blocks an SM, its
+   plain version and its bytes bound (the kernel's without the hub; the
+   arenas' fill bytes in a field of their own) at HUB_MAIN_K's sizes.
    3d. The gather probe (plagnn_tpu_torch/bench/dma_ceiling.py, the
    counterpart of benchmarks/dma_ceiling.py: _dma_kernel): the kernel
    bit-equal to its plain version at every shape of the module's
@@ -155,8 +158,9 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    2, whose gather space passes 2^15 rows; int16 at P = 4): the -inf
    forward and the backward bit-equal to the kernels without the hub, run
    to run, and to their plain versions (small-integer gradients), each
-   hub form timed beside the form without it (CUDA events, median of 10,
-   in turns), with the warps an SM holds (hub_warps); entries at
+   hub form timed beside the form without it and at k = 0 (CUDA events,
+   median of 10, in turns), with the warps an SM holds (hub_warps) and
+   the stages, blocks an SM and fill route (hub_layout); entries at
    SHARD_HUB_K's sizes from the slowest rank, bound by the pass's work
    (the bytes of the kernel without the hub; the arenas' fill beside it).
    (b) In 4g, rank 0's interior shard of config 5 at P = 2 (int32 argmax),
@@ -234,7 +238,7 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    coverage by k, and the id-based layer-1 max forward and backward (int32
    argmax) with a hub at HUB_MAIN_K's sizes against the same kernels
    without it (out and argmax bit-exact, dx bit-identical) and their plain
-   versions, each timed beside the kernel without the hub.  No training run
+   versions, each timed beside the kernel without the hub and at k = 0.  No training run
    takes the hub here: the engine turns it off past 2^15 nodes on one card,
    as the JAX package's does.  Then phase 4s (b) on this graph's P = 2
    shard.
@@ -246,10 +250,20 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
 ``--only-dma-ceiling`` runs phases 1-2 and 3d, prints the phase's kernels
 entries and stops.
 
+``--only-hub`` runs phases 1-2, phase 3's layer-1 checks on the full
+graph, phase 3h, the max hub kernels' structure at k = 0 against the
+kernels without the hub twice in turns (with ``--hub-parent DIR`` also the
+package tree at DIR, another commit's unpacked, in a process of its own:
+DIR, this, this, DIR), and phase 4h on a bundle of its own; prints the
+hub entries and stops.
+
 ``--only-planner`` runs phases 1-2, 4m (c) and 4q on a synthetic bundle
 of its own and stops.  ``--only-mesh-hub`` runs phases 1-2 and 4s on a
-bundle of its own ((b) on config 5's edges from powerlaw_ppi), prints the
-phase's kernels entries and stops.
+bundle of its own ((b) on config 5's edges from powerlaw_ppi; with
+``--hub-parent DIR`` then the hub kernels of the tree at DIR and of this
+one on (b)'s shard at k = 0 and BIG_SHARD_PAIRS beside the kernels without
+the hub at 1 KB, in turns: DIR, this, this, DIR), prints the phase's
+kernels entries and stops.
 
 ``--sweep-slice`` runs phases 1-2 and then times the max kernels at every
 K-slice width at layer 1 on the 24k-node graph, the mesh path's shards, a
@@ -380,15 +394,19 @@ SWEEP_MIN_BLOCKS = (1, 3, 4, 5, 6)
 BIG_TIES = 64           # phase 4g's all-equal column block: columns [0, 64)
 BIG_MEGA_COLS = 64      # then columns whose top row's maximum is past the rank cap
 LIB_SLICE_BYTES = 4 << 30  # phase 4g's library yardstick: gathered bytes a slice
-# phase 3h: the explicit hub sizes tried (each halved to fit by
-# pick_hub_sizes), and the k of the main path's hub runs (phase 4h)
-HUB_KS = (32, 64, 128, 226)
+# phase 3h: the explicit hub sizes tried by reduction (each halved to fit
+# by pick_hub_sizes: the max kernels' two stages take k <= 113 at 1 KB
+# rows), and the k of the main path's hub runs (phase 4h)
+HUB_KS = {"max": (32, 64, 75, 113), "sum": (32, 64, 128, 226)}
 HUB_MAIN_K = 128
 # phase 4s: the hub sizes tried on the 24k graph's interior shards (each
 # halved to fit), the k of their kernels-line entries and of the CLI mesh
 # runs (d), those runs' epochs and dtypes; (b) and (c) take HUB_MAIN_K
 SHARD_HUB_KS = (32, 64, 128)
 SHARD_HUB_K = 64
+# --only-mesh-hub --hub-parent: the (k_fwd, k_bwd) at which (b)'s shard
+# times each tree's hub kernels besides k = 0 (where its arena holds them)
+BIG_SHARD_PAIRS = ((64, 32), (128, 64))
 CLI_MESH_EPOCHS = 2
 CLI_MESH_AGGS = (("float32", "f32", 4), ("bfloat16", "bf16", 2))
 # phase 4q: the rate sweep's fold batches (those checked against the plain
@@ -2975,7 +2993,7 @@ def big_hub_check(host, gi, x32, results, smi_line):
 
     ids_host = dataclasses.replace(host, positional=False, t_rank=None, mega_of=None,
                                    n_mega=0)
-    print(f"big graph hub coverage: {hub_coverage(ids_host, sorted({*HUB_KS, 256}))}",
+    print(f"big graph hub coverage: {hub_coverage(ids_host, sorted({*HUB_KS['max'], 128, 256}))}",
           flush=True)
     n, k = x32.shape
     e = gi.n_edges
@@ -2998,10 +3016,14 @@ def big_hub_check(host, gi, x32, results, smi_line):
         dx_p, bwd_plain = timed_ms(lambda: sk.spmm_max_bwd_plain(gh, g, arg_h))
         bwd_err = (dx_h.float() - dx_p.float()).abs().max().item()
         del dx_h, dx_p
+        gz = zero_hub(gi)
         times = {"fwd0": median_ms(lambda: sk.spmm_max_fwd(gi, x), 10),
                  "fwd": median_ms(lambda: sk.spmm_max_fwd(gh, x), 10),
+                 "fwd_k0": median_ms(lambda: sk.spmm_max_fwd(gz, x), 10),
+                 "bwd_k0": median_ms(lambda: sk.spmm_max_bwd(gz, g, arg_h), 10),
                  "bwd": median_ms(lambda: sk.spmm_max_bwd(gh, g, arg_h), 10),
                  "bwd0": median_ms(lambda: sk.spmm_max_bwd(gi, g, arg_h), 10)}
+        del gz
         idx_bytes = 4 * (n + 1 + e)
         nonempty = int((gi.in_degree > 0).sum().item())
         for kind, kk, plain, err, ops in (
@@ -3015,9 +3037,13 @@ def big_hub_check(host, gi, x32, results, smi_line):
                 name, f"spmm_max_{kind}", err, times[kind], plain,
                 results[f"spmm_max_{kind}_{tag}@n{n}"]["library_ms"], nbytes, ops, (n, k),
                 kk, {kk: times[kind]}, {"hub": warps[0], "without": warps[1]}, fill)
+            r.update(hub_layout_fields(kind, dt, k, kk, torch.int32),
+                     ms_k0=times[kind + "_k0"], ms_without=times[kind + "0"])
             print(f"  {name}: k={kk} {r['ms']:.3f} ms, without the hub "
-                  f"{times[kind + '0']:.3f}; warps an SM holds {warps[0]}, without the hub "
-                  f"{warps[1]}; plain {plain:.3f}, bound {r['bound_ms']:.3f} by "
+                  f"{times[kind + '0']:.3f}, k=0 {r['ms_k0']:.3f}; warps an SM holds "
+                  f"{warps[0]}, without the hub {warps[1]}; {r['stages']} stages, "
+                  f"{r['blocks_per_sm']} block(s) an SM, fill route {r['fill_route']}; "
+                  f"plain {plain:.3f}, bound {r['bound_ms']:.3f} by "
                   f"{r['bound_by']} (arena fill {fill / 1e6:.1f} MB); {smi_line}",
                   flush=True)
         print(f"{label}: forward bit-exact and backward bit-identical to the id-based "
@@ -3155,13 +3181,148 @@ def big_graph_phase(results, smi_line):
 # ---------------------------------------------------------------------------
 
 
-def hub_sizes(k_width, esize, arg_size=2):
-    """The (k_fwd, k_bwd) pairs phase 3h runs at this K and message size:
-    "auto"'s where it has a hub, and each of HUB_KS halved to fit."""
+def zero_hub(graph):
+    """``graph`` with hub tables of k = 0 both ways: the hub kernels'
+    structure with an empty arena (every edge from device memory).  The
+    tables keep one dummy id, which no edge names: the earlier design's hub
+    forward (one block a K-slice) reads ids[0] for lanes past K, so an
+    older tree runs this too."""
+    import dataclasses
+
+    import torch
+
+    from plagnn_tpu_torch.ops.graph_format import HubTable
+
+    def table(nbr):
+        ids = torch.full((1,), graph.n_nodes - 1, dtype=torch.int32, device=graph.device)
+        return HubTable(ids=ids, idx=nbr, k=0, n_hub=0, n_covered=0)
+
+    return dataclasses.replace(graph, hub=table(graph.src), t_hub=table(graph.t_dst))
+
+
+def layer1_inputs(n, dt):
+    """Layer 1's (x, g) at K = FOLDS x F_IN for the structure timings: relu
+    of bf16-representable values (ties) and small-integer gradients, made
+    on the card from a seed, the same in every package tree."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    k = FOLDS * F_IN
+    x = torch.randn((n, k), generator=gen, device="cuda").to(torch.bfloat16).float().relu_()
+    g = torch.randint(-8, 9, (n, k), generator=gen, device="cuda")
+    return x.to(dt), g.to(dt)
+
+
+def hub_structure(full, reps=10):
+    """The hub max kernels at k = 0 (hub tables with no slot: the structure
+    with an empty arena) against the kernels without the hub, at layer 1's
+    K, f32 and bf16: out and argmax bit-exact, dx bit-identical, and each
+    timed (CUDA events, median of ``reps``) in turns: without, k = 0, k = 0,
+    without.  Uses the package on sys.path, so it also times an older tree
+    (``--structure-child``)."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    g0 = full.to("cuda")
+    gz = zero_hub(full).to("cuda")
+    times = {}
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x, g = layer1_inputs(full.n_nodes, dt)
+        out0, arg0 = sk.spmm_max_fwd(g0, x)
+        out, arg = sk.spmm_max_fwd(gz, x)
+        dx0, dx = sk.spmm_max_bwd(g0, g, arg0), sk.spmm_max_bwd(gz, g, arg0)
+        if not (torch.equal(bits_of(out), bits_of(out0)) and torch.equal(arg, arg0)
+                and torch.equal(bits_of(dx), bits_of(dx0))):
+            fail(f"hub structure {tag}: k = 0 differs from the kernels without the hub")
+        del out, out0, arg, dx, dx0
+        t = times[tag] = {}
+        for kind, run0, runz in (
+                ("fwd", lambda: sk.spmm_max_fwd(g0, x), lambda: sk.spmm_max_fwd(gz, x)),
+                ("bwd", lambda: sk.spmm_max_bwd(g0, g, arg0),
+                 lambda: sk.spmm_max_bwd(gz, g, arg0))):
+            a = median_ms(run0, reps)
+            b = median_ms(runz, reps)
+            c = median_ms(runz, reps)
+            d = median_ms(run0, reps)
+            t[kind] = {"without": [a, d], "k0": [b, c]}
+        del x, g, arg0
+        torch.cuda.empty_cache()
+    return times
+
+
+def structure_child(root, shard_file=None):
+    """``--structure-child ROOT``: hub_structure with the package tree at
+    ROOT (another commit's, unpacked) on the 24k graph, or with
+    ``--shard-file`` shard_structure on the shard that file holds; prints
+    its times as one ``STRUCTURE`` JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import plagnn_tpu_torch
+
+    if not plagnn_tpu_torch.__file__.startswith(os.path.abspath(root)):
+        fail(f"--structure-child: imported {plagnn_tpu_torch.__file__}, not ROOT's")
+    import torch
+
+    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+    from plagnn_tpu_torch.ops import _build
+    from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    _build.timed_build()
+    if shard_file:
+        shard = torch.load(shard_file, weights_only=False)
+        times = shard_structure(shard["host"], shard["own_rows"])
+    else:
+        times = hub_structure(from_scipy_coo(powerlaw_ppi(NODES, EDGES, SEED),
+                                             add_self_loops=True))
+    print("STRUCTURE " + json.dumps(times), flush=True)
+
+
+def older_structure(root, shard_file=None):
+    """hub_structure (shard_structure with ``shard_file``) of the tree at
+    ``root``, in a process of its own."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--structure-child", root]
+    if shard_file:
+        cmd += ["--shard-file", shard_file]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    for line in out.stdout.splitlines():
+        if line.startswith("STRUCTURE "):
+            return json.loads(line[len("STRUCTURE "):])
+    fail(f"--structure-child {root} (exit {out.returncode}): {out.stderr[-4000:]}")
+
+
+def hub_structure_phase(full, parent, smi_line):
+    """The hub kernels' structure apart from their arena (k = 0) against the
+    kernels without the hub at layer 1's shapes: this tree's, and where
+    ``parent`` names another tree (``--hub-parent``), that tree's too, in
+    turns: parent, this, this, parent."""
+    runs = []
+    if parent:
+        runs.append(("parent", older_structure(parent)))
+    runs.append(("this", hub_structure(full)))
+    runs.append(("this", hub_structure(full)))
+    if parent:
+        runs.append(("parent", older_structure(parent)))
+    for tree, times in runs:
+        for tag, t in times.items():
+            for kind, v in t.items():
+                w = statistics.median(v["without"])
+                z = statistics.median(v["k0"])
+                print(f"hub structure ({tree} tree) max {kind} {tag} K={FOLDS * F_IN}: k=0 "
+                      f"{[round(a, 3) for a in v['k0']]} ms, without the hub "
+                      f"{[round(a, 3) for a in v['without']]} ms: {z / w:.4f}x; {smi_line}",
+                      flush=True)
+
+
+def hub_sizes(k_width, esize, arg_size=2, reduce="max"):
+    """The (k_fwd, k_bwd) pairs phase 3h runs at this K and message size
+    for the ``reduce`` kernels: "auto"'s where it has a hub, and each of
+    HUB_KS halved to fit."""
     from plagnn_tpu_torch.ops.hub import pick_hub_sizes
 
-    pairs = [pick_hub_sizes("auto", k_width, esize, arg_size)]
-    pairs += [pick_hub_sizes(str(k), k_width, esize, arg_size) for k in HUB_KS]
+    pairs = [pick_hub_sizes("auto", k_width, esize, arg_size, reduce)]
+    pairs += [pick_hub_sizes(str(k), k_width, esize, arg_size, reduce) for k in HUB_KS[reduce]]
     return sorted({p for p in pairs if p[0] and p[1]})
 
 
@@ -3256,7 +3417,7 @@ def hub_kernel_phase(full, x_full, results, smi_line):
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     print(f"full graph hub coverage (share of edges whose row the arena serves): "
-          f"{hub_coverage(full, sorted({*HUB_KS, 256}))}", flush=True)
+          f"{hub_coverage(full, sorted({*HUB_KS['max'], 128, 256}))}", flush=True)
     g0 = full.to("cuda")
     hub_graphs = {}
 
@@ -3287,11 +3448,18 @@ def hub_kernel_phase(full, x_full, results, smi_line):
                   f"{pairs}", flush=True)
             if layer == 1:
                 hub_max_times(g0, with_hub, pairs, x, g, tag, results, smi_line)
+            routes = {kind: sk.hub_layout(f"max_{kind}", dt, k, pairs[-1][i])["route"]
+                      for i, kind in enumerate(("fwd", "bwd"))}
+            for kind, route in routes.items():
+                results[f"spmm_max_{kind}_hub_{tag}"].setdefault(
+                    "fill_route_by_k_width", {})[str(k)] = route
+            print(f"hub {tag} max K={k}: fill route forward {routes['fwd']}, backward "
+                  f"{routes['bwd']}", flush=True)
             del x, g
         # -- the sum, forward and transpose, at K = 10 x 400 and 10 x 12 --------
         for width in SUM_WIDTHS:
             k = FOLDS * width
-            pairs = hub_sizes(k, esize, 0)
+            pairs = hub_sizes(k, esize, 0, "sum")
             x = torch.randint(-8, 9, (n, k), generator=gen, device="cuda").to(dt)
             if dt == torch.float32:
                 x = x + torch.randn((n, k), generator=gen, device="cuda")
@@ -3326,11 +3494,23 @@ def hub_entry(name, source, err, ms, plain, lib, nbytes, ops, shape, k, by_k, wa
     return r
 
 
+def hub_layout_fields(kind, dt, k, kk, arg_type):
+    """A max hub entry's layout fields: the arena's stages, the hub blocks
+    an SM holds and the fill route at this K (spmm_kernels.hub_layout)."""
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    lay = sk.hub_layout(f"max_{kind}", dt, k, kk, arg_type)
+    return {"stages": lay["stages"], "blocks_per_sm": lay["blocks_per_sm"],
+            "fill_route": lay["route"]}
+
+
 def hub_max_times(g0, with_hub, pairs, x, g, tag, results, smi_line):
-    """Phase 3h's times at layer 1: each hub max kernel by k beside the
-    kernel without the hub (median of 10 each, in turns), the warps an SM
-    holds, and its plain version at HUB_MAIN_K's sizes; entries for the
-    kernels line at those sizes."""
+    """Phase 3h's times at layer 1: each hub max kernel by k and at k = 0
+    (its structure with an empty arena) beside the kernel without the hub
+    (median of 10 each, in turns), the warps an SM holds, the arena's
+    stages, blocks an SM and fill route, and its plain version at
+    HUB_MAIN_K's sizes; entries for the kernels line at those sizes (with
+    the spread of the runs without the hub, which "auto"'s policy reads)."""
     import torch
 
     from plagnn_tpu_torch.ops import spmm_kernels as sk
@@ -3341,11 +3521,14 @@ def hub_max_times(g0, with_hub, pairs, x, g, tag, results, smi_line):
     esize = x.element_size()
     main = pick_hub_sizes(str(HUB_MAIN_K), k, esize)
     _, arg0 = sk.spmm_max_fwd(g0, x)
-    t = {"fwd": {}, "bwd": {}, "fwd0": [], "bwd0": []}
+    gz = zero_hub(g0)
+    t = {"fwd": {}, "bwd": {}, "fwd0": [], "bwd0": [], "fwd_k0": [], "bwd_k0": []}
     for pair in pairs:
         gh = with_hub(pair)
         t["fwd0"].append(median_ms(lambda: sk.spmm_max_fwd(g0, x), 10))
         t["fwd"][pair[0]] = median_ms(lambda: sk.spmm_max_fwd(gh, x), 10)
+        t["fwd_k0"].append(median_ms(lambda: sk.spmm_max_fwd(gz, x), 10))
+        t["bwd_k0"].append(median_ms(lambda: sk.spmm_max_bwd(gz, g, arg0), 10))
         t["bwd"][pair[1]] = median_ms(lambda: sk.spmm_max_bwd(gh, g, arg0), 10)
         t["bwd0"].append(median_ms(lambda: sk.spmm_max_bwd(g0, g, arg0), 10))
     gh = with_hub(main)
@@ -3374,10 +3557,15 @@ def hub_max_times(g0, with_hub, pairs, x, g, tag, results, smi_line):
             name, f"spmm_max_{kind}", err, t[kind][kk], plain, base["library_ms"], nbytes,
             ops, (n, k), kk, t[kind], {"hub": warps, "without": warps0}, fill)
         without = statistics.median(t[f"{kind}0"])
+        r.update(hub_layout_fields(kind, x.dtype, k, kk, torch.int16),
+                 ms_k0=statistics.median(t[f"{kind}_k0"]), ms_without=without,
+                 without_runs=t[f"{kind}0"], k0_runs=t[f"{kind}_k0"])
         print(f"  {name}: k={kk} {r['ms']:.3f} ms, without the hub {without:.3f} "
-              f"(runs {[round(v, 3) for v in t[f'{kind}0']]}); by k {_by_k(t[kind])}; "
-              f"warps an SM holds {warps}, without the hub {warps0}; plain {plain:.3f}, "
-              f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
+              f"(runs {[round(v, 3) for v in t[f'{kind}0']]}); k=0 {r['ms_k0']:.3f} (runs "
+              f"{[round(v, 3) for v in t[f'{kind}_k0']]}); by k {_by_k(t[kind])}; "
+              f"warps an SM holds {warps}, without the hub {warps0}; {r['stages']} stages, "
+              f"{r['blocks_per_sm']} block(s) an SM, fill route {r['fill_route']}; plain "
+              f"{plain:.3f}, library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
               f"{r['bound_by']} (arena fill {fill / 1e6:.1f} MB); {smi_line}", flush=True)
 
 
@@ -3390,7 +3578,7 @@ def hub_sum_times(g0, with_hub, pairs, x, tag, results, smi_line):
     n, k = x.shape
     e = g0.n_edges
     esize = x.element_size()
-    main = pick_hub_sizes(str(HUB_MAIN_K), k, esize, 0)
+    main = pick_hub_sizes(str(HUB_MAIN_K), k, esize, 0, "sum")
     for transpose, kk, direction in ((False, main[0], "fwd"), (True, main[1], "bwd")):
         by_k, base_runs, warps = {}, [], {}
         for pair in pairs:
@@ -3432,7 +3620,7 @@ def same_files(label, got_dir, want_dir):
 def hub_train_phase(data_root, results, smi_line):
     """Phase 4h: the hub on the main path.  train-normal (float32) and
     train-inter --agg-dtype bfloat16 through the CLI with --hub-cache off
-    and --hub-cache HUB_MAIN_K: the hub run launches each hub max kernel 3
+    and --hub-cache HUB_MAIN_K: each hub run launches each hub max kernel 3
     times an epoch and no max kernel without the hub, and writes every file
     byte-identical to the run without it; then GCN2 through train() with
     hub_cache off and HUB_MAIN_K: the sum hub kernels 2 + 2 times an
@@ -3468,7 +3656,7 @@ def hub_train_phase(data_root, results, smi_line):
     shutil.rmtree(log, ignore_errors=True)
     dirs = {}
     for hub in ("off", str(HUB_MAIN_K)):
-        pair = pick_hub_sizes(hub, FOLDS * GCN2_HIDDEN, 4)
+        pair = pick_hub_sizes(hub, FOLDS * GCN2_HIDDEN, 4, reduce="sum")
         path = os.path.join(data_root, f"log_gcn2_hub_{hub}")
         reset_launches()
         t0 = time.perf_counter()
@@ -3483,7 +3671,6 @@ def hub_train_phase(data_root, results, smi_line):
     same_files(f"GCN2 train(hub_cache={HUB_MAIN_K!r})", dirs[str(HUB_MAIN_K)], dirs["off"])
 
 
-
 # ---------------------------------------------------------------------------
 # Phase 4s: the hub on the mesh's interior pass.
 # ---------------------------------------------------------------------------
@@ -3496,7 +3683,8 @@ def shard_hub_times(host, own_rows, k, dt, pairs, label):
     (hub_max_equal) and against their plain versions, out, argmax and dx
     the same bits (small-integer gradients keep every float32 sum exact);
     then each hub form timed beside the form without the hub (CUDA events,
-    median of 10, in turns).  Own rows relu'd and bf16-representable (ties),
+    median of 10, in turns), and at k = 0 (the structure) once.  Own rows
+    relu'd and bf16-representable (ties),
     the rest zero, as the interior pass's [own | 0].  Returns the times by
     k, the forms without the hub, the plain versions' (first pair) and the
     library's, and the argmax's element size."""
@@ -3536,6 +3724,10 @@ def shard_hub_times(host, own_rows, k, dt, pairs, label):
         if i == 0:
             t["plain"] = (fwd_plain, bwd_plain)
             t["lib"] = sliced_library_ms(g0, x, g, arg)[:2]
+            gz = zero_hub(host).to(DEVICE)
+            t["fwd_k0"] = median_ms(lambda: sk.spmm_max_fwd(gz, x, empty_value=ninf), 10)
+            t["bwd_k0"] = median_ms(lambda: sk.spmm_max_bwd(gz, g, arg), 10)
+            del gz
             t["asize"] = arg.element_size()
             # past WIDE_SLICE_FROM the forms without the hub take a narrower
             # K-slice than the hub's 1 KB: those forms at 1 KB too
@@ -3583,7 +3775,8 @@ def shard_hub_entries(results, prefix, host, own_rows, k, dt, tag, main, per_ran
             work[ix], work[2 + ix], (host[r].n_nodes, k), kk, tr[kind],
             {"hub": warps, "without": warps0}, fill)
         e.update(rank=r, ms_without=statistics.median(tr[f"{kind}0"]),
-                 argmax_bytes=asize, edges=host[r].n_edges)
+                 argmax_bytes=asize, edges=host[r].n_edges, ms_k0=tr[f"{kind}_k0"],
+                 **hub_layout_fields(kind, dt, k, kk, arg_type))
         w0 = sk.LAUNCH_SLICES.get(
             (f"spmm_max_{kind}_{'empty_' if kind == 'fwd' else ''}{tag}", host[r].n_nodes, k))
         at_1kb = ""
@@ -3591,7 +3784,9 @@ def shard_hub_entries(results, prefix, host, own_rows, k, dt, tag, main, per_ran
             e["ms_without_1kb"] = tr[f"{kind}0_1kb"]
             at_1kb = f", at 1 KB {e['ms_without_1kb']:.3f}"
         print(f"  {name}: slowest rank {r} (E {host[r].n_edges}), k={kk} {e['ms']:.3f} ms, "
-              f"without the hub {e['ms_without']:.3f} at {w0} B{at_1kb}; by k "
+              f"without the hub {e['ms_without']:.3f} at {w0} B{at_1kb}, k=0 "
+              f"{e['ms_k0']:.3f}; {e['stages']} stages, {e['blocks_per_sm']} block(s) an SM, "
+              f"fill route {e['fill_route']}; by k "
               f"{_by_k(tr[kind])}; warps an "
               f"SM holds {warps}, without the hub {warps0}; plain {e['plain_ms']:.3f}, "
               f"library {e['library_ms']:.3f}, bound {e['bound_ms']:.3f} by "
@@ -3647,7 +3842,8 @@ def big_shard_hub_check(src, dst, n_real, add_self_loops, results, smi_line):
     """Phase 4s (b), in phase 4g: rank 0's interior shard of BASELINE.json
     config 5 at P = 2 (balanced), whose gather space passes 2^15 rows (an
     int32 argmax), f32 at K = BIG_FOLDS x 503 with the hub at HUB_MAIN_K's
-    sizes for that argmax (shard_hub_times)."""
+    sizes for that argmax (shard_hub_times).  Returns the shard (on the
+    host) and its own rows."""
     import torch
 
     from plagnn_tpu_torch.ops.hub import pick_hub_sizes
@@ -3675,6 +3871,89 @@ def big_shard_hub_check(src, dst, n_real, add_self_loops, results, smi_line):
                       pair, {0: t}, smi_line)
     print(f"big graph P=2 interior hub {pair}: forward and backward bit-equal to the "
           f"kernels without the hub and to the plain versions ({smi_line})", flush=True)
+    return host, pg.own_rows
+
+
+def shard_structure(host, own_rows, reps=10):
+    """(b)'s shard (``host``, rank 0's interior of config 5 at P = 2, int32
+    argmax) at K = BIG_FOLDS x 503, f32, as shard_hub_times makes its
+    inputs: the kernels without the hub at the hub's 1 KB K-slice, the hub
+    kernels at k = 0 and at each of BIG_SHARD_PAIRS whose arena the tree
+    holds, the -inf forward and the backward; out, argmax and dx bit-equal
+    to the kernels without the hub, each form timed (CUDA events, median of
+    ``reps``) in turns, there and back.  Uses the package on sys.path, so
+    it also times an older tree (``--structure-child``)."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    ninf = -math.inf
+    k = BIG_FOLDS * F_IN
+    g0 = host.to("cuda")
+    n = g0.n_nodes
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.zeros((n, k), device="cuda")
+    x[:own_rows] = torch.randn((own_rows, k), generator=gen, device="cuda")
+    x = x.to(torch.bfloat16).float().relu_()
+    g = torch.randint(-8, 9, (n, k), generator=gen, device="cuda").float()
+    out0, arg0 = sk.spmm_max_fwd(g0, x, empty_value=ninf)
+    dx0 = sk.spmm_max_bwd(g0, g, arg0)
+    forms = {"without_1kb": (g0, {"force_slice": 1024}), "k0": (zero_hub(host).to("cuda"), {})}
+    for kf, kb in BIG_SHARD_PAIRS:
+        forms[f"k{kf}_{kb}"] = (host.with_hub(kf, kb).to("cuda"), {})
+    for name, (gh, kw) in list(forms.items()):
+        try:
+            out, arg = sk.spmm_max_fwd(gh, x, empty_value=ninf, **kw)
+            dx = sk.spmm_max_bwd(gh, g, arg0, **kw)
+        except RuntimeError as err:  # an arena this tree does not hold
+            if "launch failed" not in str(err):
+                raise
+            del forms[name]
+            continue
+        if not (torch.equal(bits_of(out), bits_of(out0)) and torch.equal(arg, arg0)
+                and torch.equal(bits_of(dx), bits_of(dx0))):
+            fail(f"big shard structure {name}: differs from the kernels without the hub")
+        del out, arg, dx
+    del out0, dx0
+    times = {name: {"fwd": [], "bwd": []} for name in forms}
+    order = list(forms)
+    for name in order + order[::-1]:
+        gh, kw = forms[name]
+        times[name]["fwd"].append(median_ms(
+            lambda: sk.spmm_max_fwd(gh, x, empty_value=ninf, **kw), reps))
+        times[name]["bwd"].append(median_ms(lambda: sk.spmm_max_bwd(gh, g, arg0, **kw), reps))
+    del forms, x, g, arg0
+    torch.cuda.empty_cache()
+    return times
+
+
+def big_shard_structure_phase(host, own_rows, parent, smi_line):
+    """``--only-mesh-hub --hub-parent DIR``: shard_structure on (b)'s shard
+    for the tree at DIR (in a process of its own) and this one, in turns:
+    DIR, this, this, DIR; with each hub size's coverage."""
+    import torch
+
+    parts = []
+    for kf, kb in BIG_SHARD_PAIRS:
+        cover = host.with_hub(kf, kb)
+        parts.append(f"({kf}, {kb}) forward {cover.hub.n_covered / host.n_edges:.4f} "
+                     f"transpose {cover.t_hub.n_covered / host.n_edges:.4f}")
+    print(f"big shard structure: coverage {'; '.join(parts)}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        path = os.path.join(tmp, "shard.pt")
+        torch.save({"host": host, "own_rows": own_rows}, path)
+        torch.cuda.empty_cache()
+        runs = [("parent", older_structure(parent, path))]
+        runs += [("this", shard_structure(host, own_rows)) for _ in range(2)]
+        runs.append(("parent", older_structure(parent, path)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for tree, times in runs:
+        for name, t in times.items():
+            print(f"big shard structure ({tree} tree) f32 K={BIG_FOLDS * F_IN} {name}: forward "
+                  f"{[round(a, 3) for a in t['fwd']]} ms, backward "
+                  f"{[round(a, 3) for a in t['bwd']]} ms; {smi_line}", flush=True)
 
 
 def same_history(a, b):
@@ -3857,10 +4136,11 @@ def mesh_hub_phase(data_root, results, smi_line):
     cli_mesh_hub_phase(data_root, results, smi_line)
 
 
-def mesh_hub_only(smi_line):
+def mesh_hub_only(parent, smi_line):
     """``--only-mesh-hub``: phase 4s on a synthetic bundle of its own, (b)
     on config 5's edges from powerlaw_ppi (the graph ``synth`` writes)
-    with their self-loops; prints the phase's kernels entries."""
+    with their self-loops, then with ``parent`` big_shard_structure_phase;
+    prints the phase's kernels entries."""
     from plagnn_tpu_torch import cli
     from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
 
@@ -3874,8 +4154,49 @@ def mesh_hub_only(smi_line):
         shutil.rmtree(tmp, ignore_errors=True)
     phase("4s (b) big graph shard")
     ppi = powerlaw_ppi(BIG_NODES, BIG_EDGES, SEED)
-    big_shard_hub_check(ppi.row, ppi.col, BIG_NODES, True, results, smi_line)
+    host, own_rows = big_shard_hub_check(ppi.row, ppi.col, BIG_NODES, True, results, smi_line)
+    if parent:
+        phase("4s (b) big graph shard's structure, both trees")
+        big_shard_structure_phase(host, own_rows, parent, smi_line)
     print(json.dumps({"kernels": list(results.values())}))
+
+
+def hub_only(parent, smi_line):
+    """``--only-hub``: phase 3's layer-1 checks on the full graph (its
+    kernels' entries), phase 3h, the structure at k = 0 (against the tree
+    at ``parent`` too, where given) and phase 4h on a bundle of its own;
+    prints the hub entries."""
+    import numpy as np
+    import torch
+
+    from plagnn_tpu_torch import cli
+    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+    from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
+
+    full = from_scipy_coo(powerlaw_ppi(NODES, EDGES, SEED), add_self_loops=True)
+    rng = np.random.default_rng(SEED)
+    x_full = rng.standard_normal((full.n_nodes, FOLDS * F_IN), dtype=np.float32)
+    x_full = torch.from_numpy(x_full).cuda().to(torch.bfloat16).float().relu_()
+    results = {}
+    full_cuda = full.to("cuda")
+    check_kernels(full_cuda, x_full, "full graph layer 1", results)
+    check_sum_kernels(full_cuda, FOLDS * SUM_WIDTHS[0], "full graph GCN2 conv1", results)
+    del full_cuda
+    phase("3h hub cache kernels")
+    hub_kernel_phase(full, x_full, results, smi_line)
+    del x_full
+    torch.cuda.empty_cache()
+    phase("3h hub structure (k = 0)")
+    hub_structure_phase(full, parent, smi_line)
+    phase("4h hub cache on the main path")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        cli.main(["synth", "--data-root", tmp, "--nodes", str(NODES),
+                  "--edges", str(EDGES), "--seed", str(SEED)])
+        hub_train_phase(tmp, results, smi_line)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"kernels": [r for name, r in results.items() if "_hub_" in name]}))
 
 
 def sweep_row_chunk(full):
@@ -4255,6 +4576,17 @@ def main(argv=None):
     ap.add_argument("--only-big-graph", action="store_true",
                     help="phases 1-2 and phase 4g (the big-graph path); prints "
                          "no result line")
+    ap.add_argument("--only-hub", action="store_true",
+                    help="phases 1-2, phase 3's layer-1 checks on the full graph, "
+                         "phase 3h with the hub kernels' structure at k = 0, and "
+                         "phase 4h; prints the hub entries and no result line")
+    ap.add_argument("--hub-parent", metavar="DIR",
+                    help="with --only-hub: also time the structure (k = 0) of the "
+                         "package tree at DIR (another commit's, unpacked), in turns; "
+                         "with --only-mesh-hub: time both trees' hub kernels on "
+                         "config 5's P = 2 interior shard, in turns")
+    ap.add_argument("--structure-child", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--shard-file", help=argparse.SUPPRESS)
     ap.add_argument("--sweep-row-chunk", action="store_true",
                     help="after phase 3, time the row-chunked kernels on the "
                          "full graph at each chunk size and stop; prints no "
@@ -4267,6 +4599,9 @@ def main(argv=None):
                          "register bound and stop; "
                          "prints no result line")
     args = ap.parse_args(argv)
+    if args.structure_child:
+        structure_child(args.structure_child, args.shard_file)
+        return
     if not os.path.isdir(os.path.join(HERE, "plagnn_tpu_torch")):
         fail("the plagnn_tpu_torch package is not beside chip_smoke.py")
     sys.path.insert(0, HERE)
@@ -4301,7 +4636,10 @@ def main(argv=None):
         planner_only(smi_line)
         return
     if args.only_mesh_hub:
-        mesh_hub_only(smi_line)
+        mesh_hub_only(args.hub_parent, smi_line)
+        return
+    if args.only_hub:
+        hub_only(args.hub_parent, smi_line)
         return
     if args.only_dma_ceiling:
         phase("3d dma ceiling")

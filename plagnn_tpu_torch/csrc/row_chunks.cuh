@@ -689,4 +689,392 @@ inline int warps_per_sm(Kernel kernel, int threads, size_t smem) {
   return blocks * threads / 32;
 }
 
+// ---------------------------------------------------------------------------
+// The pipelined hub: the max kernels' hub instantiations (spmm_max_fwd.cu,
+// spmm_max_bwd.cu; the sum's keeps the design above).
+//
+// What bounds the design above, by the card's records (PERF.md): not the
+// arena but the structure.  A block a K-slice fills its arena with
+// register-staged loads, meets every warp at __syncthreads, walks ~190
+// chunks with its warps and must drain before the next slice's block can
+// take the SM, 132 x 20 blocks a layer-1 launch: every fill and every tail
+// (one 256-edge chunk gathers 256 KB, as long as a block's whole share
+// spread over its warps) sits on the critical path, 20 times a launch.
+//
+// What this design does about it:
+// * Persistent over the K-slices.  The grid is one block an SM, with no
+//   slice dimension.  Each block walks K-slices 0..S-1 in order; each slice
+//   has a ticket of its own in device memory, which hands the slice's chunks, in the table's order, to the
+//   warps of every block one at a time, so the grid walks one slice at a
+//   time as the grid of the kernels without the hub does (one slice's rows
+//   in L2).  A warp that finds the slice's chunks gone goes straight on to
+//   slice s + 1.  No __syncthreads separates two slices: only the last
+//   drains.  (Per-block tickets let the blocks drift apart over the slices,
+//   and the L2 then has to hold several slices' rows: on the card that ran
+//   far slower.)
+// * A two-stage arena.  Stage s % 2 holds slice s's hub rows (in the
+//   backward the gradient's and the argmax's).  Each stage has two
+//   mbarriers: "full" completes when the stage's fill has landed, "empty"
+//   when every warp of the block has arrived on it after slice s, a warp
+//   that drew no chunk of that slice included.  The fill of slice s + 2
+//   into the stage starts once "empty" has completed; the fill warp (warp
+//   0, which walks chunks too) tests it between its chunks of slice s + 1
+//   and issues the fill as soon as it has, so the fill overlaps the walk
+//   and no warp waits on a fill but the first two.
+// * Asynchronous fills, never register-staged.  Where every filled row's
+//   byte stride and the slice's start are multiples of 16 (the TMA route),
+//   the fill warp's lanes issue one
+//   cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes per
+//   hub row of the slice's bytes (the ragged last slice copies the elements
+//   left), and lane 0 raises the barrier's expected bytes.  Elsewhere (the
+//   cp.async route; layer 1's K = 5,030: f32 rows of 20,120 B, 8 mod 16) the
+//   lanes issue cp.async of the lane vector's size (4, 8 or 16 bytes; a
+//   2-byte vector as the 4-byte words that cover the row, the row kept at
+//   the source's parity, hub_shift) and each arrives on the same "full"
+//   barrier by cp.async.mbarrier.arrive.noinc.  The route follows K's
+//   alignment (hub_route); both are on the main path.
+// * Each stage takes half of what the arena had, so k halves (ops/hub.py:
+//   pick_hub_sizes): 1 KB rows forward, k <= 113; 1.5 KB backward in f32
+//   with an int16 argmax, k <= 75; 2 KB (bf16, or an int32 argmax) k <= 56.
+// * The carveout is what the arena needs (hub_fit_attributes), not the
+//   SM's whole 228 KB: the rest stays L1, which serves the kernels without
+//   the hub their hottest rows (the hub rows among them).  The arena's rows
+//   come out of that L1; an arena can only win where serving them from
+//   shared memory beats the L1 it displaces.
+// * The float32 blocks hold 4 warps fewer than the kernels without the hub
+//   (24 forward, 20 backward): at 28 / 24 the pipeline's state spills
+//   (ptxas: 72 / 80 registers a thread), and the card ran the spill-free
+//   form faster; the bfloat16 blocks hold as many (4 fewer ran slower).  One
+//   block an SM: two ran within 2% of it, and a fill warp of its own that
+//   walks no chunk no faster (PERF.md's hub findings).
+// ---------------------------------------------------------------------------
+
+// Warps an SM holds of a pipelined hub kernel (one block) whose kernel
+// without the hub holds `without` (float32) or `without_bf16` of them.
+template <typename T>
+__host__ __device__ constexpr int hub_warps(int without, int without_bf16) {
+  return sizeof(T) == 4 ? without - 4 : without_bf16;
+}
+constexpr int kHubStages = 2;
+
+// A pipelined block's static shared memory.
+struct HubPipe {
+  uint64_t full[kHubStages];
+  uint64_t empty[kHubStages];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also raises the barrier's expected bytes of this phase.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Whether the barrier's phase of parity `parity` has completed (no wait).
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, reported to `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// cp.async of kBytes (4, 8 or 16; both ends aligned to it).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  static_assert(kBytes == 4 || kBytes == 8 || kBytes == 16, "cp.async takes 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "n"(kBytes)
+               : "memory");
+}
+
+// An arrival on `bar` once this thread's earlier cp.asyncs have landed; the
+// barrier's count includes it (.noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// A 2-byte element at vector width 1 (K odd) is copied as the 4-byte words
+// that cover its row, the row kept at the source's parity: hub_shift.
+template <typename E, int V>
+__host__ __device__ constexpr bool hub_shifted() {
+  return sizeof(E) == 2 && V == 1;
+}
+
+// Elements between two arena rows of E: the slice's (stride), or for a
+// shifted row the stride and the words' spill, rounded to a word.
+template <typename E, int V>
+__host__ __device__ inline int hub_pitch(int stride) {
+  return hub_shifted<E, V>() ? (stride + 3) & ~1 : stride;
+}
+
+// Where a shifted row's slice starts in its arena row: the parity of its
+// first element in device memory (the slices start at even elements).
+template <typename E, int V>
+__device__ __forceinline__ int hub_shift(const int* __restrict__ ids, int slot,
+                                         int64_t k_width) {
+  if constexpr (hub_shifted<E, V>()) {
+    return __ldg(ids + slot) & static_cast<int>(k_width & 1);
+  } else {
+    return 0;
+  }
+}
+
+// Bytes of one stage's arena of hub_k rows of E, rounded up to 16.
+template <typename E, int V>
+__host__ __device__ inline size_t hub_stage_part(int hub_k, int stride) {
+  return arena_bytes(hub_k, hub_pitch<E, V>(stride), sizeof(E));
+}
+
+// The TMA route for rows of E: each row's byte stride a multiple of 16 at a
+// 16-byte aligned base, and no shifted rows.
+template <typename E, int V>
+inline bool hub_route(int64_t k_width, const void* p) {
+  return !hub_shifted<E, V>() && (k_width * static_cast<int64_t>(sizeof(E))) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The fill warp's part of a stage's fill for one array: rows 0..n) of the
+// K-slice at slice0 of rows ids[...] of src (rows of k_width elements of
+// E) into the arena at `pitch` elements a row, reported to `full`.  TMA:
+// one bulk copy a row, lane l the rows l, l + 32, ...; the caller raised the
+// expected bytes (hub_fill_bytes).  cp.async: lane l the row's vectors l,
+// l + 32, ..., and the caller's lanes arrive once after all arrays'.
+template <typename E, int V>
+__device__ __forceinline__ void hub_fill_rows(E* arena, const E* __restrict__ src,
+                                              const int* __restrict__ ids, int n, int pitch,
+                                              int len, int64_t slice0, int64_t k_width,
+                                              bool tma, uint64_t* full, int lane) {
+  if (tma) {
+    for (int i = lane; i < n; i += 32) {
+      bulk_copy(arena + static_cast<int64_t>(i) * pitch,
+                src + static_cast<int64_t>(__ldg(ids + i)) * k_width + slice0,
+                static_cast<uint32_t>(len * sizeof(E)), full);
+    }
+    return;
+  }
+  for (int i = 0; i < n; ++i) {
+    const int64_t a = static_cast<int64_t>(__ldg(ids + i)) * k_width + slice0;
+    E* row = arena + static_cast<int64_t>(i) * pitch;
+    if constexpr (hub_shifted<E, V>()) {
+      const int sh = static_cast<int>(a & 1);  // the words start at element a - sh
+      const int words = (sh + len + 1) >> 1;
+      for (int w = lane; w < words; w += 32) cp_async<4>(row + 2 * w, src + a - sh + 2 * w);
+    } else {
+      constexpr int kBytes = V * static_cast<int>(sizeof(E));
+      for (int v = lane; v < len / V; v += 32) cp_async<kBytes>(row + v * V, src + a + v * V);
+    }
+  }
+}
+
+// Bytes a TMA fill of n rows of `len` elements of E lands.
+template <typename E>
+__device__ __forceinline__ uint32_t hub_fill_bytes(int n, int len) {
+  return static_cast<uint32_t>(n) * len * sizeof(E);
+}
+
+// The J vectors of this lane for an edge whose coded neighbour is nbr, as
+// load_hub_row, from a pipelined stage: arena rows `pitch` elements apart,
+// a shifted row's slice at its shift.
+template <typename T, int V, int J>
+__device__ __forceinline__ void load_pipe_row(Vec<T, V> (&v)[J], const T* __restrict__ x,
+                                              const T* arena, const int* __restrict__ ids,
+                                              int nbr, int64_t k_width, int64_t k0, int pitch,
+                                              int nvec) {
+  if (nbr >= 0) {
+    const T* p = x + static_cast<int64_t>(nbr) * k_width + k0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (j < nvec) v[j] = load_vec<T, V>(p + j * 32 * V);
+    }
+  } else {
+    const int slot = -1 - nbr;
+    const T* p = arena + static_cast<int64_t>(slot) * pitch + hub_shift<T, V>(ids, slot, k_width);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (j < nvec) v[j] = load_vec_shared<T, V>(p + j * 32 * V);
+    }
+  }
+}
+
+// The first `nvec` of a lane's J vectors (32 * V elements apart) from its
+// first element k0 that lie inside K.
+template <int V, int J>
+__device__ __forceinline__ int lane_vectors(int64_t k0, int64_t k_width) {
+  const int64_t left = k_width > k0 ? (k_width - k0 + 32 * V - 1) / (32 * V) : 0;
+  return left < J ? static_cast<int>(left) : J;
+}
+
+// A pipelined hub block's walk (the design above).  fill(s, stage) issues
+// slice s's fill of `stage` (called by every lane of the fill warp, warp 0;
+// it makes the stage's arrivals, lane 0's plain or expect_tx one first);
+// body(s, stage, chunk) walks one chunk of slice s from `stage`.
+// `fill_count` is "full"'s arrivals a phase: 1 on the TMA route (lane 0's
+// expect_tx), 33 on the cp.async route (lane 0's and each lane's cp.async
+// arrival).  tickets[s] (zero at launch, and zero again after it: the
+// launch's last draw resets it) hands out slice s's chunks to the
+// warps of every block, one at a time in the table's order, so the grid
+// walks one slice at a time, as the grid of the kernels without the hub
+// does (one slice's rows stay in L2), and a block's warps go on to the
+// next slice as soon as the slice has no chunk left.
+template <typename Fill, typename Body>
+__device__ __forceinline__ void hub_pipeline(const Table& t, HubPipe& pipe,
+                                             int* __restrict__ tickets, int n_slices,
+                                             int fill_count, Fill&& fill, Body&& body) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x / 32;
+  const bool filler = threadIdx.x < 32;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kHubStages; ++st) {
+      mbar_init(&pipe.full[st], static_cast<uint32_t>(fill_count));
+      mbar_init(&pipe.empty[st], warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();  // the barriers' init, once a launch
+  if (filler) {
+    for (int s = 0; s < kHubStages && s < n_slices; ++s) fill(s, s);
+  }
+  int pending = kHubStages;  // the next slice to fill (the fill warp's)
+  // Slice j's fill into stage j % 2, once every walking warp has left slice
+  // j - 2 there: its "empty" phase (j - 2) / 2.
+  auto refill = [&](int j) {
+    if (lane == 0) mbar_wait(&pipe.empty[j & 1], ((j - 2) >> 1) & 1);
+    __syncwarp();
+    fill(j, j & 1);
+  };
+  // Every warp of the grid draws each slice's ticket once per chunk it
+  // walks and once more, in vain: the draw numbered `last` is the launch's
+  // last on that ticket, and sets it back to zero for the next launch.
+  const int last = t.n_chunks + static_cast<int>(gridDim.x) * warps - 1;
+  auto draw = [&](int s) {
+    int c = 0;
+    if (lane == 0) {
+      c = atomicAdd(tickets + s, 1);
+      if (c == last) atomicExch(tickets + s, 0);
+    }
+    return c;
+  };
+  for (int s = 0; s < n_slices; ++s) {
+    const int st = s & 1;
+    if (filler && pending == s) refill(pending++);
+    mbar_wait(&pipe.full[st], (s >> 1) & 1);
+    int mine = draw(s);
+    int c = __shfl_sync(kFullMask, mine, 0);
+    while (c < t.n_chunks) {
+      mine = draw(s);
+      body(s, st, c);
+      if (filler && pending == s + 1 && pending < n_slices) {
+        const int j = pending;
+        const bool ready =
+            lane == 0 ? mbar_test(&pipe.empty[j & 1], ((j - 2) >> 1) & 1) : false;
+        if (__shfl_sync(kFullMask, ready, 0)) refill(pending++);
+      }
+      c = __shfl_sync(kFullMask, mine, 0);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&pipe.empty[st]);
+  }
+}
+
+// A pipelined hub kernel's shared memory: `smem` bytes of dynamic shared
+// memory and a carveout of just what one block needs (static shared
+// memory and 1 KB a block of the card's own besides), so the rest of the
+// SM's 256 KB stays L1 cache: the kernels without the hub serve their
+// hottest rows from an L1 of up to 256 KB, and an arena that took the
+// whole carveout would leave 28 KB of it.
+template <typename Kernel>
+inline cudaError_t hub_fit_attributes(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const size_t need = smem + sizeof(HubPipe) + 1024;
+  const int percent = static_cast<int>((need * 100 + kSmemBlockMax - 1) / kSmemBlockMax);
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              percent < 100 ? percent : 100);
+}
+
+// Blocks an SM holds of a pipelined hub kernel at `threads` a block and
+// `smem` bytes of dynamic shared memory, at its launch's carveout (-1 if
+// the card will not say).
+template <typename Kernel>
+inline int pipe_blocks_per_sm(Kernel kernel, int threads, size_t smem) {
+  int blocks = 0;
+  if (hub_fit_attributes(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return blocks;
+}
+
+// Host side of a pipelined hub launch: the combine's grid as `grids` gives
+// it, the chunk grid (one block an SM, fewer where the chunks are fewer;
+// no slice dimension), the slices and the kernel's shared memory.
+// An arena above the card's limit, or fewer tickets than slices, is
+// refused (cudaErrorInvalidValue), never cut.
+template <typename Kernel>
+inline int hub_pipe_setup(Kernel kernel, size_t smem, int warps, int64_t n_chunks,
+                          int64_t n_split, int64_t k_width, int slice_width,
+                          int64_t n_tickets, dim3* grid, dim3* combine_grid, int* n_slices) {
+  dim3 chunk_grid;
+  const int rc_grid = grids(n_chunks, n_split, k_width, slice_width, &chunk_grid,
+                            combine_grid);
+  if (rc_grid != cudaSuccess) return rc_grid;
+  if (static_cast<int64_t>(chunk_grid.y) > n_tickets) return cudaErrorInvalidValue;
+  if (smem > kSmemBlockMax) return cudaErrorInvalidValue;
+  cudaError_t err = hub_fit_attributes(kernel, smem);
+  int dev = 0, n_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t want = (n_chunks + warps - 1) / warps;
+  *grid = dim3(static_cast<unsigned>(want < n_sm ? want : n_sm));
+  *n_slices = static_cast<int>(chunk_grid.y);
+  return cudaSuccess;
+}
+
 }  // namespace row_chunks

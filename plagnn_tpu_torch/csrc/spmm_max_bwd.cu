@@ -65,10 +65,14 @@
 // handed out beside the destinations), 32 / G chunks a warp, longest chunks
 // first (RowChunks.order); the same hit tests and float32 adds in the same
 // order, so dx is the same bits as the 32-lane kernel's.
-// The hub instantiation (spmm_max_bwd_hub_kernel, id-based argmax;
-// row_chunks.cuh's hub section) reads the g and arg rows of the hub
-// destinations -- the transpose's k most-fetched rows -- from a
-// shared-memory arena of both (the JAX kernels' fused grad + arg arena).
+// The hub instantiation (spmm_max_bwd_hub_kernel, id-based argmax) reads
+// the g and arg rows of the hub destinations -- the transpose's k
+// most-fetched rows -- from a two-stage shared-memory arena of both (the
+// JAX kernels' fused grad + arg arena), one persistent block an SM walking
+// every K-slice while the next slice's stage fills by TMA or cp.async
+// (row_chunks.cuh: hub_pipeline, which says what bounds it); the same hit
+// tests and float32 adds in the same order, so dx is bit-identical to the
+// kernel without the hub.
 #include "row_chunks.cuh"
 
 namespace {
@@ -226,14 +230,16 @@ spmm_max_bwd_combine_kernel(const int* __restrict__ split_row,
 }
 
 // dx[row] += g[n] where arg[n] == row, with the hub destinations' g and arg
-// rows from the arena.
+// rows from a stage of the arena.
 template <typename T, typename ArgT, int V, int J>
 struct MaxBwdHubOp {
   const T* g;
   const ArgT* arg;
-  const T* g_arena;      // at this lane's first element
-  const ArgT* a_arena;   // at this lane's first element
-  int stride;
+  const int* ids;
+  const T* g_arena;      // the slice's stage, at this lane's first element
+  const ArgT* a_arena;   // the slice's stage, at this lane's first element
+  int g_pitch;
+  int a_pitch;
   int64_t k_width;
   int64_t k0;
   int nvec;
@@ -243,8 +249,8 @@ struct MaxBwdHubOp {
 
   __device__ __forceinline__ void begin(int r, int64_t, int) { row = r; }
   __device__ __forceinline__ void load(int u, int n, int) {
-    rc::load_hub_row<ArgT, V, J>(a[u], arg, a_arena, n, k_width, k0, stride, nvec);
-    rc::load_hub_row<T, V, J>(gv[u], g, g_arena, n, k_width, k0, stride, nvec);
+    rc::load_pipe_row<ArgT, V, J>(a[u], arg, a_arena, ids, n, k_width, k0, a_pitch, nvec);
+    rc::load_pipe_row<T, V, J>(gv[u], g, g_arena, ids, n, k_width, k0, g_pitch, nvec);
   }
   __device__ __forceinline__ void add(int u, float (&acc)[V * J]) {
 #pragma unroll
@@ -258,32 +264,78 @@ struct MaxBwdHubOp {
   }
 };
 
-// Warps of a hub block: the warps an SM holds of the kernel without the
-// hub (24 in float32, 16 in bfloat16; chip_smoke.py phase 3h prints both).
+// Warps an SM holds of the hub kernel, in its one block: those of the
+// kernel without the hub (24 in float32, 16 in bfloat16; chip_smoke.py
+// phase 3h prints both) less rc::hub_warps' cut.
 template <typename T>
-constexpr int kHubWarps = sizeof(T) == 4 ? 24 : 16;
+constexpr int kHubWarps = rc::hub_warps<T>(24, 16);
+template <typename T>
+constexpr int kHubThreads = 32 * kHubWarps<T>;
 
+// Bytes of one stage: hub_k rows of g's K-slice, then hub_k of the argmax's.
 template <typename T, typename ArgT, int V>
-__global__ void __launch_bounds__(32 * kHubWarps<T>, 1)
+__host__ __device__ inline size_t hub_g_bytes(int64_t k_width, int hub_k) {
+  return rc::hub_stage_part<T, V>(hub_k, rc::hub_stride(k_width, 32 * V *
+                                                        rc::vectors_per_lane<T, V>()));
+}
+template <typename T, typename ArgT, int V>
+__host__ __device__ inline size_t hub_stage_bytes(int64_t k_width, int hub_k) {
+  const int stride = rc::hub_stride(k_width, 32 * V * rc::vectors_per_lane<T, V>());
+  return rc::hub_stage_part<T, V>(hub_k, stride) + rc::hub_stage_part<ArgT, V>(hub_k, stride);
+}
+
+// The pipelined hub backward (row_chunks.cuh: hub_pipeline): every K-slice
+// in turn, each slice's hub rows of g and of the argmax in a stage of the
+// arena filled by the fill warp (`tma`: bulk copies, else cp.async), the
+// slice's transpose chunks walked by chunk_body as the kernel without the
+// hub walks them.
+template <typename T, typename ArgT, int V>
+__global__ void __launch_bounds__(kHubThreads<T>, 1)
 spmm_max_bwd_hub_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
                         rc::Table table, const int* __restrict__ idx,
                         const int* __restrict__ ids, int hub_k, T* __restrict__ dx,
-                        float* __restrict__ partial, int64_t k_width) {
+                        float* __restrict__ partial, int* __restrict__ tickets,
+                        int64_t k_width, int n_slices, int tma) {
   constexpr int J = rc::vectors_per_lane<T, V>();
-  __shared__ int ticket;
-  const rc::HubLane h = rc::hub_lane<V, J>(k_width);
+  __shared__ rc::HubPipe pipe;
   const int stride = rc::hub_stride(k_width, 32 * V * J);
-  T* g_arena = reinterpret_cast<T*>(rc::hub_smem());
-  ArgT* a_arena = reinterpret_cast<ArgT*>(rc::hub_smem() +
-                                          rc::arena_bytes(hub_k, stride, sizeof(T)));
-  rc::fill_arena<T, V>(g_arena, g, ids, hub_k, stride, h.slice0, k_width);
-  rc::fill_arena<ArgT, V>(a_arena, arg, ids, hub_k, stride, h.slice0, k_width);
-  if (threadIdx.x == 0) ticket = 0;
-  __syncthreads();
-  MaxBwdHubOp<T, ArgT, V, J> op{g, arg, g_arena + h.lane * V, a_arena + h.lane * V,
-                                stride, k_width, h.k0, h.nvec};
-  rc::hub_walk(table, &ticket, [&](int64_t c) {
-    rc::chunk_body<T, V, J>(table, c, idx, h.lane, h.k0, h.nvec, k_width, dx, partial, op);
+  const int g_pitch = rc::hub_pitch<T, V>(stride);
+  const int a_pitch = rc::hub_pitch<ArgT, V>(stride);
+  const size_t stage_bytes = hub_stage_bytes<T, ArgT, V>(k_width, hub_k);
+  const size_t g_bytes = hub_g_bytes<T, ArgT, V>(k_width, hub_k);
+  const int lane = threadIdx.x & 31;
+  auto g_stage = [&](int st) {
+    return reinterpret_cast<T*>(rc::hub_smem() + st * stage_bytes);
+  };
+  auto a_stage = [&](int st) {
+    return reinterpret_cast<ArgT*>(rc::hub_smem() + st * stage_bytes + g_bytes);
+  };
+  auto fill = [&](int s, int st) {
+    const int64_t slice0 = static_cast<int64_t>(s) * stride;
+    const int len = static_cast<int>(k_width - slice0 < stride ? k_width - slice0 : stride);
+    if (lane == 0) {
+      if (tma) {
+        rc::mbar_arrive_tx(&pipe.full[st], rc::hub_fill_bytes<T>(hub_k, len) +
+                                               rc::hub_fill_bytes<ArgT>(hub_k, len));
+      } else {
+        rc::mbar_arrive(&pipe.full[st]);
+      }
+    }
+    __syncwarp();
+    rc::hub_fill_rows<T, V>(g_stage(st), g, ids, hub_k, g_pitch, len, slice0, k_width,
+                            tma != 0, &pipe.full[st], lane);
+    rc::hub_fill_rows<ArgT, V>(a_stage(st), arg, ids, hub_k, a_pitch, len, slice0, k_width,
+                               tma != 0, &pipe.full[st], lane);
+    if (!tma) rc::cp_async_arrive(&pipe.full[st]);
+  };
+  MaxBwdHubOp<T, ArgT, V, J> op{g, arg, ids, nullptr, nullptr, g_pitch, a_pitch, k_width};
+  rc::hub_pipeline(table, pipe, tickets, n_slices, tma ? 1 : 33, fill,
+                   [&](int s, int st, int c) {
+    op.k0 = static_cast<int64_t>(s) * stride + lane * V;
+    op.nvec = rc::lane_vectors<V, J>(op.k0, k_width);
+    op.g_arena = g_stage(st) + lane * V;
+    op.a_arena = a_stage(st) + lane * V;
+    rc::chunk_body<T, V, J>(table, c, idx, lane, op.k0, op.nvec, k_width, dx, partial, op);
   });
 }
 
@@ -370,21 +422,29 @@ int launch_arg(int arg_bits, bool positional, const void* g, const void* arg,
 template <typename T, typename ArgT, int V>
 int launch_hub_v(const void* g, const void* arg, const rc::Table& table, const int* idx,
                  const int* ids, int hub_k, const int* split_row, const int* split_ptr,
-                 int64_t n_split, void* dx, void* partial, int64_t k_width,
-                 cudaStream_t stream) {
+                 int64_t n_split, void* dx, void* partial, int* tickets, int64_t n_tickets,
+                 int64_t k_width, cudaStream_t stream) {
   if constexpr (V * sizeof(T) > 16 || V * sizeof(ArgT) > 16) {
     return cudaErrorInvalidValue;  // never chosen: vector_width caps V
   } else {
     constexpr int J = rc::vectors_per_lane<T, V>();
+    if ((rc::hub_shifted<T, V>() && reinterpret_cast<uintptr_t>(g) % 4 != 0) ||
+        (rc::hub_shifted<ArgT, V>() && reinterpret_cast<uintptr_t>(arg) % 4 != 0)) {
+      return cudaErrorInvalidValue;  // the shifted rows' words need 4-byte rows
+    }
     auto kernel = spmm_max_bwd_hub_kernel<T, ArgT, V>;
-    const size_t smem = rc::hub_smem_bytes<T, V>(k_width, hub_k, sizeof(ArgT));
+    const size_t smem = rc::kHubStages * hub_stage_bytes<T, ArgT, V>(k_width, hub_k);
     dim3 grid, combine_grid;
-    const int rc_setup = rc::hub_setup(kernel, smem, kHubWarps<T>, table.n_chunks, n_split,
-                                       k_width, 32 * V * J, &grid, &combine_grid);
+    int n_slices = 0;
+    const int rc_setup =
+        rc::hub_pipe_setup(kernel, smem, kHubWarps<T>, table.n_chunks, n_split, k_width, 32 * V * J,
+                           n_tickets, &grid, &combine_grid, &n_slices);
     if (rc_setup != cudaSuccess) return rc_setup;
-    kernel<<<grid, 32 * kHubWarps<T>, smem, stream>>>(
+    const int tma =
+        rc::hub_route<T, V>(k_width, g) && rc::hub_route<ArgT, V>(k_width, arg) ? 1 : 0;
+    kernel<<<grid, kHubThreads<T>, smem, stream>>>(
         static_cast<const T*>(g), static_cast<const ArgT*>(arg), table, idx, ids, hub_k,
-        static_cast<T*>(dx), static_cast<float*>(partial), k_width);
+        static_cast<T*>(dx), static_cast<float*>(partial), tickets, k_width, n_slices, tma);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 0) return err;
     spmm_max_bwd_combine_kernel<T><<<combine_grid, rc::kCombineThreads, 0, stream>>>(
@@ -394,16 +454,26 @@ int launch_hub_v(const void* g, const void* arg, const rc::Table& table, const i
   }
 }
 
-// warps[0], warps[1]: the warps an SM holds of the hub kernel and of the
-// kernel without the hub.
+// info[0], info[1]: the warps an SM holds of the hub kernel and of the
+// kernel without the hub; info[2] the arena's stages, info[3] the hub
+// blocks an SM holds, info[4] 1 where the fill takes the TMA route at this
+// K (g's and the argmax's rows 16-byte multiples), 0 for cp.async: the
+// route K gives 16-byte aligned tensors (a launch also checks its own).
 template <typename T, typename ArgT, int V>
-int hub_warps_v(int64_t k_width, int hub_k, int* warps) {
+int hub_warps_v(int64_t k_width, int hub_k, int* info) {
   if constexpr (V * sizeof(T) > 16 || V * sizeof(ArgT) > 16) {
     return cudaErrorInvalidValue;
   } else {
-    warps[0] = rc::warps_per_sm(spmm_max_bwd_hub_kernel<T, ArgT, V>, 32 * kHubWarps<T>,
-                                rc::hub_smem_bytes<T, V>(k_width, hub_k, sizeof(ArgT)));
-    warps[1] = rc::warps_per_sm(spmm_max_bwd_kernel<T, ArgT, V, false>, rc::kThreads, 0);
+    auto kernel = spmm_max_bwd_hub_kernel<T, ArgT, V>;
+    const size_t smem = rc::kHubStages * hub_stage_bytes<T, ArgT, V>(k_width, hub_k);
+    const int blocks = rc::pipe_blocks_per_sm(kernel, kHubThreads<T>, smem);
+    info[0] = blocks < 0 ? -1 : blocks * kHubThreads<T> / 32;
+    info[1] = rc::warps_per_sm(spmm_max_bwd_kernel<T, ArgT, V, false>, rc::kThreads, 0);
+    info[2] = rc::kHubStages;
+    info[3] = blocks;
+    info[4] =
+        rc::hub_route<T, V>(k_width, nullptr) && rc::hub_route<ArgT, V>(k_width, nullptr) ? 1
+                                                                                            : 0;
     return cudaSuccess;
   }
 }
@@ -455,14 +525,16 @@ extern "C" int spmm_max_bwd(int dtype, int arg_bits, const void* g,
 // The hub instantiation of spmm_max_bwd (id-based argmax, 16 or 32 bits):
 // the transpose chunk table and split rows as spmm_max_bwd's, idx the
 // coded t_dst and ids its k slots' node ids (the transpose's
-// graph_format.HubTable).  Returns the CUDA error code of the launches.
+// graph_format.HubTable); tickets: n_tickets int32 zeros, at least one a
+// K-slice, left zero (one buffer serves a stream's launches).  Returns the
+// CUDA error code of the launches.
 extern "C" int spmm_max_bwd_hub(int dtype, int arg_bits, const void* g, const void* arg,
                                 const void* chunk_row, const void* chunk_ptr,
                                 const void* chunk_slot, long long n_chunks,
                                 const void* idx, const void* ids, int hub_k,
                                 const void* split_row, const void* split_ptr,
-                                long long n_split, void* dx, void* partial,
-                                long long k_width, void* stream) {
+                                long long n_split, void* dx, void* partial, void* tickets,
+                                long long n_tickets, long long k_width, void* stream) {
   if (n_chunks == 0 || k_width == 0) return cudaSuccess;
   if (n_chunks > 2147483647LL || hub_k < 0) return cudaErrorInvalidValue;
   const rc::Table table{static_cast<const int*>(chunk_row),
@@ -481,17 +553,20 @@ extern "C" int spmm_max_bwd_hub(int dtype, int arg_bits, const void* g, const vo
         return launch_hub_v<T, ArgT, decltype(vw)::value>(
             g, arg, table, static_cast<const int*>(idx), static_cast<const int*>(ids), hub_k,
             static_cast<const int*>(split_row), static_cast<const int*>(split_ptr), n_split,
-            dx, partial, k_width, static_cast<cudaStream_t>(stream));
+            dx, partial, static_cast<int*>(tickets), n_tickets, k_width,
+            static_cast<cudaStream_t>(stream));
       });
     });
   });
 }
 
-// The warps an SM holds of spmm_max_bwd_hub's kernel (warps[0]) and of
-// the kernel without the hub (warps[1]) at this dtype, argmax, K and k, as
-// the card's occupancy calculator gives them; launches nothing.
+// The warps an SM holds of spmm_max_bwd_hub's kernel (info[0]) and of the
+// kernel without the hub (info[1]) at this dtype, argmax, K and k, as the
+// card's occupancy calculator gives them, then the arena's stages, the hub
+// blocks an SM holds and the fill route at this K (1 TMA, 0 cp.async;
+// info holds 5 ints); launches nothing.
 extern "C" int spmm_max_bwd_hub_warps(int dtype, int arg_bits, long long k_width, int hub_k,
-                                      int* warps) {
+                                      int* info) {
   return rc::with_dtype(dtype, [&](auto t) {
     using T = decltype(t);
     return rc::with_arg_bits(arg_bits, [&](auto a) {
@@ -500,7 +575,7 @@ extern "C" int spmm_max_bwd_hub_warps(int dtype, int arg_bits, long long k_width
       constexpr int as = sizeof(ArgT);
       const int v = rc::vector_width(k_width, es > as ? es : as, {});
       return rc::with_vector_width(v, [&](auto vw) {
-        return hub_warps_v<T, ArgT, decltype(vw)::value>(k_width, hub_k, warps);
+        return hub_warps_v<T, ArgT, decltype(vw)::value>(k_width, hub_k, info);
       });
     });
   });

@@ -85,11 +85,14 @@
 // thread per (row, k) walking the whole row with 4-byte loads, walked the
 // hub row (in-degree 10,505) serially in each of its blocks.
 // The hub instantiation (spmm_max_fwd_hub_kernel: the id-based argmax, the
-// training path's forward; row_chunks.cuh's hub section) reads the hub
-// sources' rows from a shared-memory arena of the k most-fetched rows.  It
-// tracks each maximum's coded neighbour (-1 - slot for an arena row) with
-// the same compares, and stores the slot's node id (HubTable.ids) as the
-// argmax, so out and arg are bit-exact against the kernel without the hub.
+// training path's forward) reads the hub sources' rows from a two-stage
+// shared-memory arena of the k most-fetched rows, one persistent block an
+// SM walking every K-slice while the next slice's stage fills by TMA or
+// cp.async (row_chunks.cuh: hub_pipeline, which says what bounds it).  It
+// walks each chunk as spmm_max_fwd_kernel does, tracks each maximum's coded
+// neighbour (-1 - slot for an arena row) with the same compares, and stores
+// the slot's node id (HubTable.ids) as the argmax, so out and arg are
+// bit-exact against the kernel without the hub.
 #include "row_chunks.cuh"
 
 namespace {
@@ -309,57 +312,97 @@ spmm_max_fwd_group_kernel(const T* __restrict__ x, rc::Table t,
                                                      k_width, empty_value, pos, lg, h.mask);
 }
 
-// MaxFwdOp (id-based argmax) with the hub sources' rows from the arena:
-// `src` holds coded neighbours until `finish` turns them into node ids.
+// MaxFwdOp (id-based argmax) with the hub sources' rows from a stage of the
+// arena: `src` holds coded neighbours until `finish` turns them into node
+// ids.
 template <typename T, int V, int J>
 struct MaxFwdHubOp : MaxFwdOp<T, V, J, true, false> {
-  const T* arena;  // at this lane's first element
-  int stride;
+  const T* arena;  // the slice's stage, at this lane's first element
+  int pitch;
   const int* ids;
 
   __device__ __forceinline__ void load(int u, int s, int) {
     this->nbr[u] = s;
-    rc::load_hub_row<T, V, J>(this->val[u], this->x, arena, s, this->k_width, this->k0,
-                              stride, this->nvec);
+    rc::load_pipe_row<T, V, J>(this->val[u], this->x, arena, ids, s, this->k_width, this->k0,
+                               pitch, this->nvec);
   }
   // coded neighbours -> node ids, for a chunk with edges (an empty chunk
-  // keeps -1)
+  // keeps -1), this lane's vectors inside K only (an arena of k = 0 has no
+  // ids to read)
   __device__ __forceinline__ void finish(int beg, int end) {
     if (beg < end) {
 #pragma unroll
-      for (int i = 0; i < V * J; ++i) {
-        if (this->src[i] < 0) this->src[i] = __ldg(ids + (-1 - this->src[i]));
+      for (int j = 0; j < J; ++j) {
+        if (j >= this->nvec) break;
+#pragma unroll
+        for (int i = j * V; i < (j + 1) * V; ++i) {
+          if (this->src[i] < 0) this->src[i] = __ldg(ids + (-1 - this->src[i]));
+        }
       }
     }
   }
 };
 
-// Warps of a hub block: the warps an SM holds of the kernel without the
-// hub (28 in float32, 20 in bfloat16; chip_smoke.py phase 3h prints both).
+// Warps an SM holds of the hub kernel, in its one block: those of the
+// kernel without the hub (28 in float32, 20 in bfloat16; chip_smoke.py
+// phase 3h prints both) less rc::hub_warps' cut.
 template <typename T>
-constexpr int kHubWarps = sizeof(T) == 4 ? 28 : 20;
+constexpr int kHubWarps = rc::hub_warps<T>(28, 20);
+template <typename T>
+constexpr int kHubThreads = 32 * kHubWarps<T>;
 
+// Bytes of one stage: hub_k rows of x's K-slice.
+template <typename T, int V>
+__host__ __device__ inline size_t hub_stage_bytes(int64_t k_width, int hub_k) {
+  return rc::hub_stage_part<T, V>(hub_k, rc::hub_stride(k_width, 32 * V *
+                                                        rc::vectors_per_lane<T, V>()));
+}
+
+// The pipelined hub forward (row_chunks.cuh: hub_pipeline): every K-slice
+// in turn, each slice's hub rows in a stage of the arena filled by the fill
+// warp (`tma`: bulk copies, else cp.async), the slice's chunks walked by
+// max_fwd_chunk as the kernel without the hub walks them.
 template <typename T, typename ArgT, int V>
-__global__ void __launch_bounds__(32 * kHubWarps<T>, 1)
+__global__ void __launch_bounds__(kHubThreads<T>, 1)
 spmm_max_fwd_hub_kernel(const T* __restrict__ x, rc::Table table,
                         const int* __restrict__ idx, const int* __restrict__ ids,
                         int hub_k, T* __restrict__ out, ArgT* __restrict__ arg,
                         float* __restrict__ partial_val, int* __restrict__ partial_src,
-                        int64_t k_width, float empty_value) {
+                        int* __restrict__ tickets, int64_t k_width, float empty_value,
+                        int n_slices, int tma) {
   constexpr int J = rc::vectors_per_lane<T, V>();
-  __shared__ int ticket;
-  const rc::HubLane h = rc::hub_lane<V, J>(k_width);
+  __shared__ rc::HubPipe pipe;
   const int stride = rc::hub_stride(k_width, 32 * V * J);
-  T* arena = reinterpret_cast<T*>(rc::hub_smem());
-  rc::fill_arena<T, V>(arena, x, ids, hub_k, stride, h.slice0, k_width);
-  if (threadIdx.x == 0) ticket = 0;
-  __syncthreads();
-  MaxFwdHubOp<T, V, J> op{{x, k_width}, arena + h.lane * V, stride, ids};
+  const int pitch = rc::hub_pitch<T, V>(stride);
+  const size_t stage_bytes = hub_stage_bytes<T, V>(k_width, hub_k);
+  const int lane = threadIdx.x & 31;
+  auto stage = [&](int st) {
+    return reinterpret_cast<T*>(rc::hub_smem() + st * stage_bytes);
+  };
+  auto fill = [&](int s, int st) {
+    const int64_t slice0 = static_cast<int64_t>(s) * stride;
+    const int len = static_cast<int>(k_width - slice0 < stride ? k_width - slice0 : stride);
+    if (lane == 0) {
+      if (tma) {
+        rc::mbar_arrive_tx(&pipe.full[st], rc::hub_fill_bytes<T>(hub_k, len));
+      } else {
+        rc::mbar_arrive(&pipe.full[st]);
+      }
+    }
+    __syncwarp();
+    rc::hub_fill_rows<T, V>(stage(st), x, ids, hub_k, pitch, len, slice0, k_width, tma != 0,
+                            &pipe.full[st], lane);
+    if (!tma) rc::cp_async_arrive(&pipe.full[st]);
+  };
+  MaxFwdHubOp<T, V, J> op{{x, k_width}, nullptr, pitch, ids};
   const PosArgs none{nullptr, nullptr, 0, 0};
-  rc::hub_walk(table, &ticket, [&](int64_t c) {
-    max_fwd_chunk<T, ArgT, V, J, true, false>(table, c, idx, h.lane, h.k0, h.nvec, op, out,
-                                              arg, partial_val, partial_src, k_width,
-                                              empty_value, none);
+  rc::hub_pipeline(table, pipe, tickets, n_slices, tma ? 1 : 33, fill,
+                   [&](int s, int st, int c) {
+    const int64_t k0 = static_cast<int64_t>(s) * stride + lane * V;
+    op.arena = stage(st) + lane * V;
+    max_fwd_chunk<T, ArgT, V, J, true, false>(
+        table, c, idx, lane, k0, rc::lane_vectors<V, J>(k0, k_width), op, out, arg,
+        partial_val, partial_src, k_width, empty_value, none);
   });
 }
 
@@ -499,22 +542,29 @@ int launch_arg(int arg_bits, bool positional, const void* x, const rc::Table& ta
 template <typename T, typename ArgT, int V>
 int launch_hub_v(const void* x, const rc::Table& table, const int* idx, const int* ids,
                  int hub_k, const int* split_row, const int* split_ptr, int64_t n_split,
-                 void* out, void* arg, void* partial_val, void* partial_src,
-                 int64_t k_width, float empty_value, cudaStream_t stream) {
+                 void* out, void* arg, void* partial_val, void* partial_src, int* tickets,
+                 int64_t n_tickets, int64_t k_width, float empty_value,
+                 cudaStream_t stream) {
   if constexpr (V * sizeof(T) > 16) {
     return cudaErrorInvalidValue;  // never chosen: vector_width caps V
   } else {
     constexpr int J = rc::vectors_per_lane<T, V>();
+    if (rc::hub_shifted<T, V>() && reinterpret_cast<uintptr_t>(x) % 4 != 0) {
+      return cudaErrorInvalidValue;  // the shifted rows' words need 4-byte rows
+    }
     auto kernel = spmm_max_fwd_hub_kernel<T, ArgT, V>;
-    const size_t smem = rc::hub_smem_bytes<T, V>(k_width, hub_k);
+    const size_t smem = rc::kHubStages * hub_stage_bytes<T, V>(k_width, hub_k);
     dim3 grid, combine_grid;
-    const int rc_setup = rc::hub_setup(kernel, smem, kHubWarps<T>, table.n_chunks, n_split,
-                                       k_width, 32 * V * J, &grid, &combine_grid);
+    int n_slices = 0;
+    const int rc_setup =
+        rc::hub_pipe_setup(kernel, smem, kHubWarps<T>, table.n_chunks, n_split, k_width, 32 * V * J,
+                           n_tickets, &grid, &combine_grid, &n_slices);
     if (rc_setup != cudaSuccess) return rc_setup;
-    kernel<<<grid, 32 * kHubWarps<T>, smem, stream>>>(
+    const int tma = rc::hub_route<T, V>(k_width, x) ? 1 : 0;
+    kernel<<<grid, kHubThreads<T>, smem, stream>>>(
         static_cast<const T*>(x), table, idx, ids, hub_k, static_cast<T*>(out),
         static_cast<ArgT*>(arg), static_cast<float*>(partial_val),
-        static_cast<int*>(partial_src), k_width, empty_value);
+        static_cast<int*>(partial_src), tickets, k_width, empty_value, n_slices, tma);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 0) return err;
     const PosArgs none{nullptr, nullptr, 0, 0};
@@ -527,17 +577,25 @@ int launch_hub_v(const void* x, const rc::Table& table, const int* idx, const in
   }
 }
 
-// warps[0], warps[1]: the warps an SM holds of the hub kernel and of the
-// kernel without the hub.
+// info[0], info[1]: the warps an SM holds of the hub kernel and of the
+// kernel without the hub; info[2] the arena's stages, info[3] the hub
+// blocks an SM holds, info[4] 1 where the fill takes the TMA route at this
+// K (rows 16-byte multiples), 0 for cp.async: the route K gives 16-byte
+// aligned tensors (a launch also checks its own).
 template <typename T, typename ArgT, int V>
-int hub_warps_v(int64_t k_width, int hub_k, int* warps) {
+int hub_warps_v(int64_t k_width, int hub_k, int* info) {
   if constexpr (V * sizeof(T) > 16) {
     return cudaErrorInvalidValue;
   } else {
-    warps[0] = rc::warps_per_sm(spmm_max_fwd_hub_kernel<T, ArgT, V>, 32 * kHubWarps<T>,
-                                rc::hub_smem_bytes<T, V>(k_width, hub_k));
-    warps[1] = rc::warps_per_sm(spmm_max_fwd_kernel<T, ArgT, V, true, false>, rc::kThreads,
-                                0);
+    auto kernel = spmm_max_fwd_hub_kernel<T, ArgT, V>;
+    const size_t smem = rc::kHubStages * hub_stage_bytes<T, V>(k_width, hub_k);
+    const int blocks = rc::pipe_blocks_per_sm(kernel, kHubThreads<T>, smem);
+    info[0] = blocks < 0 ? -1 : blocks * kHubThreads<T> / 32;
+    info[1] = rc::warps_per_sm(spmm_max_fwd_kernel<T, ArgT, V, true, false>, rc::kThreads,
+                               0);
+    info[2] = rc::kHubStages;
+    info[3] = blocks;
+    info[4] = rc::hub_route<T, V>(k_width, nullptr) ? 1 : 0;
     return cudaSuccess;
   }
 }
@@ -591,16 +649,18 @@ extern "C" int spmm_max_fwd(int dtype, int arg_bits, const void* x,
 
 // The hub instantiation of spmm_max_fwd (with the id-based argmax, 16 or 32
 // bits): the chunk table and split rows as spmm_max_fwd's, idx the coded
-// src and ids its k slots' node ids (the forward's graph_format.HubTable).
-// Returns the CUDA error code of the launches.
+// src and ids its k slots' node ids (the forward's graph_format.HubTable);
+// tickets: n_tickets int32 zeros, at least one a K-slice, left zero (one
+// buffer serves a stream's launches).  Returns the CUDA error code of the
+// launches.
 extern "C" int spmm_max_fwd_hub(int dtype, int arg_bits, const void* x,
                                 const void* chunk_row, const void* chunk_ptr,
                                 const void* chunk_slot, long long n_chunks,
                                 const void* idx, const void* ids, int hub_k,
                                 const void* split_row, const void* split_ptr,
                                 long long n_split, void* out, void* arg, void* partial_val,
-                                void* partial_src, long long k_width, float empty_value,
-                                void* stream) {
+                                void* partial_src, void* tickets, long long n_tickets,
+                                long long k_width, float empty_value, void* stream) {
   if (n_chunks == 0 || k_width == 0) return cudaSuccess;
   if (n_chunks > 2147483647LL || hub_k < 0) return cudaErrorInvalidValue;
   const rc::Table table{static_cast<const int*>(chunk_row),
@@ -619,23 +679,25 @@ extern "C" int spmm_max_fwd_hub(int dtype, int arg_bits, const void* x,
         return launch_hub_v<T, ArgT, decltype(vw)::value>(
             x, table, static_cast<const int*>(idx), static_cast<const int*>(ids), hub_k,
             static_cast<const int*>(split_row), static_cast<const int*>(split_ptr), n_split,
-            out, arg, partial_val, partial_src, k_width, empty_value,
-            static_cast<cudaStream_t>(stream));
+            out, arg, partial_val, partial_src, static_cast<int*>(tickets), n_tickets,
+            k_width, empty_value, static_cast<cudaStream_t>(stream));
       });
     });
   });
 }
 
-// The warps an SM holds of spmm_max_fwd_hub's kernel (warps[0]) and of
-// the kernel without the hub (warps[1]) at this dtype, argmax, K and k, as
-// the card's occupancy calculator gives them; launches nothing.
+// The warps an SM holds of spmm_max_fwd_hub's kernel (info[0]) and of the
+// kernel without the hub (info[1]) at this dtype, argmax, K and k, as the
+// card's occupancy calculator gives them, then the arena's stages, the hub
+// blocks an SM holds and the fill route at this K (1 TMA, 0 cp.async;
+// info holds 5 ints); launches nothing.
 extern "C" int spmm_max_fwd_hub_warps(int dtype, int arg_bits, long long k_width, int hub_k,
-                                      int* warps) {
+                                      int* info) {
   return rc::with_dtype(dtype, [&](auto t) {
     using T = decltype(t);
     return rc::with_arg_bits(arg_bits, [&](auto a) {
       return rc::with_vector_width(rc::vector_width(k_width, sizeof(T), {}), [&](auto vw) {
-        return hub_warps_v<T, decltype(a), decltype(vw)::value>(k_width, hub_k, warps);
+        return hub_warps_v<T, decltype(a), decltype(vw)::value>(k_width, hub_k, info);
       });
     });
   });

@@ -21,8 +21,11 @@ What carries over and what does not:
   package's ``(kb + 1) * stride * 2 * esize`` holds fused gradient and
   argmax rows.  The budget is ``HUB_SMEM_BYTES``: the card's 227 KB a
   block (``SMEM_BLOCK_BYTES``) less 1 KB for the kernels' own shared
-  memory, since a hub block takes a whole SM (as many warps as the SM
-  holds of the kernel without the hub).
+  memory.  The max kernels' arena is pipelined, two stages of one K-slice
+  each (``csrc/row_chunks.cuh: hub_pipeline``), so a stage gets half of it
+  (``stage_budget``): k <= 113 rows of 1 KB forward, 75 of 1.5 KB backward
+  in float32 with an int16 argmax, 56 of 2 KB in bfloat16 or with an int32
+  one.  The sum keeps one stage.
 * Not ported, and why: ``_hub_machinery`` and ``_make_steal`` (:433-510)
   walk a separate stream of hub edges one group at a time and interleave
   it, Bresenham-paced, with the regular DMA-ring groups, so that the
@@ -34,26 +37,34 @@ What carries over and what does not:
   merge and no tie rule: the first maximum and the float32 add order are
   those of the kernels without the hub by construction.
 
-``auto``: 0 in both directions, in float32 and bfloat16, because every hub
-kernel measured slower than the kernel without the hub at every k tried.
-``chip_smoke.py`` phase 3h, NVIDIA H100 80GB HBM3, 700.00 W, the 24,041-node
-graph at the first layer's K, ms with the hub at k = 32 / 64 / 128 / 226
-(the backward's largest k halved to fit) against the kernel without it:
+``auto``: 0 in both directions, for every reduction and message size, on
+one card and on a mesh shard's interior pass.  It would take, for each,
+the k at which the hub kernel beat the kernel without the hub at the first
+layer's shape by more than the run-to-run spread of the kernel without the
+hub, provided GNN32's ms/epoch with it was not slower; no hub kernel beat
+it anywhere.  ``chip_smoke.py --only-hub`` (phase 3h, 4h), NVIDIA H100 80GB
+HBM3, 700.00 W, the 24,041-node graph at the first layer's K (5,030: the cp.async fill
+route), ms by k, at k = 0 (the structure with an empty arena), and the
+kernel without the hub (the range of its 4 runs):
 
-  max forward f32   2.348 / 2.351 / 2.331 / 2.435   against 1.896
-  max backward f32  3.235 / 3.219 / 3.296 / 3.299   against 2.720
-  sum forward f32   1.552 / 1.524 / 1.510 / 1.503   against 1.283
-  sum transpose f32 1.564 / 1.533 / 1.513 / 1.543   against 1.289
-  max forward bf16  1.525 / 1.557 / 1.651 / 1.880   against 1.396
-  max backward bf16 2.292 / 2.304 / 2.436 (k 113)    against 2.091
-  sum forward bf16  0.883 / 0.871 / 0.863 / 0.866   against 0.735
-  sum transpose bf16 0.834 / 0.827 / 0.820 / 0.817  against 0.688
+  max forward f32   32/64/75/113: 2.249/2.223/2.215/2.343, k=0 2.228; 1.974-1.996
+  max backward f32  32/56/64/75:  2.998/2.920/3.304/3.372, k=0 3.055; 2.764-2.833
+  max forward bf16  32/64/75/113: 1.599/1.660/1.582/1.601, k=0 1.565; 1.389-1.450
+  max backward bf16 32/37/56:     2.112/2.106/2.284,       k=0 2.162; 2.077-2.133
+  sum forward f32   32/64/128/226: 1.598/1.590/1.513/1.524;            1.313-1.331
+  sum transpose f32 32/64/128/226: 1.602/1.564/1.502/1.536;            1.314-1.343
 
-with as many warps an SM as without the hub in each.  Phase 4g's
-330,112-node graph (id-based, K = 8 x 503) is no better: 42.918 against
-38.264 ms forward f32, 87.706 against 77.198 backward (on one card the
-engine takes no hub past 2^15 nodes anyway: that graph is positional).  An
-explicit k runs the hub kernels; on a mesh, on each rank's interior pass
+(the sum keeps its one-block-a-slice design; bfloat16 sums 0.836-0.898
+against 0.692-0.720).  GNN32 with ``--hub-cache 128`` (k = 64 / 64 in
+float32, 64 / 32 in bfloat16) ran 70.813 ms/epoch against 70.409 without in
+float32, 70.299 against 70.104 in bfloat16 (phase 4h, the same run).  At
+330,112 nodes (phase 4g, id-based, int32 argmax, K = 8 x 503: the TMA
+route) the full script's run read, with the hub against without it at the
+rule's K-slice: forward f32 39.008 / 35.823 ms (k = 64), backward f32
+79.940 / 70.311 (k = 32), bf16 21.401 / 21.231 and 68.419 / 56.086; on the
+mesh's interior shards (phase 4s) the hub kernels ran 32-92% slower at
+P = 2 and 4.  So "auto" takes no hub on a shard either.  An explicit k runs
+the hub kernels; on a mesh, on each rank's interior pass
 (``parallel/partition.py``), whose shards are id-based at any size.
 """
 from __future__ import annotations
@@ -66,6 +77,9 @@ HUB_SLICE_BYTES = 1024
 SMEM_BLOCK_BYTES = 232_448
 # Bytes an arena may take: a block's 227 KB less 1 KB for the kernel's own.
 HUB_SMEM_BYTES = SMEM_BLOCK_BYTES - 1024
+# Stages of an arena: the max kernels' pipelined hub holds two K-slices'
+# rows at once (csrc/row_chunks.cuh: hub_pipeline), the sum's one.
+HUB_STAGES = {"max": 2, "sum": 1}
 
 
 def arena_stride(k_width: int, esize: int) -> int:
@@ -75,25 +89,33 @@ def arena_stride(k_width: int, esize: int) -> int:
 
 
 def arena_bytes(k: int, k_width: int, esize: int, arg_size: int = 0) -> int:
-    """Shared memory of an arena of k rows: the gathered operand's slice,
+    """Shared memory of one stage of k rows: the gathered operand's slice,
     plus the argmax's (``arg_size`` bytes an element; the max backward)."""
     return k * arena_stride(k_width, esize) * (esize + arg_size)
 
 
-def pick_hub_sizes(hub_cache, k_width: int, esize: int,
-                   arg_size: int = 2) -> Tuple[int, int]:
+def stage_budget(reduce: str = "max") -> int:
+    """Bytes one stage of the ``reduce`` kernels' arena may take: the
+    budget shared by its stages."""
+    return HUB_SMEM_BYTES // HUB_STAGES[reduce]
+
+
+def pick_hub_sizes(hub_cache, k_width: int, esize: int, arg_size: int = 2,
+                   reduce: str = "max") -> Tuple[int, int]:
     """(k_fwd, k_bwd) for aggregations K = ``k_width`` elements wide of
     ``esize``-byte messages: the forward's arena (max forward, sum) and
     the transpose's (max backward with an ``arg_size``-byte argmax,
     ``spmm_kernels.argmax_bytes`` of the graph that carries the hub; the
-    sum's VJP needs less), each halved until it fits ``HUB_SMEM_BYTES``."""
+    sum's VJP needs less), each halved until a stage fits the ``reduce``
+    kernels' ``stage_budget``."""
     if hub_cache in ("off", "0", 0, None, "auto"):  # auto: the hub loses (above)
         return 0, 0
     kf = kb = int(hub_cache)
     if kf < 0:
         raise ValueError(f"hub_cache must be 'auto', 'off' or k >= 0, got {hub_cache!r}")
-    while kf and arena_bytes(kf, k_width, esize) > HUB_SMEM_BYTES:
+    budget = stage_budget(reduce)
+    while kf and arena_bytes(kf, k_width, esize) > budget:
         kf //= 2
-    while kb and arena_bytes(kb, k_width, esize, arg_size) > HUB_SMEM_BYTES:
+    while kb and arena_bytes(kb, k_width, esize, arg_size) > budget:
         kb //= 2
     return kf, kb

@@ -294,14 +294,16 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 # idx (the coded index), ids, hub_k (int) in place of the chunk table and
 # index:
 #   spmm_max_fwd_hub: dtype, arg_bits, x, <hub>, split_row, split_ptr,
-#                     n_split, out, arg, partial_val, partial_src, k,
-#                     empty_value (float), stream
+#                     n_split, out, arg, partial_val, partial_src, tickets,
+#                     n_tickets, k, empty_value (float), stream
 #   spmm_max_bwd_hub: dtype, arg_bits, g, arg, <hub>, split_row, split_ptr,
-#                     n_split, dx, partial, k, stream
+#                     n_split, dx, partial, tickets, n_tickets, k, stream
 #   spmm_sum_hub:     dtype, x, <hub>, split_row, split_ptr, n_split, out,
 #                     partial, k, stream
-# and *_hub_warps (dtype, [arg_bits,] k, hub_k, a pointer to two ints)
-# launch nothing: they get the warps an SM holds with and without the hub.
+# (tickets: _hub_tickets) and *_hub_warps (dtype, [arg_bits,] k, hub_k, a
+# pointer to five ints for the max kernels, two for the sum) launch
+# nothing: they get the warps an SM holds with and without the hub, and
+# the max kernels' stages, hub blocks an SM and fill route.
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _CHUNKS = [_P, _P, _P, _LL]
 _POS = [_I, _P, _P, _I]
@@ -313,8 +315,8 @@ _ARGTYPES = {
     "spmm_max_bwd": [_I, _I, _P, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, *_POS, _P,
                      _P, _I, _P],
     "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _P, _LL, _P, _P, _LL, _P],
-    "spmm_max_fwd_hub": [_I, _I, _P, *_HUB, *_SPLIT, _P, _P, _P, _P, _LL, _F, _P],
-    "spmm_max_bwd_hub": [_I, _I, _P, _P, *_HUB, *_SPLIT, _P, _P, _LL, _P],
+    "spmm_max_fwd_hub": [_I, _I, _P, *_HUB, *_SPLIT, _P, _P, _P, _P, _P, _LL, _LL, _F, _P],
+    "spmm_max_bwd_hub": [_I, _I, _P, _P, *_HUB, *_SPLIT, _P, _P, _P, _LL, _LL, _P],
     "spmm_sum_hub": [_I, _P, *_HUB, *_SPLIT, _P, _P, _LL, _P],
     "spmm_max_fwd_hub_warps": [_I, _I, _LL, _I, _P],
     "spmm_max_bwd_hub_warps": [_I, _I, _LL, _I, _P],
@@ -408,24 +410,65 @@ def _hub_args(chunks, hub: HubTable):
     return (*chunks[:4], hub.idx.data_ptr(), hub.ids.data_ptr(), hub.k, *chunks[5:])
 
 
+# The pipelined max hub kernels' per-slice chunk tickets by (device,
+# stream): zeros that each launch leaves zero (its last draw of a slice's
+# ticket resets it), so the launches of a stream, in its order, share one.
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _hub_tickets(k: int, device: torch.device) -> torch.Tensor:
+    """The tickets of the launches at width ``k`` on ``device``'s current
+    stream: one for each K-slice of at least 256 elements
+    (``csrc/row_chunks.cuh: hub_pipeline``); zeroed once, when first needed
+    or outgrown."""
+    n = -(-k // 256)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
+
+
+def _hub_info(kind: str, dtype: torch.dtype, k_width: int, hub_k: int,
+              arg_type: torch.dtype):
+    """The ``*_hub_warps`` entry's ints for ``kind`` (five for the max
+    kernels, two for the sum)."""
+    code = _DTYPE_CODE[dtype][0]
+    info = (ctypes.c_int * 5)()
+    if kind in ("max_fwd", "max_bwd"):
+        rc = _fn(f"spmm_{kind}", f"spmm_{kind}_hub_warps")(
+            code, _ARG_BITS[arg_type], k_width, int(hub_k), info)
+    elif kind == "sum":
+        rc = _fn("spmm_sum", "spmm_sum_hub_warps")(code, k_width, int(hub_k), info)
+    else:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    if rc != 0:
+        raise RuntimeError(f"{kind} occupancy query failed: CUDA error {rc}")
+    return list(info)
+
+
 def hub_warps(kind: str, dtype: torch.dtype, k_width: int, hub_k: int,
               arg_type: torch.dtype = torch.int16) -> Tuple[int, int]:
     """(warps an SM holds with the hub, without it) for ``kind``
     ("max_fwd", "max_bwd", "sum") at this dtype, K and arena of ``hub_k``
     rows, as the card's occupancy calculator gives them; launches nothing.
     Needs the card and the built library."""
-    code = _DTYPE_CODE[dtype][0]
-    warps = (ctypes.c_int * 2)()
-    if kind in ("max_fwd", "max_bwd"):
-        rc = _fn(f"spmm_{kind}", f"spmm_{kind}_hub_warps")(
-            code, _ARG_BITS[arg_type], k_width, int(hub_k), warps)
-    elif kind == "sum":
-        rc = _fn("spmm_sum", "spmm_sum_hub_warps")(code, k_width, int(hub_k), warps)
-    else:
-        raise ValueError(f"unknown kernel kind {kind!r}")
-    if rc != 0:
-        raise RuntimeError(f"{kind} occupancy query failed: CUDA error {rc}")
-    return warps[0], warps[1]
+    info = _hub_info(kind, dtype, k_width, hub_k, arg_type)
+    return info[0], info[1]
+
+
+def hub_layout(kind: str, dtype: torch.dtype, k_width: int, hub_k: int,
+               arg_type: torch.dtype = torch.int16) -> Dict[str, object]:
+    """The pipelined max hub kernel's layout for ``kind`` ("max_fwd",
+    "max_bwd") at this dtype, K, k and argmax: the arena's stages, the hub
+    blocks an SM holds and the fill route that K's alignment gives ("tma"
+    or "cp.async"; ``csrc/row_chunks.cuh: hub_route``: a launch takes it
+    where its tensors are 16-byte aligned, as fresh ones are), as its
+    library gives them;
+    launches nothing.  Needs the card and the built library."""
+    info = _hub_info(kind, dtype, k_width, hub_k, arg_type)
+    return {"stages": info[2], "blocks_per_sm": info[3],
+            "route": "tma" if info[4] else "cp.async"}
 
 
 # ---------------------------------------------------------------------------
@@ -517,11 +560,13 @@ def spmm_max_fwd(
         partial_src = torch.empty(partial_val.shape, dtype=torch.int32, device=x.device)
         bits = _ARG_BITS[adt]
     if use_hub:
+        tickets = _hub_tickets(k, x.device)
         with torch.cuda.device(x.device):
             rc = fn(
                 code, bits, x.data_ptr(), *_hub_args(chunks, graph.hub),
                 out.data_ptr(), arg.data_ptr(), partial_val.data_ptr(),
-                partial_src.data_ptr(), k, float(empty_value), _stream(x))
+                partial_src.data_ptr(), tickets.data_ptr(), tickets.numel(), k,
+                float(empty_value), _stream(x))
         if rc != 0:
             raise RuntimeError(f"spmm_max_fwd_hub launch failed: CUDA error {rc}")
         _count(f"spmm_max_fwd_hub_{tag}", graph, k)
@@ -610,11 +655,12 @@ def spmm_max_bwd(graph: Graph, g: torch.Tensor, arg: torch.Tensor, *,
     dx = torch.empty_like(g)
     chunks, partial = _chunk_args(graph, True, k, g.device)
     if graph.t_hub is not None:
+        tickets = _hub_tickets(k, g.device)
         with torch.cuda.device(g.device):
             rc = fn(
                 code, _ARG_BITS[arg.dtype], g.data_ptr(), arg.data_ptr(),
-                *_hub_args(chunks, graph.t_hub), dx.data_ptr(), partial.data_ptr(), k,
-                _stream(g))
+                *_hub_args(chunks, graph.t_hub), dx.data_ptr(), partial.data_ptr(),
+                tickets.data_ptr(), tickets.numel(), k, _stream(g))
         if rc != 0:
             raise RuntimeError(f"spmm_max_bwd_hub launch failed: CUDA error {rc}")
         _count(f"spmm_max_bwd_hub_{tag}", graph, k)

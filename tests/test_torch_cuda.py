@@ -870,9 +870,19 @@ def _hub_fixture_graph(row_chunk=ROW_CHUNK):
 HUB_CASES = [(8, 1024, ROW_CHUNK), (100, 1024, ROW_CHUNK), (16, 111, 8), (64, 5030, ROW_CHUNK)]
 
 
-def _hub_pair(src, dst, n, k, row_chunk, card):
+def _hub_pair(src, dst, n, k, row_chunk, card, sizes=None):
+    """The graph without and with a hub of k rows both ways, or of
+    ``sizes`` (k_fwd, k_bwd)."""
     g0 = build_graph(src, dst, n, row_chunk=row_chunk)
-    return g0.to(card), g0.with_hub(k, k).to(card)
+    return g0.to(card), g0.with_hub(*(sizes or (k, k))).to(card)
+
+
+def _max_hub_sizes(hub_k, k, dtype, arg_size=2):
+    """k of the max hub kernels at K = k: hub_k halved until a stage of
+    the pipelined arena fits (ops/hub.py: pick_hub_sizes)."""
+    from plagnn_tpu_torch.ops.hub import pick_hub_sizes
+
+    return pick_hub_sizes(str(hub_k), k, torch.finfo(dtype).bits // 8, arg_size)
 
 
 def _tag(dtype):
@@ -885,8 +895,11 @@ def test_hub_max_kernels_match_no_hub_and_plain(card, dtype, hub_k, k, row_chunk
     """Forward out and argmax bit-exact against the kernel without the hub
     and the plain version; dx bit-identical to the kernel without the hub,
     against plain within 1e-5 of the hit magnitudes (float32) or 1 ulp
-    (bfloat16, small-integer gradients)."""
-    g0, gh = _hub_pair(*_hub_fixture_graph(), hub_k, row_chunk, card)
+    (bfloat16, small-integer gradients).  k is halved until the pipelined
+    arena's stages fit (k = 100 at K = 1,024: 64 backward in float32, 32 in
+    bfloat16)."""
+    g0, gh = _hub_pair(*_hub_fixture_graph(), hub_k, row_chunk, card,
+                       _max_hub_sizes(hub_k, k, dtype))
     gen = torch.Generator(device=card).manual_seed(k)
     x = (torch.round(torch.randn((g0.n_nodes, k), generator=gen, device=card) * 4) / 4)
     x = x.relu_().to(dtype)
@@ -1025,10 +1038,10 @@ def test_hub_kernels_on_shards_match_no_hub_and_plain(card, form, hub_k, k, dtyp
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     tag = _tag(dtype)
     for i, g in enumerate(_hub_shard_interiors(form)):
-        gh = g.with_hub(hub_k, hub_k).to(card)
+        gh = g.with_hub(*_max_hub_sizes(hub_k, k, dtype, 4 if form == "id32" else 2)).to(card)
         g0 = g.to(card)
         assert sk.arg_dtype(g0) == (torch.int32 if form == "id32" else torch.int16)
-        assert (gh.hub.n_hub < hub_k) == (form == "dummy") and gh.hub.n_covered > 0
+        assert (gh.hub.n_hub < gh.hub.k) == (form == "dummy") and gh.hub.n_covered > 0
         gen = torch.Generator(device=card).manual_seed(k + i)
         x = torch.round(torch.randn((g0.n_nodes, k), generator=gen, device=card) * 4) / 4
         x = x.relu_().to(dtype)
@@ -1064,13 +1077,157 @@ def test_hub_arena_past_the_card_refused(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_hub_warps_query(card, dtype):
     """The occupancy entry points: a hub block holds as many warps of an SM
-    as the kernel without the hub at the path's first-layer widths, and
-    the query launches nothing."""
+    as the kernel without the hub at the path's first-layer widths (the
+    float32 max kernels' pipelined blocks 4 fewer: csrc/row_chunks.cuh,
+    hub_warps), and the query launches nothing."""
     before = dict(sk.LAUNCHES)
     for kind, k_width in (("max_fwd", 5030), ("max_bwd", 5030), ("sum", 4000)):
-        with_hub, without = sk.hub_warps(kind, dtype, k_width, 64)
-        assert with_hub == without > 0, (kind, with_hub, without)
+        hub_k = _max_hub_sizes(64, k_width, dtype)[kind == "max_bwd"] if kind != "sum" else 64
+        with_hub, without = sk.hub_warps(kind, dtype, k_width, hub_k)
+        cut = 4 if kind != "sum" and dtype == torch.float32 else 0
+        assert with_hub == without - cut > 0, (kind, with_hub, without)
     assert sk.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The pipelined max hub kernels (csrc/row_chunks.cuh: hub_pipeline): one
+# persistent block an SM over every K-slice, a two-stage arena filled by
+# TMA bulk copies (16-byte rows) or cp.async.  Bit-exact against the kernels
+# without the hub at every fill route, slice count, argmax and k.
+# ---------------------------------------------------------------------------
+
+
+def _pipe_graph(form):
+    """The hub fixture graph with rows split into chunks of 8 (a hub row's
+    edges across chunks), or 40,000 nodes id-based (an int32 argmax), or
+    few distinct sources under a 64-row hub (slots with no edge)."""
+    rng = np.random.default_rng(5)
+    if form == "split":
+        src, dst, n = _hub_fixture_graph()
+        return build_graph(src, dst, n, row_chunk=8)
+    if form == "id32":
+        n = 40_000
+        src = np.concatenate([rng.integers(0, 30, 5000), rng.integers(0, n, 3000)])
+        dst = rng.integers(0, n, 8000)
+        pairs = np.unique(np.stack([src, dst], 1), axis=0)
+        return build_graph(pairs[:, 0], pairs[:, 1], n, positional=False, row_chunk=8)
+    n = 300
+    src = rng.integers(0, 20, 2000)
+    dst = rng.integers(0, n, 2000)
+    pairs = np.unique(np.stack([src, dst], 1), axis=0)
+    return build_graph(pairs[:, 0], pairs[:, 1], n)
+
+
+def _zero_hub(g):
+    """g with hub tables of k = 0 both ways (the structure, no arena)."""
+    import dataclasses
+
+    from plagnn_tpu_torch.ops.graph_format import hub_table
+
+    return dataclasses.replace(
+        g, hub=hub_table(g.src.cpu().numpy(), g.n_nodes, 0, g.device),
+        t_hub=hub_table(g.t_dst.cpu().numpy(), g.n_nodes, 0, g.device))
+
+
+# The fill route of each K of PIPE_CASES for every message and argmax size:
+# TMA where each filled row's bytes are a multiple of 16.
+PIPE_ROUTES = {5030: "cp.async", 4000: "tma", 3000: "tma", 1200: "tma", 1024: "tma",
+               130: "cp.async", 111: "cp.async"}
+# (graph, K, k): K = 5,030 (8 mod 16 bytes a row: the cp.async route, 20 /
+# 10 slices), 4,000 and 3,000 (the TMA route, 16 / 8 and 12 / 6 slices),
+# 1,200 (5 / 3 slices: S odd), 130 and 111 (one slice, narrower than it; 111
+# odd: bf16 and int16 rows copied as covering words); k = 0, 1, 32 and the
+# largest that fits ("max"); an int32 argmax; slots with no edge
+PIPE_CASES = [("split", 5030, 0), ("split", 5030, 1), ("split", 5030, "max"),
+              ("split", 4000, 32), ("split", 4000, "max"), ("split", 3000, 32),
+              ("split", 1200, 32), ("split", 130, "max"), ("split", 111, 32),
+              ("id32", 5030, 32), ("id32", 4000, "max"), ("id32", 1200, 1),
+              ("id32", 111, 16), ("dummy", 1024, 64), ("dummy", 130, 64)]
+
+
+@pytest.mark.parametrize("empty_value", [0.0, -np.inf])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form,k,hub_k", PIPE_CASES)
+def test_pipelined_hub_bit_exact(card, form, k, hub_k, dtype, empty_value):
+    """Forward out and argmax bit-exact and dx bit-identical against the
+    kernels without the hub, two launches equal bit for bit, one hub launch
+    each; the layout the library reports (two stages, one block an SM, the
+    route K's alignment gives)."""
+    from plagnn_tpu_torch.ops.hub import HUB_SMEM_BYTES, arena_bytes
+
+    g = _pipe_graph(form)
+    esize = torch.finfo(dtype).bits // 8
+    asize = 4 if form == "id32" else 2
+    if hub_k == "max":
+        kf = max(q for q in range(1, 300) if arena_bytes(q, k, esize) <= HUB_SMEM_BYTES // 2)
+        kb = max(q for q in range(1, 300)
+                 if arena_bytes(q, k, esize, asize) <= HUB_SMEM_BYTES // 2)
+        gh = g.with_hub(kf, kb)
+    elif hub_k == 0:
+        kf = kb = 0
+        gh = _zero_hub(g)
+    else:
+        kf, kb = _max_hub_sizes(hub_k, k, dtype, asize)
+        gh = g.with_hub(kf, kb)
+    g0, gh = g.to(card), gh.to(card)
+    arg_type = torch.int32 if form == "id32" else torch.int16
+    assert sk.arg_dtype(g0) == arg_type
+    if form == "dummy":
+        assert gh.hub.n_hub < gh.hub.k
+    for kind, kk in (("max_fwd", kf), ("max_bwd", kb)):
+        lay = sk.hub_layout(kind, dtype, k, kk, arg_type)
+        assert lay == {"stages": 2, "blocks_per_sm": 1, "route": PIPE_ROUTES[k]}, (kind, lay)
+    gen = torch.Generator(device=card).manual_seed(k + kf)
+    x = torch.round(torch.randn((g0.n_nodes, k), generator=gen, device=card) * 4) / 4
+    x = x.relu_().to(dtype)
+    gr = torch.randint(-8, 9, (g0.n_nodes, k), generator=gen, device=card).to(dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    tag = _tag(dtype)
+    before = {d: sk.LAUNCHES[f"spmm_max_{d}_hub_{tag}"] for d in ("fwd", "bwd")}
+    out, arg = sk.spmm_max_fwd(gh, x, empty_value=empty_value)
+    dx = sk.spmm_max_bwd(gh, gr, arg)
+    torch.cuda.synchronize()
+    assert all(sk.LAUNCHES[f"spmm_max_{d}_hub_{tag}"] == c + 1 for d, c in before.items())
+    out0, arg0 = sk.spmm_max_fwd(g0, x, empty_value=empty_value)
+    assert torch.equal(out.view(bits), out0.view(bits)) and torch.equal(arg, arg0)
+    assert torch.equal(dx.view(bits), sk.spmm_max_bwd(g0, gr, arg0).view(bits))
+    out2, arg2 = sk.spmm_max_fwd(gh, x, empty_value=empty_value)
+    assert torch.equal(out2.view(bits), out.view(bits)) and torch.equal(arg2, arg)
+    assert torch.equal(sk.spmm_max_bwd(gh, gr, arg).view(bits), dx.view(bits))
+
+
+def test_pipelined_hub_tickets_left_zero(card):
+    """The per-slice tickets are one buffer a stream that every launch
+    leaves zero (its last draw resets each slice's): launches at two widths
+    and both directions reuse it, and it reads zero after each."""
+    g = _pipe_graph("split")
+    gh = g.with_hub(*_max_hub_sizes(32, 4000, torch.float32)).to(card)
+    ptrs = set()
+    for k in (4000, 1200, 4000):
+        x = torch.rand((gh.n_nodes, k), device=card)
+        out, arg = sk.spmm_max_fwd(gh, x)
+        sk.spmm_max_bwd(gh, x, arg)
+        torch.cuda.synchronize()
+        tickets = sk._TICKETS[x.device, torch.cuda.current_stream(x.device).cuda_stream]
+        assert tickets.numel() >= -(-4000 // 256) and not tickets.any()
+        ptrs.add(tickets.data_ptr())
+    assert len(ptrs) == 1
+
+
+def test_pipelined_hub_past_the_stages_refused(card):
+    """A stage past half the arena's budget is refused, never cut: 114 rows
+    of 1 KB forward (228 KB in two stages), 76 of 1.5 KB backward."""
+    src, dst, n = _hub_fixture_graph()
+    g0 = build_graph(src, dst, n)
+    x = torch.ones((g0.n_nodes, 1024), device=card)
+    with pytest.raises(RuntimeError, match="spmm_max_fwd_hub launch failed"):
+        sk.spmm_max_fwd(g0.with_hub(114, 0).to(card), x)
+    _, arg = sk.spmm_max_fwd(g0.to(card), x)
+    with pytest.raises(RuntimeError, match="spmm_max_bwd_hub launch failed"):
+        sk.spmm_max_bwd(g0.with_hub(0, 76).to(card), x, arg)
+    sk.spmm_max_fwd(g0.with_hub(113, 0).to(card), x)
+    sk.spmm_max_bwd(g0.with_hub(0, 75).to(card), x, arg)
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------

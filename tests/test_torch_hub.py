@@ -193,25 +193,84 @@ def test_positional_and_mesh_refuse_a_hub():
 
 def test_pick_hub_sizes_values_and_halving():
     """The accepted values (JAX's off family gives (0, 0) in both), auto
-    0 in both directions and dtypes (the hub lost everywhere it was
-    measured), and the halving at a wide K: an arena row is 1 KB
-    forward, 1 KB + 512 bytes (int16 argmax) backward in float32, narrower
-    at a narrow K; the budget is a block's 227 KB less 1 KB."""
+    0 in both directions, dtypes and reductions (the hub lost everywhere it
+    was measured), and the halving at a wide K: an arena row is
+    1 KB forward, 1 KB + 512 bytes (int16 argmax) backward in float32,
+    narrower at a narrow K; the max kernels' budget a stage is half a
+    block's 227 KB less 1 KB (two stages), the sum's the whole of it."""
     for off in ("off", "0", 0, None):
         assert hub_mod.pick_hub_sizes(off, 5030, 4) == (0, 0) == jax_pick_hub_sizes(off, 5030, 4)
     for esize in (4, 2):
-        assert hub_mod.pick_hub_sizes("auto", 5030, esize) == (0, 0)
+        for reduce in ("max", "sum"):
+            assert hub_mod.pick_hub_sizes("auto", 5030, esize, reduce=reduce) == (0, 0)
     assert hub_mod.pick_hub_sizes("8", 5030, 4) == hub_mod.pick_hub_sizes(8, 5030, 4) == (8, 8)
-    # 1000 rows: 1000 KB forward, 1500 KB backward -> halved to fit 226 KB
-    assert hub_mod.pick_hub_sizes("1000", 5030, 4) == (125, 125)
-    assert hub_mod.arena_bytes(125, 5030, 4, 2) == 192_000 <= hub_mod.HUB_SMEM_BYTES
-    assert hub_mod.pick_hub_sizes("226", 5030, 4) == (226, 113)
-    assert hub_mod.pick_hub_sizes("128", 5030, 2) == (128, 64)   # bf16: 2 KB rows backward
-    assert hub_mod.pick_hub_sizes("512", 120, 4) == (256, 256)   # K = 120: 480-byte rows
+    # 1000 rows: 1000 KB forward, 1500 KB backward -> halved to fit 113 KB
+    assert hub_mod.pick_hub_sizes("1000", 5030, 4) == (62, 62)
+    assert hub_mod.arena_bytes(62, 5030, 4, 2) == 95_232 <= hub_mod.stage_budget("max")
+    assert hub_mod.pick_hub_sizes("226", 5030, 4) == (113, 56)
+    assert hub_mod.pick_hub_sizes("128", 5030, 2) == (64, 32)   # bf16: 2 KB rows backward
+    assert hub_mod.pick_hub_sizes("512", 120, 4) == (128, 128)  # K = 120: 480-byte rows
+    # the sum keeps one stage: the whole budget
+    assert hub_mod.pick_hub_sizes("1000", 5030, 4, reduce="sum") == (125, 125)
+    assert hub_mod.pick_hub_sizes("512", 120, 4, reduce="sum") == (256, 256)
     assert hub_mod.arena_stride(120, 4) == 120 and hub_mod.arena_stride(5030, 2) == 512
-    assert hub_mod.HUB_SMEM_BYTES == 231_424
+    assert hub_mod.HUB_SMEM_BYTES == 231_424 and hub_mod.stage_budget("max") == 115_712
     with pytest.raises(ValueError):
         hub_mod.pick_hub_sizes("-1", 5030, 4)
+
+
+# The largest (k_fwd, k_bwd) a stage of the pipelined max arena holds at
+# K = 5,030 / 4,000 / 3,000 by (message bytes, argmax bytes): 1 KB rows
+# forward; backward 1.5 KB in float32 with an int16 argmax, 2 KB with an
+# int32 one or in bfloat16 (512 elements of 2 + 2 bytes), 3 KB in bfloat16
+# with an int32 argmax (512 x (2 + 4)).
+STAGE_FITS = {(4, 2): (113, 75), (4, 4): (113, 56), (2, 2): (113, 56), (2, 4): (113, 37)}
+
+
+@pytest.mark.parametrize("arg_size", [2, 4])
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("k_width", [5030, 4000, 3000])
+def test_two_stage_sizing(k_width, esize, arg_size):
+    """At each layer's K, message size and argmax: the largest k whose
+    stage fits half the budget is kept as asked and one more is halved;
+    the halving from 128 and 226; the sum's one stage holds twice the
+    rows."""
+    kf, kb = STAGE_FITS[esize, arg_size]
+    budget = hub_mod.stage_budget("max")
+    assert hub_mod.arena_bytes(kf, k_width, esize) <= budget
+    assert hub_mod.arena_bytes(kf + 1, k_width, esize) > budget
+    assert hub_mod.arena_bytes(kb, k_width, esize, arg_size) <= budget
+    assert hub_mod.arena_bytes(kb + 1, k_width, esize, arg_size) > budget
+    pick = hub_mod.pick_hub_sizes
+    assert pick(str(kf), k_width, esize, arg_size)[0] == kf
+    assert pick(str(kb), k_width, esize, arg_size)[1] == kb
+    assert pick(str(kf + 1), k_width, esize, arg_size)[0] == (kf + 1) // 2
+    assert pick(str(kb + 1), k_width, esize, arg_size)[1] == (kb + 1) // 2
+    assert pick("128", k_width, esize, arg_size) == (64, 64 if kb >= 64 else 32)
+    assert pick("226", k_width, esize, arg_size) == (113, 56 if kb >= 56 else 28)
+    sf, sb = pick("226", k_width, esize, arg_size, reduce="sum")
+    assert sf == 226 and hub_mod.arena_bytes(sb, k_width, esize, arg_size) <= 2 * budget
+
+
+@pytest.mark.parametrize("agg,esize", [(None, 4), ("bfloat16", 2)])
+@pytest.mark.parametrize("model", ["gnn32", "gcn2"])
+def test_resolve_hub_takes_auto_policy(model, agg, esize, monkeypatch):
+    """resolve_hub's ``"auto"`` takes no hub for GNN32 (either message
+    size) or GCN2, on one card, on a mesh (fold-only too), and past 2^15
+    padded nodes on one card."""
+    from plagnn_tpu_torch.utils import precision
+
+    monkeypatch.setattr(precision, "_AGG_DTYPE", None if agg is None else torch.bfloat16)
+    src, dst = _hub_graph(np.random.default_rng(2))
+    g = build_graph(src, dst, N_REAL)
+    cfg = dict(hub_cache="auto", model=model, fold_batch=10)
+    assert engine.resolve_hub(TrainConfig(**cfg), g, 503) == (0, 0)
+    for mesh in ({"mesh_graph": 2}, {"mesh_fold": 2}):
+        assert engine.resolve_hub(TrainConfig(**cfg, **mesh), g, 503,
+                                  shard_rows=g.n_nodes) == (0, 0)
+    big = build_graph(np.array([40000, 5, 7]), np.array([3, 3, 40000]), 40001,
+                      positional=False)
+    assert engine.resolve_hub(TrainConfig(**cfg), big, 503) == (0, 0)
 
 
 def _train_bundle(tmp_dir, **cfg_kw):

@@ -104,23 +104,24 @@ def test_shard_without_a_hub_is_unchanged():
 def test_resolve_hub_on_a_mesh_sizes_at_b_local():
     """On a mesh k is sized at the rank's fold batch, fold_batch //
     mesh_fold (JAX's b_local): at K = 10 x 13 on one device a 1,000-row
-    arena halves to 250, at the fold-only mesh's 5 x 13 to 500."""
+    arena halves to 125 (a stage of the max kernels' two), at the fold-only
+    mesh's 5 x 13 to 250."""
     g = build_graph(np.arange(5), np.arange(1, 6), 10)
     cfg = dict(hub_cache="1000", fold_batch=10, hidden=(13, 9, 7, 5))
-    assert engine.resolve_hub(engine.TrainConfig(**cfg), g, 5) == (250, 250)
+    assert engine.resolve_hub(engine.TrainConfig(**cfg), g, 5) == (125, 125)
     mesh = engine.TrainConfig(mesh_fold=2, **cfg)
-    assert engine.resolve_hub(mesh, g, 5, shard_rows=g.n_nodes) == (500, 500) == \
+    assert engine.resolve_hub(mesh, g, 5, shard_rows=g.n_nodes) == (250, 250) == \
         hub_mod.pick_hub_sizes("1000", 5 * 13, 4)
     assert engine.resolve_hub(engine.TrainConfig(mesh_graph=2, **cfg), g, 5,
-                              shard_rows=g.n_nodes) == (250, 250)
+                              shard_rows=g.n_nodes) == (125, 125)
 
 
 def test_shard_past_2_15_rows_takes_an_int32_hub():
     """A shard whose gather space passes 2^15 rows (70,000 nodes in 2
     blocks, few edges) carries the int32 argmax: resolve_hub halves k_bwd
-    (its arena holds 4 bytes an element: 128 rows of 1 KB + 1 KB pass 227
-    KB) where the same k fits with an int16 argmax, and takes no 2^15
-    guard on a mesh.  The shard's interior takes that hub, and its plain
+    (its arena holds 4 bytes an element: 64 rows of 1 KB + 1 KB pass a
+    stage's 113 KB) where the same k fits with an int16 argmax, and takes
+    no 2^15 guard on a mesh.  The shard's interior takes that hub, and its plain
     versions give the same bits with and without it."""
     rng = np.random.default_rng(5)
     n = 70_000
@@ -131,10 +132,10 @@ def test_shard_past_2_15_rows_takes_an_int32_hub():
     assert pg.n_pad > (1 << 15) and sk.argmax_bytes(pg.n_pad) == 4
     cfg = engine.TrainConfig(hub_cache="128", mesh_graph=2, fold_batch=10)
     kf, kb = engine.resolve_hub(cfg, None, 503, shard_rows=pg.n_pad)
-    assert (kf, kb) == (128, 64)
-    assert engine.resolve_hub(cfg, None, 503, shard_rows=1 << 15) == (128, 128)
-    assert hub_mod.arena_bytes(128, 5030, 4, 4) > hub_mod.HUB_SMEM_BYTES \
-        >= hub_mod.arena_bytes(64, 5030, 4, 4)
+    assert (kf, kb) == (64, 32)
+    assert engine.resolve_hub(cfg, None, 503, shard_rows=1 << 15) == (64, 64)
+    assert hub_mod.arena_bytes(64, 5030, 4, 4) > hub_mod.stage_budget("max") \
+        >= hub_mod.arena_bytes(32, 5030, 4, 4)
     shard = pg.shard(0, "cpu", kf, kb)
     g = shard.interior
     assert sk.arg_dtype(g) == torch.int32 and g.hub.n_covered > 0
