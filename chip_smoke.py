@@ -32,18 +32,18 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    share of edges whose row the arena serves, each direction); at every
    width each path aggregates (max: K = 10 x 503 / 400 / 300; sum: 10 x 400
    and 10 x 12), float32 and bfloat16, at "auto"'s k where it has one and
-   at each of HUB_KS halved to fit (pick_hub_sizes: the max kernels' two
-   stages, the sum's one), every hub kernel against the same kernel
+   at each of HUB_KS halved to fit (pick_hub_sizes: every hub kernel's
+   two stages), every hub kernel against the same kernel
    without the hub (forward out and argmax bit-exact, dx and sums
    bit-identical, and each run to run), and at the first of those k
    against its own plain version with phase 3's tolerances; the fill route
    (TMA or cp.async) each max width takes.  At the first layer's shapes
-   each hub kernel is timed by k, and each max one at k = 0 (its structure
-   with an empty arena), beside the kernel without the hub (CUDA events,
-   median of 10, in turns), with the warps an SM holds of each (the card's
-   occupancy calculator), the max arena's stages and blocks an SM, its
-   plain version and its bytes bound (the kernel's without the hub; the
-   arenas' fill bytes in a field of their own) at HUB_MAIN_K's sizes.
+   each hub kernel is timed by k and at k = 0 (its structure with an empty
+   arena), beside the kernel without the hub (CUDA events, median of 10,
+   in turns), with the warps an SM holds of each (the card's occupancy
+   calculator), the arena's stages, blocks an SM and fill route, its plain
+   version and its bytes bound (the kernel's without the hub; the arenas'
+   fill bytes in a field of their own) at HUB_MAIN_K's sizes.
    3d. The gather probe (plagnn_tpu_torch/bench/dma_ceiling.py, the
    counterpart of benchmarks/dma_ceiling.py: _dma_kernel): the kernel
    bit-equal to its plain version at every shape of the module's
@@ -251,19 +251,20 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
 entries and stops.
 
 ``--only-hub`` runs phases 1-2, phase 3's layer-1 checks on the full
-graph, phase 3h, the max hub kernels' structure at k = 0 against the
-kernels without the hub twice in turns (with ``--hub-parent DIR`` also the
-package tree at DIR, another commit's unpacked, in a process of its own:
-DIR, this, this, DIR), and phase 4h on a bundle of its own; prints the
-hub entries and stops.
+graph, phase 3h, the hub kernels' structure against the kernels without
+the hub twice in turns (the max pair at k = 0 and phase 3h's k, the sum at
+k = 0 and at SUM_STRUCTURE_KS; with ``--hub-parent DIR`` also the package tree at DIR,
+another commit's unpacked, in a process of its own: DIR, this, this, DIR),
+and phase 4h on a bundle of its own; prints the hub entries and stops.
 
 ``--only-planner`` runs phases 1-2, 4m (c) and 4q on a synthetic bundle
 of its own and stops.  ``--only-mesh-hub`` runs phases 1-2 and 4s on a
-bundle of its own ((b) on config 5's edges from powerlaw_ppi; with
-``--hub-parent DIR`` then the hub kernels of the tree at DIR and of this
-one on (b)'s shard at k = 0 and BIG_SHARD_PAIRS beside the kernels without
-the hub at 1 KB, in turns: DIR, this, this, DIR), prints the phase's
-kernels entries and stops.
+bundle of its own ((b) on config 5's edges from powerlaw_ppi), then the
+hub kernels on (b)'s shard: the max pair at k = 0 and BIG_SHARD_PAIRS beside
+the kernels without the hub at 1 KB, the sum at k = 0 beside the sum
+without the hub, this tree twice in turns (with ``--hub-parent DIR`` the
+tree at DIR too: DIR, this, this, DIR); prints the phase's kernels entries
+and stops.
 
 ``--sweep-slice`` runs phases 1-2 and then times the max kernels at every
 K-slice width at layer 1 on the 24k-node graph, the mesh path's shards, a
@@ -394,11 +395,15 @@ SWEEP_MIN_BLOCKS = (1, 3, 4, 5, 6)
 BIG_TIES = 64           # phase 4g's all-equal column block: columns [0, 64)
 BIG_MEGA_COLS = 64      # then columns whose top row's maximum is past the rank cap
 LIB_SLICE_BYTES = 4 << 30  # phase 4g's library yardstick: gathered bytes a slice
-# phase 3h: the explicit hub sizes tried by reduction (each halved to fit
-# by pick_hub_sizes: the max kernels' two stages take k <= 113 at 1 KB
-# rows), and the k of the main path's hub runs (phase 4h)
-HUB_KS = {"max": (32, 64, 75, 113), "sum": (32, 64, 128, 226)}
+# phase 3h: the explicit hub sizes tried (each halved to fit by
+# pick_hub_sizes: two stages take k <= 113 at 1 KB rows), and the k of the
+# main path's hub runs (phase 4h)
+HUB_KS = (32, 64, 75, 113)
 HUB_MAIN_K = 128
+# --only-hub: the k (both ways) at which the sum's structure timing also
+# runs the hub, every one held by both the two-stage arena and a one-stage
+# arena of an older tree
+SUM_STRUCTURE_KS = (32, 64, 113)
 # phase 4s: the hub sizes tried on the 24k graph's interior shards (each
 # halved to fit), the k of their kernels-line entries and of the CLI mesh
 # runs (d), those runs' epochs and dtypes; (b) and (c) take HUB_MAIN_K
@@ -879,7 +884,7 @@ def auto_hub(model, tag):
     from plagnn_tpu_torch.ops.hub import pick_hub_sizes
 
     if model == "gcn2":
-        return pick_hub_sizes("auto", FOLDS * GCN2_HIDDEN, 4)
+        return pick_hub_sizes("auto", FOLDS * GCN2_HIDDEN, 4, 0)
     return pick_hub_sizes("auto", FOLDS * F_IN, 4 if tag == "f32" else 2)
 
 
@@ -2993,7 +2998,7 @@ def big_hub_check(host, gi, x32, results, smi_line):
 
     ids_host = dataclasses.replace(host, positional=False, t_rank=None, mega_of=None,
                                    n_mega=0)
-    print(f"big graph hub coverage: {hub_coverage(ids_host, sorted({*HUB_KS['max'], 128, 256}))}",
+    print(f"big graph hub coverage: {hub_coverage(ids_host, sorted({*HUB_KS, 128, 256}))}",
           flush=True)
     n, k = x32.shape
     e = gi.n_edges
@@ -3037,7 +3042,7 @@ def big_hub_check(host, gi, x32, results, smi_line):
                 name, f"spmm_max_{kind}", err, times[kind], plain,
                 results[f"spmm_max_{kind}_{tag}@n{n}"]["library_ms"], nbytes, ops, (n, k),
                 kk, {kk: times[kind]}, {"hub": warps[0], "without": warps[1]}, fill)
-            r.update(hub_layout_fields(kind, dt, k, kk, torch.int32),
+            r.update(hub_layout_fields(f"max_{kind}", dt, k, kk, torch.int32),
                      ms_k0=times[kind + "_k0"], ms_without=times[kind + "0"])
             print(f"  {name}: k={kk} {r['ms']:.3f} ms, without the hub "
                   f"{times[kind + '0']:.3f}, k=0 {r['ms_k0']:.3f}; warps an SM holds "
@@ -3214,40 +3219,70 @@ def layer1_inputs(n, dt):
 
 
 def hub_structure(full, reps=10):
-    """The hub max kernels at k = 0 (hub tables with no slot: the structure
-    with an empty arena) against the kernels without the hub, at layer 1's
-    K, f32 and bf16: out and argmax bit-exact, dx bit-identical, and each
-    timed (CUDA events, median of ``reps``) in turns: without, k = 0, k = 0,
-    without.  Uses the package on sys.path, so it also times an older tree
-    (``--structure-child``)."""
+    """The hub kernels' structure against the kernels without the hub, f32
+    and bf16: the max pair at layer 1's K at k = 0 (hub tables with no slot:
+    the structure with an empty arena) and at each of phase 3h's (k_fwd,
+    k_bwd) (hub_sizes), out and argmax bit-exact, dx bit-identical; the sum
+    forward and transpose at GCN2 conv1's K at k = 0 and at each of
+    SUM_STRUCTURE_KS both ways, bit-identical.  Each form is timed (CUDA
+    events, median of ``reps``) in turns: without, the hub forms, the hub
+    forms, without.  Uses the package on sys.path, so it also times an
+    older tree (``--structure-child``)."""
     import torch
 
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     g0 = full.to("cuda")
     gz = zero_hub(full).to("cuda")
+    graphs = {}
+
+    def hub_graph(kf, kb):
+        if (kf, kb) not in graphs:
+            graphs[kf, kb] = full.with_hub(kf, kb).to("cuda")
+        return graphs[kf, kb]
+
+    sum_graphs = {"k0": gz}
+    sum_graphs.update((f"k{kk}", hub_graph(kk, kk)) for kk in SUM_STRUCTURE_KS)
     times = {}
     for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         x, g = layer1_inputs(full.n_nodes, dt)
         out0, arg0 = sk.spmm_max_fwd(g0, x)
-        out, arg = sk.spmm_max_fwd(gz, x)
-        dx0, dx = sk.spmm_max_bwd(g0, g, arg0), sk.spmm_max_bwd(gz, g, arg0)
-        if not (torch.equal(bits_of(out), bits_of(out0)) and torch.equal(arg, arg0)
-                and torch.equal(bits_of(dx), bits_of(dx0))):
-            fail(f"hub structure {tag}: k = 0 differs from the kernels without the hub")
+        dx0 = sk.spmm_max_bwd(g0, g, arg0)
+        fwd_graphs, bwd_graphs = {"k0": gz}, {"k0": gz}
+        for kf, kb in hub_sizes(x.shape[1], x.element_size()):
+            fwd_graphs.setdefault(f"k{kf}", hub_graph(kf, kb))
+            bwd_graphs.setdefault(f"k{kb}", hub_graph(kf, kb))
+        for name, gh in [*fwd_graphs.items(), *bwd_graphs.items()]:
+            out, arg = sk.spmm_max_fwd(gh, x)
+            dx = sk.spmm_max_bwd(gh, g, arg0)
+            if not (torch.equal(bits_of(out), bits_of(out0)) and torch.equal(arg, arg0)
+                    and torch.equal(bits_of(dx), bits_of(dx0))):
+                fail(f"hub structure {tag}: max {name} differs from the kernels without "
+                     f"the hub")
         del out, out0, arg, dx, dx0
+        xs = g[:, :FOLDS * GCN2_HIDDEN].contiguous()
+        kinds = [("max fwd", lambda gr: (lambda: sk.spmm_max_fwd(gr, x)), fwd_graphs),
+                 ("max bwd", lambda gr: (lambda: sk.spmm_max_bwd(gr, g, arg0)), bwd_graphs)]
+        for transpose in (False, True):
+            want = sk.spmm_sum_rows(g0, xs, transpose)
+            for name, gh in sum_graphs.items():
+                if not torch.equal(bits_of(sk.spmm_sum_rows(gh, xs, transpose)), bits_of(want)):
+                    fail(f"hub structure {tag}: sum {name} differs from the kernel without "
+                         f"the hub")
+            kinds.append((f"sum {'transpose' if transpose else 'fwd'}",
+                          lambda gr, tr=transpose: (lambda: sk.spmm_sum_rows(gr, xs, tr)),
+                          sum_graphs))
         t = times[tag] = {}
-        for kind, run0, runz in (
-                ("fwd", lambda: sk.spmm_max_fwd(g0, x), lambda: sk.spmm_max_fwd(gz, x)),
-                ("bwd", lambda: sk.spmm_max_bwd(g0, g, arg0),
-                 lambda: sk.spmm_max_bwd(gz, g, arg0))):
-            a = median_ms(run0, reps)
-            b = median_ms(runz, reps)
-            c = median_ms(runz, reps)
-            d = median_ms(run0, reps)
-            t[kind] = {"without": [a, d], "k0": [b, c]}
-        del x, g, arg0
+        for kind, run, forms in kinds:
+            v = t[kind] = {"without": []}
+            v.update((name, []) for name in forms)
+            order = [("without", g0), *forms.items()]
+            for name, gr in order + order[::-1]:
+                v[name].append(median_ms(run(gr), reps))
+        del x, g, xs, arg0
         torch.cuda.empty_cache()
+    del graphs, sum_graphs
+    torch.cuda.empty_cache()
     return times
 
 
@@ -3293,10 +3328,11 @@ def older_structure(root, shard_file=None):
 
 
 def hub_structure_phase(full, parent, smi_line):
-    """The hub kernels' structure apart from their arena (k = 0) against the
-    kernels without the hub at layer 1's shapes: this tree's, and where
-    ``parent`` names another tree (``--hub-parent``), that tree's too, in
-    turns: parent, this, this, parent."""
+    """The hub kernels' structure (the max pair at k = 0 and phase 3h's k,
+    the sum at k = 0 and SUM_STRUCTURE_KS) against the kernels without the hub at each
+    path's first-layer shape: this tree's, and where ``parent`` names
+    another tree (``--hub-parent``), that tree's too, in turns: parent,
+    this, this, parent."""
     runs = []
     if parent:
         runs.append(("parent", older_structure(parent)))
@@ -3308,21 +3344,23 @@ def hub_structure_phase(full, parent, smi_line):
         for tag, t in times.items():
             for kind, v in t.items():
                 w = statistics.median(v["without"])
-                z = statistics.median(v["k0"])
-                print(f"hub structure ({tree} tree) max {kind} {tag} K={FOLDS * F_IN}: k=0 "
-                      f"{[round(a, 3) for a in v['k0']]} ms, without the hub "
-                      f"{[round(a, 3) for a in v['without']]} ms: {z / w:.4f}x; {smi_line}",
+                k = FOLDS * (F_IN if kind.startswith("max") else GCN2_HIDDEN)
+                forms = "; ".join(f"{name} {[round(a, 3) for a in ms]} ms "
+                                  f"({statistics.median(ms) / w:.4f}x)"
+                                  for name, ms in v.items() if name != "without")
+                print(f"hub structure ({tree} tree) {kind} {tag} K={k}: without the hub "
+                      f"{[round(a, 3) for a in v['without']]} ms; {forms}; {smi_line}",
                       flush=True)
 
 
-def hub_sizes(k_width, esize, arg_size=2, reduce="max"):
+def hub_sizes(k_width, esize, arg_size=2):
     """The (k_fwd, k_bwd) pairs phase 3h runs at this K and message size
-    for the ``reduce`` kernels: "auto"'s where it has a hub, and each of
-    HUB_KS halved to fit."""
+    (``arg_size``: the max backward's argmax bytes, 0 for the sum): "auto"'s
+    where it has a hub, and each of HUB_KS halved to fit."""
     from plagnn_tpu_torch.ops.hub import pick_hub_sizes
 
-    pairs = [pick_hub_sizes("auto", k_width, esize, arg_size, reduce)]
-    pairs += [pick_hub_sizes(str(k), k_width, esize, arg_size, reduce) for k in HUB_KS[reduce]]
+    pairs = [pick_hub_sizes("auto", k_width, esize, arg_size)]
+    pairs += [pick_hub_sizes(str(k), k_width, esize, arg_size) for k in HUB_KS]
     return sorted({p for p in pairs if p[0] and p[1]})
 
 
@@ -3417,7 +3455,7 @@ def hub_kernel_phase(full, x_full, results, smi_line):
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     print(f"full graph hub coverage (share of edges whose row the arena serves): "
-          f"{hub_coverage(full, sorted({*HUB_KS['max'], 128, 256}))}", flush=True)
+          f"{hub_coverage(full, sorted({*HUB_KS, 128, 256}))}", flush=True)
     g0 = full.to("cuda")
     hub_graphs = {}
 
@@ -3459,7 +3497,7 @@ def hub_kernel_phase(full, x_full, results, smi_line):
         # -- the sum, forward and transpose, at K = 10 x 400 and 10 x 12 --------
         for width in SUM_WIDTHS:
             k = FOLDS * width
-            pairs = hub_sizes(k, esize, 0, "sum")
+            pairs = hub_sizes(k, esize, 0)
             x = torch.randint(-8, 9, (n, k), generator=gen, device="cuda").to(dt)
             if dt == torch.float32:
                 x = x + torch.randn((n, k), generator=gen, device="cuda")
@@ -3494,12 +3532,15 @@ def hub_entry(name, source, err, ms, plain, lib, nbytes, ops, shape, k, by_k, wa
     return r
 
 
-def hub_layout_fields(kind, dt, k, kk, arg_type):
-    """A max hub entry's layout fields: the arena's stages, the hub blocks
-    an SM holds and the fill route at this K (spmm_kernels.hub_layout)."""
+def hub_layout_fields(kind, dt, k, kk, arg_type=None):
+    """A hub entry's layout fields for ``kind`` ("max_fwd", "max_bwd",
+    "sum"): the arena's stages, the hub blocks an SM holds and the fill
+    route at this K (spmm_kernels.hub_layout)."""
+    import torch
+
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
-    lay = sk.hub_layout(f"max_{kind}", dt, k, kk, arg_type)
+    lay = sk.hub_layout(kind, dt, k, kk, arg_type or torch.int16)
     return {"stages": lay["stages"], "blocks_per_sm": lay["blocks_per_sm"],
             "fill_route": lay["route"]}
 
@@ -3557,7 +3598,7 @@ def hub_max_times(g0, with_hub, pairs, x, g, tag, results, smi_line):
             name, f"spmm_max_{kind}", err, t[kind][kk], plain, base["library_ms"], nbytes,
             ops, (n, k), kk, t[kind], {"hub": warps, "without": warps0}, fill)
         without = statistics.median(t[f"{kind}0"])
-        r.update(hub_layout_fields(kind, x.dtype, k, kk, torch.int16),
+        r.update(hub_layout_fields(f"max_{kind}", x.dtype, k, kk),
                  ms_k0=statistics.median(t[f"{kind}_k0"]), ms_without=without,
                  without_runs=t[f"{kind}0"], k0_runs=t[f"{kind}_k0"])
         print(f"  {name}: k={kk} {r['ms']:.3f} ms, without the hub {without:.3f} "
@@ -3571,22 +3612,32 @@ def hub_max_times(g0, with_hub, pairs, x, g, tag, results, smi_line):
 
 def hub_sum_times(g0, with_hub, pairs, x, tag, results, smi_line):
     """Phase 3h's times of the hub sum at GCN2 conv1's K, forward and
-    transpose, as hub_max_times does for the max."""
+    transpose, as hub_max_times does for the max: by k and at k = 0 beside
+    the kernel without the hub (median of 10 each, in turns), the warps an
+    SM holds, the arena's stages, blocks an SM and fill route, and its
+    plain version at HUB_MAIN_K's sizes."""
+    import torch
+
     from plagnn_tpu_torch.ops import spmm_kernels as sk
     from plagnn_tpu_torch.ops.hub import pick_hub_sizes
 
     n, k = x.shape
     e = g0.n_edges
     esize = x.element_size()
-    main = pick_hub_sizes(str(HUB_MAIN_K), k, esize, 0, "sum")
+    main = pick_hub_sizes(str(HUB_MAIN_K), k, esize, 0)
+    gz = zero_hub(g0)
     for transpose, kk, direction in ((False, main[0], "fwd"), (True, main[1], "bwd")):
-        by_k, base_runs, warps = {}, [], {}
+        by_k, base_runs, k0_runs, warps = {}, [], [], {}
         for pair in pairs:
             kh = pair[1] if transpose else pair[0]
             gh = with_hub(pair)
             base_runs.append(median_ms(lambda: sk.spmm_sum_rows(g0, x, transpose), 10))
             by_k[kh] = median_ms(lambda: sk.spmm_sum_rows(gh, x, transpose), 10)
+            k0_runs.append(median_ms(lambda: sk.spmm_sum_rows(gz, x, transpose), 10))
             warps[kh] = sk.hub_warps("sum", x.dtype, k, kh)[0]
+        if not torch.equal(bits_of(sk.spmm_sum_rows(gz, x, transpose)),
+                           bits_of(sk.spmm_sum_rows(g0, x, transpose))):
+            fail(f"hub sum {direction} {tag}: k = 0 differs from the kernel without the hub")
         gh = with_hub(main)
         out_p, plain = timed_ms(lambda: sk.spmm_sum_plain(gh, x, transpose))
         err = (sk.spmm_sum_rows(gh, x, transpose).float() - out_p.float()).abs().max().item()
@@ -3597,11 +3648,16 @@ def hub_sum_times(g0, with_hub, pairs, x, tag, results, smi_line):
             name, "spmm_sum", err, by_k[kk], plain, base["library_ms"],
             2 * n * k * esize + 4 * (n + 1 + e), e * k, (n, k), kk, by_k,
             {"hub": warps, "without": sk.hub_warps("sum", x.dtype, k, kk)[1]}, fill)
-        print(f"  {name}: k={kk} {r['ms']:.3f} ms, without the hub "
-              f"{statistics.median(base_runs):.3f} (runs {[round(v, 3) for v in base_runs]}); "
-              f"by k {_by_k(by_k)}; warps an SM holds {r['warps_per_sm']}; plain "
-              f"{plain:.3f}, library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
-              f"{r['bound_by']} (arena fill {fill / 1e6:.1f} MB); {smi_line}", flush=True)
+        without = statistics.median(base_runs)
+        r.update(hub_layout_fields("sum", x.dtype, k, kk), ms_k0=statistics.median(k0_runs),
+                 ms_without=without, without_runs=base_runs, k0_runs=k0_runs)
+        print(f"  {name}: k={kk} {r['ms']:.3f} ms, without the hub {without:.3f} "
+              f"(runs {[round(v, 3) for v in base_runs]}); k=0 {r['ms_k0']:.3f} (runs "
+              f"{[round(v, 3) for v in k0_runs]}); by k {_by_k(by_k)}; warps an SM holds "
+              f"{r['warps_per_sm']}; {r['stages']} stages, {r['blocks_per_sm']} block(s) an "
+              f"SM, fill route {r['fill_route']}; plain {plain:.3f}, library "
+              f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']} (arena "
+              f"fill {fill / 1e6:.1f} MB); {smi_line}", flush=True)
 
 
 def same_files(label, got_dir, want_dir):
@@ -3656,7 +3712,7 @@ def hub_train_phase(data_root, results, smi_line):
     shutil.rmtree(log, ignore_errors=True)
     dirs = {}
     for hub in ("off", str(HUB_MAIN_K)):
-        pair = pick_hub_sizes(hub, FOLDS * GCN2_HIDDEN, 4, reduce="sum")
+        pair = pick_hub_sizes(hub, FOLDS * GCN2_HIDDEN, 4, 0)
         path = os.path.join(data_root, f"log_gcn2_hub_{hub}")
         reset_launches()
         t0 = time.perf_counter()
@@ -3776,7 +3832,7 @@ def shard_hub_entries(results, prefix, host, own_rows, k, dt, tag, main, per_ran
             {"hub": warps, "without": warps0}, fill)
         e.update(rank=r, ms_without=statistics.median(tr[f"{kind}0"]),
                  argmax_bytes=asize, edges=host[r].n_edges, ms_k0=tr[f"{kind}_k0"],
-                 **hub_layout_fields(kind, dt, k, kk, arg_type))
+                 **hub_layout_fields(f"max_{kind}", dt, k, kk, arg_type))
         w0 = sk.LAUNCH_SLICES.get(
             (f"spmm_max_{kind}_{'empty_' if kind == 'fwd' else ''}{tag}", host[r].n_nodes, k))
         at_1kb = ""
@@ -3880,9 +3936,11 @@ def shard_structure(host, own_rows, reps=10):
     inputs: the kernels without the hub at the hub's 1 KB K-slice, the hub
     kernels at k = 0 and at each of BIG_SHARD_PAIRS whose arena the tree
     holds, the -inf forward and the backward; out, argmax and dx bit-equal
-    to the kernels without the hub, each form timed (CUDA events, median of
-    ``reps``) in turns, there and back.  Uses the package on sys.path, so
-    it also times an older tree (``--structure-child``)."""
+    to the kernels without the hub; then the sum without the hub and at
+    k = 0, forward (of x) and transpose (of g: "bwd"), bit-identical.  Each
+    form timed (CUDA events, median of ``reps``) in turns, there and back.
+    Uses the package on sys.path, so it also times an older tree
+    (``--structure-child``)."""
     import torch
 
     from plagnn_tpu_torch.ops import spmm_kernels as sk
@@ -3922,15 +3980,31 @@ def shard_structure(host, own_rows, reps=10):
         times[name]["fwd"].append(median_ms(
             lambda: sk.spmm_max_fwd(gh, x, empty_value=ninf, **kw), reps))
         times[name]["bwd"].append(median_ms(lambda: sk.spmm_max_bwd(gh, g, arg0, **kw), reps))
-    del forms, x, g, arg0
+    del forms, arg0
+    sums = {"sum_without": g0, "sum_k0": zero_hub(host).to("cuda")}
+    for inp, transpose in ((x, False), (g, True)):
+        want = sk.spmm_sum_rows(g0, inp, transpose)
+        if not torch.equal(bits_of(sk.spmm_sum_rows(sums["sum_k0"], inp, transpose)),
+                           bits_of(want)):
+            fail(f"big shard structure sum_k0 ({'transpose' if transpose else 'forward'}): "
+                 f"differs from the sum without the hub")
+        del want
+    order = list(sums)
+    for name in order + order[::-1]:
+        gh = sums[name]
+        t = times.setdefault(name, {"fwd": [], "bwd": []})
+        t["fwd"].append(median_ms(lambda: sk.spmm_sum_rows(gh, x), reps))
+        t["bwd"].append(median_ms(lambda: sk.spmm_sum_rows(gh, g, True), reps))
+    del sums, x, g
     torch.cuda.empty_cache()
     return times
 
 
 def big_shard_structure_phase(host, own_rows, parent, smi_line):
-    """``--only-mesh-hub --hub-parent DIR``: shard_structure on (b)'s shard
-    for the tree at DIR (in a process of its own) and this one, in turns:
-    DIR, this, this, DIR; with each hub size's coverage."""
+    """``--only-mesh-hub``: shard_structure on (b)'s shard for this tree
+    twice and, where ``parent`` names another tree (``--hub-parent DIR``),
+    for that one too (in a process of its own), in turns: DIR, this, this,
+    DIR; with each hub size's coverage."""
     import torch
 
     parts = []
@@ -3944,15 +4018,17 @@ def big_shard_structure_phase(host, own_rows, parent, smi_line):
         path = os.path.join(tmp, "shard.pt")
         torch.save({"host": host, "own_rows": own_rows}, path)
         torch.cuda.empty_cache()
-        runs = [("parent", older_structure(parent, path))]
+        runs = [("parent", older_structure(parent, path))] if parent else []
         runs += [("this", shard_structure(host, own_rows)) for _ in range(2)]
-        runs.append(("parent", older_structure(parent, path)))
+        if parent:
+            runs.append(("parent", older_structure(parent, path)))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for tree, times in runs:
         for name, t in times.items():
+            back = "transpose" if name.startswith("sum") else "backward"
             print(f"big shard structure ({tree} tree) f32 K={BIG_FOLDS * F_IN} {name}: forward "
-                  f"{[round(a, 3) for a in t['fwd']]} ms, backward "
+                  f"{[round(a, 3) for a in t['fwd']]} ms, {back} "
                   f"{[round(a, 3) for a in t['bwd']]} ms; {smi_line}", flush=True)
 
 
@@ -4139,8 +4215,9 @@ def mesh_hub_phase(data_root, results, smi_line):
 def mesh_hub_only(parent, smi_line):
     """``--only-mesh-hub``: phase 4s on a synthetic bundle of its own, (b)
     on config 5's edges from powerlaw_ppi (the graph ``synth`` writes)
-    with their self-loops, then with ``parent`` big_shard_structure_phase;
-    prints the phase's kernels entries."""
+    with their self-loops, then big_shard_structure_phase (with
+    ``parent``'s tree too, where given); prints the phase's kernels
+    entries."""
     from plagnn_tpu_torch import cli
     from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
 
@@ -4155,9 +4232,8 @@ def mesh_hub_only(parent, smi_line):
     phase("4s (b) big graph shard")
     ppi = powerlaw_ppi(BIG_NODES, BIG_EDGES, SEED)
     host, own_rows = big_shard_hub_check(ppi.row, ppi.col, BIG_NODES, True, results, smi_line)
-    if parent:
-        phase("4s (b) big graph shard's structure, both trees")
-        big_shard_structure_phase(host, own_rows, parent, smi_line)
+    phase("4s (b) big graph shard's hub structure" + (", both trees" if parent else ""))
+    big_shard_structure_phase(host, own_rows, parent, smi_line)
     print(json.dumps({"kernels": list(results.values())}))
 
 

@@ -401,7 +401,8 @@ inline int grids(int64_t n_chunks, int64_t n_split, int64_t k_width,
 }
 
 // ---------------------------------------------------------------------------
-// The hub cache: the hub instantiations of the three kernels.
+// The hub cache: the hub instantiations of the three kernels
+// (spmm_max_fwd.cu, spmm_max_bwd.cu, spmm_sum.cu), all of one design.
 //
 // Replaces the TPU kernels' hub path (plagnn_tpu/ops/pallas/spmm_kernels.py:
 // HubStream, the `with_hub` branches of _spmm_fwd_kernel, _masked_bwd_kernel
@@ -411,34 +412,80 @@ inline int grids(int64_t n_chunks, int64_t n_split, int64_t k_width,
 // merged into the forward's result by a (value, then smaller id) tie rule.
 // Here they stay where they are in the one (dst, src)-ordered edge stream:
 // graph_format.HubTable codes a hub edge's neighbour index as -1 - slot,
-// and the warp reads that edge's row from the block's shared-memory arena
-// instead of device memory.  One edge at a time is the same for the whole
-// warp, so the branch does not diverge, and the compares and adds are the
-// kernels' own, in the same order: the forward is bit-exact and the sums
-// bit-identical to the kernels without the hub.
+// and the warp reads that edge's row from its block's shared-memory arena
+// instead of device memory (load_pipe_row).  One edge at a time is the same
+// for the whole warp, so the branch does not diverge, and a lane's slice,
+// walk, compares and adds are the kernels' own, in the same order: the
+// forward is bit-exact and the sums bit-identical to the kernels without
+// the hub.  Split rows go through the chunk slots and combine kernels
+// without the hub, as they are.
 //
 // What bounds it: the kernels without the hub serve their gather (E*K*esize
 // bytes, ~15x the compulsory traffic) from L2.  The arena takes the hub
-// edges' share of it (16-27% of the edges at k = 64-256 on the PPI-scale
-// graph) off L2, for k rows of the K-slice read once a block.
+// edges' share of it (12-20% of the edges at k = 32-113 on the PPI-scale
+// graph) off L2, for k rows of each K-slice read once a block.  What bounded
+// an earlier design, by the card's records (PERF.md), was not the arena but
+// the structure: a block a K-slice filled its arena with register-staged
+// loads, met every warp at __syncthreads, walked ~190 chunks with its warps
+// and had to drain before the next slice's block could take the SM, 132 x 20
+// blocks a layer-1 launch, so every fill and every tail (one 256-edge chunk
+// gathers 256 KB, as long as a block's whole share spread over its warps)
+// sat on the critical path.
 //
-// Design, against a grid of one 4-warp block per 4 chunks (the kernels
-// without the hub), where a per-block arena fill would read more bytes than
-// the slice gathers:
-// * Persistent blocks: one block per SM per K-slice (grid.x = SMs, K-slices
-//   on y, outermost as before), each filling its arena once (every thread,
-//   8 loads in flight) and then walking its share of the chunk table:
-//   chunks blockIdx.x, blockIdx.x + gridDim.x, ..., in the table's order,
-//   handed to its warps one at a time by a shared-memory ticket, so a warp
-//   that drew short chunks takes more of them.
-// * The block holds as many warps as an SM holds of the kernel without the
-//   hub (kHubWarps, __launch_bounds__(.., 1)): the same registers a thread
-//   and the same loads in flight an SM, and the whole of the SM's shared
-//   memory for one arena (up to 227 KB).
-// * A lane's slice and walk are the kernels' own (32 bytes of the gathered
-//   operand, kUnroll edges in flight), so an arena row is 1 KB of the slice.
-// * Split rows: the chunk slots and combine kernels without the hub, as
-//   they are.
+// What this design does about it:
+// * Persistent over the K-slices.  The grid is one block an SM, with no
+//   slice dimension.  Each block walks K-slices 0..S-1 in order; each slice
+//   has a ticket of its own in device memory, which hands the slice's
+//   chunks, in the table's order, to the warps of every block one claim at
+//   a time (one chunk, or a few where the chunks are many and short:
+//   hub_claim), so the grid walks one slice at a time as the grid of the
+//   kernels without the hub does (one slice's rows in L2).  A warp that
+//   finds the slice's chunks gone goes straight on to slice s + 1.  No
+//   __syncthreads separates two slices: only the last drains.  (Per-block
+//   tickets let the blocks drift apart over the slices, and the L2 then has
+//   to hold several slices' rows: on the card that ran far slower.)
+// * A two-stage arena.  Stage s % 2 holds slice s's hub rows (in the max
+//   backward the gradient's and the argmax's).  Each stage has two
+//   mbarriers: "full" completes when the stage's fill has landed, "empty"
+//   when every warp of the block has arrived on it after slice s, a warp
+//   that drew no chunk of that slice included.  The fill of slice s + 2
+//   into the stage starts once "empty" has completed; the fill warp (warp
+//   0, which walks chunks too) tests it between its chunks of slice s + 1
+//   and issues the fill as soon as it has, so the fill overlaps the walk
+//   and no warp waits on a fill but the first two.
+// * Asynchronous fills, never register-staged.  Where every filled row's
+//   byte stride and the slice's start are multiples of 16 (the TMA route),
+//   the fill warp's lanes issue one
+//   cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes per
+//   hub row of the slice's bytes (the ragged last slice copies the elements
+//   left), and lane 0 raises the barrier's expected bytes.  Elsewhere (the
+//   cp.async route; layer 1's K = 5,030: f32 rows of 20,120 B, 8 mod 16) the
+//   lanes issue cp.async of the lane vector's size (4, 8 or 16 bytes; a
+//   2-byte vector as the 4-byte words that cover the row, the row kept at
+//   the source's parity, hub_shift) and each arrives on the same "full"
+//   barrier by cp.async.mbarrier.arrive.noinc.  The route follows K's
+//   alignment (hub_route); both are on the main path.
+// * Each stage takes half of the budget, so k halves (ops/hub.py:
+//   pick_hub_sizes): 1 KB rows (the max forward, the sum both ways), k <=
+//   113; 1.5 KB in the max backward in f32 with an int16 argmax, k <= 75;
+//   2 KB (bf16, or an int32 argmax) k <= 56.
+// * The carveout is what the arena needs (hub_fit_attributes), not the
+//   SM's whole 228 KB: the rest stays L1, which serves the kernels without
+//   the hub their hottest rows (the hub rows among them).  The arena's rows
+//   come out of that L1; an arena can only win where serving them from
+//   shared memory beats the L1 it displaces.
+// * Warps a block (hub_warps): the max kernels' float32 blocks hold 4 warps
+//   fewer than the kernels without the hub (24 forward, 20 backward): at
+//   28 / 24 the pipeline's state spills more (ptxas: 72 / 80 registers a
+//   thread), and the card ran the 24 / 20 forms faster (the forward on
+//   config 5's shard too); their bfloat16 blocks hold as many (4
+//   fewer ran slower).  ptxas: the forward 80 registers in float32, 90-96
+//   in bfloat16, the backward 96 and 119-128; 4-8 bytes of spill in some
+//   forward forms (not float32's 8-byte vectors, the 24k graph's layer 1),
+//   84-160 bytes only in the backward's odd-K and int32-argmax forms.
+//   The sum's blocks hold 4 warps fewer in both types (spmm_sum.cu).  One
+//   block an SM: two ran within 2% of it, and a fill warp of its own that
+//   walks no chunk no faster (PERF.md's hub findings).
 // ---------------------------------------------------------------------------
 
 constexpr size_t kSmemBlockMax = 232448;  // shared memory a block may take
@@ -452,14 +499,6 @@ __host__ __device__ inline int hub_stride(int64_t k_width, int slice_width) {
 // to 16 (a second arena follows it in the backward).
 __host__ __device__ inline size_t arena_bytes(int k, int stride, int es) {
   return (static_cast<size_t>(k) * stride * es + 15) / 16 * 16;
-}
-
-// A hub kernel's dynamic shared memory: an arena of hub_k rows of its
-// K-slice of T and, where arg_size > 0, one of the argmax's.
-template <typename T, int V>
-inline size_t hub_smem_bytes(int64_t k_width, int hub_k, int arg_size = 0) {
-  const int stride = hub_stride(k_width, 32 * V * vectors_per_lane<T, V>());
-  return arena_bytes(hub_k, stride, sizeof(T)) + arena_bytes(hub_k, stride, arg_size);
 }
 
 // The hub entry points' dispatch, each level written once for all its
@@ -504,7 +543,6 @@ inline int with_vector_width(int v, F&& f) {
   }
 }
 
-
 // The block's dynamic shared memory, 16-byte aligned.
 __device__ __forceinline__ unsigned char* hub_smem() {
   extern __shared__ uint4 hub_smem_words[];
@@ -533,224 +571,20 @@ __device__ __forceinline__ Vec<T, V> load_vec_shared(const T* p) {
   return out;
 }
 
-template <typename T, int V>
-__device__ __forceinline__ void store_vec_shared(T* p, const Vec<T, V>& v) {
-  if constexpr (Vec<T, V>::kBytes == 16) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
-  } else if constexpr (Vec<T, V>::kBytes == 8) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(v.w[0], v.w[1]);
-  } else if constexpr (Vec<T, V>::kBytes == 4) {
-    *reinterpret_cast<unsigned int*>(p) = v.w[0];
-  } else {
-    *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(v.w[0]);
-  }
-}
-
-// Fills arena rows 0..n) with the K-slice starting at element slice0 of
-// rows ids[0..n) of src (rows of k_width elements), V elements at a time,
-// every thread of the block, kFill loads in flight a thread; element e of
-// the slice goes to arena[slot * stride + e], the layout of a lane's
-// vectors in the slice.
-template <typename T, int V>
-__device__ __forceinline__ void fill_arena(T* arena, const T* __restrict__ src,
-                                           const int* __restrict__ ids, int n,
-                                           int stride, int64_t slice0,
-                                           int64_t k_width) {
-  constexpr int kFill = 8;
-  const int64_t left = k_width - slice0;
-  const int per_row = static_cast<int>(left < stride ? left : stride) / V;
-  const int total = n * per_row;
-  for (int i0 = threadIdx.x; i0 < total; i0 += kFill * blockDim.x) {
-    Vec<T, V> v[kFill];
-#pragma unroll
-    for (int u = 0; u < kFill; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < total) {
-        const int s = i / per_row;
-        v[u] = load_vec<T, V>(src + static_cast<int64_t>(__ldg(ids + s)) * k_width +
-                              slice0 + (i - s * per_row) * V);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kFill; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < total) {
-        const int s = i / per_row;
-        store_vec_shared<T, V>(arena + static_cast<int64_t>(s) * stride +
-                               (i - s * per_row) * V, v[u]);
-      }
-    }
-  }
-}
-
-// The J vectors of this lane for an edge whose coded neighbour is nbr: row
-// nbr of x in device memory, or arena slot -1 - nbr (`arena` is already at
-// this lane's first element).
-template <typename T, int V, int J>
-__device__ __forceinline__ void load_hub_row(Vec<T, V> (&v)[J], const T* __restrict__ x,
-                                             const T* arena, int nbr, int64_t k_width,
-                                             int64_t k0, int stride, int nvec) {
-  if (nbr >= 0) {
-    const T* p = x + static_cast<int64_t>(nbr) * k_width + k0;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      if (j < nvec) v[j] = load_vec<T, V>(p + j * 32 * V);
-    }
-  } else {
-    const T* p = arena + static_cast<int64_t>(-1 - nbr) * stride;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      if (j < nvec) v[j] = load_vec_shared<T, V>(p + j * 32 * V);
-    }
-  }
-}
-
-// This lane's place in its block's K-slice: first element k0, the first
-// `nvec` of its J vectors inside K.
-struct HubLane {
-  int lane;
-  int64_t slice0;
-  int64_t k0;
-  int nvec;
-};
-
-template <int V, int J>
-__device__ __forceinline__ HubLane hub_lane(int64_t k_width) {
-  HubLane h;
-  h.lane = threadIdx.x & 31;
-  h.slice0 = static_cast<int64_t>(blockIdx.y) * 32 * V * J;
-  h.k0 = h.slice0 + h.lane * V;
-  const int64_t left = k_width > h.k0 ? (k_width - h.k0 + 32 * V - 1) / (32 * V) : 0;
-  h.nvec = left < J ? static_cast<int>(left) : J;
-  return h;
-}
-
-// Hands this warp the block's chunks (blockIdx.x, blockIdx.x + gridDim.x,
-// ... of the table) one at a time until they run out: body(chunk) for
-// each.  `ticket` is the block's shared counter, zeroed before the block's
-// barrier; lane 0 takes the next ticket before the warp walks its chunk,
-// so the atomic overlaps the walk.
-template <typename Body>
-__device__ __forceinline__ void hub_walk(const Table& t, int* ticket, Body&& body) {
-  const int lane = threadIdx.x & 31;
-  int mine = lane == 0 ? atomicAdd(ticket, 1) : 0;
-  int64_t c = blockIdx.x + static_cast<int64_t>(__shfl_sync(kFullMask, mine, 0)) * gridDim.x;
-  while (c < t.n_chunks) {
-    mine = lane == 0 ? atomicAdd(ticket, 1) : 0;
-    body(c);
-    c = blockIdx.x + static_cast<int64_t>(__shfl_sync(kFullMask, mine, 0)) * gridDim.x;
-  }
-}
-
-// A hub kernel's shared memory: `smem` bytes of dynamic shared memory (the
-// card refuses more than it has), and the SM's whole carveout for it.
+// Warps an SM holds of a kernel without the hub at `threads` a block (-1
+// if the card will not say).
 template <typename Kernel>
-inline cudaError_t hub_attributes(Kernel kernel, size_t smem) {
-  if (smem > kSmemBlockMax) return cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
-// Host side of a hub launch: the combine's grid as `grids` gives it, the
-// chunk grid (one block per SM per K-slice, fewer where the chunks are
-// fewer) and the kernel's shared memory.  An arena above the card's limit
-// is refused (cudaErrorInvalidValue), never cut.
-template <typename Kernel>
-inline int hub_setup(Kernel kernel, size_t smem, int warps, int64_t n_chunks,
-                     int64_t n_split, int64_t k_width, int slice_width, dim3* grid,
-                     dim3* combine_grid) {
-  dim3 chunk_grid;
-  const int rc_grid = grids(n_chunks, n_split, k_width, slice_width, &chunk_grid,
-                            combine_grid);
-  if (rc_grid != cudaSuccess) return rc_grid;
-  cudaError_t err = hub_attributes(kernel, smem);
-  int dev = 0, n_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const int64_t want = (n_chunks + warps - 1) / warps;
-  *grid = dim3(static_cast<unsigned>(want < n_sm ? want : n_sm), chunk_grid.y);
-  return cudaSuccess;
-}
-
-// Warps an SM holds with `kernel` at `threads` a block and `smem` bytes of
-// dynamic shared memory (-1 if the card will not say).
-template <typename Kernel>
-inline int warps_per_sm(Kernel kernel, int threads, size_t smem) {
-  if (smem > 0 && hub_attributes(kernel, smem) != cudaSuccess) return -1;
+inline int warps_per_sm(Kernel kernel, int threads) {
   int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem) !=
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0) !=
       cudaSuccess) {
     return -1;
   }
   return blocks * threads / 32;
 }
 
-// ---------------------------------------------------------------------------
-// The pipelined hub: the max kernels' hub instantiations (spmm_max_fwd.cu,
-// spmm_max_bwd.cu; the sum's keeps the design above).
-//
-// What bounds the design above, by the card's records (PERF.md): not the
-// arena but the structure.  A block a K-slice fills its arena with
-// register-staged loads, meets every warp at __syncthreads, walks ~190
-// chunks with its warps and must drain before the next slice's block can
-// take the SM, 132 x 20 blocks a layer-1 launch: every fill and every tail
-// (one 256-edge chunk gathers 256 KB, as long as a block's whole share
-// spread over its warps) sits on the critical path, 20 times a launch.
-//
-// What this design does about it:
-// * Persistent over the K-slices.  The grid is one block an SM, with no
-//   slice dimension.  Each block walks K-slices 0..S-1 in order; each slice
-//   has a ticket of its own in device memory, which hands the slice's chunks, in the table's order, to the
-//   warps of every block one at a time, so the grid walks one slice at a
-//   time as the grid of the kernels without the hub does (one slice's rows
-//   in L2).  A warp that finds the slice's chunks gone goes straight on to
-//   slice s + 1.  No __syncthreads separates two slices: only the last
-//   drains.  (Per-block tickets let the blocks drift apart over the slices,
-//   and the L2 then has to hold several slices' rows: on the card that ran
-//   far slower.)
-// * A two-stage arena.  Stage s % 2 holds slice s's hub rows (in the
-//   backward the gradient's and the argmax's).  Each stage has two
-//   mbarriers: "full" completes when the stage's fill has landed, "empty"
-//   when every warp of the block has arrived on it after slice s, a warp
-//   that drew no chunk of that slice included.  The fill of slice s + 2
-//   into the stage starts once "empty" has completed; the fill warp (warp
-//   0, which walks chunks too) tests it between its chunks of slice s + 1
-//   and issues the fill as soon as it has, so the fill overlaps the walk
-//   and no warp waits on a fill but the first two.
-// * Asynchronous fills, never register-staged.  Where every filled row's
-//   byte stride and the slice's start are multiples of 16 (the TMA route),
-//   the fill warp's lanes issue one
-//   cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes per
-//   hub row of the slice's bytes (the ragged last slice copies the elements
-//   left), and lane 0 raises the barrier's expected bytes.  Elsewhere (the
-//   cp.async route; layer 1's K = 5,030: f32 rows of 20,120 B, 8 mod 16) the
-//   lanes issue cp.async of the lane vector's size (4, 8 or 16 bytes; a
-//   2-byte vector as the 4-byte words that cover the row, the row kept at
-//   the source's parity, hub_shift) and each arrives on the same "full"
-//   barrier by cp.async.mbarrier.arrive.noinc.  The route follows K's
-//   alignment (hub_route); both are on the main path.
-// * Each stage takes half of what the arena had, so k halves (ops/hub.py:
-//   pick_hub_sizes): 1 KB rows forward, k <= 113; 1.5 KB backward in f32
-//   with an int16 argmax, k <= 75; 2 KB (bf16, or an int32 argmax) k <= 56.
-// * The carveout is what the arena needs (hub_fit_attributes), not the
-//   SM's whole 228 KB: the rest stays L1, which serves the kernels without
-//   the hub their hottest rows (the hub rows among them).  The arena's rows
-//   come out of that L1; an arena can only win where serving them from
-//   shared memory beats the L1 it displaces.
-// * The float32 blocks hold 4 warps fewer than the kernels without the hub
-//   (24 forward, 20 backward): at 28 / 24 the pipeline's state spills
-//   (ptxas: 72 / 80 registers a thread), and the card ran the spill-free
-//   form faster; the bfloat16 blocks hold as many (4 fewer ran slower).  One
-//   block an SM: two ran within 2% of it, and a fill warp of its own that
-//   walks no chunk no faster (PERF.md's hub findings).
-// ---------------------------------------------------------------------------
-
-// Warps an SM holds of a pipelined hub kernel (one block) whose kernel
-// without the hub holds `without` (float32) or `without_bf16` of them.
+// Warps an SM holds of a hub kernel (one block) whose kernel without the
+// hub holds `without` (float32) or `without_bf16` of them.
 template <typename T>
 __host__ __device__ constexpr int hub_warps(int without, int without_bf16) {
   return sizeof(T) == 4 ? without - 4 : without_bf16;
@@ -916,9 +750,34 @@ __device__ __forceinline__ uint32_t hub_fill_bytes(int n, int len) {
   return static_cast<uint32_t>(n) * len * sizeof(E);
 }
 
-// The J vectors of this lane for an edge whose coded neighbour is nbr, as
-// load_hub_row, from a pipelined stage: arena rows `pitch` elements apart,
-// a shifted row's slice at its shift.
+// The whole fill of a stage that holds one array (the max forward's and the
+// sum's: hub_k rows of x): slice s's rows of src into `arena` at `pitch`
+// elements a row, `stride` elements a slice, with the stage's arrivals on
+// `full` (lane 0's expect_tx or plain one first; on the cp.async route each
+// lane's after its copies).  Every lane of the fill warp calls it.
+template <typename T, int V>
+__device__ __forceinline__ void hub_fill_stage(T* arena, const T* __restrict__ src,
+                                               const int* __restrict__ ids, int hub_k,
+                                               int pitch, int stride, int s, int64_t k_width,
+                                               bool tma, uint64_t* full, int lane) {
+  const int64_t slice0 = static_cast<int64_t>(s) * stride;
+  const int len = static_cast<int>(k_width - slice0 < stride ? k_width - slice0 : stride);
+  if (lane == 0) {
+    if (tma) {
+      mbar_arrive_tx(full, hub_fill_bytes<T>(hub_k, len));
+    } else {
+      mbar_arrive(full);
+    }
+  }
+  __syncwarp();
+  hub_fill_rows<T, V>(arena, src, ids, hub_k, pitch, len, slice0, k_width, tma, full, lane);
+  if (!tma) cp_async_arrive(full);
+}
+
+// The J vectors of this lane for an edge whose coded neighbour is nbr: row
+// nbr of x in device memory, or arena slot -1 - nbr of a stage (`arena` is
+// already at this lane's first element; rows `pitch` elements apart, a
+// shifted row's slice at its shift).
 template <typename T, int V, int J>
 __device__ __forceinline__ void load_pipe_row(Vec<T, V> (&v)[J], const T* __restrict__ x,
                                               const T* arena, const int* __restrict__ ids,
@@ -948,28 +807,37 @@ __device__ __forceinline__ int lane_vectors(int64_t k0, int64_t k_width) {
   return left < J ? static_cast<int>(left) : J;
 }
 
+// A launch's walk: its K-slices, the chunks a warp claims at one draw of a
+// slice's ticket (hub_claim) and the fill route (1 TMA, 0 cp.async).
+struct HubWalk {
+  int n_slices;
+  int claim;
+  int tma;
+};
+
 // A pipelined hub block's walk (the design above).  fill(s, stage) issues
 // slice s's fill of `stage` (called by every lane of the fill warp, warp 0;
 // it makes the stage's arrivals, lane 0's plain or expect_tx one first);
-// body(s, stage, chunk) walks one chunk of slice s from `stage`.
-// `fill_count` is "full"'s arrivals a phase: 1 on the TMA route (lane 0's
-// expect_tx), 33 on the cp.async route (lane 0's and each lane's cp.async
-// arrival).  tickets[s] (zero at launch, and zero again after it: the
-// launch's last draw resets it) hands out slice s's chunks to the
-// warps of every block, one at a time in the table's order, so the grid
-// walks one slice at a time, as the grid of the kernels without the hub
-// does (one slice's rows stay in L2), and a block's warps go on to the
-// next slice as soon as the slice has no chunk left.
+// body(s, stage, chunk) walks one chunk of slice s from `stage`.  "full"
+// takes 1 arrival a phase on the TMA route (lane 0's expect_tx), 33 on the
+// cp.async route (lane 0's and each lane's cp.async arrival).  tickets[s]
+// (zero at launch, and zero again after it: the launch's last draw resets
+// it) hands out slice s's chunks to the warps of every block, walk.claim
+// consecutive chunks a draw in the table's order, so the grid walks one
+// slice at a time, as the grid of the kernels without the hub does (one
+// slice's rows stay in L2), and a block's warps go on to the next slice as
+// soon as the slice has no chunk left.
 template <typename Fill, typename Body>
 __device__ __forceinline__ void hub_pipeline(const Table& t, HubPipe& pipe,
-                                             int* __restrict__ tickets, int n_slices,
-                                             int fill_count, Fill&& fill, Body&& body) {
+                                             int* __restrict__ tickets, const HubWalk& walk,
+                                             Fill&& fill, Body&& body) {
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x / 32;
   const bool filler = threadIdx.x < 32;
+  const int n_slices = walk.n_slices;
   if (threadIdx.x == 0) {
     for (int st = 0; st < kHubStages; ++st) {
-      mbar_init(&pipe.full[st], static_cast<uint32_t>(fill_count));
+      mbar_init(&pipe.full[st], walk.tma ? 1u : 33u);
       mbar_init(&pipe.empty[st], warps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -986,10 +854,11 @@ __device__ __forceinline__ void hub_pipeline(const Table& t, HubPipe& pipe,
     __syncwarp();
     fill(j, j & 1);
   };
-  // Every warp of the grid draws each slice's ticket once per chunk it
+  // Every warp of the grid draws each slice's ticket once per claim it
   // walks and once more, in vain: the draw numbered `last` is the launch's
   // last on that ticket, and sets it back to zero for the next launch.
-  const int last = t.n_chunks + static_cast<int>(gridDim.x) * warps - 1;
+  const int last = (t.n_chunks + walk.claim - 1) / walk.claim +
+                   static_cast<int>(gridDim.x) * warps - 1;
   auto draw = [&](int s) {
     int c = 0;
     if (lane == 0) {
@@ -1002,10 +871,13 @@ __device__ __forceinline__ void hub_pipeline(const Table& t, HubPipe& pipe,
     const int st = s & 1;
     if (filler && pending == s) refill(pending++);
     mbar_wait(&pipe.full[st], (s >> 1) & 1);
+    // c walks the claims' chunks in turn; a claim's first chunk draws the
+    // next claim (claims start at multiples of walk.claim, a power of two),
+    // so the draw overlaps the claim's walk.
     int mine = draw(s);
-    int c = __shfl_sync(kFullMask, mine, 0);
+    int c = __shfl_sync(kFullMask, mine, 0) * walk.claim;
     while (c < t.n_chunks) {
-      mine = draw(s);
+      if ((c & (walk.claim - 1)) == 0) mine = draw(s);
       body(s, st, c);
       if (filler && pending == s + 1 && pending < n_slices) {
         const int j = pending;
@@ -1013,7 +885,8 @@ __device__ __forceinline__ void hub_pipeline(const Table& t, HubPipe& pipe,
             lane == 0 ? mbar_test(&pipe.empty[j & 1], ((j - 2) >> 1) & 1) : false;
         if (__shfl_sync(kFullMask, ready, 0)) refill(pending++);
       }
-      c = __shfl_sync(kFullMask, mine, 0);
+      ++c;
+      if ((c & (walk.claim - 1)) == 0) c = __shfl_sync(kFullMask, mine, 0) * walk.claim;
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&pipe.empty[st]);
@@ -1051,15 +924,35 @@ inline int pipe_blocks_per_sm(Kernel kernel, int threads, size_t smem) {
   return blocks;
 }
 
+// Chunks a warp claims at one draw of a slice's ticket, for n_chunks
+// chunks a slice walked by `walkers` warps: 1, doubled (up to kMaxClaim)
+// while every warp would still draw at least kClaimsPerWarp times a slice.
+// A slice's ticket serves one atomicAdd at a time, grid-wide.  Where the
+// chunks are many and short (config 5's P = 2 interior shard: 494,298
+// chunks of 5.4 edges a slice, 156 a float32 max forward warp) one draw a
+// chunk made the ticket, not the walk, bound the slice: the card ran its
+// k = 0 forward at claims of 1 / 2 / 4 / 8 / 16 chunks 1.41 / 1.13 / 1.12 /
+// 1.21 / 1.31x the kernel without the hub, the sum 1.47 / 1.14 / 1.06 /
+// 1.15 / 1.26x (PERF.md), so 32 draws a warp sits between the best claim (4:
+// 39 draws) and the next (8: 20).  Where the chunks are few (the 24k-node
+// graph: 24,723 chunks, 7.8 a warp) the claim stays 1: 2 ran 1.38x.
+constexpr int kMaxClaim = 16;
+constexpr int kClaimsPerWarp = 32;
+inline int hub_claim(int64_t n_chunks, int64_t walkers) {
+  int claim = 1;
+  while (claim < kMaxClaim && n_chunks >= 2 * claim * walkers * kClaimsPerWarp) claim *= 2;
+  return claim;
+}
+
 // Host side of a pipelined hub launch: the combine's grid as `grids` gives
 // it, the chunk grid (one block an SM, fewer where the chunks are fewer;
-// no slice dimension), the slices and the kernel's shared memory.
-// An arena above the card's limit, or fewer tickets than slices, is
-// refused (cudaErrorInvalidValue), never cut.
+// no slice dimension), the walk's slices and claim, and the kernel's
+// shared memory.  An arena above the card's limit, or fewer tickets than
+// slices, is refused (cudaErrorInvalidValue), never cut.
 template <typename Kernel>
 inline int hub_pipe_setup(Kernel kernel, size_t smem, int warps, int64_t n_chunks,
                           int64_t n_split, int64_t k_width, int slice_width,
-                          int64_t n_tickets, dim3* grid, dim3* combine_grid, int* n_slices) {
+                          int64_t n_tickets, dim3* grid, dim3* combine_grid, HubWalk* walk) {
   dim3 chunk_grid;
   const int rc_grid = grids(n_chunks, n_split, k_width, slice_width, &chunk_grid,
                             combine_grid);
@@ -1073,7 +966,11 @@ inline int hub_pipe_setup(Kernel kernel, size_t smem, int warps, int64_t n_chunk
   if (err != cudaSuccess) return err;
   const int64_t want = (n_chunks + warps - 1) / warps;
   *grid = dim3(static_cast<unsigned>(want < n_sm ? want : n_sm));
-  *n_slices = static_cast<int>(chunk_grid.y);
+  const int64_t walkers = static_cast<int64_t>(grid->x) * warps;
+  walk->n_slices = static_cast<int>(chunk_grid.y);
+  walk->claim = hub_claim(n_chunks, walkers);
+  // every draw's first chunk, the last in vain included, fits an int
+  if (n_chunks + (walkers + 1) * walk->claim > 2147483647LL) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 

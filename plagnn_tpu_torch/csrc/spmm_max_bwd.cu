@@ -286,7 +286,7 @@ __host__ __device__ inline size_t hub_stage_bytes(int64_t k_width, int hub_k) {
 
 // The pipelined hub backward (row_chunks.cuh: hub_pipeline): every K-slice
 // in turn, each slice's hub rows of g and of the argmax in a stage of the
-// arena filled by the fill warp (`tma`: bulk copies, else cp.async), the
+// arena filled by the fill warp (`walk.tma`: bulk copies, else cp.async), the
 // slice's transpose chunks walked by chunk_body as the kernel without the
 // hub walks them.
 template <typename T, typename ArgT, int V>
@@ -295,7 +295,7 @@ spmm_max_bwd_hub_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
                         rc::Table table, const int* __restrict__ idx,
                         const int* __restrict__ ids, int hub_k, T* __restrict__ dx,
                         float* __restrict__ partial, int* __restrict__ tickets,
-                        int64_t k_width, int n_slices, int tma) {
+                        int64_t k_width, rc::HubWalk walk) {
   constexpr int J = rc::vectors_per_lane<T, V>();
   __shared__ rc::HubPipe pipe;
   const int stride = rc::hub_stride(k_width, 32 * V * J);
@@ -314,7 +314,7 @@ spmm_max_bwd_hub_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
     const int64_t slice0 = static_cast<int64_t>(s) * stride;
     const int len = static_cast<int>(k_width - slice0 < stride ? k_width - slice0 : stride);
     if (lane == 0) {
-      if (tma) {
+      if (walk.tma) {
         rc::mbar_arrive_tx(&pipe.full[st], rc::hub_fill_bytes<T>(hub_k, len) +
                                                rc::hub_fill_bytes<ArgT>(hub_k, len));
       } else {
@@ -323,13 +323,13 @@ spmm_max_bwd_hub_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
     }
     __syncwarp();
     rc::hub_fill_rows<T, V>(g_stage(st), g, ids, hub_k, g_pitch, len, slice0, k_width,
-                            tma != 0, &pipe.full[st], lane);
+                            walk.tma != 0, &pipe.full[st], lane);
     rc::hub_fill_rows<ArgT, V>(a_stage(st), arg, ids, hub_k, a_pitch, len, slice0, k_width,
-                               tma != 0, &pipe.full[st], lane);
-    if (!tma) rc::cp_async_arrive(&pipe.full[st]);
+                               walk.tma != 0, &pipe.full[st], lane);
+    if (!walk.tma) rc::cp_async_arrive(&pipe.full[st]);
   };
   MaxBwdHubOp<T, ArgT, V, J> op{g, arg, ids, nullptr, nullptr, g_pitch, a_pitch, k_width};
-  rc::hub_pipeline(table, pipe, tickets, n_slices, tma ? 1 : 33, fill,
+  rc::hub_pipeline(table, pipe, tickets, walk, fill,
                    [&](int s, int st, int c) {
     op.k0 = static_cast<int64_t>(s) * stride + lane * V;
     op.nvec = rc::lane_vectors<V, J>(op.k0, k_width);
@@ -435,16 +435,16 @@ int launch_hub_v(const void* g, const void* arg, const rc::Table& table, const i
     auto kernel = spmm_max_bwd_hub_kernel<T, ArgT, V>;
     const size_t smem = rc::kHubStages * hub_stage_bytes<T, ArgT, V>(k_width, hub_k);
     dim3 grid, combine_grid;
-    int n_slices = 0;
+    rc::HubWalk walk{};
     const int rc_setup =
         rc::hub_pipe_setup(kernel, smem, kHubWarps<T>, table.n_chunks, n_split, k_width, 32 * V * J,
-                           n_tickets, &grid, &combine_grid, &n_slices);
+                           n_tickets, &grid, &combine_grid, &walk);
     if (rc_setup != cudaSuccess) return rc_setup;
-    const int tma =
+    walk.tma =
         rc::hub_route<T, V>(k_width, g) && rc::hub_route<ArgT, V>(k_width, arg) ? 1 : 0;
     kernel<<<grid, kHubThreads<T>, smem, stream>>>(
         static_cast<const T*>(g), static_cast<const ArgT*>(arg), table, idx, ids, hub_k,
-        static_cast<T*>(dx), static_cast<float*>(partial), tickets, k_width, n_slices, tma);
+        static_cast<T*>(dx), static_cast<float*>(partial), tickets, k_width, walk);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 0) return err;
     spmm_max_bwd_combine_kernel<T><<<combine_grid, rc::kCombineThreads, 0, stream>>>(
@@ -468,7 +468,7 @@ int hub_warps_v(int64_t k_width, int hub_k, int* info) {
     const size_t smem = rc::kHubStages * hub_stage_bytes<T, ArgT, V>(k_width, hub_k);
     const int blocks = rc::pipe_blocks_per_sm(kernel, kHubThreads<T>, smem);
     info[0] = blocks < 0 ? -1 : blocks * kHubThreads<T> / 32;
-    info[1] = rc::warps_per_sm(spmm_max_bwd_kernel<T, ArgT, V, false>, rc::kThreads, 0);
+    info[1] = rc::warps_per_sm(spmm_max_bwd_kernel<T, ArgT, V, false>, rc::kThreads);
     info[2] = rc::kHubStages;
     info[3] = blocks;
     info[4] =

@@ -360,7 +360,7 @@ __host__ __device__ inline size_t hub_stage_bytes(int64_t k_width, int hub_k) {
 
 // The pipelined hub forward (row_chunks.cuh: hub_pipeline): every K-slice
 // in turn, each slice's hub rows in a stage of the arena filled by the fill
-// warp (`tma`: bulk copies, else cp.async), the slice's chunks walked by
+// warp (`walk.tma`: bulk copies, else cp.async), the slice's chunks walked by
 // max_fwd_chunk as the kernel without the hub walks them.
 template <typename T, typename ArgT, int V>
 __global__ void __launch_bounds__(kHubThreads<T>, 1)
@@ -369,7 +369,7 @@ spmm_max_fwd_hub_kernel(const T* __restrict__ x, rc::Table table,
                         int hub_k, T* __restrict__ out, ArgT* __restrict__ arg,
                         float* __restrict__ partial_val, int* __restrict__ partial_src,
                         int* __restrict__ tickets, int64_t k_width, float empty_value,
-                        int n_slices, int tma) {
+                        rc::HubWalk walk) {
   constexpr int J = rc::vectors_per_lane<T, V>();
   __shared__ rc::HubPipe pipe;
   const int stride = rc::hub_stride(k_width, 32 * V * J);
@@ -380,23 +380,12 @@ spmm_max_fwd_hub_kernel(const T* __restrict__ x, rc::Table table,
     return reinterpret_cast<T*>(rc::hub_smem() + st * stage_bytes);
   };
   auto fill = [&](int s, int st) {
-    const int64_t slice0 = static_cast<int64_t>(s) * stride;
-    const int len = static_cast<int>(k_width - slice0 < stride ? k_width - slice0 : stride);
-    if (lane == 0) {
-      if (tma) {
-        rc::mbar_arrive_tx(&pipe.full[st], rc::hub_fill_bytes<T>(hub_k, len));
-      } else {
-        rc::mbar_arrive(&pipe.full[st]);
-      }
-    }
-    __syncwarp();
-    rc::hub_fill_rows<T, V>(stage(st), x, ids, hub_k, pitch, len, slice0, k_width, tma != 0,
-                            &pipe.full[st], lane);
-    if (!tma) rc::cp_async_arrive(&pipe.full[st]);
+    rc::hub_fill_stage<T, V>(stage(st), x, ids, hub_k, pitch, stride, s, k_width, walk.tma != 0,
+                             &pipe.full[st], lane);
   };
   MaxFwdHubOp<T, V, J> op{{x, k_width}, nullptr, pitch, ids};
   const PosArgs none{nullptr, nullptr, 0, 0};
-  rc::hub_pipeline(table, pipe, tickets, n_slices, tma ? 1 : 33, fill,
+  rc::hub_pipeline(table, pipe, tickets, walk, fill,
                    [&](int s, int st, int c) {
     const int64_t k0 = static_cast<int64_t>(s) * stride + lane * V;
     op.arena = stage(st) + lane * V;
@@ -555,16 +544,16 @@ int launch_hub_v(const void* x, const rc::Table& table, const int* idx, const in
     auto kernel = spmm_max_fwd_hub_kernel<T, ArgT, V>;
     const size_t smem = rc::kHubStages * hub_stage_bytes<T, V>(k_width, hub_k);
     dim3 grid, combine_grid;
-    int n_slices = 0;
+    rc::HubWalk walk{};
     const int rc_setup =
         rc::hub_pipe_setup(kernel, smem, kHubWarps<T>, table.n_chunks, n_split, k_width, 32 * V * J,
-                           n_tickets, &grid, &combine_grid, &n_slices);
+                           n_tickets, &grid, &combine_grid, &walk);
     if (rc_setup != cudaSuccess) return rc_setup;
-    const int tma = rc::hub_route<T, V>(k_width, x) ? 1 : 0;
+    walk.tma = rc::hub_route<T, V>(k_width, x) ? 1 : 0;
     kernel<<<grid, kHubThreads<T>, smem, stream>>>(
         static_cast<const T*>(x), table, idx, ids, hub_k, static_cast<T*>(out),
         static_cast<ArgT*>(arg), static_cast<float*>(partial_val),
-        static_cast<int*>(partial_src), tickets, k_width, empty_value, n_slices, tma);
+        static_cast<int*>(partial_src), tickets, k_width, empty_value, walk);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 0) return err;
     const PosArgs none{nullptr, nullptr, 0, 0};
@@ -591,8 +580,7 @@ int hub_warps_v(int64_t k_width, int hub_k, int* info) {
     const size_t smem = rc::kHubStages * hub_stage_bytes<T, V>(k_width, hub_k);
     const int blocks = rc::pipe_blocks_per_sm(kernel, kHubThreads<T>, smem);
     info[0] = blocks < 0 ? -1 : blocks * kHubThreads<T> / 32;
-    info[1] = rc::warps_per_sm(spmm_max_fwd_kernel<T, ArgT, V, true, false>, rc::kThreads,
-                               0);
+    info[1] = rc::warps_per_sm(spmm_max_fwd_kernel<T, ArgT, V, true, false>, rc::kThreads);
     info[2] = rc::kHubStages;
     info[3] = blocks;
     info[4] = rc::hub_route<T, V>(k_width, nullptr) ? 1 : 0;

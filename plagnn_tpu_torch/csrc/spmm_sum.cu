@@ -46,6 +46,18 @@
 //   32 bytes of x a lane per edge, indices loaded 32 at a time and
 //   shuffled, and kUnroll (4) source rows' loads issued before they are
 //   added.
+//
+// The hub instantiation (spmm_sum_hub: unweighted, either direction) is
+// the max kernels' hub design (row_chunks.cuh: hub_pipeline): one block an
+// SM walks every K-slice, per-slice chunk tickets in device memory, a
+// two-stage arena of the k most-fetched rows filled by TMA or cp.async on
+// mbarriers, the carveout sized to the arena.  A lane's slice, walk and
+// adds are spmm_sum_kernel's, in the same order, so out is bit-identical to
+// the kernel without the hub.  Its blocks hold 4 warps fewer than an SM
+// holds of the kernel without the hub (28 in float32, 24 in bfloat16): at
+// 32 / 28, 64 / 72 registers a thread, ptxas spilled 20-40 bytes in every
+// form; at 28 / 24 it takes 72 (float32) and 77-79 (bfloat16) registers
+// and spills nothing.
 #include "row_chunks.cuh"
 
 namespace {
@@ -111,20 +123,25 @@ spmm_sum_combine_kernel(const int* __restrict__ split_row,
   rc::combine_pass<T>(split_row, split_ptr, partial, out, k_width);
 }
 
-// out[row] += x[src] for each edge, with the hub edges' rows from the arena.
+// out[row] += x[src] for each edge, the hub edges' rows from a stage of
+// the arena (SumOp's walk and adds, unweighted).
 template <typename T, int V, int J>
 struct SumHubOp {
   const T* x;
-  const T* arena;  // at this lane's first element
-  int stride;
+  const T* arena;  // the slice's stage, at this lane's first element
+  int pitch;
+  const int* ids;
   int64_t k_width;
   int64_t k0;
   int nvec;
   rc::Vec<T, V> val[rc::kUnroll][J];
 
-  __device__ __forceinline__ void begin(int, int64_t, int) {}
+  __device__ __forceinline__ void begin(int, int64_t k, int n) {
+    k0 = k;
+    nvec = n;
+  }
   __device__ __forceinline__ void load(int u, int nbr, int) {
-    rc::load_hub_row<T, V, J>(val[u], x, arena, nbr, k_width, k0, stride, nvec);
+    rc::load_pipe_row<T, V, J>(val[u], x, arena, ids, nbr, k_width, k0, pitch, nvec);
   }
   __device__ __forceinline__ void add(int u, float (&acc)[V * J]) {
 #pragma unroll
@@ -136,27 +153,52 @@ struct SumHubOp {
   }
 };
 
-// Warps of a hub block: the warps an SM holds of the kernel without the
-// hub (32 in float32, 28 in bfloat16; chip_smoke.py phase 3h prints both).
+// Warps an SM holds of the hub kernel, in its one block: 4 fewer than the
+// kernel without the hub (32 in float32, 28 in bfloat16; chip_smoke.py
+// phase 3h prints both), the most at which ptxas spills nothing (the
+// header note above).
 template <typename T>
-constexpr int kHubWarps = sizeof(T) == 4 ? 32 : 28;
+constexpr int kHubWarps = sizeof(T) == 4 ? 28 : 24;
+template <typename T>
+constexpr int kHubThreads = 32 * kHubWarps<T>;
 
+// Bytes of one stage: hub_k rows of x's K-slice.
 template <typename T, int V>
-__global__ void __launch_bounds__(32 * kHubWarps<T>, 1)
+__host__ __device__ inline size_t hub_stage_bytes(int64_t k_width, int hub_k) {
+  return rc::hub_stage_part<T, V>(hub_k, rc::hub_stride(k_width, 32 * V *
+                                                        rc::vectors_per_lane<T, V>()));
+}
+
+// The pipelined hub sum (row_chunks.cuh: hub_pipeline), the max forward's
+// structure: every K-slice in turn, each slice's hub rows in a stage of the
+// arena filled by the fill warp (`walk.tma`: bulk copies, else cp.async), the
+// slice's chunks walked by chunk_body as spmm_sum_kernel walks them.
+template <typename T, int V>
+__global__ void __launch_bounds__(kHubThreads<T>, 1)
 spmm_sum_hub_kernel(const T* __restrict__ x, rc::Table table, const int* __restrict__ idx,
                     const int* __restrict__ ids, int hub_k, T* __restrict__ out,
-                    float* __restrict__ partial, int64_t k_width) {
+                    float* __restrict__ partial, int* __restrict__ tickets, int64_t k_width,
+                    rc::HubWalk walk) {
   constexpr int J = rc::vectors_per_lane<T, V>();
-  __shared__ int ticket;
-  const rc::HubLane h = rc::hub_lane<V, J>(k_width);
+  __shared__ rc::HubPipe pipe;
   const int stride = rc::hub_stride(k_width, 32 * V * J);
-  T* arena = reinterpret_cast<T*>(rc::hub_smem());
-  rc::fill_arena<T, V>(arena, x, ids, hub_k, stride, h.slice0, k_width);
-  if (threadIdx.x == 0) ticket = 0;
-  __syncthreads();
-  SumHubOp<T, V, J> op{x, arena + h.lane * V, stride, k_width, h.k0, h.nvec};
-  rc::hub_walk(table, &ticket, [&](int64_t c) {
-    rc::chunk_body<T, V, J>(table, c, idx, h.lane, h.k0, h.nvec, k_width, out, partial, op);
+  const int pitch = rc::hub_pitch<T, V>(stride);
+  const size_t stage_bytes = hub_stage_bytes<T, V>(k_width, hub_k);
+  const int lane = threadIdx.x & 31;
+  auto stage = [&](int st) {
+    return reinterpret_cast<T*>(rc::hub_smem() + st * stage_bytes);
+  };
+  auto fill = [&](int s, int st) {
+    rc::hub_fill_stage<T, V>(stage(st), x, ids, hub_k, pitch, stride, s, k_width, walk.tma != 0,
+                             &pipe.full[st], lane);
+  };
+  SumHubOp<T, V, J> op{x, nullptr, pitch, ids, k_width, 0, 0};
+  rc::hub_pipeline(table, pipe, tickets, walk, fill,
+                   [&](int s, int st, int c) {
+    const int64_t k0 = static_cast<int64_t>(s) * stride + lane * V;
+    op.arena = stage(st) + lane * V;
+    rc::chunk_body<T, V, J>(table, c, idx, lane, k0, rc::lane_vectors<V, J>(k0, k_width),
+                            k_width, out, partial, op);
   });
 }
 
@@ -215,20 +257,27 @@ int launch(const void* x, const rc::Table& table, const int* idx, const float* w
 template <typename T, int V>
 int launch_hub_v(const void* x, const rc::Table& table, const int* idx, const int* ids,
                  int hub_k, const int* split_row, const int* split_ptr, int64_t n_split,
-                 void* out, void* partial, int64_t k_width, cudaStream_t stream) {
+                 void* out, void* partial, int* tickets, int64_t n_tickets, int64_t k_width,
+                 cudaStream_t stream) {
   if constexpr (V * sizeof(T) > 16) {
     return cudaErrorInvalidValue;  // never chosen: vector_width caps V
   } else {
     constexpr int J = rc::vectors_per_lane<T, V>();
+    if (rc::hub_shifted<T, V>() && reinterpret_cast<uintptr_t>(x) % 4 != 0) {
+      return cudaErrorInvalidValue;  // the shifted rows' words need 4-byte rows
+    }
     auto kernel = spmm_sum_hub_kernel<T, V>;
-    const size_t smem = rc::hub_smem_bytes<T, V>(k_width, hub_k);
+    const size_t smem = rc::kHubStages * hub_stage_bytes<T, V>(k_width, hub_k);
     dim3 grid, combine_grid;
-    const int rc_setup = rc::hub_setup(kernel, smem, kHubWarps<T>, table.n_chunks, n_split,
-                                       k_width, 32 * V * J, &grid, &combine_grid);
+    rc::HubWalk walk{};
+    const int rc_setup =
+        rc::hub_pipe_setup(kernel, smem, kHubWarps<T>, table.n_chunks, n_split, k_width,
+                           32 * V * J, n_tickets, &grid, &combine_grid, &walk);
     if (rc_setup != cudaSuccess) return rc_setup;
-    kernel<<<grid, 32 * kHubWarps<T>, smem, stream>>>(
+    walk.tma = rc::hub_route<T, V>(k_width, x) ? 1 : 0;
+    kernel<<<grid, kHubThreads<T>, smem, stream>>>(
         static_cast<const T*>(x), table, idx, ids, hub_k, static_cast<T*>(out),
-        static_cast<float*>(partial), k_width);
+        static_cast<float*>(partial), tickets, k_width, walk);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 0) return err;
     spmm_sum_combine_kernel<T><<<combine_grid, rc::kCombineThreads, 0, stream>>>(
@@ -238,16 +287,24 @@ int launch_hub_v(const void* x, const rc::Table& table, const int* idx, const in
   }
 }
 
-// warps[0], warps[1]: the warps an SM holds of the hub kernel and of the
-// kernel without the hub.
+// info[0], info[1]: the warps an SM holds of the hub kernel and of the
+// kernel without the hub; info[2] the arena's stages, info[3] the hub
+// blocks an SM holds, info[4] 1 where the fill takes the TMA route at this
+// K (rows 16-byte multiples), 0 for cp.async: the route K gives 16-byte
+// aligned tensors (a launch also checks its own).
 template <typename T, int V>
-int hub_warps_v(int64_t k_width, int hub_k, int* warps) {
+int hub_warps_v(int64_t k_width, int hub_k, int* info) {
   if constexpr (V * sizeof(T) > 16) {
     return cudaErrorInvalidValue;
   } else {
-    warps[0] = rc::warps_per_sm(spmm_sum_hub_kernel<T, V>, 32 * kHubWarps<T>,
-                                rc::hub_smem_bytes<T, V>(k_width, hub_k));
-    warps[1] = rc::warps_per_sm(spmm_sum_kernel<T, V, false>, rc::kThreads, 0);
+    auto kernel = spmm_sum_hub_kernel<T, V>;
+    const size_t smem = rc::kHubStages * hub_stage_bytes<T, V>(k_width, hub_k);
+    const int blocks = rc::pipe_blocks_per_sm(kernel, kHubThreads<T>, smem);
+    info[0] = blocks < 0 ? -1 : blocks * kHubThreads<T> / 32;
+    info[1] = rc::warps_per_sm(spmm_sum_kernel<T, V, false>, rc::kThreads);
+    info[2] = rc::kHubStages;
+    info[3] = blocks;
+    info[4] = rc::hub_route<T, V>(k_width, nullptr) ? 1 : 0;
     return cudaSuccess;
   }
 }
@@ -291,13 +348,16 @@ extern "C" int spmm_sum(int dtype, const void* x, const void* chunk_row,
 
 // The hub instantiation of spmm_sum (unweighted): the chunk table and
 // split rows as spmm_sum's, idx the direction's coded neighbour index and
-// ids its k slots' node ids (graph_format.HubTable).  Returns the CUDA
-// error code of the launches.
+// ids its k slots' node ids (graph_format.HubTable); tickets: n_tickets
+// int32 zeros, at least one a K-slice, left zero (one buffer serves a
+// stream's launches, the max kernels' hub launches included).  Returns the
+// CUDA error code of the launches.
 extern "C" int spmm_sum_hub(int dtype, const void* x, const void* chunk_row,
                             const void* chunk_ptr, const void* chunk_slot,
                             long long n_chunks, const void* idx, const void* ids, int hub_k,
                             const void* split_row, const void* split_ptr, long long n_split,
-                            void* out, void* partial, long long k_width, void* stream) {
+                            void* out, void* partial, void* tickets, long long n_tickets,
+                            long long k_width, void* stream) {
   if (n_chunks == 0 || k_width == 0) return cudaSuccess;
   if (n_chunks > 2147483647LL || hub_k < 0) return cudaErrorInvalidValue;
   const rc::Table table{static_cast<const int*>(chunk_row),
@@ -312,19 +372,22 @@ extern "C" int spmm_sum_hub(int dtype, const void* x, const void* chunk_row,
       return launch_hub_v<T, decltype(vw)::value>(
           x, table, static_cast<const int*>(idx), static_cast<const int*>(ids), hub_k,
           static_cast<const int*>(split_row), static_cast<const int*>(split_ptr), n_split,
-          out, partial, k_width, static_cast<cudaStream_t>(stream));
+          out, partial, static_cast<int*>(tickets), n_tickets, k_width,
+          static_cast<cudaStream_t>(stream));
     });
   });
 }
 
-// The warps an SM holds of spmm_sum_hub's kernel (warps[0]) and of the
-// kernel without the hub (warps[1]) at this dtype, K and k, as the card's
-// occupancy calculator gives them; launches nothing.
-extern "C" int spmm_sum_hub_warps(int dtype, long long k_width, int hub_k, int* warps) {
+// The warps an SM holds of spmm_sum_hub's kernel (info[0]) and of the
+// kernel without the hub (info[1]) at this dtype, K and k, as the card's
+// occupancy calculator gives them, then the arena's stages, the hub blocks
+// an SM holds and the fill route at this K (1 TMA, 0 cp.async; info holds
+// 5 ints); launches nothing.
+extern "C" int spmm_sum_hub_warps(int dtype, long long k_width, int hub_k, int* info) {
   return rc::with_dtype(dtype, [&](auto t) {
     using T = decltype(t);
     return rc::with_vector_width(rc::vector_width(k_width, sizeof(T), {}), [&](auto vw) {
-      return hub_warps_v<T, decltype(vw)::value>(k_width, hub_k, warps);
+      return hub_warps_v<T, decltype(vw)::value>(k_width, hub_k, info);
     });
   });
 }

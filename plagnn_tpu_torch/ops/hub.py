@@ -19,13 +19,14 @@ What carries over and what does not:
   (``spmm_kernels.argmax_bytes``: int16 for the id-based argmax up to 2^15
   padded rows, int32 past it, as a graph shard's gather space can be), as the JAX
   package's ``(kb + 1) * stride * 2 * esize`` holds fused gradient and
-  argmax rows.  The budget is ``HUB_SMEM_BYTES``: the card's 227 KB a
-  block (``SMEM_BLOCK_BYTES``) less 1 KB for the kernels' own shared
-  memory.  The max kernels' arena is pipelined, two stages of one K-slice
-  each (``csrc/row_chunks.cuh: hub_pipeline``), so a stage gets half of it
-  (``stage_budget``): k <= 113 rows of 1 KB forward, 75 of 1.5 KB backward
-  in float32 with an int16 argmax, 56 of 2 KB in bfloat16 or with an int32
-  one.  The sum keeps one stage.
+  argmax rows; the sum's arena holds k rows of the gathered operand both
+  ways (``arg_size`` 0).  The budget is ``HUB_SMEM_BYTES``: the card's
+  227 KB a block (``SMEM_BLOCK_BYTES``) less 1 KB for the kernels' own
+  shared memory.  Every hub kernel's arena is pipelined, two stages of one
+  K-slice each (``csrc/row_chunks.cuh: hub_pipeline``), so a stage gets
+  half of it (``stage_budget``): k <= 113 rows of 1 KB (the max forward,
+  the sum), 75 of 1.5 KB in the max backward in float32 with an int16
+  argmax, 56 of 2 KB in bfloat16 or with an int32 one.
 * Not ported, and why: ``_hub_machinery`` and ``_make_steal`` (:433-510)
   walk a separate stream of hub edges one group at a time and interleave
   it, Bresenham-paced, with the regular DMA-ring groups, so that the
@@ -41,30 +42,35 @@ What carries over and what does not:
 one card and on a mesh shard's interior pass.  It would take, for each,
 the k at which the hub kernel beat the kernel without the hub at the first
 layer's shape by more than the run-to-run spread of the kernel without the
-hub, provided GNN32's ms/epoch with it was not slower; no hub kernel beat
-it anywhere.  ``chip_smoke.py --only-hub`` (phase 3h, 4h), NVIDIA H100 80GB
-HBM3, 700.00 W, the 24,041-node graph at the first layer's K (5,030: the cp.async fill
-route), ms by k, at k = 0 (the structure with an empty arena), and the
-kernel without the hub (the range of its 4 runs):
+hub, provided the model's ms/epoch with it was not slower; no hub kernel
+beat it anywhere.  ``chip_smoke.py --only-hub`` (phase 3h, 4h), NVIDIA
+H100 80GB HBM3, 700.00 W, the 24,041-node graph at the first layer's K
+(the max pair at 5,030: the cp.async fill route; the sum at GCN2's 4,000:
+the TMA route), ms by k, at k = 0 (the structure with an empty arena),
+and the kernel without the hub (the range of its 4 runs):
 
-  max forward f32   32/64/75/113: 2.249/2.223/2.215/2.343, k=0 2.228; 1.974-1.996
-  max backward f32  32/56/64/75:  2.998/2.920/3.304/3.372, k=0 3.055; 2.764-2.833
-  max forward bf16  32/64/75/113: 1.599/1.660/1.582/1.601, k=0 1.565; 1.389-1.450
-  max backward bf16 32/37/56:     2.112/2.106/2.284,       k=0 2.162; 2.077-2.133
-  sum forward f32   32/64/128/226: 1.598/1.590/1.513/1.524;            1.313-1.331
-  sum transpose f32 32/64/128/226: 1.602/1.564/1.502/1.536;            1.314-1.343
+  max forward f32   32/64/75/113: 2.109/2.121/2.119/2.202, k=0 2.119; 1.905-1.915
+  max backward f32  32/56/64/75:  2.947/2.887/3.269/3.239, k=0 2.960; 2.775-2.810
+  max forward bf16  32/64/75/113: 1.660/1.696/1.665/1.693, k=0 1.645; 1.476-1.490
+  max backward bf16 32/37/56:     2.199/2.204/2.380,       k=0 2.218; 2.170-2.200
+  sum forward f32   32/64/75/113: 1.499/1.519/1.511/1.543, k=0 1.529; 1.311-1.351
+  sum transpose f32 32/64/75/113: 1.481/1.481/1.466/1.511, k=0 1.513; 1.317-1.325
+  sum forward bf16  32/64/75/113: 0.826/0.821/0.816/0.828, k=0 0.838; 0.709-0.723
+  sum transpose bf16 32/64/75/113: 0.825/0.801/0.798/0.830, k=0 0.836; 0.706-0.748
 
-(the sum keeps its one-block-a-slice design; bfloat16 sums 0.836-0.898
-against 0.692-0.720).  GNN32 with ``--hub-cache 128`` (k = 64 / 64 in
-float32, 64 / 32 in bfloat16) ran 70.813 ms/epoch against 70.409 without in
-float32, 70.299 against 70.104 in bfloat16 (phase 4h, the same run).  At
-330,112 nodes (phase 4g, id-based, int32 argmax, K = 8 x 503: the TMA
-route) the full script's run read, with the hub against without it at the
-rule's K-slice: forward f32 39.008 / 35.823 ms (k = 64), backward f32
-79.940 / 70.311 (k = 32), bf16 21.401 / 21.231 and 68.419 / 56.086; on the
-mesh's interior shards (phase 4s) the hub kernels ran 32-92% slower at
-P = 2 and 4.  So "auto" takes no hub on a shard either.  An explicit k runs
-the hub kernels; on a mesh, on each rank's interior pass
+GNN32 with ``--hub-cache 128`` (k = 64 / 64 in float32, 64 / 32 in
+bfloat16) ran 70.546 ms/epoch against 69.421 without in float32, 70.124
+against 69.990 in bfloat16, and GCN2 (k = 64 / 64) 15.121 against 14.492
+(phase 4h, the same run; another run read 14.717 against 15.208, within
+the host's spread of GCN2's epochs).  At 330,112 nodes (phase 4g,
+id-based, int32 argmax, K = 8 x 503: the TMA route) an earlier full run
+read, with the hub against without it at the rule's K-slice: forward f32
+39.008 / 35.823 ms (k = 64), backward f32 79.940 / 70.311 (k = 32), bf16
+21.401 / 21.231 and 68.419 / 56.086; on the mesh's interior shards (phase
+4s) the hub kernels ran 21-74% slower at P = 2 and 4, and on config 5's
+P = 2 interior the forward at (64, 32) 15.821 ms against 14.157 without
+the hub at 1 KB.  So "auto" takes no hub on a shard either.  An explicit
+k runs the hub kernels; on a mesh, on each rank's interior pass
 (``parallel/partition.py``), whose shards are id-based at any size.
 """
 from __future__ import annotations
@@ -77,9 +83,6 @@ HUB_SLICE_BYTES = 1024
 SMEM_BLOCK_BYTES = 232_448
 # Bytes an arena may take: a block's 227 KB less 1 KB for the kernel's own.
 HUB_SMEM_BYTES = SMEM_BLOCK_BYTES - 1024
-# Stages of an arena: the max kernels' pipelined hub holds two K-slices'
-# rows at once (csrc/row_chunks.cuh: hub_pipeline), the sum's one.
-HUB_STAGES = {"max": 2, "sum": 1}
 
 
 def arena_stride(k_width: int, esize: int) -> int:
@@ -94,26 +97,27 @@ def arena_bytes(k: int, k_width: int, esize: int, arg_size: int = 0) -> int:
     return k * arena_stride(k_width, esize) * (esize + arg_size)
 
 
-def stage_budget(reduce: str = "max") -> int:
-    """Bytes one stage of the ``reduce`` kernels' arena may take: the
-    budget shared by its stages."""
-    return HUB_SMEM_BYTES // HUB_STAGES[reduce]
+def stage_budget() -> int:
+    """Bytes one stage of an arena may take: half the budget, as a hub
+    kernel holds two K-slices' rows at once (``csrc/row_chunks.cuh:
+    hub_pipeline``)."""
+    return HUB_SMEM_BYTES // 2
 
 
-def pick_hub_sizes(hub_cache, k_width: int, esize: int, arg_size: int = 2,
-                   reduce: str = "max") -> Tuple[int, int]:
+def pick_hub_sizes(hub_cache, k_width: int, esize: int,
+                   arg_size: int = 2) -> Tuple[int, int]:
     """(k_fwd, k_bwd) for aggregations K = ``k_width`` elements wide of
     ``esize``-byte messages: the forward's arena (max forward, sum) and
     the transpose's (max backward with an ``arg_size``-byte argmax,
-    ``spmm_kernels.argmax_bytes`` of the graph that carries the hub; the
-    sum's VJP needs less), each halved until a stage fits the ``reduce``
-    kernels' ``stage_budget``."""
+    ``spmm_kernels.argmax_bytes`` of the graph that carries the hub; 0 for
+    the sum's VJP, whose arena holds no argmax), each halved until a stage
+    fits ``stage_budget``."""
     if hub_cache in ("off", "0", 0, None, "auto"):  # auto: the hub loses (above)
         return 0, 0
     kf = kb = int(hub_cache)
     if kf < 0:
         raise ValueError(f"hub_cache must be 'auto', 'off' or k >= 0, got {hub_cache!r}")
-    budget = stage_budget(reduce)
+    budget = stage_budget()
     while kf and arena_bytes(kf, k_width, esize) > budget:
         kf //= 2
     while kb and arena_bytes(kb, k_width, esize, arg_size) > budget:

@@ -299,11 +299,10 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 #   spmm_max_bwd_hub: dtype, arg_bits, g, arg, <hub>, split_row, split_ptr,
 #                     n_split, dx, partial, tickets, n_tickets, k, stream
 #   spmm_sum_hub:     dtype, x, <hub>, split_row, split_ptr, n_split, out,
-#                     partial, k, stream
+#                     partial, tickets, n_tickets, k, stream
 # (tickets: _hub_tickets) and *_hub_warps (dtype, [arg_bits,] k, hub_k, a
-# pointer to five ints for the max kernels, two for the sum) launch
-# nothing: they get the warps an SM holds with and without the hub, and
-# the max kernels' stages, hub blocks an SM and fill route.
+# pointer to five ints) launch nothing: they get the warps an SM holds with
+# and without the hub, the arena's stages, hub blocks an SM and fill route.
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _CHUNKS = [_P, _P, _P, _LL]
 _POS = [_I, _P, _P, _I]
@@ -317,7 +316,7 @@ _ARGTYPES = {
     "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _P, _LL, _P, _P, _LL, _P],
     "spmm_max_fwd_hub": [_I, _I, _P, *_HUB, *_SPLIT, _P, _P, _P, _P, _P, _LL, _LL, _F, _P],
     "spmm_max_bwd_hub": [_I, _I, _P, _P, *_HUB, *_SPLIT, _P, _P, _P, _LL, _LL, _P],
-    "spmm_sum_hub": [_I, _P, *_HUB, *_SPLIT, _P, _P, _LL, _P],
+    "spmm_sum_hub": [_I, _P, *_HUB, *_SPLIT, _P, _P, _P, _LL, _LL, _P],
     "spmm_max_fwd_hub_warps": [_I, _I, _LL, _I, _P],
     "spmm_max_bwd_hub_warps": [_I, _I, _LL, _I, _P],
     "spmm_sum_hub_warps": [_I, _LL, _I, _P],
@@ -410,9 +409,9 @@ def _hub_args(chunks, hub: HubTable):
     return (*chunks[:4], hub.idx.data_ptr(), hub.ids.data_ptr(), hub.k, *chunks[5:])
 
 
-# The pipelined max hub kernels' per-slice chunk tickets by (device,
-# stream): zeros that each launch leaves zero (its last draw of a slice's
-# ticket resets it), so the launches of a stream, in its order, share one.
+# The hub kernels' per-slice chunk tickets by (device, stream): zeros that
+# each launch leaves zero (its last draw of a slice's ticket resets it), so
+# the launches of a stream, in its order, share one.
 _TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -431,8 +430,7 @@ def _hub_tickets(k: int, device: torch.device) -> torch.Tensor:
 
 def _hub_info(kind: str, dtype: torch.dtype, k_width: int, hub_k: int,
               arg_type: torch.dtype):
-    """The ``*_hub_warps`` entry's ints for ``kind`` (five for the max
-    kernels, two for the sum)."""
+    """The ``*_hub_warps`` entry's five ints for ``kind``."""
     code = _DTYPE_CODE[dtype][0]
     info = (ctypes.c_int * 5)()
     if kind in ("max_fwd", "max_bwd"):
@@ -459,13 +457,13 @@ def hub_warps(kind: str, dtype: torch.dtype, k_width: int, hub_k: int,
 
 def hub_layout(kind: str, dtype: torch.dtype, k_width: int, hub_k: int,
                arg_type: torch.dtype = torch.int16) -> Dict[str, object]:
-    """The pipelined max hub kernel's layout for ``kind`` ("max_fwd",
-    "max_bwd") at this dtype, K, k and argmax: the arena's stages, the hub
-    blocks an SM holds and the fill route that K's alignment gives ("tma"
-    or "cp.async"; ``csrc/row_chunks.cuh: hub_route``: a launch takes it
-    where its tensors are 16-byte aligned, as fresh ones are), as its
-    library gives them;
-    launches nothing.  Needs the card and the built library."""
+    """The hub kernel's layout for ``kind`` ("max_fwd", "max_bwd", "sum")
+    at this dtype, K, k and argmax (the max kernels'): the arena's stages,
+    the hub blocks an SM holds and the fill route that K's alignment gives
+    ("tma" or "cp.async"; ``csrc/row_chunks.cuh: hub_route``: a launch
+    takes it where its tensors are 16-byte aligned, as fresh ones are), as
+    its library gives them; launches nothing.  Needs the card and the built
+    library."""
     info = _hub_info(kind, dtype, k_width, hub_k, arg_type)
     return {"stages": info[2], "blocks_per_sm": info[3],
             "route": "tma" if info[4] else "cp.async"}
@@ -788,9 +786,10 @@ def spmm_sum_rows(graph: Graph, x: torch.Tensor, transpose: bool = False,
     chunks, partial = _chunk_args(graph, transpose, k, x.device)
     direction = "bwd" if transpose else "fwd"
     if hub is not None:
+        tickets = _hub_tickets(k, x.device)
         with torch.cuda.device(x.device):
             rc = fn(code, x.data_ptr(), *_hub_args(chunks, hub), out.data_ptr(),
-                    partial.data_ptr(), k, _stream(x))
+                    partial.data_ptr(), tickets.data_ptr(), tickets.numel(), k, _stream(x))
         if rc != 0:
             raise RuntimeError(f"spmm_sum_hub launch failed: CUDA error {rc}")
         _count(f"spmm_sum_{direction}_hub_{tag}", graph, k)

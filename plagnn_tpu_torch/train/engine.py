@@ -131,10 +131,10 @@ def resolve_hub(cfg: TrainConfig, graph: Graph, in_feats: int,
     runs past 2^15 padded nodes (the JAX engine's guard: that graph is
     positional).  On a mesh the hub goes to each rank's interior pass, and
     ``shard_rows``, the rows of a shard's gather space
-    (``PartitionedGraph.n_pad``), sizes the backward's arena: the shards
-    are id-based at any size, so no guard applies, and past 2^15 rows their
-    argmax is int32 (``spmm_kernels.argmax_bytes``).  The arena's budget is
-    that of the run's reduction (GNN32's max, GCN2's sum)."""
+    (``PartitionedGraph.n_pad``), sizes the max backward's arena: the
+    shards are id-based at any size, so no guard applies, and past 2^15
+    rows their argmax is int32 (``spmm_kernels.argmax_bytes``).  GCN2's
+    sums hold no argmax in either direction's arena."""
     from ..ops.hub import pick_hub_sizes
     from ..ops.spmm_kernels import argmax_bytes
 
@@ -144,13 +144,13 @@ def resolve_hub(cfg: TrainConfig, graph: Graph, in_feats: int,
                          "(PartitionedGraph.n_pad)")
     if cfg.model == "gcn2":
         h = cfg.hidden[0]
-        widths, esize, reduce = (min(in_feats, h), min(h, cfg.num_classes)), 4, "sum"
+        widths, esize, arg_size = (min(in_feats, h), min(h, cfg.num_classes)), 4, 0
     else:
-        widths, reduce = (in_feats, *cfg.hidden[:2]), "max"
+        widths = (in_feats, *cfg.hidden[:2])
         esize = 2 if aggregation_dtype() is not None else 4
-    rows = shard_rows if mesh else graph.n_nodes
+        arg_size = argmax_bytes(shard_rows if mesh else graph.n_nodes)
     kf, kb = pick_hub_sizes(cfg.hub_cache, cfg.fold_batch // cfg.mesh_fold * max(widths),
-                            esize, argmax_bytes(rows), reduce=reduce)
+                            esize, arg_size)
     if not mesh and graph.n_nodes > (1 << 15):
         kf = kb = 0
     return kf, kb

@@ -1077,14 +1077,15 @@ def test_hub_arena_past_the_card_refused(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_hub_warps_query(card, dtype):
     """The occupancy entry points: a hub block holds as many warps of an SM
-    as the kernel without the hub at the path's first-layer widths (the
-    float32 max kernels' pipelined blocks 4 fewer: csrc/row_chunks.cuh,
-    hub_warps), and the query launches nothing."""
+    as the kernel without the hub at the path's first-layer widths, less
+    the cut that keeps its registers unspilled (the float32 max kernels'
+    and both sums' blocks 4 fewer: csrc/row_chunks.cuh, hub_warps;
+    csrc/spmm_sum.cu, kHubWarps), and the query launches nothing."""
     before = dict(sk.LAUNCHES)
     for kind, k_width in (("max_fwd", 5030), ("max_bwd", 5030), ("sum", 4000)):
-        hub_k = _max_hub_sizes(64, k_width, dtype)[kind == "max_bwd"] if kind != "sum" else 64
+        hub_k = _max_hub_sizes(64, k_width, dtype, 0 if kind == "sum" else 2)[kind == "max_bwd"]
         with_hub, without = sk.hub_warps(kind, dtype, k_width, hub_k)
-        cut = 4 if kind != "sum" and dtype == torch.float32 else 0
+        cut = 4 if kind == "sum" or dtype == torch.float32 else 0
         assert with_hub == without - cut > 0, (kind, with_hub, without)
     assert sk.LAUNCHES == before
 
@@ -1196,17 +1197,23 @@ def test_pipelined_hub_bit_exact(card, form, k, hub_k, dtype, empty_value):
     assert torch.equal(sk.spmm_max_bwd(gh, gr, arg).view(bits), dx.view(bits))
 
 
-def test_pipelined_hub_tickets_left_zero(card):
+@pytest.mark.parametrize("kind", ["max", "sum"])
+def test_pipelined_hub_tickets_left_zero(card, kind):
     """The per-slice tickets are one buffer a stream that every launch
     leaves zero (its last draw resets each slice's): launches at two widths
-    and both directions reuse it, and it reads zero after each."""
+    and both directions, of the max pair or the sum, reuse it, and it reads
+    zero after each."""
     g = _pipe_graph("split")
     gh = g.with_hub(*_max_hub_sizes(32, 4000, torch.float32)).to(card)
     ptrs = set()
     for k in (4000, 1200, 4000):
         x = torch.rand((gh.n_nodes, k), device=card)
-        out, arg = sk.spmm_max_fwd(gh, x)
-        sk.spmm_max_bwd(gh, x, arg)
+        if kind == "max":
+            out, arg = sk.spmm_max_fwd(gh, x)
+            sk.spmm_max_bwd(gh, x, arg)
+        else:
+            sk.spmm_sum_rows(gh, x)
+            sk.spmm_sum_rows(gh, x, True)
         torch.cuda.synchronize()
         tickets = sk._TICKETS[x.device, torch.cuda.current_stream(x.device).cuda_stream]
         assert tickets.numel() >= -(-4000 // 256) and not tickets.any()
@@ -1214,12 +1221,25 @@ def test_pipelined_hub_tickets_left_zero(card):
     assert len(ptrs) == 1
 
 
-def test_pipelined_hub_past_the_stages_refused(card):
+@pytest.mark.parametrize("kind", ["max", "sum"])
+def test_pipelined_hub_past_the_stages_refused(card, kind):
     """A stage past half the arena's budget is refused, never cut: 114 rows
-    of 1 KB forward (228 KB in two stages), 76 of 1.5 KB backward."""
+    of 1 KB (228 KB in two stages) in the max forward and in the sum either
+    way, 76 of 1.5 KB in the max backward; 113 / 75 run, the sum's
+    bit-identical to the sum without the hub."""
     src, dst, n = _hub_fixture_graph()
     g0 = build_graph(src, dst, n)
     x = torch.ones((g0.n_nodes, 1024), device=card)
+    if kind == "sum":
+        with pytest.raises(RuntimeError, match="spmm_sum_hub launch failed"):
+            sk.spmm_sum_rows(g0.with_hub(114, 0).to(card), x)
+        with pytest.raises(RuntimeError, match="spmm_sum_hub launch failed"):
+            sk.spmm_sum_rows(g0.with_hub(0, 114).to(card), x, True)
+        gh = g0.with_hub(113, 113).to(card)
+        for transpose in (False, True):
+            assert torch.equal(sk.spmm_sum_rows(gh, x, transpose),
+                               sk.spmm_sum_rows(g0.to(card), x, transpose))
+        return
     with pytest.raises(RuntimeError, match="spmm_max_fwd_hub launch failed"):
         sk.spmm_max_fwd(g0.with_hub(114, 0).to(card), x)
     _, arg = sk.spmm_max_fwd(g0.to(card), x)
@@ -1228,6 +1248,46 @@ def test_pipelined_hub_past_the_stages_refused(card):
     sk.spmm_max_fwd(g0.with_hub(113, 0).to(card), x)
     sk.spmm_max_bwd(g0.with_hub(0, 75).to(card), x, arg)
     torch.cuda.synchronize()
+
+
+def _sum_hub_k(form_k, k, dtype):
+    """The sum's hub rows (both ways) for a PIPE_CASES k: 0, the largest a
+    stage holds ("max"), else k halved until a stage fits (no argmax)."""
+    from plagnn_tpu_torch.ops.hub import HUB_SMEM_BYTES, arena_bytes
+
+    esize = torch.finfo(dtype).bits // 8
+    if form_k == "max":
+        return max(q for q in range(1, 300) if arena_bytes(q, k, esize) <= HUB_SMEM_BYTES // 2)
+    return _max_hub_sizes(form_k, k, dtype, 0)[0] if form_k else 0
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form,k,hub_k", PIPE_CASES)
+def test_pipelined_hub_sum_bit_identical(card, form, k, hub_k, dtype, transpose):
+    """The sum's hub on the pipelined design, forward and transpose:
+    bit-identical to the sum without the hub, two launches equal bit for
+    bit, one spmm_sum_{fwd,bwd}_hub_* launch each; the layout the library
+    reports (two stages, one block an SM, the route K's alignment gives)."""
+    g = _pipe_graph(form)
+    kk = _sum_hub_k(hub_k, k, dtype)
+    gh = _zero_hub(g) if kk == 0 else g.with_hub(kk, kk)
+    g0, gh = g.to(card), gh.to(card)
+    assert sk.hub_layout("sum", dtype, k, kk) == {
+        "stages": 2, "blocks_per_sm": 1, "route": PIPE_ROUTES[k]}
+    gen = torch.Generator(device=card).manual_seed(k + kk)
+    if dtype == torch.float32:
+        x = torch.randn((g0.n_nodes, k), generator=gen, device=card)
+    else:
+        x = torch.randint(-8, 9, (g0.n_nodes, k), generator=gen, device=card).to(dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    name = f"spmm_sum_{'bwd' if transpose else 'fwd'}_hub_{_tag(dtype)}"
+    before = sk.LAUNCHES[name]
+    out = sk.spmm_sum_rows(gh, x, transpose)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[name] == before + 1
+    assert torch.equal(out.view(bits), sk.spmm_sum_rows(g0, x, transpose).view(bits))
+    assert torch.equal(sk.spmm_sum_rows(gh, x, transpose).view(bits), out.view(bits))
 
 
 # ---------------------------------------------------------------------------

@@ -148,13 +148,18 @@ def test_hub_max_matches_jax_interpret(dt):
         np.testing.assert_array_equal(dx_p, np.asarray(dx_j))
 
 
-def test_hub_sum_matches_jax_interpret():
-    """pallas_spmm_sum with hub_k = hub_k_bwd = 8 in interpret mode, forward
-    and VJP, against the port's hub sum on integer-valued inputs: exact."""
+@pytest.mark.parametrize("hub_cache", ["8", "128", "226"])
+def test_hub_sum_matches_jax_interpret(hub_cache):
+    """pallas_spmm_sum in interpret mode, forward and VJP, against the
+    port's hub sum on integer-valued inputs: exact, with both hubs at the k
+    the two-stage sizing gives at K = 1,024 (8, and 128 / 226 halved to 64
+    / 113 rows of 1 KB)."""
+    k, k_bwd = hub_mod.pick_hub_sizes(hub_cache, 1024, 4, 0)
+    assert k == k_bwd == {"8": 8, "128": 64, "226": 113}[hub_cache]
     rng = np.random.default_rng(10)
     src, dst = _hub_graph(rng)
-    pg = build_pallas_graph(src, dst, N_PAD, rows_per_block=64, hub_k=8, hub_k_bwd=8)
-    gh = build_graph(src, dst, N_REAL, hub_k=8, hub_k_bwd=8)
+    pg = build_pallas_graph(src, dst, N_PAD, rows_per_block=64, hub_k=k, hub_k_bwd=k)
+    gh = build_graph(src, dst, N_REAL, hub_k=k, hub_k_bwd=k)
     x = rng.integers(-4, 5, (N_PAD, 2, 512)).astype(np.float32)
     y_j, vjp = jax.vjp(lambda xx: pallas_spmm_sum(pg, xx, interpret=True), jnp.asarray(x))
     (dx_j,) = vjp(y_j)
@@ -193,28 +198,31 @@ def test_positional_and_mesh_refuse_a_hub():
 
 def test_pick_hub_sizes_values_and_halving():
     """The accepted values (JAX's off family gives (0, 0) in both), auto
-    0 in both directions, dtypes and reductions (the hub lost everywhere it
-    was measured), and the halving at a wide K: an arena row is
-    1 KB forward, 1 KB + 512 bytes (int16 argmax) backward in float32,
-    narrower at a narrow K; the max kernels' budget a stage is half a
-    block's 227 KB less 1 KB (two stages), the sum's the whole of it."""
+    0 in both directions, dtypes and argmax sizes (the hub lost everywhere
+    it was measured), and the halving at a wide K: an arena row is
+    1 KB forward, 1 KB + 512 bytes (int16 argmax) in the max backward in
+    float32, 1 KB both ways in the sum (no argmax), narrower at a narrow K;
+    every hub kernel's budget a stage is half a block's 227 KB less 1 KB
+    (two stages)."""
     for off in ("off", "0", 0, None):
         assert hub_mod.pick_hub_sizes(off, 5030, 4) == (0, 0) == jax_pick_hub_sizes(off, 5030, 4)
     for esize in (4, 2):
-        for reduce in ("max", "sum"):
-            assert hub_mod.pick_hub_sizes("auto", 5030, esize, reduce=reduce) == (0, 0)
+        for arg_size in (2, 0):
+            assert hub_mod.pick_hub_sizes("auto", 5030, esize, arg_size) == (0, 0)
     assert hub_mod.pick_hub_sizes("8", 5030, 4) == hub_mod.pick_hub_sizes(8, 5030, 4) == (8, 8)
     # 1000 rows: 1000 KB forward, 1500 KB backward -> halved to fit 113 KB
     assert hub_mod.pick_hub_sizes("1000", 5030, 4) == (62, 62)
-    assert hub_mod.arena_bytes(62, 5030, 4, 2) == 95_232 <= hub_mod.stage_budget("max")
+    assert hub_mod.arena_bytes(62, 5030, 4, 2) == 95_232 <= hub_mod.stage_budget()
     assert hub_mod.pick_hub_sizes("226", 5030, 4) == (113, 56)
     assert hub_mod.pick_hub_sizes("128", 5030, 2) == (64, 32)   # bf16: 2 KB rows backward
     assert hub_mod.pick_hub_sizes("512", 120, 4) == (128, 128)  # K = 120: 480-byte rows
-    # the sum keeps one stage: the whole budget
-    assert hub_mod.pick_hub_sizes("1000", 5030, 4, reduce="sum") == (125, 125)
-    assert hub_mod.pick_hub_sizes("512", 120, 4, reduce="sum") == (256, 256)
+    # the sum's two stages (no argmax): k halves as the max forward's does
+    assert hub_mod.pick_hub_sizes("1000", 5030, 4, 0) == (62, 62)
+    assert hub_mod.pick_hub_sizes("128", 4000, 4, 0) == (64, 64)   # GCN2 conv1
+    assert hub_mod.pick_hub_sizes("512", 120, 4, 0) == (128, 128)
+    assert hub_mod.pick_hub_sizes("114", 4000, 2, 0) == (57, 57)
     assert hub_mod.arena_stride(120, 4) == 120 and hub_mod.arena_stride(5030, 2) == 512
-    assert hub_mod.HUB_SMEM_BYTES == 231_424 and hub_mod.stage_budget("max") == 115_712
+    assert hub_mod.HUB_SMEM_BYTES == 231_424 and hub_mod.stage_budget() == 115_712
     with pytest.raises(ValueError):
         hub_mod.pick_hub_sizes("-1", 5030, 4)
 
@@ -233,10 +241,10 @@ STAGE_FITS = {(4, 2): (113, 75), (4, 4): (113, 56), (2, 2): (113, 56), (2, 4): (
 def test_two_stage_sizing(k_width, esize, arg_size):
     """At each layer's K, message size and argmax: the largest k whose
     stage fits half the budget is kept as asked and one more is halved;
-    the halving from 128 and 226; the sum's one stage holds twice the
-    rows."""
+    the halving from 128 and 226; the sum's stages (no argmax) hold the
+    forward's rows both ways."""
     kf, kb = STAGE_FITS[esize, arg_size]
-    budget = hub_mod.stage_budget("max")
+    budget = hub_mod.stage_budget()
     assert hub_mod.arena_bytes(kf, k_width, esize) <= budget
     assert hub_mod.arena_bytes(kf + 1, k_width, esize) > budget
     assert hub_mod.arena_bytes(kb, k_width, esize, arg_size) <= budget
@@ -248,8 +256,7 @@ def test_two_stage_sizing(k_width, esize, arg_size):
     assert pick(str(kb + 1), k_width, esize, arg_size)[1] == (kb + 1) // 2
     assert pick("128", k_width, esize, arg_size) == (64, 64 if kb >= 64 else 32)
     assert pick("226", k_width, esize, arg_size) == (113, 56 if kb >= 56 else 28)
-    sf, sb = pick("226", k_width, esize, arg_size, reduce="sum")
-    assert sf == 226 and hub_mod.arena_bytes(sb, k_width, esize, arg_size) <= 2 * budget
+    assert pick("226", k_width, esize, 0) == (113, 113) == (kf, kf)
 
 
 @pytest.mark.parametrize("agg,esize", [(None, 4), ("bfloat16", 2)])
@@ -271,6 +278,31 @@ def test_resolve_hub_takes_auto_policy(model, agg, esize, monkeypatch):
     big = build_graph(np.array([40000, 5, 7]), np.array([3, 3, 40000]), 40001,
                       positional=False)
     assert engine.resolve_hub(TrainConfig(**cfg), big, 503) == (0, 0)
+
+
+# GCN2's hub sizes at its conv1 width (10 folds x min(503, 400) = 4,000
+# float32 elements, 1 KB rows both ways, no argmax) by hub_cache
+GCN2_HUB_SIZES = {"8": (8, 8), "113": (113, 113), "114": (57, 57), "128": (64, 64),
+                  "1000": (62, 62)}
+
+
+@pytest.mark.parametrize("mesh", [None, "graph", "fold"])
+@pytest.mark.parametrize("hub_cache", sorted(GCN2_HUB_SIZES))
+def test_resolve_hub_gcn2_two_stage_sizes(hub_cache, mesh):
+    """resolve_hub for GCN2: the sum's two stages at its widths, the same
+    k both ways (the VJP's arena holds no argmax, so a shard past 2^15
+    rows halves nothing more); a fold-only mesh sizes at its fold batch of
+    5 (2,000 elements: 1 KB rows again, the same k)."""
+    src, dst = _hub_graph(np.random.default_rng(3))
+    g = build_graph(src, dst, N_REAL)
+    cfg = dict(hub_cache=hub_cache, model="gcn2", fold_batch=10)
+    if mesh is None:
+        got = engine.resolve_hub(TrainConfig(**cfg), g, 503)
+    else:
+        kw = {"mesh_graph": 2} if mesh == "graph" else {"mesh_fold": 2}
+        got = engine.resolve_hub(TrainConfig(**cfg, **kw), g, 503, shard_rows=40_000)
+    assert got == GCN2_HUB_SIZES[hub_cache]
+    assert got == hub_mod.pick_hub_sizes(hub_cache, 4000, 4, 0)
 
 
 def _train_bundle(tmp_dir, **cfg_kw):

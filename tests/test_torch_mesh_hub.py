@@ -134,7 +134,7 @@ def test_shard_past_2_15_rows_takes_an_int32_hub():
     kf, kb = engine.resolve_hub(cfg, None, 503, shard_rows=pg.n_pad)
     assert (kf, kb) == (64, 32)
     assert engine.resolve_hub(cfg, None, 503, shard_rows=1 << 15) == (64, 64)
-    assert hub_mod.arena_bytes(64, 5030, 4, 4) > hub_mod.stage_budget("max") \
+    assert hub_mod.arena_bytes(64, 5030, 4, 4) > hub_mod.stage_budget() \
         >= hub_mod.arena_bytes(32, 5030, 4, 4)
     shard = pg.shard(0, "cpu", kf, kb)
     g = shard.interior
