@@ -1,0 +1,91 @@
+"""How ``correct`` is decided: the program's first training steps against the
+plain reference's, from the same inputs.
+
+Set-up drives the program's training object through a round's first steps,
+one ``run`` call each, and keeps what they produced (``program.Snapshot``);
+the window then goes on with that same object.  Once the window has closed
+and the program is freed, the reference makes the inputs again from the seed
+and follows the same steps.  The numbers compared, each against its limit in
+``limits/<cell>.json``:
+
+* ``probs_gap``: the largest absolute gap of a probability (every fold, real
+  row and class) of the forward before each step's update: the dense layers
+  and the aggregations.
+* ``loss_gap``: the largest gap of a step's training loss, relative to the
+  reference's.
+* ``grad_gap``: the first gradient as Adam holds it after step 1
+  (``exp_avg / (1 - beta1)``), by the worst fold: ``| |g_prog| - |g_ref| |``
+  over ``|g_ref|``, each the norm of every leaf of the fold in one vector.
+* ``delta_gap``: the same measure of the fold's change over the steps,
+  ``theta_last - theta_0``, leaving out leaves whose reference gradient is
+  under a thousandth of the median leaf's (round-off moves them under Adam).
+
+  Both are taken over the whole fold, not by the worst leaf: by the worst
+  leaf, one small leaf's noise set the reading (a bias element whose first
+  gradient is cancellation noise; the last layer's weight gradient, a
+  330,000-row float32 contraction), up to 10x the other seeds' (PERF.md).
+* ``metrics_gap``: the largest absolute gap of the per-epoch metric row
+  (AIM/COV/mlACC and loss of both splits, F1, AUC), the reference's row
+  worked out from the program's own probabilities of that epoch.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .program import Snapshot
+
+NUMBERS = ("probs_gap", "loss_gap", "grad_gap", "delta_gap", "metrics_gap")
+QUIET_LEAF = 1e-3
+
+
+def worst(values) -> float:
+    """The largest of ``values``, a NaN counting as infinite."""
+    return max(v if v == v else float("inf") for v in values)
+
+
+def fold_gap(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
+             ref_grad: Optional[Dict[str, torch.Tensor]] = None) -> float:
+    """The worst fold's gap of norms over its leaves (see the module
+    docstring); with ``ref_grad``, over the leaves that it does not leave
+    quiet."""
+    keep = {k: torch.ones(v.shape[0], dtype=torch.bool) for k, v in ref.items()}
+    if ref_grad is not None:
+        norms = {k: v.double().flatten(1).norm(dim=1) for k, v in ref_grad.items()}
+        median = float(torch.cat(list(norms.values())).median())
+        keep = {k: v >= QUIET_LEAF * median for k, v in norms.items()}
+
+    def fold_norms(tree):
+        sq = sum(torch.where(keep[k], v.double().flatten(1).pow(2).sum(1), 0.0)
+                 for k, v in tree.items())
+        return sq.sqrt()
+
+    p, r = fold_norms(prog), fold_norms(ref)
+    return worst(((p - r).abs() / r).tolist())
+
+
+def readings(snap: Snapshot, ref, ref_rows: List[Dict[str, torch.Tensor]],
+             theta0: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The compared numbers of one run: ``ref`` the reference's
+    ``model.Steps`` over the same steps, ``ref_rows`` the reference's metric
+    rows from the program's probabilities, ``theta0`` the initial leaves."""
+    probs = worst(float((p - q).abs().max()) for p, q in zip(snap.probs, ref.probs))
+    loss = worst(float(((row["train.loss"] - lo.double()).abs() / lo.double().abs()).max())
+               for row, lo in zip(snap.rows, ref.loss))
+    grad = fold_gap(snap.grad1, ref.grad1)
+    delta = fold_gap({k: snap.theta[k] - theta0[k] for k in theta0},
+                     {k: ref.theta[k] - theta0[k] for k in theta0}, ref.grad1)
+    metrics = worst(float((row[c] - want[c]).abs().max())
+                  for row, want in zip(snap.rows, ref_rows) for c in want)
+    return {"probs_gap": probs, "loss_gap": loss, "grad_gap": grad, "delta_gap": delta,
+            "metrics_gap": metrics}
+
+
+def judge(values: Dict[str, float], limits: Dict[str, dict]) -> Tuple[bool, Dict[str, dict]]:
+    """(every number within its limit, {name: {"value", "limit"}}).  A number
+    that is not finite fails."""
+    checks = {name: {"value": values[name], "limit": limits[name]["limit"]}
+              for name in NUMBERS}
+    ok = all(c["value"] <= c["limit"] for c in checks.values())
+    return ok, checks
