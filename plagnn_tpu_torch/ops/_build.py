@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
+from ..utils.profiling import span
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -100,13 +102,15 @@ def build_variants(name: str, variants: Sequence[Sequence[str]]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
+    """The ctypes handle of ``csrc/<name>.cu``, built on first use.  A miss
+    (the build and the load) is the span ``setup.kernel_load``."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = lib_path(name)
-        if not path.exists():
-            build_all()
-        lib = ctypes.CDLL(str(path))
+        with span("setup.kernel_load"):
+            path = lib_path(name)
+            if not path.exists():
+                build_all()
+            lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
 

@@ -1,6 +1,4 @@
-"""Tracing and step timing.
-
-Port of ``plagnn_tpu/utils/profiling.py``:
+"""Tracing, spans and the epoch's phases.
 
 * ``trace(log_dir)``: a ``torch.profiler.profile`` context that records
   the host and, where a card is present, its CUDA kernels, and writes a
@@ -9,21 +7,26 @@ Port of ``plagnn_tpu/utils/profiling.py``:
   with a warm-up of tiny kernels, and it raises where the block launched
   kernels and the file holds none of them, and warns where it holds only
   some.
-* ``hard_sync(x)``: waits for x's device and returns x's first element.
-* ``StepTimer``: device-synchronised wall-clock step times, with the JAX
-  class's summary line.
+* ``span(name)``: a named stretch of host code.  Every call adds its host
+  seconds to ``SPANS``; while a profiler session is active it is also a
+  ``record_function`` range, so the Chrome trace names the host code
+  behind each stretch of device idle.
+* ``PHASES``: one row per epoch that the runner timed, phase -> ms on the
+  device's clock (``train/runner.py: EpochTimer``).
+* ``reset()`` empties both registries; ``summary()`` prints them.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import time
 import warnings
-from typing import List, Optional, Tuple
+from typing import Dict, List, Tuple
 
-import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
 TRACE_FILE = "trace.json"
@@ -117,47 +120,67 @@ def block_device_events(path: str) -> List[Tuple[str, float]]:
             and ev.get("args", {}).get("correlation") in calls]
 
 
-def _first_tensor(x) -> torch.Tensor:
-    while isinstance(x, (list, tuple, dict)):
-        x = next(iter(x.values())) if isinstance(x, dict) else x[0]
-    return torch.as_tensor(x)
+@dataclasses.dataclass
+class SpanStats:
+    """What the calls of one span name took on the host's clock."""
+
+    count: int
+    total_s: float
+    first_s: float
 
 
-def hard_sync(x) -> float:
-    """Wait for the device of x (a tensor, or the first tensor of nested
-    lists, tuples and dicts) and return its first element as a float."""
-    t = _first_tensor(x)
-    if t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
-    return float(t.reshape(-1)[0])
+# span name -> its calls in this process
+SPANS: Dict[str, SpanStats] = {}
+# one row per epoch that the runner timed, in order: phase -> ms
+PHASES: List[Dict[str, float]] = []
 
 
-class StepTimer:
-    """Accumulates device-synced step durations."""
+class span:
+    """``with span(name):`` adds the block's host seconds to ``SPANS[name]``.
+    Inside a profiler session the block is also a ``record_function``
+    range; outside one it costs a flag test and two clock reads."""
 
-    def __init__(self):
-        self.times: List[float] = []
-        self._t0: Optional[float] = None
+    __slots__ = ("name", "t0", "range")
 
-    def start(self):
-        self._t0 = time.perf_counter()
+    def __init__(self, name: str):
+        self.name = name
 
-    def stop(self, result) -> float:
-        hard_sync(result)
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        return dt
+    def __enter__(self):
+        self.range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.range = record_function(self.name)
+            self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
 
-    @property
-    def mean(self) -> float:
-        return float(np.mean(self.times)) if self.times else 0.0
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        stats = SPANS.get(self.name)
+        if stats is None:
+            SPANS[self.name] = SpanStats(1, dt, dt)
+        else:
+            stats.count += 1
+            stats.total_s += dt
+        return False
 
-    def summary(self) -> str:
-        if not self.times:
-            return "no steps recorded"
-        t = np.asarray(self.times)
-        return (
-            f"steps={len(t)} mean={t.mean()*1e3:.2f}ms "
-            f"p50={np.percentile(t,50)*1e3:.2f}ms "
-            f"p95={np.percentile(t,95)*1e3:.2f}ms"
-        )
+
+def reset() -> None:
+    """Empty ``SPANS`` and ``PHASES`` (in place)."""
+    SPANS.clear()
+    PHASES.clear()
+
+
+def summary() -> str:
+    """A table of ``SPANS`` and the mean of each phase over ``PHASES``."""
+    lines = [f"{'span':<36}{'calls':>8}{'total s':>12}{'first ms':>12}{'mean ms':>12}"]
+    for name, s in sorted(SPANS.items()):
+        lines.append(f"{name:<36}{s.count:>8}{s.total_s:>12.4f}{s.first_s * 1e3:>12.3f}"
+                     f"{s.total_s / s.count * 1e3:>12.3f}")
+    if PHASES:
+        means = {k: sum(row[k] for row in PHASES) / len(PHASES) for k in PHASES[0]}
+        lines.append(f"epoch phases, mean ms over {len(PHASES)} epochs: "
+                     + ", ".join(f"{k} {v:.3f}" for k, v in means.items())
+                     + f"; epoch {sum(means.values()):.3f}")
+    return "\n".join(lines)

@@ -34,6 +34,8 @@ from plagnn_tpu_torch.parallel.sharded import (
     halo_exchange, make_mesh, make_sharded_fold_runner, make_sharded_forward,
     sharded_gcn_propagate, sharded_sage_conv)
 from plagnn_tpu_torch.train import engine, kfold, losses
+from plagnn_tpu_torch.train.runner import EPOCH_PHASES
+from plagnn_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPAWN_TIMEOUT_S = 150     # a hung rank fails its test well inside the suite's limit
@@ -444,6 +446,9 @@ def _runner_worker(rank, device, out_dir, fold, graph, params, n_epochs, shape):
     _, _, probs, hist, epoch_ms = run(model, None, torch.from_numpy(tr),
                                       torch.from_numpy(va), 0.1)
     assert len(epoch_ms) == n_epochs and probs.shape == (len(tr), n, 12)
+    # the sharded epoch's phases: one row an epoch, adding up to its epoch_ms
+    for row, ms in zip(profiling.PHASES[-n_epochs:], epoch_ms):
+        assert tuple(row) == EPOCH_PHASES and abs(sum(row.values()) - ms) < 1e-6
     if rank == 0:
         np.savez(os.path.join(out_dir, "runner.npz"), probs=probs.numpy(),
                  **_flat_history(hist))
