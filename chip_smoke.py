@@ -28,6 +28,13 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    PyTorch library call at the first layer's shape of each path, the sum
    also at GCN2 conv2's K = 120, and the weighted sum beside the unweighted
    one.
+   3g. GCN's scaled sum (GraphConv norm='both' and its bias in the sum
+   kernel) at GCN2's shapes, 24k nodes at K = 10 x 400 and 10 x 12 and
+   330,000 nodes (10 M edges) at 8 x 400: forward with a bias and
+   transpose, float32 and bfloat16, bit-identical to the composition of the
+   card's passes and run to run, float32 against its plain version with
+   the sum's tolerance; timed beside the unscaled kernel and the
+   composition (``--only-gcn-sum`` runs phases 1, 2 and 3g alone).
    3h. The hub cache's kernels on the full graph: the coverage by k (the
    share of edges whose row the arena serves, each direction); at every
    width each path aggregates (max: K = 10 x 503 / 400 / 300; sum: 10 x 400
@@ -306,6 +313,8 @@ _HUB_FWD = "plagnn_tpu/ops/pallas/spmm_kernels.py:588"  # _spmm_fwd_kernel's hub
 CONV2 = "_k120"  # name suffix of the sum's entries at GCN2 conv2's width
 # the JAX package's edge-weighted sum: ell_reduce_sum(use_val=True), XLA
 _VAL_SUM = "plagnn_tpu/ops/spmm.py:105"
+# the JAX package's gcn_propagate around pallas_spmm_sum (_FWD_BODY)
+_GCN = "plagnn_tpu/ops/spmm.py:210"
 REPLACES = {
     "spmm_max_fwd_f32": _FWD_BODY,
     "spmm_max_fwd_bf16": _FWD_BODY,
@@ -338,6 +347,12 @@ REPLACES = {
     "spmm_sum_val_fwd_bf16": _VAL_SUM,
     "spmm_sum_val_bwd_f32": _VAL_SUM,
     "spmm_sum_val_bwd_bf16": _VAL_SUM,
+    # GCN's scaled sum: the sum body with gcn_propagate's norm='both' passes
+    # and GraphConv's bias folded in
+    "spmm_sum_gcn_fwd_f32": _GCN,
+    "spmm_sum_gcn_fwd_bf16": _GCN,
+    "spmm_sum_gcn_bwd_f32": _GCN,
+    "spmm_sum_gcn_bwd_bf16": _GCN,
     # the hub cache: the with_hub paths of the three bodies
     "spmm_max_fwd_hub_f32": _HUB_FWD,
     "spmm_max_fwd_hub_bf16": _HUB_FWD,
@@ -756,6 +771,116 @@ def check_sum_kernels(graph, k, label, results=None, suffix="", dtypes=None):
     torch.cuda.empty_cache()
 
 
+def check_gcn_sum(graph, k, label, results, suffix=""):
+    """Kernel-table row 3d, GCN's scaled sum (``spmm_sum_gcn_rows``) at K
+    elements a row: forward with a bias and transpose, float32 and bfloat16,
+    each bit-identical to the composition of the card's passes (scale,
+    unscaled sum, scale, bias) and, in float32, within 1e-5 of the summed
+    magnitudes of the plain version; then times (median of 10) the scaled
+    kernel beside the unscaled kernel and the composition in the same
+    call, the plain version (median of 3) and ``torch.sparse.mm`` on the
+    normalised adjacency (a yardstick: one call, no bias).  Entered under
+    the kernel's counter name plus ``suffix``."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    n, e, dev = graph.n_nodes, graph.n_edges, graph.device
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x32 = torch.randn((n, k), generator=gen, device=dev)
+    bias32 = torch.randn(k, generator=gen, device=dev)
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x, bias = x32.to(dt), bias32.to(dt)
+        pre, post = sk.gcn_scales(graph, dt)
+        for transpose in (False, True):
+            direction = "bwd" if transpose else "fwd"
+            a, b = (post, pre) if transpose else (pre, post)
+            a, b = a.to(dt)[:, None], b.to(dt)[:, None]
+            bf = None if transpose else bias.float()
+
+            def scaled():
+                return sk.spmm_sum_gcn_rows(graph, x, bf, transpose)
+
+            def composed():
+                s = sk.spmm_sum_rows(graph, x * a, transpose) * b
+                return s if transpose else s + bias
+
+            out_k = scaled()
+            torch.cuda.synchronize()
+            if not torch.equal(out_k, scaled()):
+                fail(f"{label}: scaled sum {direction} {tag} is not deterministic run to run")
+            if not torch.equal(out_k, composed()):
+                fail(f"{label}: scaled sum {direction} {tag} differs from the composition "
+                     "of the card's passes")
+            out_p = sk.spmm_sum_gcn_plain(graph, x, a[:, 0].float(), b[:, 0].float(), bf,
+                                          transpose)
+            err_max = (out_k.float() - out_p.float()).abs().max().item()
+            if dt == torch.float32:
+                mag = sk.spmm_sum_gcn_plain(graph, x.abs(), a[:, 0], b[:, 0],
+                                            None if bf is None else bf.abs(), transpose)
+                if bool(((out_k - out_p).abs() > 1e-5 * mag + 1e-7).any()):
+                    fail(f"{label}: scaled sum {direction} f32 differs from plain beyond 1e-5 "
+                         f"of the summed magnitudes (max abs {err_max})")
+            print(f"{label}: scaled sum {direction} {tag} K={k} bit-identical to the "
+                  f"composition; max abs err against plain {err_max:.3e}", flush=True)
+            indptr, idx = ((graph.t_indptr, graph.t_dst) if transpose
+                           else (graph.indptr, graph.src))
+            rows = torch.repeat_interleave(torch.arange(n, device=dev), indptr.diff().long())
+            vals = (a[idx.long(), 0].float() * b[rows, 0].float()).to(dt)
+            adj = torch.sparse_csr_tensor(indptr, idx, vals, size=(n, n),
+                                          check_invariants=False)
+            ms = median_ms(scaled, 10)
+            unscaled = median_ms(lambda: sk.spmm_sum_rows(graph, x, transpose), 10)
+            comp = median_ms(composed, 10)
+            plain = median_ms(lambda: sk.spmm_sum_gcn_plain(
+                graph, x, a[:, 0].float(), b[:, 0].float(), bf, transpose), 3)
+            lib = median_ms(lambda: torch.sparse.mm(adj, x), 10)
+            esize = x.element_size()
+            name = f"spmm_sum_gcn_{direction}_{tag}{suffix}"
+            # x read once, out written once, the CSR, the two scales and the
+            # bias; a multiply and an add an edge element, a multiply and an
+            # add a stored element
+            r = results[name] = kernel_entry(
+                name, "spmm_sum", err_max, ms, plain, lib,
+                2 * n * k * esize + 4 * (n + 1 + e) + 8 * n + (0 if transpose else 4 * k),
+                2 * e * k + 2 * n * k, (n, k))
+            r["unscaled_ms"] = unscaled
+            r["composition_ms"] = comp
+            print(f"  {name}: {ms:.3f} ms (unscaled {unscaled:.3f}, composition {comp:.3f}, "
+                  f"plain {plain:.3f}, library {lib:.3f}, bound {r['bound_ms']:.3f} by "
+                  f"{r['bound_by']})", flush=True)
+            del adj, rows, vals
+    del x32, bias32
+    torch.cuda.empty_cache()
+
+
+def gcn_sum_phase(results, smi_line, full=None):
+    """Kernel-table row 3d on GCN2's two graphs: the 24k-node graph (``full``,
+    or built here) at conv1's K = 10 x 400 and conv2's 10 x 12, and
+    BASELINE.json config 5's 330,000 nodes and 10 M edges at conv1's
+    K = 8 x 400 (entries ``@n<N_pad>``)."""
+    import torch
+
+    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+    from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
+
+    if full is None:
+        full = from_scipy_coo(powerlaw_ppi(NODES, EDGES, SEED), add_self_loops=True)
+    g = full.to(DEVICE)
+    check_gcn_sum(g, FOLDS * SUM_WIDTHS[0], "full graph GCN2 conv1", results)
+    check_gcn_sum(g, FOLDS * SUM_WIDTHS[1], "full graph GCN2 conv2", results, suffix=CONV2)
+    del g
+    t0 = time.perf_counter()
+    big = from_scipy_coo(powerlaw_ppi(BIG_NODES, BIG_EDGES, SEED), add_self_loops=True)
+    print(f"big graph: N_pad {big.n_nodes}, E {big.n_edges}, forward chunks "
+          f"{big.chunks.n_chunks} ({big.chunks.n_split} split rows), transpose "
+          f"{big.t_chunks.n_chunks} ({big.t_chunks.n_split}); built in "
+          f"{time.perf_counter() - t0:.1f} s ({smi_line})", flush=True)
+    check_gcn_sum(big.to(DEVICE), BIG_FOLDS * GCN2_HIDDEN, "big graph GCN2 conv1", results,
+                  suffix=f"@n{big.n_nodes}")
+    torch.cuda.empty_cache()
+
+
 def weighted_graph(coo_ppi, seed):
     """The graph of a PPI with self-loops and edge values seeded uniform in
     [0.5, 1.5) (1.0 on the self-loops), on the card."""
@@ -1046,9 +1171,11 @@ def report_run(label, stats, wall, counts, smi_line, folds=FOLDS):
 
 def gcn2_launches(hub=None):
     """A GCN2 run: 2 GraphConvs, one sum forward and one transpose each per
-    epoch, the hub kernels where the run's hub (default: "auto"'s) has
-    that direction."""
+    epoch: the scaled sum where the run has no hub (default: "auto"'s), else
+    the unscaled sum, the hub kernel in each direction that has one."""
     kf, kb = auto_hub("gcn2", "f32") if hub is None else hub
+    if not (kf or kb):
+        return {"spmm_sum_gcn_fwd_f32": 2 * EPOCHS_GCN2, "spmm_sum_gcn_bwd_f32": 2 * EPOCHS_GCN2}
     return {f"spmm_sum_fwd_{'hub_' if kf else ''}f32": 2 * EPOCHS_GCN2,
             f"spmm_sum_bwd_{'hub_' if kb else ''}f32": 2 * EPOCHS_GCN2}
 
@@ -4649,6 +4776,10 @@ def main(argv=None):
                     help="phases 1-2 and phase 3d (the gather probe: checks and "
                          "its short sweep); prints its kernels entries and no "
                          "result line")
+    ap.add_argument("--only-gcn-sum", action="store_true",
+                    help="phases 1-2 and phase 3g (GCN's scaled sum, kernel-table row "
+                         "3d, at 24k and 330k nodes); prints its kernels entries and "
+                         "no result line")
     ap.add_argument("--only-big-graph", action="store_true",
                     help="phases 1-2 and phase 4g (the big-graph path); prints "
                          "no result line")
@@ -4723,6 +4854,12 @@ def main(argv=None):
         dma_phase(results, smi_line)
         print(json.dumps({"kernels": list(results.values())}))
         return
+    if args.only_gcn_sum:
+        phase("3g GCN scaled sum")
+        results = {}
+        gcn_sum_phase(results, smi_line)
+        print(json.dumps({"kernels": list(results.values())}))
+        return
     if args.only_big_graph:
         phase("4g big graph")
         big_graph_phase({}, smi_line)
@@ -4768,6 +4905,8 @@ def main(argv=None):
                       results, suffix=CONV2)
     del full_cuda
     torch.cuda.empty_cache()
+    phase("3g GCN scaled sum")
+    gcn_sum_phase(results, smi_line, full)
     phase("3h hub cache kernels")
     hub_kernel_phase(full, x_full, results, smi_line)
     del x_full
@@ -4845,6 +4984,8 @@ def main(argv=None):
         "spmm_max_bwd_f32", "spmm_max_bwd_bf16",
         "spmm_sum_fwd_f32", "spmm_sum_fwd_bf16", "spmm_sum_bwd_f32", "spmm_sum_bwd_bf16",
         "spmm_sum_fwd_f32" + CONV2, "spmm_sum_bwd_f32" + CONV2,
+        "spmm_sum_gcn_fwd_f32", "spmm_sum_gcn_fwd_bf16", "spmm_sum_gcn_bwd_f32",
+        "spmm_sum_gcn_bwd_bf16", "spmm_sum_gcn_fwd_f32" + CONV2, "spmm_sum_gcn_bwd_f32" + CONV2,
         "pcc_diff_count_f64", "pcc_diff_hits_f64", "ecc_common_neighbors_i32",
         "pcc_diff_hist_f64", "spmm_sum_val_fwd_f32", "spmm_sum_val_bwd_f32",
         "spmm_sum_val_fwd_bf16", "spmm_sum_val_bwd_bf16",

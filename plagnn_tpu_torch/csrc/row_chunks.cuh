@@ -22,7 +22,10 @@
 //    one rounds once and stores the row; a chunk of a split row stores its
 //    float32 partial in its slot of the scratch buffer.
 // 2. combine_pass: one thread per (split row, k) adds the row's partials in
-//    ascending chunk order, rounds once and stores the row.
+//    ascending chunk order, rounds once and stores the row.  An op that
+//    rewrites a row's sums before the store (HasFinish: the GCN sum's scale
+//    and bias) does so for a whole row in chunk_body, for a split row after
+//    its combine.
 //
 // No atomics: every output element is written by one thread, and every sum
 // is taken in a fixed order, so the result is bit-identical run to run.
@@ -288,6 +291,15 @@ inline int group_log2(int slice_bytes) {
   return lg;
 }
 
+// An op that rewrites a whole row's sums before they are stored (the GCN
+// sum's scale and bias) has op.finish(row, k, acc), acc the V sums of
+// elements [k, k + V); a split row's partials are stored as they are, and
+// its combine finishes the row.
+template <typename Op, typename = void>
+struct HasFinish : std::false_type {};
+template <typename Op>
+struct HasFinish<Op, std::void_t<decltype(&Op::finish)>> : std::true_type {};
+
 // One chunk's walk (chunk_pass's), for a lane whose first element is k0 and
 // whose first `nvec` vectors lie inside K, `vstride` elements apart (also
 // the hub kernels' walk of a chunk their block's ticket handed out, and with
@@ -319,6 +331,7 @@ __device__ __forceinline__ void chunk_body(const Table& t, int64_t chunk,
     if (j >= nvec) break;
     const int64_t k = k0 + j * vstride;
     if (slot < 0) {
+      if constexpr (HasFinish<Op>::value) op.finish(row, k, acc + j * V);
       store_vec<OutT, V>(out + static_cast<int64_t>(row) * k_width + k, acc + j * V);
     } else {
       store_vec<float, V>(partial + static_cast<int64_t>(slot) * k_width + k, acc + j * V);
@@ -344,15 +357,20 @@ __device__ __forceinline__ void chunk_pass(const Table& t, const int* __restrict
   chunk_body<OutT, V, J>(t, chunk, idx, lane, k0, nvec, k_width, out, partial, op);
 }
 
+struct NoFinish {
+  __device__ __forceinline__ void operator()(int, int64_t, float*) const {}
+};
+
 // Kernel 2's body: split row blockIdx.x, one k per thread; the row's
 // partials added in ascending chunk order (the order of its slots), then
+// finished (`finish(row, k, &acc)`, an op's finish for one element) and
 // rounded once.
-template <typename OutT>
+template <typename OutT, typename Finish = NoFinish>
 __device__ __forceinline__ void combine_pass(const int* __restrict__ split_row,
                                              const int* __restrict__ split_ptr,
                                              const float* __restrict__ partial,
                                              OutT* __restrict__ out,
-                                             int64_t k_width) {
+                                             int64_t k_width, Finish finish = {}) {
   const int i = blockIdx.x;
   const int64_t k = static_cast<int64_t>(blockIdx.y) * kCombineThreads + threadIdx.x;
   if (k >= k_width) return;
@@ -361,7 +379,9 @@ __device__ __forceinline__ void combine_pass(const int* __restrict__ split_row,
   for (int s = __ldg(split_ptr + i); s < s_end; ++s) {
     acc += __ldg(partial + static_cast<int64_t>(s) * k_width + k);
   }
-  store_vec<OutT, 1>(out + static_cast<int64_t>(__ldg(split_row + i)) * k_width + k, &acc);
+  const int row = __ldg(split_row + i);
+  finish(row, k, &acc);
+  store_vec<OutT, 1>(out + static_cast<int64_t>(row) * k_width + k, &acc);
 }
 
 // Host side.  The widest lane vector, in elements, that divides K, keeps

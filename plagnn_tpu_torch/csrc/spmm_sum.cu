@@ -13,10 +13,16 @@
 // (ell_reduce_sum, an XLA gather-reduce in the JAX package, no Pallas
 // kernel).  A weighted edge's term is the gathered element, in float32,
 // times its value, rounded once (__fmul_rn, no contraction into the add),
-// as the plain version computes it.  Without values (the GCN2 path) the
-// unweighted instantiation runs: it reads no value and multiplies nothing.  The same kernels serve both directions of the
-// segment sum: the forward over the destination-sorted CSR (indptr, src),
-// and the VJP over the transpose CSR (t_indptr, t_dst), where
+// as the plain version computes it.  Without values the unweighted
+// instantiation runs: it reads no value and multiplies nothing.  The scaled
+// instantiation (spmm_sum_gcn, the GCN2 path) is GraphConv's norm='both'
+// propagation and bias in one pass: each term scaled by its source's
+// out-degree^-1/2 as it is gathered, each row by its in-degree^-1/2 and the
+// bias added at the store, the same multiplies and adds, rounded in the same
+// places, as the separate passes of ops/spmm.py's composition.  The same
+// kernels serve both directions of the segment sum: the forward over the
+// destination-sorted CSR (indptr, src), and the VJP over the transpose CSR
+// (t_indptr, t_dst), where
 // dx[s] = sum over edges s -> n of w * g[n] (the transpose's values in its
 // own edge order: Graph.t_val).  Each direction comes with its
 // chunk table (row_chunks.cuh), which cuts every row into chunks of at most
@@ -121,6 +127,98 @@ spmm_sum_combine_kernel(const int* __restrict__ split_row,
                         const float* __restrict__ partial, T* __restrict__ out,
                         int64_t k_width) {
   rc::combine_pass<T>(split_row, split_ptr, partial, out, k_width);
+}
+
+// v rounded to T and back: where GCN's composition stores an intermediate
+// in x's dtype (bfloat16), the scaled sum rounds it there too.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __bfloat162float(__float2bfloat16(v));
+  }
+}
+
+// The scaled sum's store of one element (kScaled): the row's sum rounded to
+// T, times post[row], then plus bias[k] where there is a bias, each step
+// rounded once as the composition's separate passes round it.
+template <typename T>
+__device__ __forceinline__ float scaled_store(float acc, float post,
+                                              const float* __restrict__ bias, int64_t k) {
+  const float v = __fmul_rn(round_to<T>(acc), post);
+  return bias == nullptr ? v : __fadd_rn(round_to<T>(v), __ldg(bias + k));
+}
+
+// kScaled, GCN's degree-normalised sum with its bias:
+//   out[row, k] = post[row] * sum over edges of (pre[src] * x[src, k]) + bias[k],
+// pre and post one float32 a node (the scales in x's dtype), each term
+// rounded once to T (__fmul_rn, no contraction into the add) and added in
+// SumOp's order; finish applies post and bias at the store.
+template <typename T, int V, int J>
+struct SumScaledOp {
+  const T* x;
+  const float* pre;
+  const float* post;
+  const float* bias;
+  int64_t k_width;
+  int64_t k0;
+  int nvec;
+  rc::Vec<T, V> val[rc::kUnroll][J];
+  float w[rc::kUnroll];
+
+  __device__ __forceinline__ void begin(int, int64_t k, int n) {
+    k0 = k;
+    nvec = n;
+  }
+  __device__ __forceinline__ void load(int u, int src, int) {
+    w[u] = __ldg(pre + src);
+    const T* p = x + static_cast<int64_t>(src) * k_width + k0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (j < nvec) val[u][j] = rc::load_vec<T, V>(p + j * 32 * V);
+    }
+  }
+  __device__ __forceinline__ void add(int u, float (&acc)[V * J]) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (j >= nvec) break;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        acc[j * V + i] += round_to<T>(__fmul_rn(w[u], rc::get(val[u][j], i)));
+      }
+    }
+  }
+  __device__ __forceinline__ void finish(int row, int64_t k, float* acc) {
+    const float p = __ldg(post + row);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = scaled_store<T>(acc[i], p, bias, k + i);
+  }
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(rc::kThreads)
+spmm_sum_gcn_kernel(const T* __restrict__ x, rc::Table table, const int* __restrict__ idx,
+                    const float* __restrict__ pre, const float* __restrict__ post,
+                    const float* __restrict__ bias, T* __restrict__ out,
+                    float* __restrict__ partial, int64_t k_width) {
+  constexpr int J = rc::vectors_per_lane<T, V>();
+  SumScaledOp<T, V, J> op{x, pre, post, bias, k_width, 0, 0};
+  rc::chunk_pass<T, V, J>(table, idx, k_width, out, partial, op);
+}
+
+// A split row of the scaled sum: its partials combined, then post and bias.
+template <typename T>
+__global__ void __launch_bounds__(rc::kCombineThreads)
+spmm_sum_gcn_combine_kernel(const int* __restrict__ split_row,
+                            const int* __restrict__ split_ptr,
+                            const float* __restrict__ partial,
+                            const float* __restrict__ post, const float* __restrict__ bias,
+                            T* __restrict__ out, int64_t k_width) {
+  rc::combine_pass<T>(split_row, split_ptr, partial, out, k_width,
+                      [=](int row, int64_t k, float* acc) {
+                        *acc = scaled_store<T>(*acc, __ldg(post + row), bias, k);
+                      });
 }
 
 // out[row] += x[src] for each edge, the hub edges' rows from a stage of
@@ -255,6 +353,31 @@ int launch(const void* x, const rc::Table& table, const int* idx, const float* w
 }
 
 template <typename T, int V>
+int launch_gcn_v(const void* x, const rc::Table& table, const int* idx, const float* pre,
+                 const float* post, const float* bias, const int* split_row,
+                 const int* split_ptr, int64_t n_split, void* out, void* partial,
+                 int64_t k_width, cudaStream_t stream) {
+  if constexpr (V * sizeof(T) > 16) {
+    return cudaErrorInvalidValue;  // never chosen: vector_width caps V
+  } else {
+    dim3 grid, combine_grid;
+    const int rc_grid = rc::grids(table.n_chunks, n_split, k_width,
+                                  32 * V * rc::vectors_per_lane<T, V>(), &grid,
+                                  &combine_grid);
+    if (rc_grid != cudaSuccess) return rc_grid;
+    spmm_sum_gcn_kernel<T, V><<<grid, rc::kThreads, 0, stream>>>(
+        static_cast<const T*>(x), table, idx, pre, post, bias, static_cast<T*>(out),
+        static_cast<float*>(partial), k_width);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || n_split == 0) return err;
+    spmm_sum_gcn_combine_kernel<T><<<combine_grid, rc::kCombineThreads, 0, stream>>>(
+        split_row, split_ptr, static_cast<const float*>(partial), post, bias,
+        static_cast<T*>(out), k_width);
+    return cudaGetLastError();
+  }
+}
+
+template <typename T, int V>
 int launch_hub_v(const void* x, const rc::Table& table, const int* idx, const int* ids,
                  int hub_k, const int* split_row, const int* split_ptr, int64_t n_split,
                  void* out, void* partial, int* tickets, int64_t n_tickets, int64_t k_width,
@@ -344,6 +467,37 @@ extern "C" int spmm_sum(int dtype, const void* x, const void* chunk_row,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The scaled instantiation (kScaled, GCN's norm='both' with its bias): the
+// chunk table, idx and split rows as spmm_sum's; pre and post float32, one a
+// node (forward: out-degree^-1/2 of the sources, in-degree^-1/2 of the rows;
+// transpose: the two swapped); bias null or K float32 values, added to every
+// row at its column k.  Returns the CUDA error code of the launches.
+extern "C" int spmm_sum_gcn(int dtype, const void* x, const void* chunk_row,
+                            const void* chunk_ptr, const void* chunk_slot,
+                            long long n_chunks, const void* idx, const void* pre,
+                            const void* post, const void* bias, const void* split_row,
+                            const void* split_ptr, long long n_split, void* out,
+                            void* partial, long long k_width, void* stream) {
+  if (n_chunks == 0 || k_width == 0) return cudaSuccess;
+  if (n_chunks > 2147483647LL) return cudaErrorInvalidValue;
+  const rc::Table table{static_cast<const int*>(chunk_row),
+                        static_cast<const int*>(chunk_ptr),
+                        static_cast<const int*>(chunk_slot),
+                        static_cast<int>(n_chunks)};
+  return rc::with_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    constexpr int es = sizeof(T);
+    const int v = rc::vector_width(k_width, es, {{x, es}, {out, es}, {partial, 4}});
+    return rc::with_vector_width(v, [&](auto vw) {
+      return launch_gcn_v<T, decltype(vw)::value>(
+          x, table, static_cast<const int*>(idx), static_cast<const float*>(pre),
+          static_cast<const float*>(post), static_cast<const float*>(bias),
+          static_cast<const int*>(split_row), static_cast<const int*>(split_ptr), n_split,
+          out, partial, k_width, static_cast<cudaStream_t>(stream));
+    });
+  });
 }
 
 // The hub instantiation of spmm_sum (unweighted): the chunk table and

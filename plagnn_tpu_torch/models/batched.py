@@ -60,7 +60,8 @@ class BatchedLinear(nn.Module):
 
 class BatchedGraphConv(nn.Module):
     """GraphConv with fold-stacked parameters; W first when in > out, as
-    ``GraphConv`` does, so conv1 of GCN2 aggregates B*hidden per row."""
+    ``GraphConv`` does, so conv1 of GCN2 aggregates B*hidden per row, and
+    the bias then rides in the propagation's store."""
 
     def __init__(self, folds: int, in_feats: int, out_feats: int):
         super().__init__()
@@ -69,10 +70,8 @@ class BatchedGraphConv(nn.Module):
 
     def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
         if self.weight.shape[1] > self.weight.shape[2]:
-            h = gcn_propagate(graph, _bmm(x, self.weight))
-        else:
-            h = _bmm(gcn_propagate(graph, x), self.weight)
-        return h + self.bias
+            return gcn_propagate(graph, _bmm(x, self.weight), bias=self.bias)
+        return _bmm(gcn_propagate(graph, x), self.weight) + self.bias
 
 
 def _stack_into(out: nn.Module, models: Sequence[nn.Module]) -> nn.Module:

@@ -107,10 +107,8 @@ class GraphConv(nn.Module):
 
     def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
         if self.weight.shape[0] > self.weight.shape[1]:
-            h = gcn_propagate(graph, x @ self.weight)
-        else:
-            h = gcn_propagate(graph, x) @ self.weight
-        return h + self.bias
+            return gcn_propagate(graph, x @ self.weight, bias=self.bias)
+        return gcn_propagate(graph, x) @ self.weight + self.bias
 
 
 class Linear(nn.Module):

@@ -40,7 +40,7 @@ Differences from the JAX container:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -220,6 +220,10 @@ class Graph:
     Hub cache (``with_hub``): ``hub`` serves the forward (the max forward
     and the sum), ``t_hub`` the transpose (the max backward and the sum's
     VJP); None where that direction has none.
+
+    norm_scales: GCN's degree scales by dtype, filled at first use
+    (``spmm_kernels.gcn_scales``); not an argument, and a copy made by
+    ``to`` or ``with_hub`` starts empty.
     """
 
     src: torch.Tensor
@@ -243,6 +247,8 @@ class Graph:
     rank_cap: int = POS_RANK_CAP
     hub: Optional[HubTable] = None
     t_hub: Optional[HubTable] = None
+    norm_scales: Dict[torch.dtype, Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:

@@ -5,7 +5,7 @@ Port of ``pallas_spmm_max`` and ``pallas_spmm_sum``
 Features are (N_pad, K) with K = B*F, the fold batch packed next to the
 features, so one pass over the edges serves every fold.
 
-Three kernels, each with a plain PyTorch version beside it:
+Three kernel files, four wrappers, each with a plain PyTorch version beside it:
 
 * ``spmm_max_fwd``: ``csrc/spmm_max_fwd.cu`` (float32 or bfloat16, with or
   without the argmax; ``empty_value`` is what an empty row stores: 0 on one
@@ -27,8 +27,15 @@ never decodes it; ``_arg_sources`` does, for the checks only.
   bfloat16 with a float32 sum, each term optionally weighted by its edge
   value (``use_val``: ``Graph.val`` / ``t_val``).  Plain version:
   ``spmm_sum_plain``.
+* ``spmm_sum_gcn_rows``: the same file's scaled instantiation, GraphConv's
+  norm='both' propagation and bias in one pass (``gcn_scales``: each
+  source's out-degree^-1/2 on its gathered terms, each row's
+  in-degree^-1/2 and the bias at the store; its VJP the same kernel over
+  the transpose, the scales swapped, no bias).  Plain version:
+  ``spmm_sum_gcn_plain``, the composition of separate passes whose bits
+  the kernel keeps.
 
-All three walk the graph's row chunks (``Graph.chunks`` / ``t_chunks``,
+All four walk the graph's row chunks (``Graph.chunks`` / ``t_chunks``,
 ``csrc/row_chunks.cuh``): their wrappers pass the direction's chunk table
 and a float32 scratch for the partials of split rows (the max forward also
 an int32 scratch for the partials' sources).
@@ -99,6 +106,11 @@ LAUNCHES: Dict[str, int] = {
     "spmm_sum_val_fwd_bf16": 0,
     "spmm_sum_val_bwd_f32": 0,
     "spmm_sum_val_bwd_bf16": 0,
+    # GCN's scaled sum (GraphConv norm='both' with its bias)
+    "spmm_sum_gcn_fwd_f32": 0,
+    "spmm_sum_gcn_fwd_bf16": 0,
+    "spmm_sum_gcn_bwd_f32": 0,
+    "spmm_sum_gcn_bwd_bf16": 0,
     # the hub cache (a graph with Graph.hub / t_hub)
     "spmm_max_fwd_hub_f32": 0,
     "spmm_max_fwd_hub_bf16": 0,
@@ -288,6 +300,8 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 #                 <positional>, t_rank, order, slice_bytes (int), stream
 #   spmm_sum:     dtype, x, <chunk table>, idx, val, split_row, split_ptr,
 #                 n_split, out, partial, k, stream
+#   spmm_sum_gcn: dtype, x, <chunk table>, idx, pre, post, bias, split_row,
+#                 split_ptr, n_split, out, partial, k, stream
 # where <chunk table> is chunk_row, chunk_ptr, chunk_slot, n_chunks, and
 # <positional> is positional (int), mega_of, seg (the argmax's side table),
 # rank_cap (int).  The hub entries (*_hub) take <hub> = <chunk table>,
@@ -314,6 +328,7 @@ _ARGTYPES = {
     "spmm_max_bwd": [_I, _I, _P, _P, *_CHUNKS, _P, _P, _P, _LL, _P, _P, _LL, *_POS, _P,
                      _P, _I, _P],
     "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _P, _LL, _P, _P, _LL, _P],
+    "spmm_sum_gcn": [_I, _P, *_CHUNKS, _P, _P, _P, _P, *_SPLIT, _P, _P, _LL, _P],
     "spmm_max_fwd_hub": [_I, _I, _P, *_HUB, *_SPLIT, _P, _P, _P, _P, _P, _LL, _LL, _F, _P],
     "spmm_max_bwd_hub": [_I, _I, _P, _P, *_HUB, *_SPLIT, _P, _P, _P, _LL, _LL, _P],
     "spmm_sum_hub": [_I, _P, *_HUB, *_SPLIT, _P, _P, _P, _LL, _LL, _P],
@@ -827,3 +842,104 @@ def spmm_sum(graph: Graph, x: torch.Tensor, use_val: bool = False) -> torch.Tens
     shape = x.shape
     return SpmmSum.apply(graph, x.reshape(shape[0], -1).contiguous(),
                          use_val).reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# GCN's scaled sum: D_in^-1/2 A D_out^-1/2 x + bias in one kernel.
+# ---------------------------------------------------------------------------
+
+
+def gcn_scales(graph: Graph, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out-degree^-1/2, in-degree^-1/2) of every node, the degrees clamped
+    at 1, computed in ``dtype`` as ``ops/spmm.py``'s composition computes
+    them (``torch.rsqrt`` on the graph's device) and held as float32 (N_pad,)
+    vectors; cached on the graph (``Graph.norm_scales``) at first use."""
+    scales = graph.norm_scales.get(dtype)
+    if scales is None:
+        scales = graph.norm_scales[dtype] = tuple(
+            torch.rsqrt(deg.clamp(min=1).to(dtype)).float().contiguous()
+            for deg in (graph.out_degree, graph.in_degree))
+    return scales
+
+
+def spmm_sum_gcn_plain(graph: Graph, x: torch.Tensor, pre: torch.Tensor,
+                       post: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                       transpose: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/spmm_sum.cu``'s scaled instantiation:
+    the passes it fuses, each rounded to x's dtype -- x scaled by ``pre``
+    (a row's scale), ``spmm_sum_plain``, the result scaled by ``post``, plus
+    ``bias`` (float32 (K,), or None)."""
+    dt = x.dtype
+    s = spmm_sum_plain(graph, (x.float() * pre[:, None]).to(dt), transpose)
+    out = (s.float() * post[:, None]).to(dt)
+    return out if bias is None else (out.float() + bias).to(dt)
+
+
+def spmm_sum_gcn_rows(graph: Graph, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                      transpose: bool = False) -> torch.Tensor:
+    """out[i] = in_deg[i]^-1/2 * sum over in-edges j -> i of out_deg[j]^-1/2
+    * x[j] + bias, for x (N_pad, K) and bias float32 (K,) or None (the
+    degrees clamped at 1, ``gcn_scales``); with ``transpose`` the VJP, the
+    same sum over the transpose CSR with the two scales swapped.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (counted
+    as ``spmm_sum_gcn_{fwd,bwd}_*``), which walks the plain index on any
+    graph (the hub's arena serves only the unscaled sum)."""
+    _check(graph, x, "x")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    k = x.shape[1]
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (k,)
+                             or bias.device != x.device or not bias.is_contiguous()):
+        raise ValueError(f"bias must be contiguous float32 of shape ({k},) on {x.device}, "
+                         f"got {bias.dtype} {tuple(bias.shape)} on {bias.device}")
+    pre, post = gcn_scales(graph, x.dtype)
+    if transpose:
+        pre, post = post, pre
+    if x.device.type == "cpu":
+        return spmm_sum_gcn_plain(graph, x, pre, post, bias, transpose)
+    code, tag = _DTYPE_CODE[x.dtype]
+    out = torch.empty_like(x)
+    chunks, partial = _chunk_args(graph, transpose, k, x.device)
+    with torch.cuda.device(x.device):
+        rc = _fn("spmm_sum", "spmm_sum_gcn")(
+            code, x.data_ptr(), *chunks[:5], pre.data_ptr(), post.data_ptr(),
+            None if bias is None else bias.data_ptr(), *chunks[5:], out.data_ptr(),
+            partial.data_ptr(), k, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"spmm_sum_gcn launch failed: CUDA error {rc}")
+    _count(f"spmm_sum_gcn_{'bwd' if transpose else 'fwd'}_{tag}", graph, k)
+    return out
+
+
+class SpmmSumGcn(torch.autograd.Function):
+    """``out = D_in^-1/2 A D_out^-1/2 x + bias``; the gradient of x is the
+    scaled sum over the transpose, that of the bias the column sums of g
+    (autograd's reduction of a broadcast add, on the same g)."""
+
+    @staticmethod
+    def forward(ctx, graph: Graph, x: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
+        ctx.graph = graph
+        ctx.bias_shape = None if bias is None else bias.shape
+        b = None if bias is None else bias.reshape(-1).float().contiguous()
+        return spmm_sum_gcn_rows(graph, x, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        dx = db = None
+        if ctx.needs_input_grad[1]:
+            dx = spmm_sum_gcn_rows(ctx.graph, g.contiguous(), transpose=True)
+        if ctx.needs_input_grad[2]:
+            db = g.reshape(g.shape[0], *ctx.bias_shape).sum(0)
+        return None, dx, db
+
+
+def spmm_sum_gcn(graph: Graph, x: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GCN's norm='both' propagation plus bias over x (N_pad, ...), the
+    trailing dims packed into one row as ``spmm_sum`` packs them; ``bias``
+    has x's trailing shape and dtype (``ops/spmm.py: gcn_propagate`` checks
+    it)."""
+    shape = x.shape
+    return SpmmSumGcn.apply(graph, x.reshape(shape[0], -1).contiguous(),
+                            bias).reshape(shape)
