@@ -27,6 +27,12 @@ and follows the same steps.  The numbers compared, each against its limit in
 * ``metrics_gap``: the largest absolute gap of the per-epoch metric row
   (AIM/COV/mlACC and loss of both splits, F1, AUC), the reference's row
   worked out from the program's own probabilities of that epoch.
+
+Beside them, with the fixed limit 0 and no reference: ``agg_dtype_off``,
+whether the window ran the max aggregations in the configuration's
+``agg_dtype`` (``dtype_off``).  A float32 max in place of the bfloat16 one
+differs from the bfloat16 reference by about the rounding flips that sound
+runs read, so the gaps alone would not see it.
 """
 from __future__ import annotations
 
@@ -38,6 +44,9 @@ from .program import Snapshot
 
 NUMBERS = ("probs_gap", "loss_gap", "grad_gap", "delta_gap", "metrics_gap")
 QUIET_LEAF = 1e-3
+# Numbers with a limit of their own, not read from ``limits/<cell>.json``.
+FIXED_LIMITS = {"agg_dtype_off": 0.0}
+DTYPE_TAGS = {"float32": "f32", "bfloat16": "bf16"}
 
 
 def worst(values) -> float:
@@ -82,10 +91,52 @@ def readings(snap: Snapshot, ref, ref_rows: List[Dict[str, torch.Tensor]],
             "metrics_gap": metrics}
 
 
+def dtype_off(stated: str, port: str, launches: Optional[Dict[str, int]]) -> float:
+    """``agg_dtype_off``: the share of the window's max-aggregation launches
+    (``launches``, the port's counters over the window) whose messages are
+    not in the configuration's dtype ``stated``; 1 where the port's
+    aggregation dtype at the window's close (``port``) is another, or where a
+    configuration that states another dtype than float32 launched no max in
+    it.  ``launches`` is None on the CPU, where the port counts nothing."""
+    if port != stated:
+        return 1.0
+    if launches is None:
+        return 0.0
+    maxes = {k: v for k, v in launches.items() if k.startswith("spmm_max_")}
+    total = sum(maxes.values())
+    own = sum(v for k, v in maxes.items() if k.endswith("_" + DTYPE_TAGS[stated]))
+    if stated != "float32" and own == 0:
+        return 1.0
+    return (total - own) / total if total else 0.0
+
+
+def check_limits(limits: Dict[str, dict], cell: str) -> None:
+    """Refuse a limits file that lacks a number, that compares none, or whose
+    null limit does not come with the lower reading, a null upper reading
+    and why: a null limit is only for a number that sound runs read and no
+    control or fault reading bounds from above."""
+    missing = [n for n in NUMBERS if n not in limits]
+    if missing:
+        raise ValueError(f"limits/{cell}.json lacks {missing}")
+    for name in NUMBERS:
+        entry = limits[name]
+        if entry["limit"] is None and not (
+                isinstance(entry.get("lower"), (int, float)) and "upper" in entry
+                and entry["upper"] is None and entry.get("why")):
+            raise ValueError(f"limits/{cell}.json: {name}'s null limit needs a numeric "
+                             "'lower', an 'upper' of null and a 'why'")
+    if all(limits[n]["limit"] is None for n in NUMBERS):
+        raise ValueError(f"limits/{cell}.json compares none of {list(NUMBERS)}")
+
+
 def judge(values: Dict[str, float], limits: Dict[str, dict]) -> Tuple[bool, Dict[str, dict]]:
-    """(every number within its limit, {name: {"value", "limit"}}).  A number
-    that is not finite fails."""
+    """(every compared number within its limit, {name: {"value", "limit"}}).
+    A number that is not finite fails.  A number whose limit is null is not
+    compared (``check_limits`` says when that may be); ``FIXED_LIMITS``'
+    numbers always are."""
     checks = {name: {"value": values[name], "limit": limits[name]["limit"]}
-              for name in NUMBERS}
+              for name in NUMBERS if limits[name]["limit"] is not None}
+    checks.update({name: {"value": values[name], "limit": limit}
+                   for name, limit in FIXED_LIMITS.items()})
     ok = all(c["value"] <= c["limit"] for c in checks.values())
     return ok, checks

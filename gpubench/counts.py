@@ -7,16 +7,19 @@ FLOPs (``device.mfu``): the dense matmuls over the real nodes, forward and
 backward, at 2 FLOPs a multiply-add.  Each matmul's backward takes its weight
 gradient and, unless its input is the feature tensor (which takes no
 gradient), its input gradient.  Activations, the loss, the metrics, Adam and
-the aggregations are not counted.
+the aggregations are not counted.  Each layer's kind gives its matmuls
+(``matmuls`` of ``kinds/<kind>.py``).
 
 Bytes (``aggregation.spmm_roofline``): each input read once and each output
 written once, as the kernel table of PERF.md counts them (chip_smoke.py,
 phases 3 and 4g): a max forward reads x and the index and writes out and the
 argmax, its backward reads g, the argmax and the index and writes dx; a sum
 reads x and the index and writes out, and its VJP is the same over the
-transpose.  On a positional graph (past 2^15 padded nodes) the argmax is an
-int16 rank, the forward also reads ``mega_of`` and the backward ``t_rank``
-and ``mega_of``, and each mega row adds a side-table row of the argmax.
+transpose.  Each layer's kind sums its aggregations' bytes
+(``aggregation_bytes`` of ``kinds/<kind>.py``) from the helpers here.  On a
+positional graph (past 2^15 padded nodes) the argmax is an int16 rank, the
+forward also reads ``mega_of`` and the backward ``t_rank`` and ``mega_of``,
+and each mega row adds a side-table row of the argmax.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Optional
 import torch
 
 from .inputs import padded_nodes
+from .reference.model import load_kind
 
 # Published peaks (NVIDIA data sheet, SXM part, dense rates), at a power
 # limit of 700 W, by a substring of torch.cuda.get_device_name().
@@ -73,18 +77,8 @@ def graph_shape(n: int, dst: torch.Tensor, self_loops: bool) -> GraphShape:
 def _matmuls(config: dict):
     """(multiply-adds a node, whether the input takes a gradient) of every
     dense matmul of one fold's forward."""
-    out = []
-    first = True                       # the layer whose input is the features
-    for layer in config["layers"]:
-        i, o = layer["in"], layer["out"]
-        if layer["kind"] == "sage_pool":
-            # pool and self read the layer input; neigh reads the maxima of
-            # the pooled messages, which take a gradient through W_pool
-            out += [(i * i, not first), (i * o, not first), (i * o, True)]
-        else:                          # graph_conv (one product) or linear
-            out.append((i * o, not first))
-        first = False
-    return out
+    return [mm for i, layer in enumerate(config["layers"])
+            for mm in load_kind(layer["kind"]).matmuls(layer, first=i == 0)]
 
 
 def dense_flops_per_epoch(config: dict, n_real: int, folds: int) -> float:
@@ -112,15 +106,9 @@ def sum_bytes(g: GraphShape, k: int, esize: int) -> int:
 
 def aggregation_bytes_per_epoch(config: dict, g: GraphShape, folds: int,
                                 esize: int = 4) -> int:
-    """Compulsory bytes of one epoch's aggregations: per SAGE-pool layer a
-    max forward and backward at K = folds x in; per GraphConv layer a sum
-    and its VJP at K = folds x min(in, out) (W first where it narrows)."""
-    total = 0
-    for layer in config["layers"]:
-        i, o = layer["in"], layer["out"]
-        if layer["kind"] == "sage_pool":
-            k = folds * i
-            total += max_fwd_bytes(g, k, esize) + max_bwd_bytes(g, k, esize)
-        elif layer["kind"] == "graph_conv":
-            total += 2 * sum_bytes(g, folds * min(i, o), esize)
-    return total
+    """Compulsory bytes of one epoch's aggregations, each layer's kind
+    counting its own at ``esize``-byte messages (SAGE-pool: a max forward
+    and backward at K = folds x in; GraphConv: a float32 sum and its VJP at
+    K = folds x min(in, out), W first where it narrows)."""
+    return sum(load_kind(layer["kind"]).aggregation_bytes(layer, g, folds, esize)
+               for layer in config["layers"])

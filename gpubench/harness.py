@@ -2,7 +2,8 @@
 
 Everything that belongs to one configuration, traffic mix, per-layer metric
 or cell is found by its name from ``BENCHMARK.json``:
-``configs/<config>.json`` (by the entry's ``file``), ``traffic/<mix>.json``,
+``configs/<config>.json`` (by the entry's ``file``), ``kinds/<kind>.py`` for
+each of its layers (``reference.model.load_kind``), ``traffic/<mix>.json``,
 ``metrics/<metric>.py`` (a ``read(ctx)`` that returns the value, or None
 where the run holds nothing to read) and ``limits/<cell>.json``.
 """
@@ -24,7 +25,7 @@ from . import checks, counts
 from .inputs import make_inputs
 from .program import Program, Snapshot, plant, sync
 from .reference.metrics import metric_rows
-from .reference.model import PlainGraph, train_steps
+from .reference.model import PlainGraph, agg_dtype, train_steps
 
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
@@ -60,6 +61,7 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     config = read_json(root / configs[entry["config"]]["file"])
     traffic = read_json(BENCH_DIR / "traffic" / f"{entry['traffic']}.json")
     limits = read_json(BENCH_DIR / "limits" / f"{name}.json")
+    checks.check_limits(limits, name)
     return Cell(name=name, entry=entry, config=config, traffic=traffic, limits=limits,
                 end_to_end=[m for m in bench["end_to_end"] if _for_cell(m, name)],
                 per_layer=[m for m in bench["per_layer"] if _for_cell(m, name)])
@@ -106,6 +108,8 @@ class Window:
     epoch_ms: List[float]
     nonfinite: int                 # epochs with a training loss that is not finite
     peak_bytes: int
+    launches: Optional[Dict[str, int]]   # the port's launch counters over it (a card's)
+    message_dtype: str             # the port's aggregation dtype at its close
 
 
 def timed_window(program: Program, seconds: float, folds: int) -> Window:
@@ -115,6 +119,7 @@ def timed_window(program: Program, seconds: float, folds: int) -> Window:
     sync(program.device)
     if cuda:
         torch.cuda.reset_peak_memory_stats(program.device)
+    before = program.launches()
     t0 = time.perf_counter()
     epochs, nonfinite, epoch_ms = 0, 0, []
     while True:
@@ -128,8 +133,11 @@ def timed_window(program: Program, seconds: float, folds: int) -> Window:
     sync(program.device)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(program.device) if cuda else 0
+    launches = ({k: v - before[k] for k, v in program.launches().items()} if cuda
+                else None)
     return Window(seconds=wall, epochs=epochs, fold_epochs=folds * epochs, epoch_ms=epoch_ms,
-                  nonfinite=nonfinite, peak_bytes=peak)
+                  nonfinite=nonfinite, peak_bytes=peak, launches=launches,
+                  message_dtype=program.message_dtype())
 
 
 def traced_tail(program: Program, stretches: int):
@@ -212,6 +220,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
     t_ref = time.perf_counter()
     values = reference_readings(cell, seed, {"run": snap}, device)["run"]
     print(f"reference {time.perf_counter() - t_ref:.3f} s", file=sys.stderr)
+    values["agg_dtype_off"] = checks.dtype_off(config.get("agg_dtype", "float32"),
+                                               win.message_dtype, win.launches)
     correct, compared = checks.judge(values, cell.limits)
 
     e2e = {"fold_epochs_per_s": win.fold_epochs / win.seconds,
@@ -227,7 +237,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
         trace=trace_, traced_epochs=traced_epochs, epoch_ms=win.epoch_ms,
         wall_per_epoch_s=win.seconds / win.epochs,
         flops_per_epoch=counts.dense_flops_per_epoch(config, shape.n, folds),
-        agg_bytes_per_epoch=counts.aggregation_bytes_per_epoch(config, shape, folds),
+        agg_bytes_per_epoch=counts.aggregation_bytes_per_epoch(
+            config, shape, folds, torch.finfo(agg_dtype(config)).bits // 8),
         peaks=counts.peaks(torch.cuda.get_device_name(device)) if cuda else None,
         graph_build_s=graph_build_s)
     metrics = {}

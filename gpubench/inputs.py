@@ -13,9 +13,10 @@ seed and the stream's name, in a few large calls:
 * the labels: a multi-label matrix over ``labeled_frac`` of the nodes, class
   rates geometric from ``class_p[0]`` to ``class_p[1]``, each labelled node
   with at least one class, each class with at least one node.
-* one round's K-fold masks over the labelled nodes (the first
-  ``fold_batch`` of ``fold_num`` folds).
-* the initial fold-stacked weights, each with its layer's init law.
+* K-fold masks over the labelled nodes: ``fold_batch`` folds, taken round
+  by round from a fresh shuffled ``fold_num``-fold split each.
+* the initial fold-stacked weights, each with its layer kind's init law
+  (``kinds/<kind>.py``).
 
 The same seed gives the same inputs; every seed gives the same sizes.
 """
@@ -27,6 +28,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from .reference.model import load_kind
 
 # Padded node count as the port's kernels take it: a dedicated dummy row,
 # then a multiple of 128 (plagnn_tpu_torch/ops/graph_format.py).
@@ -114,55 +117,37 @@ def loc_matrix(n: int, n_pad: int, n_classes: int, labeled_frac: float,
 
 def fold_masks(label_idx: torch.Tensor, n_pad: int, fold_num: int, fold_batch: int,
                gen: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(train, val) masks (fold_batch, n_pad) of the first ``fold_batch``
-    folds of a shuffled ``fold_num``-fold split of the labelled nodes (the
-    first ``L % fold_num`` folds one larger, as KFold cuts them)."""
+    """(train, val) masks (fold_batch, n_pad).  Fold ``f`` is fold
+    ``f % fold_num`` of round ``f // fold_num``; each round draws its own
+    shuffled ``fold_num``-fold split of the labelled nodes from ``gen``, in
+    order (the first ``L % fold_num`` folds one larger, as KFold cuts
+    them)."""
     dev = label_idx.device
     n_lab = label_idx.numel()
-    order = label_idx[torch.randperm(n_lab, generator=gen, device=dev)]
     sizes = [n_lab // fold_num + (f < n_lab % fold_num) for f in range(fold_num)]
     train = torch.zeros((fold_batch, n_pad), dtype=torch.bool, device=dev)
     val = torch.zeros_like(train)
-    start = 0
     for f in range(fold_batch):
+        if f % fold_num == 0:
+            order = label_idx[torch.randperm(n_lab, generator=gen, device=dev)]
+            start = 0
+        size = sizes[f % fold_num]
         train[f, label_idx] = True
-        va = order[start:start + sizes[f]]
+        va = order[start:start + size]
         train[f, va] = False
         val[f, va] = True
-        start += sizes[f]
+        start += size
     return train, val
 
 
 def param_laws(config: dict) -> List[Tuple[str, Tuple[int, ...], float]]:
     """(parameter name, shape of one fold's leaf, bound) of every leaf of the
-    configuration's layers: U(-bound, bound), bound 0 for a zero init.
-
-    The init laws of the source's layers (weights stored (in, out)):
-    SAGEConv 'pool' (DGL): Xavier-uniform with gain sqrt(2) for W_pool,
-    W_self and W_neigh, torch-Linear U(+-1/sqrt(in)) for b_pool, zero bias;
-    GraphConv (DGL): Xavier-uniform gain 1, zero bias; Linear (torch):
-    U(+-1/sqrt(in)) for weight and bias."""
-    def xavier(i, o, gain):
-        return gain * math.sqrt(6.0 / (i + o))
-
-    laws = []
-    for layer in config["layers"]:
-        name, i, o = layer["name"], layer["in"], layer["out"]
-        if layer["kind"] == "sage_pool":
-            laws += [(f"{name}.w_self", (i, o), xavier(i, o, math.sqrt(2.0))),
-                     (f"{name}.w_neigh", (i, o), xavier(i, o, math.sqrt(2.0))),
-                     (f"{name}.bias", (o,), 0.0),
-                     (f"{name}.w_pool", (i, i), xavier(i, i, math.sqrt(2.0))),
-                     (f"{name}.b_pool", (i,), 1.0 / math.sqrt(i))]
-        elif layer["kind"] == "graph_conv":
-            laws += [(f"{name}.weight", (i, o), xavier(i, o, 1.0)),
-                     (f"{name}.bias", (o,), 0.0)]
-        elif layer["kind"] == "linear":
-            laws += [(f"{name}.weight", (i, o), 1.0 / math.sqrt(i)),
-                     (f"{name}.bias", (o,), 1.0 / math.sqrt(i))]
-        else:
-            raise ValueError(f"unknown layer kind {layer['kind']!r}")
-    return laws
+    configuration's layers, in draw order: U(-bound, bound), bound 0 for a
+    zero init.  Each layer's kind gives its leaves' laws (``leaves`` of
+    ``kinds/<kind>.py``); a leaf is named ``<layer name>.<leaf>``."""
+    return [(f"{layer['name']}.{leaf}", shape, bound)
+            for layer in config["layers"]
+            for leaf, shape, bound in load_kind(layer["kind"]).leaves(layer)]
 
 
 def init_weights(config: dict, folds: int, gen: torch.Generator) -> Dict[str, torch.Tensor]:

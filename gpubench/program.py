@@ -8,7 +8,8 @@ resolves to, the runner of ``make_batched_fold_runner``, the model of
 ``train`` does with ``checkpoint_every``: ``epoch_offset`` and
 ``total_epochs`` follow the round's global epochs, and the sampled AUC pair
 is carried from one stretch into the next.  A round that ends starts again
-from the benchmark's initial weights with a fresh Adam.
+from the benchmark's initial weights with a fresh Adam.  The configuration
+gives the aggregation dtype (``agg_dtype``, float32 by default).
 
 ``plant`` switches on one of the faults or the control that the check of
 ``correct`` has to catch (``checks.py``).
@@ -49,8 +50,12 @@ class Program:
     def __init__(self, config: dict, traffic: dict, inputs: Inputs, device):
         from plagnn_tpu_torch.ops.graph_format import build_graph
         from plagnn_tpu_torch.train import engine, losses, runner
+        from plagnn_tpu_torch.utils.precision import set_aggregation_dtype
 
         self.device = torch.device(device)
+        # every Program sets it, so a process that runs several cells
+        # carries no cell's dtype into the next
+        set_aggregation_dtype(config.get("agg_dtype", "float32"))
         self.cfg = engine.TrainConfig(
             lr=config["lr"], fold_num=config["fold_num"], epoch_num=config["epoch_num"],
             alpha_list=(config["alpha"],), fold_batch=traffic["fold_batch"],
@@ -113,6 +118,22 @@ class Program:
         if self.epoch == self.cfg.epoch_num:
             self.reset_round()
         return probs, hist, ms
+
+    @staticmethod
+    def launches() -> Dict[str, int]:
+        """The port's aggregation kernel launch counters as they stand (the
+        port counts launches on a card only)."""
+        from plagnn_tpu_torch.ops.spmm_kernels import LAUNCHES
+
+        return dict(LAUNCHES)
+
+    @staticmethod
+    def message_dtype() -> str:
+        """The port's aggregation dtype as it stands: float32 or bfloat16."""
+        from plagnn_tpu_torch.utils.precision import aggregation_dtype
+
+        dtype = aggregation_dtype()
+        return "float32" if dtype is None else str(dtype).removeprefix("torch.")
 
     def next_stretch(self) -> int:
         """Epochs to the next stretch boundary (or the round's end)."""

@@ -1,28 +1,37 @@
-"""Plain GNN32 and GCN2 training steps, one fold at a time.
+"""Plain training steps of a configuration's layers, one fold at a time.
 
 The semantics are those of the source (PLA-GNN's DGL model and train.py),
-with the port's kernel contract where a library call would differ:
+with the port's kernel contract where a library call would differ.  Each
+layer's kind is a module of its own, ``kinds/<kind>.py`` (``load_kind``):
+its leaves and init laws, its plain forward, its dense multiply-adds and its
+aggregation bytes.  This module holds what the kinds share:
 
-* SAGEConv 'pool': ``pooled = relu(h W_pool + b_pool)``, ``m_i = max over
-  in-edges j -> i of pooled_j`` (0 for a row without in-edges), ``out = h
-  W_self + m W_neigh + bias``.  The gradient of the max goes to the *first*
-  maximum in (dst, src) order only; ties are common after the relu.
-* GraphConv, norm 'both': ``out = D_in^-1/2 A D_out^-1/2 (h W) + b``, W
-  first where it narrows the rows (DGL's order), degrees counted with the
+* ``first_max``: the maximum over in-edges, 0 for a row without in-edges;
+  the gradient goes to the *first* maximum in (dst, src) order only (ties
+  are common after a relu).  With bfloat16 messages the messages are
+  rounded to bfloat16 before the max, which is exact on the rounded values,
+  the incoming gradient is rounded to bfloat16, and dx is summed in float32
+  and rounded once (``models/layers.py: aggregate_max`` and the kernels).
+* ``gcn_both``: ``D_in^-1/2 A D_out^-1/2 x``, degrees counted with the
   self-loops and clamped at 1.
-* Linear: ``h W + b``.  Activations: leaky_relu (slope 0.01), relu, sigmoid.
+* Activations after each layer: leaky_relu (slope ``leaky_slope``, 0.01),
+  relu or sigmoid.
 * Loss: the weighted multi-label BCE of the source's ``multi_loss``, per
   fold over its training rows; each fold's gradient is its own.
 * Adam (lr, betas, eps of the configuration; eps outside the square root,
   no weight decay), written out.
 
-Everything runs in float32 with TF32 off.  The aggregations walk the edges
-in blocks, so the (edges, K) temporaries stay bounded.
+Everything else runs in float32 with TF32 off.  The aggregations walk the
+edges in blocks, so the (edges, K) temporaries stay bounded.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib.util
 import math
+from pathlib import Path
+from types import ModuleType
 from typing import Dict, List
 
 import torch
@@ -30,6 +39,36 @@ import torch.nn.functional as F
 
 # Elements of an (edges, K) temporary of an aggregation.
 BLOCK = 1 << 26
+
+# Where ``load_kind`` looks for ``<kind>.py``, in order.
+KIND_DIRS = [Path(__file__).resolve().parent.parent / "kinds"]
+
+# A configuration's ``agg_dtype``: the dtype of the aggregations' messages.
+AGG_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def load_kind(kind: str) -> ModuleType:
+    """The module of layer kind ``kind``: the first ``<kind>.py`` in
+    ``KIND_DIRS``."""
+    for base in KIND_DIRS:
+        path = Path(base) / f"{kind}.py"
+        if path.is_file():
+            return _load_module(str(path))
+    raise ValueError(f"unknown layer kind {kind!r}: no {kind}.py in "
+                     f"{[str(d) for d in KIND_DIRS]}")
+
+
+@functools.lru_cache(maxsize=None)
+def _load_module(path: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(f"gpubench_kind_{Path(path).stem}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def agg_dtype(config: dict) -> torch.dtype:
+    """The configuration's message dtype (``agg_dtype``, float32 by default)."""
+    return AGG_DTYPES[config.get("agg_dtype", "float32")]
 
 
 def no_tf32() -> None:
@@ -105,6 +144,19 @@ class _FirstMax(torch.autograd.Function):
         return dx, None
 
 
+class _Round(torch.autograd.Function):
+    """x rounded to ``dtype`` and back to float32; the gradient likewise."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        ctx.dtype = dtype
+        return x.to(dtype).float()
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g.to(ctx.dtype).float(), None
+
+
 class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, graph: PlainGraph) -> torch.Tensor:
@@ -122,8 +174,15 @@ class _Sum(torch.autograd.Function):
         return dx, None
 
 
-def first_max(graph: PlainGraph, x: torch.Tensor) -> torch.Tensor:
-    return _FirstMax.apply(x.contiguous(), graph)
+def first_max(graph: PlainGraph, x: torch.Tensor,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The maximum over in-edges with ``dtype`` messages: rounded to it on
+    the way in (the max is exact on them) and the gradient rounded to it on
+    the way back in and out (dx summed in float32, then rounded once)."""
+    if dtype == torch.float32:
+        return _FirstMax.apply(x.contiguous(), graph)
+    m = _FirstMax.apply(_Round.apply(x, dtype).contiguous(), graph)
+    return _Round.apply(m, dtype)
 
 
 def gcn_both(graph: PlainGraph, x: torch.Tensor) -> torch.Tensor:
@@ -133,22 +192,13 @@ def gcn_both(graph: PlainGraph, x: torch.Tensor) -> torch.Tensor:
 
 def forward(config: dict, graph: PlainGraph, x: torch.Tensor,
             p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One fold's probabilities (n, C)."""
+    """One fold's probabilities (n, C): each layer's kind, then its
+    activation."""
     h = x
     for layer in config["layers"]:
-        name, kind = layer["name"], layer["kind"]
-        if kind == "sage_pool":
-            pooled = torch.relu(h @ p[f"{name}.w_pool"] + p[f"{name}.b_pool"])
-            m = first_max(graph, pooled)
-            h = h @ p[f"{name}.w_self"] + m @ p[f"{name}.w_neigh"] + p[f"{name}.bias"]
-        elif kind == "graph_conv":
-            w = p[f"{name}.weight"]
-            h = gcn_both(graph, h @ w) if w.shape[0] > w.shape[1] else gcn_both(graph, h) @ w
-            h = h + p[f"{name}.bias"]
-        elif kind == "linear":
-            h = h @ p[f"{name}.weight"] + p[f"{name}.bias"]
-        else:
-            raise ValueError(f"unknown layer kind {kind!r}")
+        name = layer["name"]
+        leaves = {k[len(name) + 1:]: v for k, v in p.items() if k.startswith(name + ".")}
+        h = load_kind(layer["kind"]).forward(layer, config, graph, h, leaves)
         act = layer["act"]
         if act == "leaky_relu":
             h = F.leaky_relu(h, config.get("leaky_slope", 0.01))

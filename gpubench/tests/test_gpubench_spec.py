@@ -39,7 +39,7 @@ def test_names_units_and_files():
 
 
 @pytest.mark.parametrize("cell", ["gnn32_ppi24k", "gnn32_synth10m", "gcn2_ppi24k",
-                                  "gcn2_synth10m"])
+                                  "gcn2_synth10m", "gnn32bf16_ppi24k_b32"])
 def test_load_cell_finds_every_part_by_name(cell):
     c = load_cell(cell)
     assert c.config["name"] == c.entry["config"]
@@ -55,6 +55,35 @@ def test_load_cell_finds_every_part_by_name(cell):
 def test_unknown_cell_is_refused():
     with pytest.raises(ValueError):
         load_cell("no_such_cell")
+
+
+def _null_limit(**change):
+    return dict({"limit": None, "lower": 1e-3, "upper": None, "upper_from": None,
+                 "why": "no control or fault reading bounds it"}, **change)
+
+
+def test_a_cell_whose_limits_compare_nothing_is_refused(tmp_path, monkeypatch):
+    from gpubench import harness
+
+    for sub in ("traffic", "limits"):
+        (tmp_path / sub).mkdir()
+    (tmp_path / "traffic" / "ppi24k_b10.json").write_text(
+        (BENCH_DIR / "traffic" / "ppi24k_b10.json").read_text())
+    (tmp_path / "limits" / "gnn32_ppi24k.json").write_text(
+        json.dumps({n: _null_limit() for n in checks.NUMBERS}))
+    monkeypatch.setattr(harness, "BENCH_DIR", tmp_path)
+    with pytest.raises(ValueError, match="compares none"):
+        load_cell("gnn32_ppi24k")
+
+
+@pytest.mark.parametrize("change", [{"lower": None}, {"upper": 0.1}, {"why": ""}])
+def test_a_null_limit_without_its_readings_is_refused(change):
+    limits = {n: {"limit": 1.0, "lower": 0.1, "upper": 10.0} for n in checks.NUMBERS}
+    limits["probs_gap"] = _null_limit(**change)
+    with pytest.raises(ValueError, match="probs_gap"):
+        checks.check_limits(limits, "toy")
+    limits["probs_gap"] = _null_limit()
+    checks.check_limits(limits, "toy")
 
 
 def _ctx(kernels, window=(0.0, 1e6), epochs=2):
