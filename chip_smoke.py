@@ -35,6 +35,19 @@ Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
    card's passes and run to run, float32 against its plain version with
    the sum's tolerance; timed beside the unscaled kernel and the
    composition (``--only-gcn-sum`` runs phases 1, 2 and 3g alone).
+   3i. GAT's edge-softmax pair (csrc/spmm_gat.cu) on the 24k graph at the
+   widths of the benchmark's GAT cell, 32 folds: K = 32 x 4 heads x 256
+   (layers 1-2) and 32 x 6 x 12 (layer 3), with split rows both ways.
+   Forward (out, lse) and backward (dwh, del, der) bit-identical run to
+   run and within GAT_RTOL / GAT_ATOL of their plain versions on the card;
+   each timed (CUDA events, median of 10) beside its plain version (median
+   of 3) and its compulsory bytes at the HBM rate.  Then GAT through
+   ``train()`` (503 -> 4 x 256 -> 4 x 256 -> 6 x 12, 10 folds, float32,
+   GAT_EPOCHS epochs; in the full run after phase 4c): per epoch 3 launches
+   each of the forward, the backward and its der and del passes, and of
+   each direction's combine where that direction has split rows, no other
+   kernel, and the artifact contract (``--only-gat`` runs phases 1, 2 and
+   3i alone).
    3h. The hub cache's kernels on the full graph: the coverage by k (the
    share of edges whose row the arena serves, each direction); at every
    width each path aggregates (max: K = 10 x 503 / 400 / 300; sum: 10 x 400
@@ -307,6 +320,7 @@ KERNEL_SOURCE = {
     "pcc_diff_scan": "plagnn_tpu_torch/csrc/pcc_diff_scan.cu",
     "common_neighbors": "plagnn_tpu_torch/csrc/common_neighbors.cu",
     "dma_ceiling": "plagnn_tpu_torch/csrc/dma_ceiling.cu",
+    "spmm_gat": "plagnn_tpu_torch/csrc/spmm_gat.cu",
 }
 _FWD_BODY = "plagnn_tpu/ops/pallas/spmm_kernels.py:513"  # _spmm_fwd_kernel
 _HUB_FWD = "plagnn_tpu/ops/pallas/spmm_kernels.py:588"  # _spmm_fwd_kernel's hub groups
@@ -364,6 +378,10 @@ REPLACES = {
     "spmm_sum_bwd_hub_bf16": _HUB_FWD,
     # the gather probe of the benchmark folder (build_bench :117 -> :152)
     "dma_ring_f32": "benchmarks/dma_ceiling.py:47",
+    # no Pallas kernel: the JAX package has no attention GNN (DGL 0.8
+    # GATConv's edge_softmax and u_mul_e_sum, and their backward)
+    "spmm_gat_fwd_f32": "none",
+    "spmm_gat_bwd_f32": "none",
 }
 NODES, EDGES, SEED = 24041, 700000, 70
 FOLDS, F_IN = 10, 503
@@ -385,6 +403,14 @@ MESH_ATOL = 1e-4
 GCN2_HIDDEN, CLASSES = 400, 12
 # per-fold width of each GCN2 aggregation: W first (503 > 400, 400 > 12)
 SUM_WIDTHS = (GCN2_HIDDEN, CLASSES)
+# phase 3i: the GAT cell's fold batch, (heads, width a head) of layers 1-2
+# and of layer 3, and the train() run's epochs.  The pair on the card
+# against its plain version on the card (tests/test_torch_gat.py's
+# CARD_TOL): an online softmax against exp(e - lse), sums in another order,
+# __expf; the gradients' atol scaled by their largest magnitude (sums of up
+# to ~10^4 terms)
+GAT_FOLDS, GAT_SHAPES, GAT_EPOCHS = 32, ((4, 256), (6, 12)), 2
+GAT_RTOL, GAT_ATOL = 2e-4, 2e-5
 SETUP_COPIES = "host<->device copies (data in, history out; not per epoch)"
 # the datasets' topology thresholds (plagnn_tpu/analysis/statistics.py:65-67)
 ANALYSIS_DATASETS = (("GSE30931", 2.75), ("GSE74572", 2.91), ("GSE27182", 2.99))
@@ -879,6 +905,154 @@ def gcn_sum_phase(results, smi_line, full=None):
     check_gcn_sum(big.to(DEVICE), BIG_FOLDS * GCN2_HIDDEN, "big graph GCN2 conv1", results,
                   suffix=f"@n{big.n_nodes}")
     torch.cuda.empty_cache()
+
+
+def gat_bytes(n, e, k, groups):
+    """(forward, backward) compulsory bytes of GAT's pair at K elements a
+    row and ``groups`` = K / f logits a row, as ``gpubench/kinds/gat_conv.py:
+    fwd_bytes, bwd_bytes`` count them: the forward reads wh, el, er and the
+    CSR and writes out and lse; the backward reads g, wh, el, er, lse, both
+    CSRs and ``Graph.t_pos`` and writes dwh, del and der."""
+    fwd = (2 * n * k + 3 * n * groups) * 4 + 4 * (n + 1 + e)
+    bwd = (3 * n * k + 5 * n * groups) * 4 + 8 * (n + 1 + e) + 4 * e
+    return fwd, bwd
+
+
+def check_gat_pair(graph, heads, f, label, results, suffix=""):
+    """GAT's pair at K = GAT_FOLDS x heads x f against its plain versions
+    on the card: bit-identical run to run, within GAT_RTOL / GAT_ATOL (lse
+    on the real rows: a padding row has no in-edge); then each timed beside
+    its plain version and its bytes bound (entries ``spmm_gat_{fwd,bwd}_f32``
+    + ``suffix``)."""
+    import torch
+
+    from plagnn_tpu_torch.ops import spmm_kernels as sk
+
+    n, e, dev = graph.n_nodes, graph.n_edges, graph.device
+    bh = GAT_FOLDS * heads
+    k = bh * f
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    wh = torch.randn((n, k), generator=gen, device=dev)
+    el = 2 * torch.randn((n, bh), generator=gen, device=dev)
+    er = 2 * torch.randn((n, bh), generator=gen, device=dev)
+    g = torch.randn((n, k), generator=gen, device=dev)
+    names = ("out", "lse", "dwh", "del", "der")
+    runs = []
+    for _ in range(2):
+        out, lse = sk.spmm_gat_fwd(graph, wh, el, er, f)
+        runs.append((out, lse, *sk.spmm_gat_bwd(graph, g, wh, el, er, lse, f)))
+        torch.cuda.synchronize()
+    for name, a, b in zip(names, *runs):
+        if not torch.equal(a, b):
+            fail(f"{label}: GAT {name} is not deterministic")
+    got = runs[0]
+    del runs
+    p_out, p_lse = sk.spmm_gat_fwd_plain(graph, wh, el, er, f)
+    want = (p_out, p_lse, *sk.spmm_gat_bwd_plain(graph, g, wh, el, er, p_lse, f))
+    real = graph.n_real_nodes
+    errs = {}
+    for name, a, w in zip(names, got, want):
+        if name == "lse":
+            a, w = a[:real], w[:real]
+        scale = max(float(w.abs().max()), 1.0) if name.startswith("d") else 1.0
+        err = (a - w).abs()
+        if bool((err > GAT_ATOL * scale + GAT_RTOL * w.abs()).any()):
+            fail(f"{label}: GAT {name} differs from plain beyond rtol {GAT_RTOL}, atol "
+                 f"{GAT_ATOL} x {scale:.3g} (max abs {float(err.max()):.3e})")
+        errs[name] = float(err.max())
+        del err
+    print(f"{label}: GAT pair K={k} ({GAT_FOLDS} x {heads} x {f}) max abs err "
+          f"{ {k_: f'{v:.3e}' for k_, v in errs.items()} }", flush=True)
+    lse = got[1]
+    del got, want, p_out, p_lse
+    torch.cuda.empty_cache()
+    timed = {
+        "fwd": (median_ms(lambda: sk.spmm_gat_fwd(graph, wh, el, er, f), 10),
+                median_ms(lambda: sk.spmm_gat_fwd_plain(graph, wh, el, er, f), 3),
+                max(errs["out"], errs["lse"]), 2 * e * k),
+        "bwd": (median_ms(lambda: sk.spmm_gat_bwd(graph, g, wh, el, er, lse, f), 10),
+                median_ms(lambda: sk.spmm_gat_bwd_plain(graph, g, wh, el, er, lse, f), 3),
+                max(errs["dwh"], errs["del"], errs["der"]), 4 * e * k)}
+    for (direction, (ms, plain, err, ops)), nbytes in zip(timed.items(),
+                                                          gat_bytes(n, e, k, bh)):
+        name = f"spmm_gat_{direction}_f32{suffix}"
+        # a multiply and an add an edge element forward; the backward's
+        # dwh term and the dot of g with wh, each a multiply and an add
+        r = results[name] = kernel_entry(name, "spmm_gat", err, ms, plain, None, nbytes,
+                                         ops, (n, k))
+        print(f"  {name}: {ms:.3f} ms (plain {plain:.3f}, {plain / ms:.1f}x; bound "
+              f"{r['bound_ms']:.3f} by {r['bound_by']}, {100 * r['bound_ms'] / ms:.1f}%; "
+              f"gathered rows {e * k * 4 / ms / 1e9:.2f} TB/s)", flush=True)
+    del wh, el, er, g, lse
+    torch.cuda.empty_cache()
+
+
+def gat_phase(results, full=None):
+    """Phase 3i's kernel checks on the 24k-node graph (``full``, or built
+    here), at layers 1-2's width and, as entries ``@k<K>``, layer 3's."""
+    import torch
+
+    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
+    from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
+
+    if full is None:
+        full = from_scipy_coo(powerlaw_ppi(NODES, EDGES, SEED), add_self_loops=True)
+    g = full.to(DEVICE)
+    print(f"GAT graph: N_pad {g.n_nodes}, E {g.n_edges}, split rows forward "
+          f"{g.chunks.n_split}, transpose {g.t_chunks.n_split}", flush=True)
+    if not (g.chunks.n_split and g.t_chunks.n_split):
+        fail("GAT graph: no split row in one direction, so a combine goes unchecked")
+    for layer, (heads, f) in enumerate(GAT_SHAPES):
+        suffix = "" if layer == 0 else f"@k{GAT_FOLDS * heads * f}"
+        check_gat_pair(g, heads, f, f"full graph GAT layer {'1-2' if layer == 0 else 3}",
+                       results, suffix)
+    del g
+    torch.cuda.empty_cache()
+
+
+def gat_launches(graph, epochs):
+    """A GAT ``train()`` run: each of its 3 layers one forward and one
+    backward an epoch, the backward with its der and del passes, and each
+    direction's combine where that direction of ``graph`` has split rows."""
+    from plagnn_tpu_torch.models.gnn32 import GAT_HEADS
+
+    n = len(GAT_HEADS) * epochs
+    want = {f"spmm_gat_{k}_f32": n for k in ("fwd", "bwd", "bwd_der", "bwd_del")}
+    if graph.chunks.n_split:
+        want["spmm_gat_fwd_combine_f32"] = n
+    if graph.t_chunks.n_split:
+        want["spmm_gat_bwd_combine_f32"] = n
+    return want
+
+
+def check_gat_train(data_root, results, smi_line):
+    """Phase 3i's ``train()`` run: GAT at full width (``TrainConfig(model=
+    "gat", hidden=(256, 256))``, the published heads), float32, FOLDS folds
+    in one batch, GAT_EPOCHS epochs: the GAT pair's launches only, and the
+    artifact contract."""
+    import torch
+
+    from plagnn_tpu_torch.data.artifacts import load_condition
+    from plagnn_tpu_torch.train.engine import TrainConfig, train
+    from plagnn_tpu_torch.train.kfold import FOLD_SEEDS
+    from plagnn_tpu_torch.utils.precision import set_aggregation_dtype
+
+    set_aggregation_dtype("float32")
+    bundle = load_condition(data_root, "GSE30931", "normal")
+    path = os.path.join(data_root, "log_gat")
+    cfg = TrainConfig(model="gat", hidden=(256, 256), fold_num=FOLDS, fold_batch=FOLDS,
+                      epoch_num=GAT_EPOCHS, fold_seeds=FOLD_SEEDS[:1])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = train(bundle.graph, bundle.feats, bundle.labels, bundle.label_with_loc,
+                  bundle.loc_mat, cfg, path + os.sep, label_names=bundle.uniprot,
+                  device_name="cuda")
+    wall = time.perf_counter() - t0
+    counts = check_launches("GAT train()", gat_launches(bundle.graph, GAT_EPOCHS))
+    record_launches(results, counts)
+    check_artifacts("GAT train()", path)
+    report_run("GAT train() float32", stats, wall, counts, smi_line)
 
 
 def weighted_graph(coo_ppi, seed):
@@ -4780,6 +4954,10 @@ def main(argv=None):
                     help="phases 1-2 and phase 3g (GCN's scaled sum, kernel-table row "
                          "3d, at 24k and 330k nodes); prints its kernels entries and "
                          "no result line")
+    ap.add_argument("--only-gat", action="store_true",
+                    help="phases 1-2 and phase 3i (GAT's edge-softmax pair, kernel-table "
+                         "row 11, at the GAT cell's widths, and a GAT train() run's "
+                         "launches); prints its kernels entries and no result line")
     ap.add_argument("--only-big-graph", action="store_true",
                     help="phases 1-2 and phase 4g (the big-graph path); prints "
                          "no result line")
@@ -4860,6 +5038,21 @@ def main(argv=None):
         gcn_sum_phase(results, smi_line)
         print(json.dumps({"kernels": list(results.values())}))
         return
+    if args.only_gat:
+        phase("3i GAT edge-softmax pair")
+        results = {}
+        gat_phase(results)
+        from plagnn_tpu_torch import cli
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            cli.main(["synth", "--data-root", tmp, "--nodes", str(NODES),
+                      "--edges", str(EDGES), "--seed", str(SEED)])
+            check_gat_train(tmp, results, smi_line)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(json.dumps({"kernels": list(results.values())}))
+        return
     if args.only_big_graph:
         phase("4g big graph")
         big_graph_phase({}, smi_line)
@@ -4907,6 +5100,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase("3g GCN scaled sum")
     gcn_sum_phase(results, smi_line, full)
+    phase("3i GAT edge-softmax pair")
+    gat_phase(results, full)
     phase("3h hub cache kernels")
     hub_kernel_phase(full, x_full, results, smi_line)
     del x_full
@@ -4962,6 +5157,8 @@ def main(argv=None):
         profile_epochs("GCN2 train() f32",
                        lambda: train_gcn2(tmp, os.path.join(tmp, "log_gcn2_profiled")),
                        gcn2_launches(), smi_line)
+        phase("3i GAT train()")
+        check_gat_train(tmp, results, smi_line)
         # phase 4b's run is the single-card run of the sharded runs' jobs
         tax_ms = mesh_phase(tmp, results, smi_line)
         phase("4q planner anchors and --mesh auto")
@@ -4994,10 +5191,13 @@ def main(argv=None):
         "spmm_max_fwd_hub_f32", "spmm_max_fwd_hub_bf16",
         "spmm_max_bwd_hub_f32", "spmm_max_bwd_hub_bf16",
         "spmm_sum_fwd_hub_f32", "spmm_sum_fwd_hub_bf16",
-        "spmm_sum_bwd_hub_f32", "spmm_sum_bwd_hub_bf16")]
+        "spmm_sum_bwd_hub_f32", "spmm_sum_bwd_hub_bf16",
+        "spmm_gat_fwd_f32", "spmm_gat_bwd_f32")]
     kernels += [r for name, r in sorted(results.items()) if "@" in name]
     for r in kernels:
-        if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        # library_ms is None where no one library call computes the function
+        if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")
+                   if r[k] is not None or k != "library_ms"):
             fail(f"{r['name']}: non-finite timing")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -1,6 +1,7 @@
 """Graph-convolution layers as ``nn.Module``s.
 
-Port of ``plagnn_tpu/models/layers.py``: SAGEConv, GraphConv and linear.
+Port of ``plagnn_tpu/models/layers.py``: SAGEConv, GraphConv and linear;
+and GATConv, which the JAX package does not have.
 DGL 0.8.x ``SAGEConv`` semantics, aggregator 'pool':
     h_pool_j = relu(W_pool . h_j + b_pool)
     m_i      = max over in-neighbours j of h_pool_j      (0 if none)
@@ -12,6 +13,17 @@ across unchanged (``models/convert.py``).  Init follows the torch
 distributions: Xavier-uniform with gain sqrt(2) for the SAGE weights and
 gain 1 for GraphConv's, torch-Linear default for ``b_pool`` and the dense
 layers, zero output bias.
+
+DGL 0.8 ``GATConv`` (Velickovic et al., arXiv:1710.10903), H heads of
+width F, ``fc`` with no bias:
+    Wh = h . fc;  el_j = <Wh_j, attn_l>, er_i = <Wh_i, attn_r>   (per head)
+    a_ij = softmax over i's in-edges j of leaky_relu(el_j + er_i, 0.2)
+    out_i = sum_j a_ij Wh_j + residual_i + bias                  (per head)
+then ELU where the layer has it; the residual is none, the input itself
+(in = H*F) or ``h . res_fc`` (no bias).  Init: DGL's Xavier-normal at gain
+sqrt(2) for ``fc``, ``attn_l``, ``attn_r`` and ``res_fc`` as Xavier-uniform
+bounds of the same variance (``attn``'s fans those torch takes of DGL's
+(1, H, F) tensor: H*F in, F out), zero bias.
 """
 from __future__ import annotations
 
@@ -19,10 +31,11 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.graph_format import Graph
-from ..ops.spmm import gcn_propagate, spmm_max, spmm_mean, spmm_sum
+from ..ops.spmm import gcn_propagate, spmm_gat, spmm_max, spmm_mean, spmm_sum
 from ..utils.precision import aggregation_dtype
 
 _RELU_GAIN = math.sqrt(2.0)
@@ -123,3 +136,67 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.weight + self.bias
+
+
+def gat_residual(residual: bool, in_feats: int, out_feats: int, num_heads: int) -> str:
+    """DGL GATConv's residual: the input itself where it is as wide as the
+    heads' output, else ``res_fc``; "none" without one."""
+    if not residual:
+        return "none"
+    return "identity" if in_feats == num_heads * out_feats else "linear"
+
+
+def gat_attn_bound(out_feats: int, num_heads: int) -> float:
+    """The Xavier bound at gain sqrt(2) of DGL's (1, H, F) ``attn_l`` /
+    ``attn_r``: fan in H*F, fan out F."""
+    return _RELU_GAIN * math.sqrt(6.0 / (num_heads * out_feats + out_feats))
+
+
+def gat_logits(wh: torch.Tensor, attn_l: torch.Tensor, attn_r: torch.Tensor):
+    """(el, er) of wh (N, ..., H, F) and attn (..., H, F): the per-head dot
+    products, both from one batched product over the heads."""
+    lr = torch.einsum("n...f,...fc->n...c", wh, torch.stack((attn_l, attn_r), -1))
+    return lr[..., 0], lr[..., 1]
+
+
+def gat_finish(out: torch.Tensor, res: Optional[torch.Tensor], bias: torch.Tensor,
+               elu: bool) -> torch.Tensor:
+    """out + residual + bias, then ELU where the layer has it (in place: the
+    sum is a fresh tensor)."""
+    out = out + bias if res is None else torch.add(out, res).add_(bias)
+    return F.elu(out, inplace=True) if elu else out
+
+
+class GATConv(nn.Module):
+    """One fold's DGL 0.8 GATConv over x (N_pad, F_in) with ``num_heads``
+    heads of ``out_feats``; returns the heads concatenated, (N_pad, H*F)."""
+
+    def __init__(self, in_feats: int, out_feats: int, num_heads: int, residual: bool = False,
+                 elu: bool = False, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        hf = num_heads * out_feats
+        self.residual = gat_residual(residual, in_feats, out_feats, num_heads)
+        self.elu = elu
+        self.fc = nn.Parameter(xavier_uniform(in_feats, hf, _RELU_GAIN, generator))
+        bound = gat_attn_bound(out_feats, num_heads)
+        self.attn_l = nn.Parameter(
+            torch.empty(num_heads, out_feats).uniform_(-bound, bound, generator=generator))
+        self.attn_r = nn.Parameter(
+            torch.empty(num_heads, out_feats).uniform_(-bound, bound, generator=generator))
+        if self.residual == "linear":
+            self.res_fc = nn.Parameter(xavier_uniform(in_feats, hf, _RELU_GAIN, generator))
+        else:
+            self.register_parameter("res_fc", None)
+        self.bias = nn.Parameter(torch.zeros(hf))
+
+    def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+        h, f = self.attn_l.shape
+        wh = x @ self.fc
+        el, er = gat_logits(wh.view(-1, h, f), self.attn_l, self.attn_r)
+        out = spmm_gat(graph, wh, el, er, f)
+        res = None
+        if self.residual == "identity":
+            res = x
+        elif self.residual == "linear":
+            res = x @ self.res_fc
+        return gat_finish(out, res, self.bias, self.elu)

@@ -25,8 +25,8 @@ from ..utils.profiling import span
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("spmm_max_fwd", "spmm_max_bwd", "spmm_sum", "pcc_diff_scan", "common_neighbors",
-           "dma_ceiling")
+SOURCES = ("spmm_max_fwd", "spmm_max_bwd", "spmm_sum", "spmm_gat", "pcc_diff_scan",
+           "common_neighbors", "dma_ceiling")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -208,6 +208,9 @@ class Graph:
     chunks / t_chunks: ``RowChunks`` of (indptr, src) and (t_indptr, t_dst).
     val / t_val: optional float32 (E,) edge values in the order of ``src``
                  and of ``t_dst`` (the weighted segment sum's).
+    t_pos:      (E,)  in the order of ``src``: each edge's position in the
+                order of ``t_dst`` (the GAT backward's way from the
+                transpose back to the destination rows).
 
     Positional argmax (``positional``; see the module docstring):
     t_rank:     (E,)  in the order of ``t_dst``: the edge's rank r within
@@ -240,6 +243,7 @@ class Graph:
     t_chunks: Optional[RowChunks] = None
     val: Optional[torch.Tensor] = None
     t_val: Optional[torch.Tensor] = None
+    t_pos: Optional[torch.Tensor] = None
     positional: bool = False
     t_rank: Optional[torch.Tensor] = None
     mega_of: Optional[torch.Tensor] = None
@@ -331,6 +335,8 @@ def build_graph(
     order, src_s, indptr = _csr(dst, src, n_pad)
     t_order, t_dst, t_indptr = _csr(src, dst, n_pad)
     dst_s = dst[order]
+    t_inv = np.empty(n_edges, np.int64)
+    t_inv[t_order] = np.arange(n_edges)
     in_degree = np.diff(indptr)
     if positional is None:
         positional = n_pad > (1 << 15)     # node ids no longer fit int16
@@ -375,6 +381,7 @@ def build_graph(
         t_chunks=chunk_table(t_indptr, row_chunk, device),
         val=None if edge_val is None else f32(edge_val[order]),
         t_val=None if edge_val is None else f32(edge_val[t_order]),
+        t_pos=i32(t_inv[order]),
         **pos,
     )
     return graph.with_hub(hub_k, hub_k_bwd) if hub_k or hub_k_bwd else graph

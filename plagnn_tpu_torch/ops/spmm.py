@@ -9,8 +9,12 @@ Port of ``plagnn_tpu/ops/spmm.py``.  Reduction semantics are DGL 0.8.x's:
 * ``gcn_propagate``: degree-normalised propagation (DGL GraphConv norms),
   with an optional bias added to its result.
 * ``sddmm_dot``: per-edge ``<x[src], y[dst]>``.
+* ``spmm_gat``: GAT's edge-softmax aggregation (DGL 0.8 ``GATConv``): per
+  (fold, head) group, ``out[i] = sum_j softmax_j(leaky_relu(el[j] + er[i]))
+  * wh[j]`` over the row's in-edges.
 
-``spmm_max``, ``spmm_sum`` and ``gcn_propagate``'s norm='both' run the CUDA
+``spmm_max``, ``spmm_sum``, ``gcn_propagate``'s norm='both' and ``spmm_gat``
+run the CUDA
 kernels of ``spmm_kernels`` on a card (their plain versions on the CPU);
 the rest is plain PyTorch around them.  The JAX package's
 ``segment_spmm_*`` oracles have their counterparts in the kernels' plain
@@ -23,9 +27,9 @@ from typing import Optional
 import torch
 
 from .graph_format import Graph
-from .spmm_kernels import spmm_max, spmm_sum, spmm_sum_gcn
+from .spmm_kernels import spmm_gat, spmm_max, spmm_sum, spmm_sum_gcn
 
-__all__ = ["spmm_max", "spmm_sum", "spmm_mean", "gcn_propagate", "sddmm_dot"]
+__all__ = ["spmm_max", "spmm_sum", "spmm_mean", "gcn_propagate", "sddmm_dot", "spmm_gat"]
 
 _NORMS = ("both", "left", "right", "none")
 

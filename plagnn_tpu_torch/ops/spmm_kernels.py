@@ -5,7 +5,7 @@ Port of ``pallas_spmm_max`` and ``pallas_spmm_sum``
 Features are (N_pad, K) with K = B*F, the fold batch packed next to the
 features, so one pass over the edges serves every fold.
 
-Three kernel files, four wrappers, each with a plain PyTorch version beside it:
+Four kernel files, six wrappers, each with a plain PyTorch version beside it:
 
 * ``spmm_max_fwd``: ``csrc/spmm_max_fwd.cu`` (float32 or bfloat16, with or
   without the argmax; ``empty_value`` is what an empty row stores: 0 on one
@@ -34,8 +34,16 @@ never decodes it; ``_arg_sources`` does, for the checks only.
   the transpose, the scales swapped, no bias).  Plain version:
   ``spmm_sum_gcn_plain``, the composition of separate passes whose bits
   the kernel keeps.
+* ``spmm_gat_fwd`` / ``spmm_gat_bwd``: ``csrc/spmm_gat.cu``, GAT's
+  edge-softmax aggregation (float32): for each row and (fold, head) group
+  of F columns, the softmax over the row's in-edges of ``leaky_relu(el[src]
+  + er[dst])`` weighting the sum of ``wh[src]``, as an online softmax in one
+  walk of the row chunks (no per-edge weight stored; the row's log-sum-exp
+  kept for the backward), and its backward (``dwh`` over the transpose, the
+  logits' gradients ``del`` / ``der`` by two narrow passes).  Plain
+  versions: ``spmm_gat_fwd_plain``, ``spmm_gat_bwd_plain``.
 
-All four walk the graph's row chunks (``Graph.chunks`` / ``t_chunks``,
+All of them walk the graph's row chunks (``Graph.chunks`` / ``t_chunks``,
 ``csrc/row_chunks.cuh``): their wrappers pass the direction's chunk table
 and a float32 scratch for the partials of split rows (the max forward also
 an int32 scratch for the partials' sources).
@@ -71,6 +79,7 @@ launches, so a run can show that its path went through the kernels, and
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -120,6 +129,15 @@ LAUNCHES: Dict[str, int] = {
     "spmm_sum_fwd_hub_bf16": 0,
     "spmm_sum_bwd_hub_f32": 0,
     "spmm_sum_bwd_hub_bf16": 0,
+    # GAT's edge-softmax aggregation (csrc/spmm_gat.cu): the forward and its
+    # combine of split rows; the backward's K-wide pass over the transpose,
+    # its combine, the der pass and the del pass (their combines inside)
+    "spmm_gat_fwd_f32": 0,
+    "spmm_gat_fwd_combine_f32": 0,
+    "spmm_gat_bwd_f32": 0,
+    "spmm_gat_bwd_combine_f32": 0,
+    "spmm_gat_bwd_der_f32": 0,
+    "spmm_gat_bwd_del_f32": 0,
 }
 
 # LAUNCHES by (counter, graph rows, graph edges, K): which shapes a run
@@ -302,6 +320,13 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 #                 n_split, out, partial, k, stream
 #   spmm_sum_gcn: dtype, x, <chunk table>, idx, pre, post, bias, split_row,
 #                 split_ptr, n_split, out, partial, k, stream
+#   spmm_gat_fwd: wh, el, er, <chunk table>, src, split_row, split_ptr,
+#                 n_split, out, lse, partial, pm, ps, k, f (int), slope
+#                 (float), stream
+#   spmm_gat_bwd: g, wh, el, er, lse, <transpose chunk table>, t_dst,
+#                 t_split_row, t_split_ptr, t_n_split, <chunk table>, src,
+#                 t_pos, split_row, split_ptr, n_split, dwh, del, der, dalpha,
+#                 partial, pdel, pd, pder, k, f (int), slope (float), stream
 # where <chunk table> is chunk_row, chunk_ptr, chunk_slot, n_chunks, and
 # <positional> is positional (int), mega_of, seg (the argmax's side table),
 # rank_cap (int).  The hub entries (*_hub) take <hub> = <chunk table>,
@@ -329,6 +354,9 @@ _ARGTYPES = {
                      _P, _I, _P],
     "spmm_sum": [_I, _P, *_CHUNKS, _P, _P, _P, _P, _LL, _P, _P, _LL, _P],
     "spmm_sum_gcn": [_I, _P, *_CHUNKS, _P, _P, _P, _P, *_SPLIT, _P, _P, _LL, _P],
+    "spmm_gat_fwd": [_P, _P, _P, *_CHUNKS, _P, *_SPLIT, _P, _P, _P, _P, _P, _LL, _I, _F, _P],
+    "spmm_gat_bwd": [_P, _P, _P, _P, _P, *_CHUNKS, _P, *_SPLIT, *_CHUNKS, _P, _P, *_SPLIT,
+                     _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _P],
     "spmm_max_fwd_hub": [_I, _I, _P, *_HUB, *_SPLIT, _P, _P, _P, _P, _P, _LL, _LL, _F, _P],
     "spmm_max_bwd_hub": [_I, _I, _P, _P, *_HUB, *_SPLIT, _P, _P, _P, _LL, _LL, _P],
     "spmm_sum_hub": [_I, _P, *_HUB, *_SPLIT, _P, _P, _P, _LL, _LL, _P],
@@ -943,3 +971,223 @@ def spmm_sum_gcn(graph: Graph, x: torch.Tensor,
     shape = x.shape
     return SpmmSumGcn.apply(graph, x.reshape(shape[0], -1).contiguous(),
                             bias).reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# GAT's edge-softmax aggregation: out = sum over in-edges of softmax(leaky_relu(
+# el[src] + er[dst])) * wh[src], per (fold, head) group of F columns.
+# ---------------------------------------------------------------------------
+
+# The slope of leaky_relu on the attention logits: DGL GATConv's
+# negative_slope, the paper's 0.2 (the kernels take it as an argument).
+GAT_SLOPE = 0.2
+
+
+def gat_layout(f: int) -> Tuple[int, int, bool]:
+    """(V, block width, span) of ``csrc/spmm_gat.cu``'s lanes at per-group
+    width ``f``, for tensors aligned as fresh ones are: V the widest of 4,
+    2, 1 dividing f; a warp's vector covers ``(32 V / f) f`` elements of
+    whole groups where f <= 32 V, or the 1 KB K-slice is one group where f
+    = 256 ("span").  ``ValueError`` for any other width, which the kernels
+    do not take (the plain versions take any)."""
+    v = next(v for v in (4, 2, 1) if f % v == 0)
+    if f <= 32 * v:
+        return v, (32 * v // f) * f, False
+    if f == 256:
+        return v, 32 * v, True
+    raise ValueError(f"the GAT kernels take a per-head width of at most {32 * v} (a multiple "
+                     f"of {v}) or 256, got {f}")
+
+
+def _check_gat(graph: Graph, wh: torch.Tensor, logits, f: int) -> int:
+    """The groups a row (K / f) of the op's operands, checked."""
+    _check(graph, wh, "wh")
+    if wh.dtype != torch.float32 and not (wh.dtype == torch.float64 and wh.device.type == "cpu"):
+        raise TypeError(f"the GAT aggregation runs in float32 (float64 on the CPU, the plain "
+                        f"version's checks), got {wh.dtype}")
+    k = wh.shape[1]
+    if f < 1 or k % f:
+        raise ValueError(f"K = {k} is no multiple of the per-head width {f}")
+    for name, t in logits.items():
+        _check(graph, t, name)
+        if t.dtype != wh.dtype or t.shape[1] != k // f:
+            raise ValueError(f"{name} must be {wh.dtype} (N_pad, {k // f}), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    return k // f
+
+
+def _gat_edges(graph: Graph, el, er, lse, r0: int, e0: int, e1: int):
+    """(src, local dst, z, softmax weight or None) of edges [e0, e1), whose
+    rows start at r0."""
+    s = graph.src[e0:e1].long()
+    d = graph.dst[e0:e1].long()
+    z = el[s] + er[d]
+    alpha = None if lse is None else torch.exp(torch.nn.functional.leaky_relu(z, GAT_SLOPE)
+                                               - lse[d])
+    return s, d - r0, z, alpha
+
+
+def spmm_gat_fwd_plain(graph: Graph, wh: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
+                       f: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``csrc/spmm_gat.cu``'s forward: over row
+    ranges (whole rows, (edges, K) temporaries bounded), each row's maximum
+    logit (``scatter_reduce`` amax), its log-sum-exp ``lse`` and the weights
+    ``exp(e - lse)``, then ``index_add_`` of the weighted rows.  A row without
+    in-edges gives 0 and lse -inf."""
+    n, k = wh.shape
+    bh = k // f
+    out = torch.zeros((n, k), dtype=wh.dtype, device=wh.device)
+    lse = torch.full((n, bh), -math.inf, dtype=wh.dtype, device=wh.device)
+    indptr = graph.indptr.cpu().numpy().astype(np.int64)
+    for r0, r1 in _row_chunks(indptr, k):
+        e0, e1 = int(indptr[r0]), int(indptr[r1])
+        if e0 == e1:
+            continue
+        s, d, z, _ = _gat_edges(graph, el, er, None, r0, e0, e1)
+        e = torch.nn.functional.leaky_relu(z, GAT_SLOPE)
+        m = torch.full((r1 - r0, bh), -math.inf, dtype=wh.dtype, device=wh.device
+                       ).scatter_reduce_(0, d[:, None].expand(-1, bh), e, "amax")
+        total = torch.zeros_like(m).index_add_(0, d, torch.exp(e - m[d]))
+        blk = torch.where(total > 0, m + torch.log(total), -math.inf)
+        lse[r0:r1] = blk
+        alpha = torch.exp(e - blk[d])
+        out[r0:r1].index_add_(0, d, (wh[s].view(-1, bh, f) * alpha[..., None]).view(-1, k))
+    return out, lse
+
+
+def spmm_gat_bwd_plain(graph: Graph, g: torch.Tensor, wh: torch.Tensor, el: torch.Tensor,
+                       er: torch.Tensor, lse: torch.Tensor, f: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``csrc/spmm_gat.cu``'s backward: over row
+    ranges, the weights a = exp(leaky_relu(z) - lse) again, da = g[dst] .
+    wh[src] per group, D = the row's sum of a * da, dz = leaky_relu'(z) *
+    a * (da - D); ``index_add_`` gives dwh (a * g[dst] into src), der (dz
+    into dst) and del (dz into src)."""
+    n, k = g.shape
+    bh = k // f
+    dwh = torch.zeros_like(g)
+    d_el = torch.zeros((n, bh), dtype=g.dtype, device=g.device)
+    d_er = torch.zeros_like(d_el)
+    indptr = graph.indptr.cpu().numpy().astype(np.int64)
+    for r0, r1 in _row_chunks(indptr, k):
+        e0, e1 = int(indptr[r0]), int(indptr[r1])
+        if e0 == e1:
+            continue
+        s, d, z, alpha = _gat_edges(graph, el, er, lse, r0, e0, e1)
+        gd = g[d + r0].view(-1, bh, f)
+        da = (gd * wh[s].view(-1, bh, f)).sum(-1)
+        row_d = torch.zeros((r1 - r0, bh), dtype=g.dtype, device=g.device
+                            ).index_add_(0, d, alpha * da)
+        de = alpha * (da - row_d[d])
+        dz = torch.where(z > 0, de, GAT_SLOPE * de)
+        d_er[r0:r1].index_add_(0, d, dz)
+        d_el.index_add_(0, s, dz)
+        dwh.index_add_(0, s, (gd * alpha[..., None]).view(-1, k))
+    return dwh, d_el, d_er
+
+
+def spmm_gat_fwd(graph: Graph, wh: torch.Tensor, el: torch.Tensor, er: torch.Tensor, f: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (N_pad, K), lse (N_pad, K / f)) for wh (N_pad, K) and the
+    logits' halves el, er (N_pad, K / f), float32.  CPU tensors take the
+    plain version; CUDA tensors launch ``spmm_gat_fwd`` (counted as
+    ``spmm_gat_fwd_f32``, its split rows' combine as
+    ``spmm_gat_fwd_combine_f32``), which walks the plain index on any graph
+    (no hub form)."""
+    bh = _check_gat(graph, wh, {"el": el, "er": er}, f)
+    if wh.device.type == "cpu":
+        return spmm_gat_fwd_plain(graph, wh, el, er, f)
+    gat_layout(f)
+    k = wh.shape[1]
+    out = torch.empty_like(wh)
+    lse = torch.empty((graph.n_nodes, bh), dtype=torch.float32, device=wh.device)
+    chunks, partial = _chunk_args(graph, False, k, wh.device)
+    pm = torch.empty((partial.shape[0], bh), dtype=torch.float32, device=wh.device)
+    ps = torch.empty_like(pm)
+    with torch.cuda.device(wh.device):
+        rc = _fn("spmm_gat", "spmm_gat_fwd")(
+            wh.data_ptr(), el.data_ptr(), er.data_ptr(), *chunks, out.data_ptr(),
+            lse.data_ptr(), partial.data_ptr(), pm.data_ptr(), ps.data_ptr(), k, int(f),
+            GAT_SLOPE, _stream(wh))
+    if rc != 0:
+        raise RuntimeError(f"spmm_gat_fwd launch failed: CUDA error {rc}")
+    _count("spmm_gat_fwd_f32", graph, k)
+    if graph.chunks.n_split:
+        _count("spmm_gat_fwd_combine_f32", graph, k)
+    return out, lse
+
+
+def spmm_gat_bwd(graph: Graph, g: torch.Tensor, wh: torch.Tensor, el: torch.Tensor,
+                 er: torch.Tensor, lse: torch.Tensor, f: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dwh, del, der) for the gradient g of ``spmm_gat_fwd``'s out.  CPU
+    tensors take the plain version; CUDA tensors launch ``spmm_gat_bwd``:
+    its pass over the transpose (``spmm_gat_bwd_f32``; the combine of split
+    rows ``spmm_gat_bwd_combine_f32``), the der pass
+    (``spmm_gat_bwd_der_f32``) and the del pass (``spmm_gat_bwd_del_f32``),
+    with an (E, K / f) float32 scratch for the per-edge gradients."""
+    bh = _check_gat(graph, g, {"el": el, "er": er, "lse": lse}, f)
+    _check(graph, wh, "wh")
+    if wh.shape != g.shape or wh.dtype != g.dtype:
+        raise ValueError(f"wh must be {g.dtype} {tuple(g.shape)}, got {wh.dtype} "
+                         f"{tuple(wh.shape)}")
+    if g.device.type == "cpu":
+        return spmm_gat_bwd_plain(graph, g, wh, el, er, lse, f)
+    gat_layout(f)
+    k = g.shape[1]
+    dev = g.device
+    dwh = torch.empty_like(g)
+    d_el = torch.empty((graph.n_nodes, bh), dtype=torch.float32, device=dev)
+    d_er = torch.empty_like(d_el)
+    t_chunks, partial = _chunk_args(graph, True, k, dev)
+    f_chunks, pd = _chunk_args(graph, False, bh, dev)
+    pder = torch.empty_like(pd)
+    pdel = torch.empty((partial.shape[0], bh), dtype=torch.float32, device=dev)
+    dalpha = torch.empty((graph.n_edges, bh), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _fn("spmm_gat", "spmm_gat_bwd")(
+            g.data_ptr(), wh.data_ptr(), el.data_ptr(), er.data_ptr(), lse.data_ptr(),
+            *t_chunks, *f_chunks[:5], graph.t_pos.data_ptr(), *f_chunks[5:], dwh.data_ptr(),
+            d_el.data_ptr(), d_er.data_ptr(), dalpha.data_ptr(), partial.data_ptr(),
+            pdel.data_ptr(), pd.data_ptr(), pder.data_ptr(), k, int(f), GAT_SLOPE,
+            _stream(g))
+    if rc != 0:
+        raise RuntimeError(f"spmm_gat_bwd launch failed: CUDA error {rc}")
+    _count("spmm_gat_bwd_f32", graph, k)
+    if graph.t_chunks.n_split:
+        _count("spmm_gat_bwd_combine_f32", graph, k)
+    _count("spmm_gat_bwd_der_f32", graph, bh)
+    _count("spmm_gat_bwd_del_f32", graph, bh)
+    return dwh, d_el, d_er
+
+
+class SpmmGat(torch.autograd.Function):
+    """GAT's edge-softmax aggregation of wh (N_pad, K) under the logits' halves
+    el, er (N_pad, K / f); saves wh, el, er and the rows' log-sum-exp, and
+    recomputes the weights in the backward."""
+
+    @staticmethod
+    def forward(ctx, graph: Graph, wh: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
+                f: int) -> torch.Tensor:
+        out, lse = spmm_gat_fwd(graph, wh, el, er, f)
+        ctx.graph, ctx.f = graph, f
+        ctx.save_for_backward(wh, el, er, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        wh, el, er, lse = ctx.saved_tensors
+        dwh, d_el, d_er = spmm_gat_bwd(ctx.graph, g.contiguous(), wh, el, er, lse, ctx.f)
+        return None, dwh, d_el, d_er, None
+
+
+def spmm_gat(graph: Graph, wh: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
+             f: int) -> torch.Tensor:
+    """GAT's aggregation over wh (N_pad, ...) with per-head width ``f``:
+    the trailing dims packed into one row of K elements, as ``spmm_sum``
+    packs them, and el, er (N_pad, ...) into K / f logits a row, one per
+    (fold, head) group of f consecutive columns."""
+    shape = wh.shape
+    n = shape[0]
+    return SpmmGat.apply(graph, wh.reshape(n, -1).contiguous(), el.reshape(n, -1).contiguous(),
+                         er.reshape(n, -1).contiguous(), int(f)).reshape(shape)

@@ -1,4 +1,4 @@
-"""Training engine: the fold-batched GNN32 or GCN2 ensemble.
+"""Training engine: the fold-batched GNN32, GCN2 or GAT ensemble.
 
 Port of ``plagnn_tpu/train/engine.py`` (``TrainConfig``, the fold-batched
 runner, ``train`` with mid-round checkpoints, ``_write_epoch_logs``,
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..models.batched import stack_folds
-from ..models.gnn32 import MODEL_REGISTRY
+from ..models.gnn32 import MODEL_REGISTRY, ModelSpec
 from ..ops.graph_format import Graph
 from ..utils.precision import aggregation_dtype
 from .checkpoint import (load_state, restore_state, round_complete, save_state,
@@ -43,7 +43,8 @@ class TrainConfig:
     seed: int = 70
     fold_batch: int = 10          # folds trained together (batch axis width)
     model: str = "gnn32"          # a key of models.gnn32.MODEL_REGISTRY
-    # GNN32 takes all four widths; GCN2 its first (the hidden width)
+    # GNN32 takes all four widths; GCN2 its first (the hidden width); GAT
+    # one width a head for each layer before the output layer (256, 256)
     hidden: Tuple[int, ...] = (400, 300, 200, 100)
     num_classes: int = 12
     compute_auc: bool = True
@@ -103,16 +104,25 @@ def fold_seed(seed: int, round_idx: int, fold: int, alpha_idx: int) -> int:
     return int(ss.generate_state(1, np.uint64)[0] & np.uint64(2**63 - 1))
 
 
+def model_spec(cfg: TrainConfig) -> ModelSpec:
+    """``cfg.model``'s registry entry, once it has not refused ``cfg``."""
+    spec = MODEL_REGISTRY.get(cfg.model)
+    if spec is None:
+        raise ValueError(f"unknown model {cfg.model!r}; one of {sorted(MODEL_REGISTRY)}")
+    if spec.refuse is not None:
+        spec.refuse(cfg)
+    return spec
+
+
 def init_fold_model(cfg: TrainConfig, in_feats: int, seeds: Sequence[int],
                     device) -> torch.nn.Module:
     """Fold batch of freshly initialised ``cfg.model``s, one
     ``torch.Generator`` per fold."""
-    if cfg.model not in MODEL_REGISTRY:
-        raise ValueError(f"unknown model {cfg.model!r}; one of {sorted(MODEL_REGISTRY)}")
-    widths = tuple(cfg.hidden) if cfg.model == "gnn32" else (cfg.hidden[0],)
+    spec = model_spec(cfg)
+    widths = tuple(cfg.hidden) if spec.all_widths else (cfg.hidden[0],)
     models = [
-        MODEL_REGISTRY[cfg.model](torch.Generator().manual_seed(s), in_feats,
-                                  *widths, num_classes=cfg.num_classes)
+        spec.init(torch.Generator().manual_seed(s), in_feats, *widths,
+                  num_classes=cfg.num_classes, **spec.extra)
         for s in seeds
     ]
     return stack_folds(models).to(device)
@@ -134,7 +144,9 @@ def resolve_hub(cfg: TrainConfig, graph: Graph, in_feats: int,
     (``PartitionedGraph.n_pad``), sizes the max backward's arena: the
     shards are id-based at any size, so no guard applies, and past 2^15
     rows their argmax is int32 (``spmm_kernels.argmax_bytes``).  GCN2's
-    sums hold no argmax in either direction's arena."""
+    sums hold no argmax in either direction's arena.  GAT's "auto" and
+    "off" take none, and its entry refuses an explicit size
+    (``models/gnn32.py: refuse_gat``)."""
     from ..ops.hub import pick_hub_sizes
     from ..ops.spmm_kernels import argmax_bytes
 
@@ -215,6 +227,7 @@ def train(
     through the sharded runner, and rank 0 alone writes the artifacts and
     the checkpoints (a barrier after each write)."""
     device = resolve_device(device_name)
+    model_spec(cfg)               # refuses before any work, a mesh's included
     os.makedirs(path, exist_ok=True)
     in_feats = feats.shape[1]
     class_weight = weight_cal(loc_mat_full)
@@ -462,9 +475,10 @@ def _checkpoint_fingerprint(cfg: TrainConfig) -> dict:
     the (round, fold) -> chunk mapping and the batch width of every saved
     tensor; epoch_num/alpha_list change the chunk offsets and job list;
     agg_dtype changes the numerical trajectory; seed/lr/fold_num/model/
-    hidden change the parameters the state continues from.  Resuming across
-    any of these would load mismatched state or silently diverge.  A mesh
-    with a fold axis adds mesh_fold, which pads a partial last chunk.
+    hidden and the model's fixed arguments (GAT's heads) change the
+    parameters the state continues from.  Resuming across any of these
+    would load mismatched state or silently diverge.  A mesh with a fold
+    axis adds mesh_fold, which pads a partial last chunk.
     hub_cache is kept as the JAX package keeps it (its hub changes its add
     order); the port's hub kernels keep the add order, but a resume across
     it refuses all the same."""
@@ -483,6 +497,8 @@ def _checkpoint_fingerprint(cfg: TrainConfig) -> dict:
     }
     if cfg.mesh_fold > 1:
         fp["mesh_fold"] = int(cfg.mesh_fold)
+    for k, v in MODEL_REGISTRY[cfg.model].extra.items():
+        fp[k] = tuple(int(h) for h in v)
     return fp
 
 

@@ -286,4 +286,4 @@ def test_init_fold_model_dispatches_on_model():
     assert float(m.conv1.weight.abs().max()) <= np.sqrt(6.0 / 33)
     assert float(m.conv1.bias.abs().max()) == 0.0
     with pytest.raises(ValueError, match="unknown model"):
-        engine.init_fold_model(engine.TrainConfig(model="gat"), 20, [1], "cpu")
+        engine.init_fold_model(engine.TrainConfig(model="gin"), 20, [1], "cpu")

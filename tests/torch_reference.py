@@ -108,3 +108,91 @@ def export_gnn32_params(model: RefGNN32):
         "liner1": export_linear_params(model.liner1),
         "liner2": export_linear_params(model.liner2),
     }
+
+
+class RefGATConv(nn.Module):
+    """DGL 0.8 ``GATConv`` (Velickovic et al., arXiv:1710.10903) in plain
+    torch, a per-row softmax over each row's in-edges written directly:
+        h = fc(x) (no bias), el = <h, attn_l>, er = <h, attn_r>   per head
+        a_ij = softmax over i's in-neighbours j of leaky_relu(el_j + er_i, 0.2)
+        out_i = sum_j a_ij h_j + res_fc(x_i) + bias               per head
+    then ``activation``.  ``residual``: res_fc is the identity where the
+    input is as wide as the heads' output, else a Linear with no bias.
+    DGL's init: Xavier-normal at gain sqrt(2), zero bias."""
+
+    def __init__(self, in_feats, out_feats, num_heads, residual=False, activation=None):
+        super().__init__()
+        self.h, self.f = num_heads, out_feats
+        self.fc = nn.Linear(in_feats, out_feats * num_heads, bias=False)
+        self.attn_l = nn.Parameter(torch.empty(1, num_heads, out_feats))
+        self.attn_r = nn.Parameter(torch.empty(1, num_heads, out_feats))
+        self.res_fc = None
+        if residual:
+            self.res_fc = (nn.Identity() if in_feats == out_feats * num_heads
+                           else nn.Linear(in_feats, out_feats * num_heads, bias=False))
+        self.bias = nn.Parameter(torch.zeros(out_feats * num_heads))
+        self.activation = activation
+        gain = nn.init.calculate_gain("relu")
+        nn.init.xavier_normal_(self.fc.weight, gain=gain)
+        nn.init.xavier_normal_(self.attn_l, gain=gain)
+        nn.init.xavier_normal_(self.attn_r, gain=gain)
+        if isinstance(self.res_fc, nn.Linear):
+            nn.init.xavier_normal_(self.res_fc.weight, gain=gain)
+
+    def forward(self, adj_lists, x):
+        """(N, heads, out_feats)."""
+        h = self.fc(x).view(-1, self.h, self.f)
+        el = (h * self.attn_l).sum(-1)
+        er = (h * self.attn_r).sum(-1)
+        rows = []
+        for i, nb in enumerate(adj_lists):
+            if not nb:
+                rows.append(torch.zeros(self.h, self.f, dtype=x.dtype))
+                continue
+            a = torch.softmax(F.leaky_relu(el[nb] + er[i], 0.2), dim=0)
+            rows.append((a[..., None] * h[nb]).sum(0))
+        out = torch.stack(rows)
+        if self.res_fc is not None:
+            out = out + self.res_fc(x).view(-1, self.h, self.f)
+        out = out + self.bias.view(1, self.h, self.f)
+        return out if self.activation is None else self.activation(out)
+
+
+class RefGAT(nn.Module):
+    """DGL's ``examples/pytorch/gat/train_ppi.py`` model: GATConv layers of
+    heads[l] x hidden[l] with ELU, concatenated (residuals past the first),
+    a last GATConv of heads[-1] x num_classes with a residual, its heads
+    averaged; sigmoid probabilities (PLA-GNN's multi-label output)."""
+
+    def __init__(self, in_feats, hidden, heads, num_classes):
+        super().__init__()
+        ins = [in_feats] + [f * h for f, h in zip(hidden, heads)]
+        self.layers = nn.ModuleList(
+            [RefGATConv(ins[l], f, heads[l], residual=l > 0, activation=F.elu)
+             for l, f in enumerate(hidden)]
+            + [RefGATConv(ins[-1], num_classes, heads[-1], residual=True)])
+
+    def forward(self, adj_lists, x):
+        h = x
+        for layer in self.layers[:-1]:
+            h = layer(adj_lists, h).flatten(1)
+        return torch.sigmoid(self.layers[-1](adj_lists, h).mean(1))
+
+
+def export_gat_params(model: RefGAT, grads: bool = False):
+    """{'conv1.fc': (in, H*F), 'conv1.attn_l': (H, F), ...}: the port's
+    GAT names and layouts (weights stored (in, out)); with ``grads`` the
+    parameters' gradients in the same layout."""
+    def get(t):
+        return (t.grad if grads else t).detach().clone()
+
+    out = {}
+    for l, layer in enumerate(model.layers):
+        p = f"conv{l + 1}."
+        out[p + "fc"] = get(layer.fc.weight).T
+        out[p + "attn_l"] = get(layer.attn_l)[0]
+        out[p + "attn_r"] = get(layer.attn_r)[0]
+        if isinstance(layer.res_fc, nn.Linear):
+            out[p + "res_fc"] = get(layer.res_fc.weight).T
+        out[p + "bias"] = get(layer.bias)
+    return out
