@@ -74,7 +74,10 @@ without the hub, bit for bit.
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.  ``LAUNCHES`` counts the kernel
 launches, so a run can show that its path went through the kernels, and
-``LAUNCH_SHAPES`` the same launches by shape.
+``LAUNCH_SHAPES`` the same launches by shape.  They count in Python at the
+launch, so a CUDA graph's replay counts nothing: the runner captures into
+emptied registries (``take_launches``) and credits what they then hold on
+each replay (``credit_launches``).
 """
 from __future__ import annotations
 
@@ -226,6 +229,30 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     LAUNCH_SHAPES.clear()
+
+
+LaunchCounts = Tuple[Dict[str, int], Dict[Tuple[str, int, int, int], int],
+                     Dict[Tuple[str, int, int], int]]
+
+
+def take_launches() -> LaunchCounts:
+    """What the three registries hold, emptied: LAUNCHES' counts to 0,
+    LAUNCH_SHAPES and LAUNCH_SLICES cleared."""
+    held = dict(LAUNCHES), dict(LAUNCH_SHAPES), dict(LAUNCH_SLICES)
+    reset_launches()
+    LAUNCH_SLICES.clear()
+    return held
+
+
+def credit_launches(counts: LaunchCounts) -> None:
+    """Add ``counts`` (a ``take_launches``) into the registries: LAUNCHES'
+    and LAUNCH_SHAPES' counts rise by theirs, LAUNCH_SLICES takes its
+    widths.  A CUDA graph's replay runs the launches that its capture
+    counted, and the wrappers count nothing then."""
+    for reg, add in zip((LAUNCHES, LAUNCH_SHAPES), counts[:2]):
+        for k, v in add.items():
+            reg[k] = reg.get(k, 0) + v
+    LAUNCH_SLICES.update(counts[2])
 
 
 def _count(name: str, graph: Graph, k: int, width: int = 1024) -> None:

@@ -9,7 +9,7 @@ the analysis, which also takes ``scaling_np``, the scoring's merge scaler.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -17,16 +17,19 @@ import torch
 
 def protein_loc_correction(
     loc_proba: torch.Tensor,
-    alpha: float,
+    alpha: Union[float, torch.Tensor],
     row_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(..., N, C) probabilities -> float {0, 1} predictions, padding rows
-    (``row_valid`` False) all zero and left out of the column statistics."""
+    (``row_valid`` False) all zero and left out of the column statistics.
+    ``alpha`` is a float or a 0-d float32 tensor on the probabilities'
+    device (the runner's, which a CUDA graph reads at each replay)."""
     x = loc_proba
     if row_valid is None:
         row_valid = torch.ones(x.shape[-2], dtype=torch.bool, device=x.device)
     rv = row_valid[:, None]
-    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    # a device fill, not a copy from the host: a CUDA graph's capture refuses one
+    inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
     min_p = torch.where(rv, x, inf).amin(-2, keepdim=True)
     max_p = torch.where(rv, x, -inf).amax(-2, keepdim=True)
     new = (x - min_p) / (max_p - min_p)

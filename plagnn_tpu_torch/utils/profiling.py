@@ -12,8 +12,10 @@
   ``record_function`` range, so the Chrome trace names the host code
   behind each stretch of device idle.
 * ``PHASES``: one row per epoch that the runner timed, phase -> ms on the
-  device's clock (``train/runner.py: EpochTimer``).
-* ``reset()`` empties both registries; ``summary()`` prints them.
+  device's clock (``train/runner.py: EpochTimer``); ``EPOCH_REPLAYED``
+  beside it, whether that epoch replayed the runner's CUDA graphs or ran
+  eagerly.  The span ``runner.graph_capture`` counts the captures.
+* ``reset()`` empties the registries; ``summary()`` prints them.
 """
 from __future__ import annotations
 
@@ -133,6 +135,8 @@ class SpanStats:
 SPANS: Dict[str, SpanStats] = {}
 # one row per epoch that the runner timed, in order: phase -> ms
 PHASES: List[Dict[str, float]] = []
+# one entry per row of PHASES: True where the epoch replayed CUDA graphs
+EPOCH_REPLAYED: List[bool] = []
 
 
 class span:
@@ -167,13 +171,15 @@ class span:
 
 
 def reset() -> None:
-    """Empty ``SPANS`` and ``PHASES`` (in place)."""
+    """Empty ``SPANS``, ``PHASES`` and ``EPOCH_REPLAYED`` (in place)."""
     SPANS.clear()
     PHASES.clear()
+    EPOCH_REPLAYED.clear()
 
 
 def summary() -> str:
-    """A table of ``SPANS`` and the mean of each phase over ``PHASES``."""
+    """A table of ``SPANS``, the mean of each phase over ``PHASES`` and how
+    many of those epochs replayed CUDA graphs."""
     lines = [f"{'span':<36}{'calls':>8}{'total s':>12}{'first ms':>12}{'mean ms':>12}"]
     for name, s in sorted(SPANS.items()):
         lines.append(f"{name:<36}{s.count:>8}{s.total_s:>12.4f}{s.first_s * 1e3:>12.3f}"
@@ -182,5 +188,6 @@ def summary() -> str:
         means = {k: sum(row[k] for row in PHASES) / len(PHASES) for k in PHASES[0]}
         lines.append(f"epoch phases, mean ms over {len(PHASES)} epochs: "
                      + ", ".join(f"{k} {v:.3f}" for k, v in means.items())
-                     + f"; epoch {sum(means.values()):.3f}")
+                     + f"; epoch {sum(means.values()):.3f}; "
+                     f"{sum(EPOCH_REPLAYED)} replayed from CUDA graphs")
     return "\n".join(lines)
