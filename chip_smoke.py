@@ -1,297 +1,77 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch/CUDA port (plagnn_tpu_torch).
+"""On-card acceptance check of the PyTorch/CUDA port (plagnn_tpu_torch).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only-...]
 
-Needs one CUDA card and nvcc.  Phases, in order; any failure exits nonzero:
+Needs one CUDA card and nvcc.  It answers whether each kernel and each path
+is right on the card at full shapes: every kernel against its plain PyTorch
+version, every CLI path trained with its launch counts and artifacts
+checked.  How fast each benchmark cell runs is ``gpubench/run.py``'s
+question (``--trace 1`` adds the per-kernel device times and idle share);
+the card's unit tests are ``tests/test_torch_cuda*.py -m cuda``.  Each
+kernel is also timed at its path's shape (CUDA events) beside its plain
+version, a library yardstick and its compulsory bytes at the HBM rate, as
+``gpubench/counts.py`` and ``gpubench/kinds/`` count them, for PERF.md's
+kernel table.  Phases, in order; any failure exits nonzero:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: the kernels in plagnn_tpu_torch/csrc, from source, one nvcc
-   each, with each kernel's registers and spills as ptxas reports them.
-3. Kernels against their plain PyTorch versions on the card, on a small
-   tie-heavy graph, on a cross-chunk tie graph (a hub row of 3 x ROW_CHUNK
-   + 5 edges in 4 chunks; columns all equal, all -inf, and maxima first
-   reached at a chunk's first edge and tied across chunks) and on the full
-   synthetic PPI graph at each width its path aggregates.  Segment max
-   (GNN32: B=10 folds x F=503, 400, 300): forward out and argmax bit-exact
-   in float32 and bfloat16, with and without the argmax, and bit-identical
-   run to run; float32 dx within 1e-5 of the summed hit magnitudes (the two
-   sum the same hits in float32 in different orders) and bit-identical run
-   to run; bfloat16 dx within 1 bf16 ulp.  Segment sum (GCN2: B=10 x 400
-   and 10 x 12), forward and transpose: float32 within 1e-5 of the summed
-   magnitudes and bit-identical run to run; bfloat16 on small integers
-   exact.  The edge-weighted sum at conv1's K (values seeded uniform in
-   [0.5, 1.5), 1.0 on self-loops), forward and transpose: float32 as the
-   sum, bfloat16 exact on small integers with dyadic values.  Prints the
-   row-chunk tables' sizes (chunks, split rows) that all three kernels
-   walk.  Times each kernel (CUDA events, median), its plain version and a
-   PyTorch library call at the first layer's shape of each path, the sum
-   also at GCN2 conv2's K = 120, and the weighted sum beside the unweighted
-   one.
-   3g. GCN's scaled sum (GraphConv norm='both' and its bias in the sum
-   kernel) at GCN2's shapes, 24k nodes at K = 10 x 400 and 10 x 12 and
-   330,000 nodes (10 M edges) at 8 x 400: forward with a bias and
-   transpose, float32 and bfloat16, bit-identical to the composition of the
-   card's passes and run to run, float32 against its plain version with
-   the sum's tolerance; timed beside the unscaled kernel and the
-   composition (``--only-gcn-sum`` runs phases 1, 2 and 3g alone).
-   3i. GAT's edge-softmax pair (csrc/spmm_gat.cu) on the 24k graph at the
-   widths of the benchmark's GAT cell, 32 folds: K = 32 x 4 heads x 256
-   (layers 1-2) and 32 x 6 x 12 (layer 3), with split rows both ways.
-   Forward (out, lse) and backward (dwh, del, der) bit-identical run to
-   run and within GAT_RTOL / GAT_ATOL of their plain versions on the card;
-   each timed (CUDA events, median of 10) beside its plain version (median
-   of 3) and its compulsory bytes at the HBM rate.  Then GAT through
-   ``train()`` (503 -> 4 x 256 -> 4 x 256 -> 6 x 12, 10 folds, float32,
-   GAT_EPOCHS epochs; in the full run after phase 4c): per epoch 3 launches
-   each of the forward, the backward and its der and del passes, and of
-   each direction's combine where that direction has split rows, no other
-   kernel, and the artifact contract (``--only-gat`` runs phases 1, 2 and
-   3i alone).
-   3h. The hub cache's kernels on the full graph: the coverage by k (the
-   share of edges whose row the arena serves, each direction); at every
-   width each path aggregates (max: K = 10 x 503 / 400 / 300; sum: 10 x 400
-   and 10 x 12), float32 and bfloat16, at "auto"'s k where it has one and
-   at each of HUB_KS halved to fit (pick_hub_sizes: every hub kernel's
-   two stages), every hub kernel against the same kernel
-   without the hub (forward out and argmax bit-exact, dx and sums
-   bit-identical, and each run to run), and at the first of those k
-   against its own plain version with phase 3's tolerances; the fill route
-   (TMA or cp.async) each max width takes.  At the first layer's shapes
-   each hub kernel is timed by k and at k = 0 (its structure with an empty
-   arena), beside the kernel without the hub (CUDA events, median of 10,
-   in turns), with the warps an SM holds of each (the card's occupancy
-   calculator), the arena's stages, blocks an SM and fill route, its plain
-   version and its bytes bound (the kernel's without the hub; the arenas'
-   fill bytes in a field of their own) at HUB_MAIN_K's sizes.
-   3d. The gather probe (plagnn_tpu_torch/bench/dma_ceiling.py, the
-   counterpart of benchmarks/dma_ceiling.py: _dma_kernel): the kernel
-   bit-equal to its plain version at every shape of the module's
-   CHECK_SHAPES (rings of 1-16 slots of 1-8 rows of 16 B to 64 KB, window
-   counts not a multiple of the grid), random and sequential ids.  Then a
-   short sweep at ring depth 8 through the module's build_bench and
-   measure (CUDA events, median of DMA_REPS): rows of DMA_WIDTHS over
-   tables of DMA_TABLES rows (the graphs the phases run), random and
-   sequential, DMA_TARGET_MB MiB a launch at least (whole waves of the
-   grid's windows: 2.8 GB at 20,480 B), and the 24k graph's own source
-   ids in edge order (724,041, padded to a multiple of T_E) at
-   DMA_EDGE_WIDTHS.  At each point the kernel is bit-equal to its plain
-   version on the same inputs, and is timed beside its plain version,
-   ``torch.index_select`` into a buffer (which also writes every row: a
-   yardstick only) and the bound of its compulsory bytes (the distinct
-   rows read, the ids, slot 0 written) at 3.35 TB/s; its rate is a
-   service rate, not a roofline share.
-4. GNN32 at full width through the CLI: synth (24,041 nodes, 700k edges),
-   train-normal (float32, 3 epochs, 10 folds in one batch), then
-   train-inter with --agg-dtype bfloat16 (2 epochs).  Each run must launch
-   each of its kernels 3 times per epoch (3 SAGE-pool layers), no other
-   kernel, and write the artifact contract with finite logits.
-   4a. The analysis at full width, on the log phase 4 wrote (GSE30931's
-   normal f32 and perturbation bf16 logits, 1 round x 10 folds).  For each
-   GSE*_data: a seeded perturbed expr_inter.npy, and PPI_inter built on the
-   card by the port's modify_network_topology (dataset thresholds 2.75 /
-   2.91 / 2.99) through the ΔPCC hit kernel.  Then the CLI's score,
-   performance --rounds 1 --folds 10 and statistics (the ΔPCC count kernel
-   on the card), each with its wall time.  Only the two ΔPCC kernels may
-   launch, 3 times each.  Checks: the CSV is non-empty, res_alldata.json
-   parses, the metrics are finite, statistics.txt has 3 sections; per
-   dataset the hit list equals the plain version's on the card (the same
-   pairs in the same order, and the tail of PPI_inter) and the counts equal
-   the plain scan's and the statistics'.  Times both kernels at full width
-   (CUDA events, median) beside their plain versions, the blocked
-   torch.matmul (cuBLAS DGEMM) yardstick and the float64 bound.
-   4f. The figures' data at full width, on 4a's perturbed bundle: the
-   CLI's ``figures -d cuda --diff-hist --alpha-dist`` (3 ΔPCC histogram
-   launches, no other kernel, its wall time).  Checks: per dataset the
-   linked and unlinked counts equal the plain version's on the card bin for
-   bin; they add up to N² - N less the pairs outside the edges (the count
-   kernel's), and the linked ones to PPI_normal's off-diagonal entries less
-   those outside; every JSON file written parses and holds finite numbers.
-   ``figures --save-diff`` on a bundle cut to N = 4,096 (the full width
-   writes ~28 GB): the three arrays hold N², the links and the rest, and
-   hist_data.json's counts add up to them.  Times the histogram kernel
-   (CUDA events, median) beside its plain version, a blocked cuBLAS DGEMM
-   + bucketize + bincount yardstick and the float64 bound.
-   4b. The float32 train-normal run once more under utils.profiling.trace:
-   device time per epoch by kernel group and the device's idle share, and
-   the layer-1 max forward's profiled time per launch beside phase 3's
-   CUDA-event median at the same shape.
-   4c. GCN2 at full width through ``train()`` (503 -> 400 -> 12, 10 folds,
-   float32, 3 epochs, a checkpoint every 2 epochs): 2 sum-forward and 2
-   sum-transpose launches per epoch, no max launch, the artifact contract,
-   and the mid-round checkpoint seen after epoch 2 and removed at the end;
-   then the same run once more under utils.profiling.trace.
-   4m. The multi-device path on the one card, after 4c (phase 4b's
-   train-normal float32 run is the single-card run it compares with).
-   (a) The full graph partitioned at P = 2 and 4 (balanced): every shard's
-   interior and boundary graph through spmm_max(empty_value=-inf) and its
-   backward at K = 10 x 503 and 10 x 400, float32 and bfloat16, equal to
-   the plain versions (out, argmax, dx; small-integer gradients keep the
-   sums exact), each timed (CUDA events, median of 10) beside its plain
-   version, scatter_reduce_ / index_add_ and its bytes bound; the kernels
-   line takes each (P, part, K, dtype, direction)'s slowest rank.  (b)
-   train() at full width (GNN32 float32, 3 epochs, 10 folds) at mesh
-   fold=1,graph=2 and fold=2,graph=2, the ranks gloo processes that share
-   cuda:0 (host-staged: a correctness run, not a scaling figure), spawned
-   by parallel.launch.spawn_local: each rank launches the -inf forward and
-   the backward twice (interior, boundary) per layer per epoch and no
-   other kernel; logits, every fig_data curve and log.tsv against the
-   single-card run (logits and losses within MESH_ATOL, threshold metrics
-   within 2 flipped rows); ms/epoch, the halo buffer bytes and received
-   rows per layer, and the exchange alone timed per layer.  (c) A NCCL
-   group of one rank on cuda:0 (in this process): the exchange at P = 1
-   and an all_reduce of CUDA tensors, then TAX_EPOCHS epochs of the sharded
-   runner on a graph axis of size 1 against the single-card runner.
-   4q. The mesh planner's anchors and --mesh auto, after 4m.  (a) On the
-   full synthetic graph, the max forward (with the argmax) and backward at
-   layer 1's K = B x 503 for each B of PLAN_BS, bfloat16 and float32 (CUDA
-   events, median of 10), checked against the plain versions as phase 3
-   checks them at PLAN_CHECK_BS; the bfloat16 pair's edge-folds/s (E x B
-   over the two times) beside the pair's bytes bound.  (b) The peak device
-   memory of one GNN32 training epoch (the single-card runner) at each B of
-   CEILING_BS, float32 and bfloat16; the per-fold slope of the allocator's
-   reserve against the memory it can reach gives each dtype's ceiling, and
-   one epoch at the smaller of the two must fit.  (c) The structure tax:
-   4m (c)'s sharded runner over the single-card runner, the median of the
-   steady epochs each (1 where it falls below 1).  (d) The anchors written
-   with parallel/planner.write_anchors to ANCHORS_FILE (under
-   chiprun_out/), ``plan-mesh --devices D`` through the CLI on them for each
-   D of PLAN_DEVICES (each summary must name the file), and ``train-normal
-   --mesh auto`` (D = 1 here) for 2 epochs of PLAN_ROUNDS rounds x 10
-   folds: the planner's line, the plan's fold batch in every chunk, 3 max
-   forwards and 3 backwards an epoch and no other kernel, the artifact
-   contract.
-   4h. The hub on the main path, after 4m: train-normal (float32, 3
-   epochs) and train-inter --agg-dtype bfloat16 (2 epochs) through the CLI
-   with --hub-cache off and --hub-cache HUB_MAIN_K: the hub run launches
-   each hub max kernel 3 times an epoch and no max kernel without the hub,
-   and every file it writes (logits, log.tsv, txt_log.txt, fig_data) is
-   byte-identical to the run without the hub; then GCN2 through train()
-   with hub_cache "off" and HUB_MAIN_K (3 epochs, a checkpoint every 2):
-   the sum hub kernels 2 + 2 times an epoch, the same files.  Phases 4 and
-   4c run the default hub_cache="auto", their launch checks following what
-   it resolves to.
-   4s. The hub on the mesh's interior pass, after 4h (its (b) in 4g).
-   (a) The full graph partitioned at P = 2 and 4 (balanced): every rank's
-   interior shard at layer 1's K = 10 x 503, float32 and bfloat16, with
-   each of SHARD_HUB_KS halved to fit for the shard's argmax (int32 at P =
-   2, whose gather space passes 2^15 rows; int16 at P = 4): the -inf
-   forward and the backward bit-equal to the kernels without the hub, run
-   to run, and to their plain versions (small-integer gradients), each
-   hub form timed beside the form without it and at k = 0 (CUDA events,
-   median of 10, in turns), with the warps an SM holds (hub_warps) and
-   the stages, blocks an SM and fill route (hub_layout); entries at
-   SHARD_HUB_K's sizes from the slowest rank, bound by the pass's work
-   (the bytes of the kernel without the hub; the arenas' fill beside it).
-   (b) In 4g, rank 0's interior shard of config 5 at P = 2 (int32 argmax),
-   float32 at K = 8 x 503 with HUB_MAIN_K's sizes, checked and timed the
-   same way.  (c) The sharded runner on a graph axis of size 1 over a NCCL
-   group of one rank (as 4m (c)), TAX_EPOCHS epochs with hub_cache "off"
-   and HUB_MAIN_K: the hub kernels 3 + 3 times an epoch, probabilities and
-   history bit-identical, each epoch's ms.  (d) ``train-normal --mesh
-   fold=1,graph=2`` with --hub-cache off and SHARD_HUB_K, float32 and
-   bfloat16, CLI_MESH_EPOCHS epochs, on 2 gloo ranks sharing cuda:0 (the
-   CLI's flags through its own parser, each rank in the CLI's rank entry):
-   every file byte-identical, and on every rank the hub kernels launched
-   by the interior pass only.
-   4p. The preprocess stage at full width from synthetic raw files: a
-   BioGRID mitab of powerlaw_ppi(24,041, 700k, seed 70)'s pairs (each of
-   its 3 isolated nodes joined to one more node, so all 24,041 proteins
-   interact), one GSE*_exprSet.csv per dataset (~5% of proteins without a
-   probe, some with 2-3; intervention = normal x exp(0.1 N(0, 1)), seed 70),
-   a UniProt dat with 0-3 GO CC terms per protein.  ``preprocess
-   --no-dense-gcn`` through the CLI on the card, each step's wall time
-   (PPI, ECC x 4, expression x 3, topology x 3, labels, PCA x 10): 4 ECC
-   count launches and 3 ΔPCC hit launches, no other kernel.  Checks: the
-   artifact contract (lean: no GCN_*.npz); each graph's counts equal the
-   plain version's on the card pair for pair and give the saved ECC values;
-   the card's pca equals the CPU's at N = 4,096, 250 components (the
-   randomized solver) within 1e-9 of the largest singular value; every
-   condition loads with 503 features; one train-normal epoch (1 round, 10
-   folds in one batch) on the bundle through the max kernels.  Times the
-   ECC kernel on the normal graph and on GSE30931's PPI_inter (CUDA
-   events, median) beside its plain version, the bound and cuSPARSE's A·A
-   (``torch.sparse.mm``; on PPI_inter its error and the memory asked for
-   where it cannot run), and one full-width PCA split into the dense input,
-   the range finder and the SVD.
-   4o. The other ops at full width, after every profiled phase (4a, 4f,
-   4b, 4c and 4p profile inside utils.profiling.trace, which fails where a
-   block launched kernels and its trace holds none; each session's lost
-   launches are printed, and counted here): sampled_graph of the
-   synthetic PPI at fanout 10 and 25, a max forward and backward on each
-   (K = 10 x 503; the fanout-10 forward inside utils.profiling.trace, whose
-   file must name the max-forward kernel), and the weighted sum forward and backward through
-   autograd on the fanout-10 sample with seeded edge values (K = 10 x 400,
-   float32 and bfloat16): exactly those launches.  Checks: the max kernels
-   on both samples against their plain versions as phase 3 checks them.
-   Then the max forward and the sum timed on the full synthetic graph and
-   on clustered_ppi(24,041, 700k, seed 70), each under the identity, RCM
-   and greedy orders (features permuted as x[perm], outputs restored: each
-   equals the identity order's), with each order's host time and
-   coalesce_report's fractions.
-   4g. The big-graph path, last: BASELINE.json config 5 through the CLI
-   (``synth --nodes 330000 --edges 10000000 --seed 70``: N_pad 330,112,
-   E 10.33 M with self-loops, 5 rows past the positional rank cap), whose
-   graph takes the positional argmax (ranks within rows, int16).  At
-   every width the path aggregates (K = 8 x 503 / 400 / 300; relu ties,
-   an all-equal block, the top row's maximum past rank 32,767 in 64
-   columns), float32 and bfloat16, the positional max kernels and the
-   id-based int32 kernels on the same graph, each against its own plain
-   version as phase 3 holds them, and against each other: out bit-exact,
-   the argmax naming the same sources, dx within phase 3's tolerances
-   (bit-equal expected).  Each form runs at the K-slice its rule gives
-   (ops/spmm_kernels.py: slice_bytes, past the L2 WIDE_SLICE's width) and
-   at the forced 1 KB slice, out, argmax and dx bit-equal between the two;
-   the widths printed are those the wrappers passed to their kernels.  At layer 1 each is timed at
-   both (CUDA events, median of 10) beside its plain version, a ``scatter_reduce_`` /
-   ``index_add_`` yardstick over column slices (the whole gathered
-   operand does not fit) and its bytes bound, with the index bytes its
-   K-slices re-read.  Then GNN32 at 8 folds in one batch, 2 epochs,
-   train-normal float32 and train-inter bfloat16: exactly 3 positional
-   forwards and 3 positional backwards an epoch, no id-based max kernel,
-   the artifact contract; the float32 run once more under
-   utils.profiling.trace, with the max kernels' device ms per epoch.
-   Last, one forward and backward of BatchedGNN32
-   at B = 8 with each argmax form, both peaks and the saving beside the
-   one reckoned from the argmax's bytes.  The earlier phases' launch
-   checks hold every positional counter at 0.  The hub at this size: the
-   coverage by k, and the id-based layer-1 max forward and backward (int32
-   argmax) with a hub at HUB_MAIN_K's sizes against the same kernels
-   without it (out and argmax bit-exact, dx bit-identical) and their plain
-   versions, each timed beside the kernel without the hub and at k = 0.  No training run
-   takes the hub here: the engine turns it off past 2^15 nodes on one card,
-   as the JAX package's does.  Then phase 4s (b) on this graph's P = 2
-   shard.
-5. A ``{"kernels": [...]}`` line (each entry with the K-slice width its
-   timed launch walked, ``slice_bytes``, as its wrapper recorded it), the
-   nvidia-smi line, and last the
+2. Build: the kernels in plagnn_tpu_torch/csrc, with each kernel's
+   registers and spills as ptxas reports them.
+3. Kernels against their plain versions: the segment max (forward with and
+   without the argmax, backward) and sum (forward, transpose) on a tie
+   graph, a cross-chunk tie graph and the 24k-node synthetic PPI at each
+   width GNN32 and GCN2 aggregate, float32 and bfloat16, bit-exact or
+   within check_kernels' / check_sum_kernels' tolerances and run to run;
+   the edge-weighted sum at GCN2 conv1's K.
+   3g. GCN's scaled sum at GCN2's shapes (24k nodes; 330,000 nodes at
+   K = 8 x 400), bit-identical to the composition of the card's passes.
+   3i. GAT's edge-softmax pair at the GAT cell's widths, within GAT_RTOL /
+   GAT_ATOL of its plain version; after 4c, GAT through ``train()``: its
+   launches and artifacts.
+   3h. The hub cache's kernels at every width, bit-equal to the kernels
+   without the hub and held to their plain versions; timed by k and at
+   k = 0 (zero_hub), with the warps an SM holds.
+   3d. The gather probe (plagnn_tpu_torch/bench/dma_ceiling.py) bit-equal
+   to its plain version at CHECK_SHAPES, then its short sweep.
+4. GNN32 at full width through the CLI: synth, train-normal float32 and
+   train-inter bfloat16: each run's launches per epoch and the artifacts.
+   4a. score, performance and statistics through the CLI on 4's log; the
+   ΔPCC hit and count kernels against their plain versions.
+   4f. ``figures --diff-hist --alpha-dist``: the ΔPCC histogram kernel
+   against its plain version, the JSON files; ``--save-diff`` at N = 4,096.
+   4c. GCN2 through ``train()`` with a mid-round checkpoint: its launches,
+   the artifacts, the checkpoint seen after epoch 2 and removed at the end.
+   4m. The multi-device path on the one card: every P = 2 / 4 shard through
+   the -inf max kernels; ``train()`` at fold=1,graph=2 and fold=2,graph=2
+   on gloo ranks against 4's single-card float32 run; a NCCL group of one.
+   4q. The mesh planner's anchors (rate sweep, fold ceiling, structure
+   tax), ``plan-mesh`` and ``train-normal --mesh auto``.
+   4h. The hub on the main path: GNN32 and GCN2 with ``--hub-cache off``
+   and HUB_MAIN_K write byte-identical files; the hub kernels' launches.
+   4s. The hub on the mesh's interior pass: (a) every P = 2 / 4 interior
+   shard bit-equal to the kernels without the hub; (b), in 4g, config 5's
+   P = 2 shard; (c) the NCCL graph=1 runner and (d) the CLI's
+   fold=1,graph=2 with and without the hub, bit-identical.
+   4p. ``preprocess --no-dense-gcn`` at full width from synthetic raw
+   files: the ECC and ΔPCC kernels' launches and counts, the PCA against
+   the CPU's, the bundles and one epoch on them.
+   4o. The other ops: sampled graphs through the max kernels and the
+   weighted sum (one forward traced), and both kernels under the identity,
+   RCM and greedy orders.
+   4g. The big graph (BASELINE.json config 5: 330,000 nodes, 10 M edges):
+   the positional and the id-based int32 max kernels against their plain
+   versions and each other, at the rule's K-slice and at 1 KB; GNN32
+   through the CLI at 8 folds; each argmax form's peak memory; the hub.
+5. The ``{"kernels": [...]}`` line, the nvidia-smi line and last the
    ``{"ok": true, "device": {...}}`` line.
 
-``--only-dma-ceiling`` runs phases 1-2 and 3d, prints the phase's kernels
-entries and stops.
-
-``--only-hub`` runs phases 1-2, phase 3's layer-1 checks on the full
-graph, phase 3h, the hub kernels' structure against the kernels without
-the hub twice in turns (the max pair at k = 0 and phase 3h's k, the sum at
-k = 0 and at SUM_STRUCTURE_KS; with ``--hub-parent DIR`` also the package tree at DIR,
-another commit's unpacked, in a process of its own: DIR, this, this, DIR),
-and phase 4h on a bundle of its own; prints the hub entries and stops.
-
-``--only-planner`` runs phases 1-2, 4m (c) and 4q on a synthetic bundle
-of its own and stops.  ``--only-mesh-hub`` runs phases 1-2 and 4s on a
-bundle of its own ((b) on config 5's edges from powerlaw_ppi), then the
-hub kernels on (b)'s shard: the max pair at k = 0 and BIG_SHARD_PAIRS beside
-the kernels without the hub at 1 KB, the sum at k = 0 beside the sum
-without the hub, this tree twice in turns (with ``--hub-parent DIR`` the
-tree at DIR too: DIR, this, this, DIR); prints the phase's kernels entries
-and stops.
-
-``--sweep-slice`` runs phases 1-2 and then times the max kernels at every
-K-slice width at layer 1 on the 24k-node graph, the mesh path's shards, a
-165 k-node graph and phase 4g's graph (each width bit-equal to 1 KB; at 24k
-and 330 k nodes the narrow ones also with the chunks in row order), then
-the grouped backward built under each register bound of SWEEP_MIN_BLOCKS
-at 330 k nodes, and stops.
+Each ``--only-*`` flag runs phases 1-2 and the phases it names, then stops
+without the ``ok`` line: ``--only-kernels`` (3 with 3g, 3i's kernels, 3h
+and 3d), ``--only-gcn-sum`` (3g), ``--only-gat`` (3i), ``--only-hub`` (3's
+layer-1 checks, 3h, 4h), ``--only-dma-ceiling`` (3d), ``--only-mesh`` (4's
+float32 run, 4m), ``--only-planner`` (4m's NCCL group, 4q),
+``--only-mesh-hub`` (4s) and ``--only-big-graph`` (4g).  Those that time
+kernels print their entries of the ``kernels`` line.
 """
 import contextlib
 import json
@@ -388,7 +168,7 @@ FOLDS, F_IN = 10, 503
 EPOCHS_F32, EPOCHS_BF16, EPOCHS_GCN2 = 3, 2, 3
 LAYERS = 3
 AGG_WIDTHS = (F_IN, 400, 300)  # per-fold width of each SAGE-pool aggregation
-MESH_EPOCHS = EPOCHS_F32  # phase 4m: the single-card run it compares with is 4b's
+MESH_EPOCHS = EPOCHS_F32  # phase 4m: the single-card run it compares with is 4's
 MESH_RUNS = ((1, 2), (2, 2))   # (fold, graph) of phase 4m's sharded runs
 SHARD_PARTS = (2, 4)    # graph ranks of phase 4m's shard-kernel checks
 MESH_TIMEOUT_S = 600    # a hung rank fails phase 4m
@@ -411,7 +191,6 @@ SUM_WIDTHS = (GCN2_HIDDEN, CLASSES)
 # to ~10^4 terms)
 GAT_FOLDS, GAT_SHAPES, GAT_EPOCHS = 32, ((4, 256), (6, 12)), 2
 GAT_RTOL, GAT_ATOL = 2e-4, 2e-5
-SETUP_COPIES = "host<->device copies (data in, history out; not per epoch)"
 # the datasets' topology thresholds (plagnn_tpu/analysis/statistics.py:65-67)
 ANALYSIS_DATASETS = (("GSE30931", 2.75), ("GSE74572", 2.91), ("GSE27182", 2.99))
 PERTURB_SIGMA = 0.1   # expr_inter = expr_normal x exp(0.1 N(0, 1)), seeded
@@ -428,11 +207,6 @@ FANOUTS = (10, 25)      # phase 4o's sampled graphs
 # phase 4g: BASELINE.json config 5, the synthetic 10M-edge PPI-like graph
 # (benchmarks/big_graph.py: run_rate), 8 folds in one batch
 BIG_NODES, BIG_EDGES, BIG_FOLDS, BIG_EPOCHS = 330000, 10_000_000, 8, 2
-# --sweep-slice: a positional graph between the L2 and config 5 (half its
-# nodes and edges), and the grouped backward's register bounds it compares
-# (blocks an SM; 1 leaves 255 registers a thread)
-SWEEP_MID_NODES, SWEEP_MID_EDGES = 165_000, 5_000_000
-SWEEP_MIN_BLOCKS = (1, 3, 4, 5, 6)
 BIG_TIES = 64           # phase 4g's all-equal column block: columns [0, 64)
 BIG_MEGA_COLS = 64      # then columns whose top row's maximum is past the rank cap
 LIB_SLICE_BYTES = 4 << 30  # phase 4g's library yardstick: gathered bytes a slice
@@ -441,18 +215,11 @@ LIB_SLICE_BYTES = 4 << 30  # phase 4g's library yardstick: gathered bytes a slic
 # main path's hub runs (phase 4h)
 HUB_KS = (32, 64, 75, 113)
 HUB_MAIN_K = 128
-# --only-hub: the k (both ways) at which the sum's structure timing also
-# runs the hub, every one held by both the two-stage arena and a one-stage
-# arena of an older tree
-SUM_STRUCTURE_KS = (32, 64, 113)
 # phase 4s: the hub sizes tried on the 24k graph's interior shards (each
 # halved to fit), the k of their kernels-line entries and of the CLI mesh
 # runs (d), those runs' epochs and dtypes; (b) and (c) take HUB_MAIN_K
 SHARD_HUB_KS = (32, 64, 128)
 SHARD_HUB_K = 64
-# --only-mesh-hub --hub-parent: the (k_fwd, k_bwd) at which (b)'s shard
-# times each tree's hub kernels besides k = 0 (where its arena holds them)
-BIG_SHARD_PAIRS = ((64, 32), (128, 64))
 CLI_MESH_EPOCHS = 2
 CLI_MESH_AGGS = (("float32", "f32", 4), ("bfloat16", "bf16", 2))
 # phase 4q: the rate sweep's fold batches (those checked against the plain
@@ -468,9 +235,9 @@ TAX_EPOCHS = 5
 ANCHORS_FILE = os.path.join(HERE, "chiprun_out", "planner_anchors.json")
 # phase 3d: the probe's row widths (the max kernels' 256 B and 1 KB
 # K-slices, a whole layer-1 row of 10 x 503 f32 padded to 20,480 B), its
-# tables (the 24k graph's N_pad, --sweep-slice's 165 k nodes, phase 4g's
-# N_pad), MiB fetched a launch, repetitions and ring depth; the widths of
-# the 24k graph's edge-order ids
+# tables (the 24k graph's N_pad, 165 k nodes between it and phase 4g's,
+# phase 4g's N_pad), MiB fetched a launch, repetitions and ring depth; the
+# widths of the 24k graph's edge-order ids
 DMA_WIDTHS = (256, 1024, 20480)
 DMA_TABLES = (24064, 165000, 330112)
 DMA_TARGET_MB = 256
@@ -586,6 +353,20 @@ def kernel_entry(name, source, err, ms, plain, lib, nbytes, ops, shape,
     }
 
 
+def bench_shape(graph, asize=None):
+    """``graph``'s shape as the benchmark counts compulsory bytes
+    (gpubench/counts.py: GraphShape), held to the argmax's element size
+    ``asize`` that the kernels stored, where given."""
+    from gpubench.counts import GraphShape
+
+    shape = GraphShape(n=graph.n_real_nodes, n_pad=graph.n_nodes, edges=graph.n_edges,
+                       positional=graph.positional, n_mega=graph.n_mega)
+    if asize is not None and shape.arg_bytes != asize:
+        fail(f"graph of {graph.n_nodes} rows: a {asize}-byte argmax, the byte count's is "
+             f"{shape.arg_bytes}")
+    return shape
+
+
 def check_max_fwd(graph, x, label):
     """The max forward with and without the argmax against the plain
     version: out and arg bit-exact, and each bit-identical over two
@@ -624,6 +405,7 @@ def check_kernels(graph, x32, label, results=None, dtypes=None):
     yardsticks at this shape."""
     import torch
 
+    from gpubench.counts import max_bwd_bytes, max_fwd_bytes
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     n, k = x32.shape
@@ -696,17 +478,16 @@ def check_kernels(graph, x32, label, results=None, dtypes=None):
         torch.cuda.empty_cache()
 
         nonempty = int((graph.in_degree > 0).sum().item())
-        idx_bytes = 4 * (n + 1 + e)
-        # compulsory bytes: each input read once, each output written once
-        fwd_bytes = n * k * esize + idx_bytes + n * k * (esize + asize)
-        bwd_bytes = n * k * (esize + asize) + idx_bytes + n * k * esize
+        shape = bench_shape(graph, asize)
         fwd_ops = e * k                      # one compare per edge element
         bwd_ops = e * k + nonempty * k       # compares + one add per hit
         timed = [
             (f"spmm_max_fwd_{tag}", "spmm_max_fwd", fwd_err, fwd_ms, fwd_plain_ms,
-             fwd_lib_ms, fwd_bytes, fwd_ops, e * k * esize + n * k * (esize + asize)),
+             fwd_lib_ms, max_fwd_bytes(shape, k, esize), fwd_ops,
+             e * k * esize + n * k * (esize + asize)),
             (f"spmm_max_bwd_{tag}", "spmm_max_bwd", bwd_err, bwd_ms, bwd_plain_ms,
-             bwd_lib_ms, bwd_bytes, bwd_ops, e * k * (esize + asize) + n * k * esize),
+             bwd_lib_ms, max_bwd_bytes(shape, k, esize), bwd_ops,
+             e * k * (esize + asize) + n * k * esize),
         ]
         if dt == torch.float32:
             # the forward without the argmax (the VJP primal, checked
@@ -718,7 +499,7 @@ def check_kernels(graph, x32, label, results=None, dtypes=None):
                 lambda: sk.spmm_max_fwd_plain(graph, x, with_argmax=False), 3)
             timed.append((f"spmm_max_fwd_noarg_{tag}", "spmm_max_fwd", noarg_err,
                           noarg_ms, noarg_plain_ms, fwd_lib_ms,
-                          2 * n * k * esize + idx_bytes, fwd_ops,
+                          2 * n * k * esize + 4 * (n + 1 + e), fwd_ops,
                           e * k * esize + n * k * esize))
         for name, src, err_, ms, plain, lib, nbytes, ops, gather in timed:
             r = results[name] = kernel_entry(name, src, err_, ms, plain, lib,
@@ -736,6 +517,7 @@ def check_sum_kernels(graph, k, label, results=None, suffix="", dtypes=None):
     kernel's counter name plus ``suffix``."""
     import torch
 
+    from gpubench.counts import sum_bytes
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     n, e, dev = graph.n_nodes, graph.n_edges, graph.device
@@ -788,7 +570,7 @@ def check_sum_kernels(graph, k, label, results=None, suffix="", dtypes=None):
             name = f"spmm_sum_{direction}_{tag}{suffix}"
             r = results[name] = kernel_entry(
                 name, "spmm_sum", err_max, ms, plain, lib,
-                2 * n * k * esize + 4 * (n + 1 + e), e * k, (n, k))
+                sum_bytes(bench_shape(graph), k, esize), e * k, (n, k))
             print(f"  {name}: {ms:.3f} ms (plain {plain:.3f}, library {lib:.3f}, "
                   f"bound {r['bound_ms']:.3f} by {r['bound_by']}, no-reuse gather "
                   f"{(e + n) * k * esize / HBM_BYTES_PER_S * 1e3:.3f})", flush=True)
@@ -809,6 +591,7 @@ def check_gcn_sum(graph, k, label, results, suffix=""):
     the kernel's counter name plus ``suffix``."""
     import torch
 
+    from gpubench.counts import sum_bytes
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     n, e, dev = graph.n_nodes, graph.n_edges, graph.device
@@ -863,12 +646,11 @@ def check_gcn_sum(graph, k, label, results, suffix=""):
             lib = median_ms(lambda: torch.sparse.mm(adj, x), 10)
             esize = x.element_size()
             name = f"spmm_sum_gcn_{direction}_{tag}{suffix}"
-            # x read once, out written once, the CSR, the two scales and the
-            # bias; a multiply and an add an edge element, a multiply and an
-            # add a stored element
+            # the sum's bytes, the two scales and the bias; a multiply and an
+            # add an edge element, a multiply and an add a stored element
             r = results[name] = kernel_entry(
                 name, "spmm_sum", err_max, ms, plain, lib,
-                2 * n * k * esize + 4 * (n + 1 + e) + 8 * n + (0 if transpose else 4 * k),
+                sum_bytes(bench_shape(graph), k, esize) + 8 * n + (0 if transpose else 4 * k),
                 2 * e * k + 2 * n * k, (n, k))
             r["unscaled_ms"] = unscaled
             r["composition_ms"] = comp
@@ -907,25 +689,16 @@ def gcn_sum_phase(results, smi_line, full=None):
     torch.cuda.empty_cache()
 
 
-def gat_bytes(n, e, k, groups):
-    """(forward, backward) compulsory bytes of GAT's pair at K elements a
-    row and ``groups`` = K / f logits a row, as ``gpubench/kinds/gat_conv.py:
-    fwd_bytes, bwd_bytes`` count them: the forward reads wh, el, er and the
-    CSR and writes out and lse; the backward reads g, wh, el, er, lse, both
-    CSRs and ``Graph.t_pos`` and writes dwh, del and der."""
-    fwd = (2 * n * k + 3 * n * groups) * 4 + 4 * (n + 1 + e)
-    bwd = (3 * n * k + 5 * n * groups) * 4 + 8 * (n + 1 + e) + 4 * e
-    return fwd, bwd
-
-
 def check_gat_pair(graph, heads, f, label, results, suffix=""):
     """GAT's pair at K = GAT_FOLDS x heads x f against its plain versions
     on the card: bit-identical run to run, within GAT_RTOL / GAT_ATOL (lse
     on the real rows: a padding row has no in-edge); then each timed beside
-    its plain version and its bytes bound (entries ``spmm_gat_{fwd,bwd}_f32``
-    + ``suffix``)."""
+    its plain version and its bytes bound, the benchmark's count
+    (gpubench/kinds/gat_conv.py) (entries ``spmm_gat_{fwd,bwd}_f32`` +
+    ``suffix``)."""
     import torch
 
+    from gpubench.kinds import gat_conv
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     n, e, dev = graph.n_nodes, graph.n_edges, graph.device
@@ -973,13 +746,14 @@ def check_gat_pair(graph, heads, f, label, results, suffix=""):
         "bwd": (median_ms(lambda: sk.spmm_gat_bwd(graph, g, wh, el, er, lse, f), 10),
                 median_ms(lambda: sk.spmm_gat_bwd_plain(graph, g, wh, el, er, lse, f), 3),
                 max(errs["dwh"], errs["del"], errs["der"]), 4 * e * k)}
-    for (direction, (ms, plain, err, ops)), nbytes in zip(timed.items(),
-                                                          gat_bytes(n, e, k, bh)):
+    shape = bench_shape(graph)
+    nbytes = {"fwd": gat_conv.fwd_bytes(shape, k, bh), "bwd": gat_conv.bwd_bytes(shape, k, bh)}
+    for direction, (ms, plain, err, ops) in timed.items():
         name = f"spmm_gat_{direction}_f32{suffix}"
         # a multiply and an add an edge element forward; the backward's
         # dwh term and the dot of g with wh, each a multiply and an add
-        r = results[name] = kernel_entry(name, "spmm_gat", err, ms, plain, None, nbytes,
-                                         ops, (n, k))
+        r = results[name] = kernel_entry(name, "spmm_gat", err, ms, plain, None,
+                                         nbytes[direction], ops, (n, k))
         print(f"  {name}: {ms:.3f} ms (plain {plain:.3f}, {plain / ms:.1f}x; bound "
               f"{r['bound_ms']:.3f} by {r['bound_by']}, {100 * r['bound_ms'] / ms:.1f}%; "
               f"gathered rows {e * k * 4 / ms / 1e9:.2f} TB/s)", flush=True)
@@ -1077,6 +851,7 @@ def check_val_sum_kernels(graph, k, label, results):
 
     import torch
 
+    from gpubench.counts import sum_bytes
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     n, e, dev = graph.n_nodes, graph.n_edges, graph.device
@@ -1121,11 +896,11 @@ def check_val_sum_kernels(graph, k, label, results):
             lib = median_ms(lambda: torch.sparse.mm(adj, x), 10)
             esize = x.element_size()
             name = f"spmm_sum_val_{direction}_{tag}"
-            # x read once, out written once, the CSR and its values; a
-            # multiply and an add per edge element
+            # the sum's bytes and the edge values; a multiply and an add per
+            # edge element
             r = results[name] = kernel_entry(
                 name, "spmm_sum", err_max, ms, plain, lib,
-                2 * n * k * esize + 4 * (n + 1 + 2 * e), 2 * e * k, (n, k))
+                sum_bytes(bench_shape(graph), k, esize) + 4 * e, 2 * e * k, (n, k))
             print(f"  {name}: {ms:.3f} ms (unweighted {unweighted:.3f}, plain {plain:.3f}, "
                   f"library {lib:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']})",
                   flush=True)
@@ -1224,75 +999,6 @@ def profiled(fn, label):
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     return out, rows
-
-
-def profile_epochs(label, run, expected, smi_line, folds=FOLDS):
-    """utils.profiling.trace over one training run (``run()`` returns its
-    chunk stats), which must launch the ``expected`` kernels: device time per
-    epoch by kernel group, and the device's idle share against the steady
-    epoch time.  Returns {kernel name: (ms per epoch, launches per epoch)}."""
-    reset_launches()
-    stats, rows = profiled(run, label)
-    check_launches(f"profiled {label}", expected)
-    ms = [m for s in stats for m in s.epoch_ms]
-    groups = {}
-    top = []
-    per_kernel = {}
-    for total_ms, count, name in rows:
-        low = name.lower()
-        if "spmm_max" in low:
-            grp = "spmm_max kernels"
-        elif "spmm_sum" in low:
-            grp = "spmm_sum kernels"
-        elif any(t in low for t in ("gemm", "xmma", "cutlass", "sm90", "ampere")):
-            grp = "matmul"
-        elif any(t in low for t in ("sort", "radix", "search")):
-            grp = "sort/searchsorted (AUC)"
-        elif "reduce" in low:
-            grp = "reductions"
-        elif "htod" in low or "dtoh" in low:
-            grp = SETUP_COPIES
-        else:
-            grp = "elementwise/copy/other"
-        groups[grp] = groups.get(grp, 0.0) + total_ms / len(ms)
-        top.append((total_ms / len(ms), count // len(ms), name[:90]))
-        per_kernel[name] = (total_ms / len(ms), count / len(ms))
-    steady = statistics.median(ms[1:])
-    busy = sum(t for grp, t in groups.items() if grp != SETUP_COPIES)
-    if busy <= 0:
-        print("profile: no device time in the trace (not measured)")
-        return {}
-    print(f"profile ({label}, {len(ms)} epochs x {folds} folds, AUC sampled "
-          f"at epochs 0 and {len(ms) - 1}, {smi_line}): steady {steady:.3f} ms/epoch "
-          f"wall, {busy:.3f} ms/epoch device busy, idle share "
-          f"{max(0.0, 1 - busy / steady):.3f}", flush=True)
-    for grp, t in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  group {grp}: {t:.3f} ms/epoch ({t / steady:.3f} of steady wall)")
-    for t, cnt, name in sorted(top, reverse=True)[:12]:
-        print(f"  kernel {t:8.3f} ms/epoch  x{cnt:<4} {name}")
-    return per_kernel
-
-
-def crosscheck_max_fwd(per_kernel, results, smi_line):
-    """The layer-1 float32 max forward's profiled time per launch beside
-    phase 3's CUDA-event median at the same shape (K = 10 x 503).  Layer 1
-    is the only layer whose K takes 8-byte vectors, so its chunk kernel is
-    the float32 one launched once per epoch; the combine kernel serves all
-    three layers, and its mean per launch is added."""
-    chunk = [t / c for name, (t, c) in per_kernel.items()
-             if "spmm_max_fwd_kernel<float" in name and c == 1]
-    comb = [t / c for name, (t, c) in per_kernel.items()
-            if "spmm_max_fwd_combine_kernel<float" in name and c > 0]
-    event_ms = results["spmm_max_fwd_f32"]["ms"]
-    if len(chunk) != 1 or len(comb) != 1:
-        print(f"cross-check of the max forward: kernels not found in the profile "
-              f"({len(chunk)} chunk, {len(comb)} combine; not measured)")
-        return
-    total = chunk[0] + comb[0]
-    print(f"cross-check, max forward f32 at K = {FOLDS * F_IN} ({smi_line}): profiled "
-          f"{chunk[0]:.3f} ms/launch chunk kernel + {comb[0]:.3f} combine (mean "
-          f"of the 3 layers) = {total:.3f} ms; phase 3 CUDA events {event_ms:.3f} ms "
-          f"(median of 10, both kernels); ratio {total / event_ms:.3f}", flush=True)
 
 
 def counter_of(name):
@@ -2579,7 +2285,7 @@ def compare_mesh_artifacts(label, got_dir, want_dir):
 def mesh_train_phase(data_root, want_dir, results, smi_line):
     """Phase 4m (b): ranks sharing the one card through gloo, train() at
     full width at each of MESH_RUNS, against the single-card run of the
-    same jobs (phase 4b's train-normal float32, the CLI's defaults)."""
+    same jobs (phase 4's train-normal float32, the CLI's defaults)."""
     from plagnn_tpu_torch.ops import _build
     from plagnn_tpu_torch.parallel.launch import spawn_local
 
@@ -2787,6 +2493,7 @@ def rate_sweep(graph, smi_line):
     pair's edge-folds/s}, E x B over the two kernels' time."""
     import torch
 
+    from gpubench.counts import max_bwd_bytes, max_fwd_bytes
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     n, e = graph.n_nodes, graph.n_edges
@@ -2805,11 +2512,9 @@ def rate_sweep(graph, smi_line):
             g = torch.randn((n, k), generator=gen, device="cuda").to(dt)
             fwd = median_ms(lambda: sk.spmm_max_fwd(graph, x), 10)
             bwd = median_ms(lambda: sk.spmm_max_bwd(graph, g, arg), 10)
-            # each direction reads its rows once and writes its rows once
-            # (forward: x in, out and argmax out; backward: g and argmax in,
-            # dx out), plus the CSR
-            nbytes = 2 * (n * k * (2 * x.element_size() + arg.element_size())
-                          + 4 * (n + 1 + e))
+            shape = bench_shape(graph, arg.element_size())
+            nbytes = (max_fwd_bytes(shape, k, x.element_size())
+                      + max_bwd_bytes(shape, k, x.element_size()))
             bound = nbytes / HBM_BYTES_PER_S * 1e3
             rate = e * b / ((fwd + bwd) / 1e3)
             if dt == torch.bfloat16:
@@ -3151,6 +2856,7 @@ def check_big_kernels(gp, gi, x32, top, ranks, results):
     call in the check), the sliced library yardstick and its bytes bound."""
     import torch
 
+    from gpubench.counts import max_bwd_bytes, max_fwd_bytes
     from plagnn_tpu_torch.ops import spmm_kernels as sk
 
     n = x32.shape[0]
@@ -3247,23 +2953,18 @@ def check_big_kernels(gp, gi, x32, top, ranks, results):
             fwd_lib, bwd_lib, slice_w = sliced_library_ms(gi, x, g, arg_i)
             del arg_k, arg_i, g, x
             torch.cuda.empty_cache()
-            idx_bytes = 4 * (n + 1 + e)
-            side = gp.n_mega * k * 2
-            # compulsory bytes, as phase 3 counts them, plus the positional
-            # form's inputs: mega_of (both) and t_rank (backward)
+            # the positional form's bytes count mega_of (both), t_rank
+            # (backward) and the argmax's side table too
+            pos, ids = bench_shape(gp, 2), bench_shape(gi, 4)
             entries = [
                 (f"spmm_max_fwd_pos_{tag}", "spmm_max_fwd", 0.0, "fwd_pos",
-                 fwd_plain, fwd_lib,
-                 n * k * esize + idx_bytes + 4 * n + n * k * (esize + 2) + side, e * k),
+                 fwd_plain, fwd_lib, max_fwd_bytes(pos, k, esize), e * k),
                 (f"spmm_max_bwd_pos_{tag}", "spmm_max_bwd", bwd_err, "bwd_pos",
-                 bwd_plain, bwd_lib, n * k * (esize + 2) + side + idx_bytes + 4 * e + 4 * n
-                 + n * k * esize, e * k + nonempty * k),
+                 bwd_plain, bwd_lib, max_bwd_bytes(pos, k, esize), e * k + nonempty * k),
                 (f"spmm_max_fwd_{tag}@n{n}", "spmm_max_fwd", 0.0, "fwd_id",
-                 fwd_plain_i, fwd_lib, n * k * esize + idx_bytes + n * k * (esize + 4),
-                 e * k),
+                 fwd_plain_i, fwd_lib, max_fwd_bytes(ids, k, esize), e * k),
                 (f"spmm_max_bwd_{tag}@n{n}", "spmm_max_bwd", bwd_err_i, "bwd_id",
-                 bwd_plain_i, bwd_lib, n * k * (esize + 4) + idx_bytes + n * k * esize,
-                 e * k + nonempty * k),
+                 bwd_plain_i, bwd_lib, max_bwd_bytes(ids, k, esize), e * k + nonempty * k),
             ]
             for name, src, err_, key, plain, lib, nbytes, ops in entries:
                 ms = times[key]
@@ -3294,6 +2995,7 @@ def big_hub_check(host, gi, x32, results, smi_line):
 
     import torch
 
+    from gpubench.counts import max_bwd_bytes, max_fwd_bytes
     from plagnn_tpu_torch.ops import spmm_kernels as sk
     from plagnn_tpu_torch.ops.hub import pick_hub_sizes
 
@@ -3330,13 +3032,13 @@ def big_hub_check(host, gi, x32, results, smi_line):
                  "bwd": median_ms(lambda: sk.spmm_max_bwd(gh, g, arg_h), 10),
                  "bwd0": median_ms(lambda: sk.spmm_max_bwd(gi, g, arg_h), 10)}
         del gz
-        idx_bytes = 4 * (n + 1 + e)
         nonempty = int((gi.in_degree > 0).sum().item())
-        for kind, kk, plain, err, ops in (
-                ("fwd", pair[0], fwd_plain, 0.0, e * k),
-                ("bwd", pair[1], bwd_plain, bwd_err, e * k + nonempty * k)):
+        shape = bench_shape(gi, 4)
+        for kind, kk, plain, err, ops, nbytes in (
+                ("fwd", pair[0], fwd_plain, 0.0, e * k, max_fwd_bytes(shape, k, esize)),
+                ("bwd", pair[1], bwd_plain, bwd_err, e * k + nonempty * k,
+                 max_bwd_bytes(shape, k, esize))):
             fill = hub_fill_bytes(kk, k, esize, 4 if kind == "bwd" else 0)
-            nbytes = 2 * n * k * esize + idx_bytes + n * k * 4
             name = f"spmm_max_{kind}_hub_{tag}@n{n}"
             warps = sk.hub_warps(f"max_{kind}", dt, k, kk, torch.int32)
             r = results[name] = hub_entry(
@@ -3400,7 +3102,15 @@ def big_peak_memory(gp, gi, feats):
 
 
 def big_graph_phase(results, smi_line):
-    """Phase 4g: the big-graph path (module docstring)."""
+    """Phase 4g: BASELINE.json config 5 through the CLI (``synth --nodes
+    330000 --edges 10000000``: N_pad 330,112, E 10.33 M with self-loops, 5
+    rows past the rank cap), whose graph takes the positional argmax:
+    check_big_kernels, big_hub_check and phase 4s (b) on it; GNN32 at
+    BIG_FOLDS folds in one batch, train-normal float32 and train-inter
+    bfloat16, exactly 3 positional forwards and backwards an epoch and no
+    id-based max kernel, the artifact contract; then big_peak_memory.  No
+    training run takes the hub here: the engine turns it off past 2^15
+    nodes on one card."""
     import dataclasses
 
     import numpy as np
@@ -3461,22 +3171,6 @@ def big_graph_phase(results, smi_line):
                             BIG_FOLDS, BIG_NODES)
             report_run(f"GNN32 big graph {cmd} {agg}", stats, wall, counts, smi_line,
                        BIG_FOLDS)
-        # the float32 run once more under the profiler: the max kernels' device
-        # ms per epoch (the earlier run's artifacts would make it resume)
-        shutil.rmtree(os.path.join(tmp, "log"))
-        pos = ("spmm_max_fwd_pos_f32", "spmm_max_bwd_pos_f32")
-        per_kernel = profile_epochs(
-            "GNN32 big graph train-normal f32",
-            lambda: train_cli(tmp, "train-normal", "float32", BIG_EPOCHS, BIG_FOLDS),
-            {c: LAYERS * BIG_EPOCHS for c in pos}, smi_line, BIG_FOLDS)
-        for kind in ("fwd", "bwd"):
-            rows = [(t, c, name) for name, (t, c) in per_kernel.items()
-                    if f"spmm_max_{kind}" in name]
-            print(f"big graph max {kind} kernels (profile, f32): "
-                  f"{sum(t for t, _, _ in rows):.3f} ms/epoch device in "
-                  f"{sum(c for _, c, _ in rows):.0f} launches an epoch, combines included: "
-                  + "; ".join(f"{name[:70]} {t:.3f} ms x{c:.0f}" for t, c, name in rows)
-                  + f" ({smi_line})", flush=True)
         big_peak_memory(gp, gi, bundle.feats)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3489,10 +3183,8 @@ def big_graph_phase(results, smi_line):
 
 def zero_hub(graph):
     """``graph`` with hub tables of k = 0 both ways: the hub kernels'
-    structure with an empty arena (every edge from device memory).  The
-    tables keep one dummy id, which no edge names: the earlier design's hub
-    forward (one block a K-slice) reads ids[0] for lanes past K, so an
-    older tree runs this too."""
+    structure with an empty arena (every edge from device memory).  Each
+    table holds one dummy id (``N_pad - 1``), which no edge names."""
     import dataclasses
 
     import torch
@@ -3504,154 +3196,6 @@ def zero_hub(graph):
         return HubTable(ids=ids, idx=nbr, k=0, n_hub=0, n_covered=0)
 
     return dataclasses.replace(graph, hub=table(graph.src), t_hub=table(graph.t_dst))
-
-
-def layer1_inputs(n, dt):
-    """Layer 1's (x, g) at K = FOLDS x F_IN for the structure timings: relu
-    of bf16-representable values (ties) and small-integer gradients, made
-    on the card from a seed, the same in every package tree."""
-    import torch
-
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    k = FOLDS * F_IN
-    x = torch.randn((n, k), generator=gen, device="cuda").to(torch.bfloat16).float().relu_()
-    g = torch.randint(-8, 9, (n, k), generator=gen, device="cuda")
-    return x.to(dt), g.to(dt)
-
-
-def hub_structure(full, reps=10):
-    """The hub kernels' structure against the kernels without the hub, f32
-    and bf16: the max pair at layer 1's K at k = 0 (hub tables with no slot:
-    the structure with an empty arena) and at each of phase 3h's (k_fwd,
-    k_bwd) (hub_sizes), out and argmax bit-exact, dx bit-identical; the sum
-    forward and transpose at GCN2 conv1's K at k = 0 and at each of
-    SUM_STRUCTURE_KS both ways, bit-identical.  Each form is timed (CUDA
-    events, median of ``reps``) in turns: without, the hub forms, the hub
-    forms, without.  Uses the package on sys.path, so it also times an
-    older tree (``--structure-child``)."""
-    import torch
-
-    from plagnn_tpu_torch.ops import spmm_kernels as sk
-
-    g0 = full.to("cuda")
-    gz = zero_hub(full).to("cuda")
-    graphs = {}
-
-    def hub_graph(kf, kb):
-        if (kf, kb) not in graphs:
-            graphs[kf, kb] = full.with_hub(kf, kb).to("cuda")
-        return graphs[kf, kb]
-
-    sum_graphs = {"k0": gz}
-    sum_graphs.update((f"k{kk}", hub_graph(kk, kk)) for kk in SUM_STRUCTURE_KS)
-    times = {}
-    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        x, g = layer1_inputs(full.n_nodes, dt)
-        out0, arg0 = sk.spmm_max_fwd(g0, x)
-        dx0 = sk.spmm_max_bwd(g0, g, arg0)
-        fwd_graphs, bwd_graphs = {"k0": gz}, {"k0": gz}
-        for kf, kb in hub_sizes(x.shape[1], x.element_size()):
-            fwd_graphs.setdefault(f"k{kf}", hub_graph(kf, kb))
-            bwd_graphs.setdefault(f"k{kb}", hub_graph(kf, kb))
-        for name, gh in [*fwd_graphs.items(), *bwd_graphs.items()]:
-            out, arg = sk.spmm_max_fwd(gh, x)
-            dx = sk.spmm_max_bwd(gh, g, arg0)
-            if not (torch.equal(bits_of(out), bits_of(out0)) and torch.equal(arg, arg0)
-                    and torch.equal(bits_of(dx), bits_of(dx0))):
-                fail(f"hub structure {tag}: max {name} differs from the kernels without "
-                     f"the hub")
-        del out, out0, arg, dx, dx0
-        xs = g[:, :FOLDS * GCN2_HIDDEN].contiguous()
-        kinds = [("max fwd", lambda gr: (lambda: sk.spmm_max_fwd(gr, x)), fwd_graphs),
-                 ("max bwd", lambda gr: (lambda: sk.spmm_max_bwd(gr, g, arg0)), bwd_graphs)]
-        for transpose in (False, True):
-            want = sk.spmm_sum_rows(g0, xs, transpose)
-            for name, gh in sum_graphs.items():
-                if not torch.equal(bits_of(sk.spmm_sum_rows(gh, xs, transpose)), bits_of(want)):
-                    fail(f"hub structure {tag}: sum {name} differs from the kernel without "
-                         f"the hub")
-            kinds.append((f"sum {'transpose' if transpose else 'fwd'}",
-                          lambda gr, tr=transpose: (lambda: sk.spmm_sum_rows(gr, xs, tr)),
-                          sum_graphs))
-        t = times[tag] = {}
-        for kind, run, forms in kinds:
-            v = t[kind] = {"without": []}
-            v.update((name, []) for name in forms)
-            order = [("without", g0), *forms.items()]
-            for name, gr in order + order[::-1]:
-                v[name].append(median_ms(run(gr), reps))
-        del x, g, xs, arg0
-        torch.cuda.empty_cache()
-    del graphs, sum_graphs
-    torch.cuda.empty_cache()
-    return times
-
-
-def structure_child(root, shard_file=None):
-    """``--structure-child ROOT``: hub_structure with the package tree at
-    ROOT (another commit's, unpacked) on the 24k graph, or with
-    ``--shard-file`` shard_structure on the shard that file holds; prints
-    its times as one ``STRUCTURE`` JSON line."""
-    sys.path.insert(0, os.path.abspath(root))
-    import plagnn_tpu_torch
-
-    if not plagnn_tpu_torch.__file__.startswith(os.path.abspath(root)):
-        fail(f"--structure-child: imported {plagnn_tpu_torch.__file__}, not ROOT's")
-    import torch
-
-    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
-    from plagnn_tpu_torch.ops import _build
-    from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false")
-    _build.timed_build()
-    if shard_file:
-        shard = torch.load(shard_file, weights_only=False)
-        times = shard_structure(shard["host"], shard["own_rows"])
-    else:
-        times = hub_structure(from_scipy_coo(powerlaw_ppi(NODES, EDGES, SEED),
-                                             add_self_loops=True))
-    print("STRUCTURE " + json.dumps(times), flush=True)
-
-
-def older_structure(root, shard_file=None):
-    """hub_structure (shard_structure with ``shard_file``) of the tree at
-    ``root``, in a process of its own."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--structure-child", root]
-    if shard_file:
-        cmd += ["--shard-file", shard_file]
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    for line in out.stdout.splitlines():
-        if line.startswith("STRUCTURE "):
-            return json.loads(line[len("STRUCTURE "):])
-    fail(f"--structure-child {root} (exit {out.returncode}): {out.stderr[-4000:]}")
-
-
-def hub_structure_phase(full, parent, smi_line):
-    """The hub kernels' structure (the max pair at k = 0 and phase 3h's k,
-    the sum at k = 0 and SUM_STRUCTURE_KS) against the kernels without the hub at each
-    path's first-layer shape: this tree's, and where ``parent`` names
-    another tree (``--hub-parent``), that tree's too, in turns: parent,
-    this, this, parent."""
-    runs = []
-    if parent:
-        runs.append(("parent", older_structure(parent)))
-    runs.append(("this", hub_structure(full)))
-    runs.append(("this", hub_structure(full)))
-    if parent:
-        runs.append(("parent", older_structure(parent)))
-    for tree, times in runs:
-        for tag, t in times.items():
-            for kind, v in t.items():
-                w = statistics.median(v["without"])
-                k = FOLDS * (F_IN if kind.startswith("max") else GCN2_HIDDEN)
-                forms = "; ".join(f"{name} {[round(a, 3) for a in ms]} ms "
-                                  f"({statistics.median(ms) / w:.4f}x)"
-                                  for name, ms in v.items() if name != "without")
-                print(f"hub structure ({tree} tree) {kind} {tag} K={k}: without the hub "
-                      f"{[round(a, 3) for a in v['without']]} ms; {forms}; {smi_line}",
-                      flush=True)
 
 
 def hub_sizes(k_width, esize, arg_size=2):
@@ -3748,9 +3292,12 @@ def hub_coverage(full, ks):
 
 
 def hub_kernel_phase(full, x_full, results, smi_line):
-    """Phase 3h (module docstring): every hub kernel at every width its
-    path aggregates, f32 and bf16, against the kernels without the hub and
-    its plain version; times and warps by k at the first layer's shapes."""
+    """Phase 3h: every hub kernel at every width its path aggregates (max:
+    K = 10 x 503 / 400 / 300; sum: 10 x 400 and 10 x 12), f32 and bf16, at
+    each of hub_sizes' (k_fwd, k_bwd), against the kernels without the hub
+    and, at the first pair, its plain version with phase 3's tolerances; the
+    fill route each max width takes; at the first layer's shapes the times
+    and warps by k (hub_max_times, hub_sum_times)."""
     import torch
 
     from plagnn_tpu_torch.ops import spmm_kernels as sk
@@ -3855,6 +3402,7 @@ def hub_max_times(g0, with_hub, pairs, x, g, tag, results, smi_line):
     the spread of the runs without the hub, which "auto"'s policy reads)."""
     import torch
 
+    from gpubench.counts import max_bwd_bytes, max_fwd_bytes
     from plagnn_tpu_torch.ops import spmm_kernels as sk
     from plagnn_tpu_torch.ops.hub import pick_hub_sizes
 
@@ -3881,7 +3429,7 @@ def hub_max_times(g0, with_hub, pairs, x, g, tag, results, smi_line):
     dx_p, bwd_plain = timed_ms(lambda: sk.spmm_max_bwd_plain(gh, g, arg0))
     bwd_err = (sk.spmm_max_bwd(gh, g, arg0).float() - dx_p.float()).abs().max().item()
     del out_p, arg_p, dx_p
-    idx_bytes = 4 * (n + 1 + e)
+    shape = bench_shape(g0, 2)
     for kind, kk, asize in (("fwd", main[0], 0), ("bwd", main[1], 2)):
         warps = {kk_: sk.hub_warps(f"max_{kind}", x.dtype, k, kk_)[0] for kk_ in t[kind]}
         warps0 = sk.hub_warps(f"max_{kind}", x.dtype, k, kk)[1]
@@ -3889,11 +3437,11 @@ def hub_max_times(g0, with_hub, pairs, x, g, tag, results, smi_line):
         fill = hub_fill_bytes(kk, k, esize, asize)
         name = f"spmm_max_{kind}_hub_{tag}"
         if kind == "fwd":
-            nbytes = n * k * esize + idx_bytes + n * k * (esize + 2)
+            nbytes = max_fwd_bytes(shape, k, esize)
             ops, plain, err = e * k, fwd_plain, 0.0
         else:
             nonempty = int((g0.in_degree > 0).sum().item())
-            nbytes = n * k * (esize + 2) + idx_bytes + n * k * esize
+            nbytes = max_bwd_bytes(shape, k, esize)
             ops, plain, err = e * k + nonempty * k, bwd_plain, bwd_err
         r = results[name] = hub_entry(
             name, f"spmm_max_{kind}", err, t[kind][kk], plain, base["library_ms"], nbytes,
@@ -3919,6 +3467,7 @@ def hub_sum_times(g0, with_hub, pairs, x, tag, results, smi_line):
     plain version at HUB_MAIN_K's sizes."""
     import torch
 
+    from gpubench.counts import sum_bytes
     from plagnn_tpu_torch.ops import spmm_kernels as sk
     from plagnn_tpu_torch.ops.hub import pick_hub_sizes
 
@@ -3947,7 +3496,7 @@ def hub_sum_times(g0, with_hub, pairs, x, tag, results, smi_line):
         name = f"spmm_sum_{direction}_hub_{tag}"
         r = results[name] = hub_entry(
             name, "spmm_sum", err, by_k[kk], plain, base["library_ms"],
-            2 * n * k * esize + 4 * (n + 1 + e), e * k, (n, k), kk, by_k,
+            sum_bytes(bench_shape(g0), k, esize), e * k, (n, k), kk, by_k,
             {"hub": warps, "without": sk.hub_warps("sum", x.dtype, k, kk)[1]}, fill)
         without = statistics.median(base_runs)
         r.update(hub_layout_fields("sum", x.dtype, k, kk), ms_k0=statistics.median(k0_runs),
@@ -4199,8 +3748,7 @@ def big_shard_hub_check(src, dst, n_real, add_self_loops, results, smi_line):
     """Phase 4s (b), in phase 4g: rank 0's interior shard of BASELINE.json
     config 5 at P = 2 (balanced), whose gather space passes 2^15 rows (an
     int32 argmax), f32 at K = BIG_FOLDS x 503 with the hub at HUB_MAIN_K's
-    sizes for that argmax (shard_hub_times).  Returns the shard (on the
-    host) and its own rows."""
+    sizes for that argmax (shard_hub_times)."""
     import torch
 
     from plagnn_tpu_torch.ops.hub import pick_hub_sizes
@@ -4228,109 +3776,6 @@ def big_shard_hub_check(src, dst, n_real, add_self_loops, results, smi_line):
                       pair, {0: t}, smi_line)
     print(f"big graph P=2 interior hub {pair}: forward and backward bit-equal to the "
           f"kernels without the hub and to the plain versions ({smi_line})", flush=True)
-    return host, pg.own_rows
-
-
-def shard_structure(host, own_rows, reps=10):
-    """(b)'s shard (``host``, rank 0's interior of config 5 at P = 2, int32
-    argmax) at K = BIG_FOLDS x 503, f32, as shard_hub_times makes its
-    inputs: the kernels without the hub at the hub's 1 KB K-slice, the hub
-    kernels at k = 0 and at each of BIG_SHARD_PAIRS whose arena the tree
-    holds, the -inf forward and the backward; out, argmax and dx bit-equal
-    to the kernels without the hub; then the sum without the hub and at
-    k = 0, forward (of x) and transpose (of g: "bwd"), bit-identical.  Each
-    form timed (CUDA events, median of ``reps``) in turns, there and back.
-    Uses the package on sys.path, so it also times an older tree
-    (``--structure-child``)."""
-    import torch
-
-    from plagnn_tpu_torch.ops import spmm_kernels as sk
-
-    ninf = -math.inf
-    k = BIG_FOLDS * F_IN
-    g0 = host.to("cuda")
-    n = g0.n_nodes
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.zeros((n, k), device="cuda")
-    x[:own_rows] = torch.randn((own_rows, k), generator=gen, device="cuda")
-    x = x.to(torch.bfloat16).float().relu_()
-    g = torch.randint(-8, 9, (n, k), generator=gen, device="cuda").float()
-    out0, arg0 = sk.spmm_max_fwd(g0, x, empty_value=ninf)
-    dx0 = sk.spmm_max_bwd(g0, g, arg0)
-    forms = {"without_1kb": (g0, {"force_slice": 1024}), "k0": (zero_hub(host).to("cuda"), {})}
-    for kf, kb in BIG_SHARD_PAIRS:
-        forms[f"k{kf}_{kb}"] = (host.with_hub(kf, kb).to("cuda"), {})
-    for name, (gh, kw) in list(forms.items()):
-        try:
-            out, arg = sk.spmm_max_fwd(gh, x, empty_value=ninf, **kw)
-            dx = sk.spmm_max_bwd(gh, g, arg0, **kw)
-        except RuntimeError as err:  # an arena this tree does not hold
-            if "launch failed" not in str(err):
-                raise
-            del forms[name]
-            continue
-        if not (torch.equal(bits_of(out), bits_of(out0)) and torch.equal(arg, arg0)
-                and torch.equal(bits_of(dx), bits_of(dx0))):
-            fail(f"big shard structure {name}: differs from the kernels without the hub")
-        del out, arg, dx
-    del out0, dx0
-    times = {name: {"fwd": [], "bwd": []} for name in forms}
-    order = list(forms)
-    for name in order + order[::-1]:
-        gh, kw = forms[name]
-        times[name]["fwd"].append(median_ms(
-            lambda: sk.spmm_max_fwd(gh, x, empty_value=ninf, **kw), reps))
-        times[name]["bwd"].append(median_ms(lambda: sk.spmm_max_bwd(gh, g, arg0, **kw), reps))
-    del forms, arg0
-    sums = {"sum_without": g0, "sum_k0": zero_hub(host).to("cuda")}
-    for inp, transpose in ((x, False), (g, True)):
-        want = sk.spmm_sum_rows(g0, inp, transpose)
-        if not torch.equal(bits_of(sk.spmm_sum_rows(sums["sum_k0"], inp, transpose)),
-                           bits_of(want)):
-            fail(f"big shard structure sum_k0 ({'transpose' if transpose else 'forward'}): "
-                 f"differs from the sum without the hub")
-        del want
-    order = list(sums)
-    for name in order + order[::-1]:
-        gh = sums[name]
-        t = times.setdefault(name, {"fwd": [], "bwd": []})
-        t["fwd"].append(median_ms(lambda: sk.spmm_sum_rows(gh, x), reps))
-        t["bwd"].append(median_ms(lambda: sk.spmm_sum_rows(gh, g, True), reps))
-    del sums, x, g
-    torch.cuda.empty_cache()
-    return times
-
-
-def big_shard_structure_phase(host, own_rows, parent, smi_line):
-    """``--only-mesh-hub``: shard_structure on (b)'s shard for this tree
-    twice and, where ``parent`` names another tree (``--hub-parent DIR``),
-    for that one too (in a process of its own), in turns: DIR, this, this,
-    DIR; with each hub size's coverage."""
-    import torch
-
-    parts = []
-    for kf, kb in BIG_SHARD_PAIRS:
-        cover = host.with_hub(kf, kb)
-        parts.append(f"({kf}, {kb}) forward {cover.hub.n_covered / host.n_edges:.4f} "
-                     f"transpose {cover.t_hub.n_covered / host.n_edges:.4f}")
-    print(f"big shard structure: coverage {'; '.join(parts)}", flush=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
-    try:
-        path = os.path.join(tmp, "shard.pt")
-        torch.save({"host": host, "own_rows": own_rows}, path)
-        torch.cuda.empty_cache()
-        runs = [("parent", older_structure(parent, path))] if parent else []
-        runs += [("this", shard_structure(host, own_rows)) for _ in range(2)]
-        if parent:
-            runs.append(("parent", older_structure(parent, path)))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    for tree, times in runs:
-        for name, t in times.items():
-            back = "transpose" if name.startswith("sum") else "backward"
-            print(f"big shard structure ({tree} tree) f32 K={BIG_FOLDS * F_IN} {name}: forward "
-                  f"{[round(a, 3) for a in t['fwd']]} ms, {back} "
-                  f"{[round(a, 3) for a in t['bwd']]} ms; {smi_line}", flush=True)
 
 
 def same_history(a, b):
@@ -4513,12 +3958,10 @@ def mesh_hub_phase(data_root, results, smi_line):
     cli_mesh_hub_phase(data_root, results, smi_line)
 
 
-def mesh_hub_only(parent, smi_line):
+def mesh_hub_only(smi_line):
     """``--only-mesh-hub``: phase 4s on a synthetic bundle of its own, (b)
     on config 5's edges from powerlaw_ppi (the graph ``synth`` writes)
-    with their self-loops, then big_shard_structure_phase (with
-    ``parent``'s tree too, where given); prints the phase's kernels
-    entries."""
+    with their self-loops; prints the phase's kernels entries."""
     from plagnn_tpu_torch import cli
     from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
 
@@ -4532,17 +3975,14 @@ def mesh_hub_only(parent, smi_line):
         shutil.rmtree(tmp, ignore_errors=True)
     phase("4s (b) big graph shard")
     ppi = powerlaw_ppi(BIG_NODES, BIG_EDGES, SEED)
-    host, own_rows = big_shard_hub_check(ppi.row, ppi.col, BIG_NODES, True, results, smi_line)
-    phase("4s (b) big graph shard's hub structure" + (", both trees" if parent else ""))
-    big_shard_structure_phase(host, own_rows, parent, smi_line)
+    big_shard_hub_check(ppi.row, ppi.col, BIG_NODES, True, results, smi_line)
     print(json.dumps({"kernels": list(results.values())}))
 
 
-def hub_only(parent, smi_line):
+def hub_only(smi_line):
     """``--only-hub``: phase 3's layer-1 checks on the full graph (its
-    kernels' entries), phase 3h, the structure at k = 0 (against the tree
-    at ``parent`` too, where given) and phase 4h on a bundle of its own;
-    prints the hub entries."""
+    kernels' entries), phase 3h and phase 4h on a bundle of its own; prints
+    the hub entries."""
     import numpy as np
     import torch
 
@@ -4563,8 +4003,6 @@ def hub_only(parent, smi_line):
     hub_kernel_phase(full, x_full, results, smi_line)
     del x_full
     torch.cuda.empty_cache()
-    phase("3h hub structure (k = 0)")
-    hub_structure_phase(full, parent, smi_line)
     phase("4h hub cache on the main path")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -4574,210 +4012,6 @@ def hub_only(parent, smi_line):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"kernels": [r for name, r in results.items() if "_hub_" in name]}))
-
-
-def sweep_row_chunk(full):
-    """Median times of the row-chunked kernels (float32 sum forward and
-    transpose at K = 10 x 400 and 10 x 12, max forward and backward at 10 x
-    503) on the full graph's edges cut at each chunk size."""
-    import torch
-
-    from plagnn_tpu_torch.ops import spmm_kernels as sk
-    from plagnn_tpu_torch.ops.graph_format import build_graph
-
-    src, dst = full.src.numpy(), full.dst.numpy()
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    n = full.n_nodes
-    x = torch.randn((n, FOLDS * F_IN), generator=gen, device="cuda").relu_()
-    g = torch.randn((n, FOLDS * F_IN), generator=gen, device="cuda")
-    for cap in (128, 256, 512, 1024):
-        graph = build_graph(src, dst, full.n_real_nodes, row_chunk=cap).to("cuda")
-        _, arg = sk.spmm_max_fwd(graph, x)
-        row = {"row_chunk": cap, "chunks": graph.chunks.n_chunks,
-               "split_rows": graph.chunks.n_split,
-               "max_fwd_f32_k5030": median_ms(lambda: sk.spmm_max_fwd(graph, x), 10),
-               "max_bwd_f32_k5030": median_ms(lambda: sk.spmm_max_bwd(graph, g, arg), 10)}
-        for width in SUM_WIDTHS:
-            xs = x[:, :FOLDS * width].contiguous()
-            for transpose in (False, True):
-                key = f"sum_{'bwd' if transpose else 'fwd'}_f32_k{FOLDS * width}"
-                row[key] = median_ms(lambda: sk.spmm_sum_rows(graph, xs, transpose), 10)
-        print("row-chunk sweep: " + json.dumps(row), flush=True)
-
-
-def sweep_slice_shape(label, graph, x32, g32, smi_line, widths=None, row_order=True):
-    """``--sweep-slice`` at one shape (layer 1): each max kernel at each
-    K-slice width of ``widths`` (default every one), float32 and bfloat16,
-    every result bit-equal to the 1 KB width's; median of 10 by CUDA events,
-    the widths in turns, 1 KB timed first and last; with ``row_order`` each
-    narrow width also with the chunks in row order in place of
-    RowChunks.order (longest first)."""
-    import dataclasses
-
-    import torch
-
-    from plagnn_tpu_torch.ops import spmm_kernels as sk
-
-    n, k = x32.shape
-    in_rows = dataclasses.replace(graph, **{
-        name: dataclasses.replace(ch, order=torch.arange(ch.n_chunks, dtype=torch.int32,
-                                                         device=ch.order.device))
-        for name, ch in (("chunks", graph.chunks), ("t_chunks", graph.t_chunks))})
-    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        x = x32.to(dt)
-        g = g32.to(dt) if dt == torch.float32 else g32.round().clamp_(-8, 8).to(dt)
-        bits = torch.int16 if dt == torch.bfloat16 else torch.int32
-        out0, arg0 = sk.spmm_max_fwd(graph, x, force_slice=1024)
-        dx0 = sk.spmm_max_bwd(graph, g, arg0, force_slice=1024)
-        esize, asize = x.element_size(), arg0.element_size()
-        print(f"slice sweep {label} {tag} K={k}: the rule's widths fwd "
-              f"{sk.slice_bytes(n, esize)} B, bwd {sk.slice_bytes(n, esize, asize)} B "
-              f"({smi_line})", flush=True)
-        for w in (*(widths or sk.SLICE_WIDTHS), 1024):
-            out, arg = sk.spmm_max_fwd(graph, x, force_slice=w)
-            dx = sk.spmm_max_bwd(graph, g, arg0, force_slice=w)
-            if not (torch.equal(out.view(bits), out0.view(bits)) and torch.equal(arg, arg0)
-                    and torch.equal(dx.view(bits), dx0.view(bits))):
-                fail(f"slice sweep {label} {tag} {w} B: differs from the 1 KB width")
-            del out, arg, dx
-            groups, per, slices = sk.slice_layout(w, k, esize, asize)
-            cell = {"width": w, "lanes": groups, "elements": per, "slices": slices,
-                    "fwd": median_ms(lambda: sk.spmm_max_fwd(graph, x, force_slice=w), 10),
-                    "bwd": median_ms(lambda: sk.spmm_max_bwd(graph, g, arg0, force_slice=w),
-                                     10)}
-            if groups < 32 and row_order:
-                cell["fwd_row_order"] = median_ms(
-                    lambda: sk.spmm_max_fwd(in_rows, x, force_slice=w), 10)
-                cell["bwd_row_order"] = median_ms(
-                    lambda: sk.spmm_max_bwd(in_rows, g, arg0, force_slice=w), 10)
-            print(f"slice sweep {label} {tag}: " + json.dumps(cell), flush=True)
-        del out0, arg0, dx0
-        torch.cuda.empty_cache()
-
-
-def sweep_min_blocks(graphs, x32, g32, smi_line):
-    """``--sweep-slice``'s register bounds of the grouped backward:
-    spmm_max_bwd.cu built again for each of SWEEP_MIN_BLOCKS
-    (MAX_BWD_GROUP_MIN_BLOCKS: every grouped form held to that many blocks
-    an SM; 1 leaves it 255 registers a thread), each build's ptxas registers
-    and spills of its grouped instantiations, and the layer-1 backward of
-    each (form, graph) of ``graphs`` at 512 and 256 B with each build,
-    float32 and bfloat16, every dx bit-equal to the 1 KB width's.  Median
-    of 10 by CUDA events: the default build at 1 KB and 512 B, then the
-    builds in turns, then the default build's 1 KB again."""
-    import torch
-
-    from plagnn_tpu_torch.ops import _build
-    from plagnn_tpu_torch.ops import spmm_kernels as sk
-
-    t0 = time.perf_counter()
-    builds = _build.build_variants(
-        "spmm_max_bwd", [[f"MAX_BWD_GROUP_MIN_BLOCKS={b}"] for b in SWEEP_MIN_BLOCKS])
-    print(f"min-blocks sweep: {len(builds)} builds of spmm_max_bwd.cu in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for b, (_, log) in zip(SWEEP_MIN_BLOCKS, builds):
-        for fn, line in ptxas_report(log):
-            if "group_kernel" in fn:
-                print(f"min-blocks sweep {b} blocks: {fn}: {line}", flush=True)
-    default = _build.load("spmm_max_bwd")
-    n, k = x32.shape
-    try:
-        for form, graph in graphs:
-            for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-                x = x32.to(dt)
-                g = g32.to(dt) if dt == torch.float32 else g32.round().clamp_(-8, 8).to(dt)
-                bits = torch.int16 if dt == torch.bfloat16 else torch.int32
-                _, arg = sk.spmm_max_fwd(graph, x)
-                dx0 = sk.spmm_max_bwd(graph, g, arg, force_slice=1024)
-                cell = {w: median_ms(lambda: sk.spmm_max_bwd(graph, g, arg, force_slice=w), 10)
-                        for w in (1024, 512)}
-                cell = {f"default_{w}": ms for w, ms in cell.items()}
-                for b, (lib, _) in zip(SWEEP_MIN_BLOCKS, builds):
-                    _build._LIBS["spmm_max_bwd"] = lib
-                    for w in (512, 256):
-                        dx = sk.spmm_max_bwd(graph, g, arg, force_slice=w)
-                        if not torch.equal(dx.view(bits), dx0.view(bits)):
-                            fail(f"min-blocks sweep {b} blocks {form} {tag} {w} B: dx "
-                                 "differs from the 1 KB width's")
-                        del dx
-                        cell[f"{b}_blocks_{w}"] = median_ms(
-                            lambda: sk.spmm_max_bwd(graph, g, arg, force_slice=w), 10)
-                    _build._LIBS["spmm_max_bwd"] = default
-                cell["default_1024_last"] = median_ms(
-                    lambda: sk.spmm_max_bwd(graph, g, arg, force_slice=1024), 10)
-                print(f"min-blocks sweep n{n} {form} {tag} K={k} ({smi_line}): "
-                      + json.dumps(cell), flush=True)
-                del x, g, arg, dx0
-                torch.cuda.empty_cache()
-    finally:
-        _build._LIBS["spmm_max_bwd"] = default
-
-
-def sweep_slice(smi_line):
-    """``--sweep-slice``: the max kernels' layer-1 times at every K-slice
-    layout on the 24k-node graph (K = 10 x 503), on the mesh path's graph
-    shards (rank 0's interior at P = 2 and 4, id-based), on a positional
-    graph between the L2 and config 5 (SWEEP_MID_NODES), and on BASELINE.json
-    config 5's graph (330 k nodes, K = 8 x 503; the positional argmax at
-    every width, the id-based int32 form at 1 KB to 128 B); then the grouped
-    backward's register bounds there (sweep_min_blocks)."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-
-    from plagnn_tpu_torch import cli
-    from plagnn_tpu_torch.data.artifacts import load_condition
-    from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
-    from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
-    from plagnn_tpu_torch.parallel.partition import partition_graph
-
-    gen = torch.Generator(device="cuda").manual_seed(9)
-
-    def inputs(n, k):
-        x = torch.randn((n, k), generator=gen, device="cuda").to(torch.bfloat16)
-        return x.float().relu_(), torch.randn((n, k), generator=gen, device="cuda")
-
-    ppi = powerlaw_ppi(NODES, EDGES, SEED)
-    full = from_scipy_coo(ppi, add_self_loops=True).to("cuda")
-    n, k = full.n_nodes, FOLDS * F_IN
-    sweep_slice_shape(f"n{n}", full, *inputs(n, k), smi_line)
-    del full
-    for p in SHARD_PARTS:
-        pg = partition_graph(ppi.row, ppi.col, NODES, p, add_self_loops=True, balance=True)
-        shard = pg.shard(0, "cuda").interior
-        sweep_slice_shape(f"shard P={p} rank 0 interior n{shard.n_nodes} E {shard.n_edges}",
-                          shard, *inputs(shard.n_nodes, k), smi_line, row_order=False)
-        del pg, shard
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    mid = from_scipy_coo(powerlaw_ppi(SWEEP_MID_NODES, SWEEP_MID_EDGES, SEED),
-                         add_self_loops=True).to("cuda")
-    print(f"slice sweep mid graph: N_pad {mid.n_nodes}, E {mid.n_edges}, positional "
-          f"{mid.positional}, built in {time.perf_counter() - t0:.1f} s", flush=True)
-    sweep_slice_shape(f"n{mid.n_nodes}", mid, *inputs(mid.n_nodes, BIG_FOLDS * F_IN),
-                      smi_line, widths=(1024, 512, 256, 128), row_order=False)
-    del mid
-    torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
-    try:
-        cli.main(["synth", "--data-root", tmp, "--nodes", str(BIG_NODES),
-                  "--edges", str(BIG_EDGES), "--seed", str(SEED)])
-        gp = load_condition(tmp, "GSE30931", "normal").graph.to("cuda")
-        x, _, _ = big_inputs(gp)
-        g = torch.randn(x.shape, generator=gen, device="cuda")
-        ch = gp.chunks
-        lens = np.diff(ch.ptr.cpu().numpy())
-        print(f"slice sweep big graph: N_pad {gp.n_nodes}, E {gp.n_edges}, forward chunks "
-              f"{ch.n_chunks} (mean {lens.mean():.1f} edges, longest first by "
-              f"RowChunks.order)", flush=True)
-        sweep_slice_shape(f"n{gp.n_nodes}", gp, x, g, smi_line)
-        gi = dataclasses.replace(gp, positional=False, t_rank=None, mega_of=None, n_mega=0)
-        sweep_slice_shape(f"n{gp.n_nodes} id-based", gi, x, g, smi_line,
-                          widths=(1024, 512, 256, 128), row_order=False)
-        sweep_min_blocks((("positional", gp), ("id-based", gi)), x, g, smi_line)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def dma_equal(dc, x, idx, ng, g, label):
@@ -4832,9 +4066,13 @@ def dma_point(dc, bench, row_bytes, pattern, n_rows, results):
 
 
 def dma_phase(results, smi_line, full=None):
-    """Phase 3d: the gather probe checked at CHECK_SHAPES, then its short
-    sweep (the module docstring).  ``full``: the 24k synthetic graph (built
-    here where not given) for its edge-order ids."""
+    """Phase 3d: the gather probe bit-equal to its plain version at every
+    shape of the module's CHECK_SHAPES, random and sequential ids; then its
+    short sweep at ring depth DMA_RING (dma_point): rows of DMA_WIDTHS over
+    tables of DMA_TABLES rows, random and sequential, at least DMA_TARGET_MB
+    MiB a launch, and the 24k graph's source ids in edge order at
+    DMA_EDGE_WIDTHS.  Its rate is a service rate, not a roofline share.
+    ``full``: the 24k synthetic graph (built here where not given)."""
     import torch
 
     from plagnn_tpu_torch.bench import dma_ceiling as dc
@@ -4963,30 +4201,9 @@ def main(argv=None):
                          "no result line")
     ap.add_argument("--only-hub", action="store_true",
                     help="phases 1-2, phase 3's layer-1 checks on the full graph, "
-                         "phase 3h with the hub kernels' structure at k = 0, and "
-                         "phase 4h; prints the hub entries and no result line")
-    ap.add_argument("--hub-parent", metavar="DIR",
-                    help="with --only-hub: also time the structure (k = 0) of the "
-                         "package tree at DIR (another commit's, unpacked), in turns; "
-                         "with --only-mesh-hub: time both trees' hub kernels on "
-                         "config 5's P = 2 interior shard, in turns")
-    ap.add_argument("--structure-child", metavar="ROOT", help=argparse.SUPPRESS)
-    ap.add_argument("--shard-file", help=argparse.SUPPRESS)
-    ap.add_argument("--sweep-row-chunk", action="store_true",
-                    help="after phase 3, time the row-chunked kernels on the "
-                         "full graph at each chunk size and stop; prints no "
+                         "phase 3h and phase 4h; prints the hub entries and no "
                          "result line")
-    ap.add_argument("--sweep-slice", action="store_true",
-                    help="phases 1-2, then time the max kernels at every K-slice "
-                         "width at layer 1 on the 24k-node graph, its shards, a "
-                         "165k-node and the 330k-node graph (each width bit-equal "
-                         "to the 1 KB one), and the grouped backward under each "
-                         "register bound and stop; "
-                         "prints no result line")
     args = ap.parse_args(argv)
-    if args.structure_child:
-        structure_child(args.structure_child, args.shard_file)
-        return
     if not os.path.isdir(os.path.join(HERE, "plagnn_tpu_torch")):
         fail("the plagnn_tpu_torch package is not beside chip_smoke.py")
     sys.path.insert(0, HERE)
@@ -5021,10 +4238,10 @@ def main(argv=None):
         planner_only(smi_line)
         return
     if args.only_mesh_hub:
-        mesh_hub_only(args.hub_parent, smi_line)
+        mesh_hub_only(smi_line)
         return
     if args.only_hub:
-        hub_only(args.hub_parent, smi_line)
+        hub_only(smi_line)
         return
     if args.only_dma_ceiling:
         phase("3d dma ceiling")
@@ -5057,11 +4274,6 @@ def main(argv=None):
         phase("4g big graph")
         big_graph_phase({}, smi_line)
         return
-    if args.sweep_slice:
-        phase("K-slice sweep")
-        sweep_slice(smi_line)
-        return
-
     phase("3 kernels vs plain")
     from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
     from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
@@ -5112,10 +4324,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase("3d dma ceiling")
     dma_phase(results, smi_line, full)
-    if args.only_kernels or args.sweep_row_chunk:
+    if args.only_kernels:
         print(json.dumps({"kernels": list(results.values())}))
-        if args.sweep_row_chunk:
-            sweep_row_chunk(full)
         return
 
     phase("4 GNN32 at full width")
@@ -5144,22 +4354,12 @@ def main(argv=None):
         analysis_phase(tmp, results)
         phase("4f figures at full width")
         figures_phase(tmp, results, smi_line)
-        phase("4b profile")
-        # the earlier run's artifacts would make this one resume past its round
-        shutil.rmtree(os.path.join(tmp, "log"))
-        per_kernel = profile_epochs(
-            "GNN32 train-normal f32",
-            lambda: train_cli(tmp, "train-normal", "float32", EPOCHS_F32),
-            gnn32_launches("f32", EPOCHS_F32), smi_line)
-        crosscheck_max_fwd(per_kernel, results, smi_line)
         phase("4c GCN2 at full width")
         check_gcn2(tmp, results, smi_line)
-        profile_epochs("GCN2 train() f32",
-                       lambda: train_gcn2(tmp, os.path.join(tmp, "log_gcn2_profiled")),
-                       gcn2_launches(), smi_line)
         phase("3i GAT train()")
         check_gat_train(tmp, results, smi_line)
-        # phase 4b's run is the single-card run of the sharded runs' jobs
+        # phase 4's train-normal float32 run is the single-card run of the
+        # sharded runs' jobs
         tax_ms = mesh_phase(tmp, results, smi_line)
         phase("4q planner anchors and --mesh auto")
         planner_phase(tmp, tax_ms, smi_line)

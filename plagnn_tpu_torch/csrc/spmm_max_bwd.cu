@@ -184,20 +184,12 @@ spmm_max_bwd_kernel(const T* __restrict__ g, const ArgT* __restrict__ arg,
 // The blocks an SM a grouped kernel's registers are held to: 4 (at most
 // 128 registers a thread), 3 for the bfloat16 forms with an int32 argmax,
 // which take up to 145 (bound to 4, one spills 84 bytes).  Every form is
-// spill-free so.  chip_smoke.py --sweep-slice builds each bound of 1, 3,
-// 4, 5 and 6 (MAX_BWD_GROUP_MIN_BLOCKS=n holds every form to n blocks) and
-// times the layer-1 backward at 330 k rows with each (PERF.md, PR 13): 5
-// blocks (96 registers) spills in 14 of the 24 forms, the float32
-// positional 16-byte one 12 bytes, though at 512 B that one then ran 57.40
-// ms against 58.25 at 1 KB; 1 or 3 blocks left it at the 106 registers and
-// the time (59.3 ms) of 4; 6 blocks spilled more and ran slower in all.
-#ifdef MAX_BWD_GROUP_MIN_BLOCKS
-template <typename T, typename ArgT>
-constexpr int kGroupMinBlocks = MAX_BWD_GROUP_MIN_BLOCKS;
-#else
+// spill-free so.  Measured on the layer-1 backward at 330 k rows on the
+// H100: 5 blocks (96 registers) spill in 14 of the 24 forms; 1 or 3 blocks
+// leave the float32 positional form at the registers and the time of 4; 6
+// blocks spill more and run slower in all.
 template <typename T, typename ArgT>
 constexpr int kGroupMinBlocks = sizeof(T) == 2 && sizeof(ArgT) == 4 ? 3 : 4;
-#endif
 
 // The grouped walk of a K-slice narrower than 32 lanes': each group of
 // 1 << lg lanes walks the transpose chunk the launch order `order` gives

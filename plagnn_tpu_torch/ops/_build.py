@@ -3,11 +3,10 @@
 Each ``csrc/<name>.cu`` becomes ``_build/<name>_<hash>.so``, a shared
 library with a plain C interface, where the hash covers the source, every
 shared header ``csrc/*.cuh`` and the flags: a changed source or header
-builds anew, an unchanged one loads the library it finds.  Building happens at first use, so ``python3 chip_smoke.py`` alone
-builds the kernels; ``build_all`` starts one nvcc per source, all at once.
-``build_variants`` builds one source again under extra ``-D`` definitions,
-for the sweeps that compare compile-time choices.  Only the CUDA toolkit's
-own headers are used.
+builds anew, an unchanged one loads the library it finds.  Building happens
+at first use, so ``python3 chip_smoke.py`` alone builds the kernels;
+``build_all`` starts one nvcc per source, all at once.  Only the CUDA
+toolkit's own headers are used.
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict
 
 from ..utils.profiling import span
 
@@ -44,35 +43,39 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def lib_path(name: str, defines: Sequence[str] = ()) -> Path:
+def lib_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    h.update(" ".join((*NVCC_FLAGS, *(f"-D{d}" for d in defines))).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def _compile(jobs, verbose: bool) -> Dict[object, str]:
-    """One nvcc for each (key, source name, -D definitions) of ``jobs``, all
-    at once.  Returns {key: compiler output}; raises if any failed."""
+def build_all(verbose: bool = False) -> Dict[str, str]:
+    """Compile every source whose library is missing, one nvcc per source
+    in parallel.  Returns {name: compiler output} for what was built
+    (``verbose`` adds ptxas' register and spill report); raises if any
+    failed."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for key, name, defines in jobs:
-        out = lib_path(name, defines)
+    for name in SOURCES:
+        out = lib_path(name)
+        if out.exists():
+            continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
-               *(f"-D{d}" for d in defines), *(["-Xptxas=-v"] if verbose else []),
+               *(["-Xptxas=-v"] if verbose else []),
                "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, out, name)
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
     logs = {}
     failed = []
-    for key, (proc, tmp, out, name) in procs.items():
+    for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        logs[key] = log
+        logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
@@ -80,25 +83,6 @@ def _compile(jobs, verbose: bool) -> Dict[object, str]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
-
-
-def build_all(verbose: bool = False) -> Dict[str, str]:
-    """Compile every source whose library is missing, one nvcc per source
-    in parallel.  Returns {name: compiler output} for what was built
-    (``verbose`` adds ptxas' register and spill report)."""
-    return _compile([(name, name, ()) for name in SOURCES if not lib_path(name).exists()],
-                    verbose)
-
-
-def build_variants(name: str, variants: Sequence[Sequence[str]]
-                   ) -> List[Tuple[ctypes.CDLL, str]]:
-    """``csrc/<name>.cu`` built once for each sequence of ``-D`` definitions
-    in ``variants`` (``NAME=value`` strings), one nvcc each, all at once, each
-    into a library of its own.  Returns (handle, ptxas' register and spill
-    report) for each; the default build of the source is untouched."""
-    logs = _compile([(i, name, tuple(d)) for i, d in enumerate(variants)], True)
-    return [(ctypes.CDLL(str(lib_path(name, tuple(d)))), logs[i])
-            for i, d in enumerate(variants)]
 
 
 def load(name: str) -> ctypes.CDLL:

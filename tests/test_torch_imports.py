@@ -84,6 +84,19 @@ def test_cli_without_card_raises(monkeypatch, tmp_path):
                   "--data-root", str(tmp_path / "absent")])
 
 
+def test_chip_smoke_help_runs_without_a_card():
+    """chip_smoke.py's module level imports only the standard library, so
+    its help runs in a fresh interpreter without a card; its flags are the
+    on-card checks, with no design sweep or timing of another tree."""
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "--only-hub" in r.stdout
+    for gone in ("--sweep-row-chunk", "--sweep-slice", "--hub-parent", "--structure-child",
+                 "--shard-file"):
+        assert gone not in r.stdout, gone
+
+
 def test_cli_refuses_mesh_and_mid_round_checkpoints(tmp_path, monkeypatch):
     """The mesh the CLI refuses before touching any data: one of more ranks
     than visible cards (one rank per card); mid-round checkpoints are
