@@ -31,8 +31,15 @@
 //      da_ij  = g[i] . wh[j] over each group's F columns
 //    wh[j] is the row's own (loaded once), so da costs a dot product and a
 //    reduction over the group's lanes, not a second gather.  da goes to an
-//    (E, B*H) buffer in transpose-edge order.  Split rows: partials of dwh,
-//    summed by spmm_gat_bwd_combine_kernel (combine_pass).
+//    (E, B*H) buffer in transpose-edge order.  Where a warp's K-slice is one
+//    group (F = 256, "span"), that reduction is out of the edge loop: each
+//    lane stages its part of each edge's dot in shared memory, and once a
+//    batch of kSpanBatch edges is walked the lanes sum the batch's parts
+//    (in the tree a shuffle reduction would take, so with its bits) and
+//    store its da with one instruction, so no cross-lane chain waits
+//    between one edge's gathers and the next's.  Narrower groups sum each
+//    edge's dot over their few lanes after the edge.  Split rows: partials
+//    of dwh, summed by spmm_gat_bwd_combine_kernel (combine_pass).
 // 2. spmm_gat_bwd_der_kernel, over the destination CSR's chunks (row i),
 //    B*H wide, a lane a group: D_i = sum_j a_ij da_ij (= g[i] . out[i]),
 //    then dz_ij = leaky_relu'(z_ij) * a_ij * (da_ij - D_i) into the buffer
@@ -52,7 +59,10 @@
 // K-slice's rows at a time (24.6 MB at 24,064 rows).  The compulsory bytes
 // (each input read once, each output written once) are about 12x less.
 // The softmax adds a few instructions an edge and two scalar gathers (el,
-// or er and lse) that all lanes of a group share.
+// or er and lse) that all lanes of a group share.  Step 1 also stores da, 4
+// bytes an edge a group, scattered: a 32-byte sector of the buffer holds 8
+// groups, which 8 K-slices write at different times (PERF.md, row 11, has
+// what that costs).
 //
 // Lanes and groups.  A lane owns J vectors of V float32 elements (32 bytes,
 // vectors_per_lane), V the widest of 4, 2, 1 dividing F.  Where F <= 32*V
@@ -133,6 +143,55 @@ __device__ __forceinline__ void walk(const int* __restrict__ idx, int beg, int e
         if (j + u < n) add(u);
       }
     }
+  }
+}
+
+// The backward's span layout (one group a warp) hands da over once a batch
+// of kSpanBatch edges: each lane stages its part of each edge's da in
+// shared memory (a row of kPitch words an edge, so that the batch's reads
+// fall in 32 banks), and no cross-lane step sits between two edges' gathers.
+constexpr int kSpanBatch = 32;
+constexpr int kPitch = 33;
+static_assert(32 % kSpanBatch == 0 && kSpanBatch % kUnroll == 0, "whole batches");
+
+// The span backward's walk of edges [beg, end): walk's, but with the next
+// 32 ids loaded while this 32's edges are walked, and after each batch of
+// kSpanBatch edges `done(first, n)` for its n edges from CSR position
+// `first`; `add(u, b)` with b the edge's place in its batch.
+template <typename Load, typename Add, typename Done>
+__device__ __forceinline__ void walk_batched(const int* __restrict__ idx, int beg, int end,
+                                             int lane, Load&& load, Add&& add, Done&& done) {
+  int mine = beg + lane < end ? __ldg(idx + beg + lane) : 0;
+  for (int base = beg; base < end; base += 32) {
+    const int n = min(32, end - base);
+    const int next = base + 32 + lane < end ? __ldg(idx + base + 32 + lane) : 0;
+    for (int j = 0; j < n; j += kUnroll) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int nbr = __shfl_sync(kFull, mine, j + u);
+        if (j + u < n) load(u, nbr);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (j + u < n) add(u, (j + u) % kSpanBatch);
+      }
+      if ((j + kUnroll) % kSpanBatch == 0 || j + kUnroll >= n) {
+        const int b0 = j - j % kSpanBatch;
+        done(base + b0, min(kSpanBatch, n - b0));
+      }
+    }
+    mine = next;
+  }
+}
+
+// v[0] + ... + v[N - 1], adjacent first: the tree segment_sum(., lane, 32)
+// takes over the lanes (N a power of two).
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* v) {
+  if constexpr (N == 1) {
+    return v[0];
+  } else {
+    return tree_sum<N / 2>(v) + tree_sum<N / 2>(v + N / 2);
   }
 }
 
@@ -281,7 +340,6 @@ spmm_gat_bwd_kernel(const float* __restrict__ g, const float* __restrict__ wh,
   const int64_t chunk = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (chunk >= t.n_chunks) return;
   const Lanes<V, J> ln(lane, k_width, f, width, kSpan);
-  const int c = kSpan ? 32 : f / V;  // lanes a group
   const int row = __ldg(t.row + chunk);
   const int64_t r0 = static_cast<int64_t>(row);
   rc::Vec<float, V> own[J];
@@ -297,56 +355,89 @@ spmm_gat_bwd_kernel(const float* __restrict__ g, const float* __restrict__ wh,
   for (int i = 0; i < V * J; ++i) acc[i] = 0.0f;
   rc::Vec<float, V> val[kUnroll][J];
   float er_i[kUnroll][NG], lse_i[kUnroll][NG];
-  int edge[kUnroll];
-  walk(idx, __ldg(t.ptr + chunk), __ldg(t.ptr + chunk + 1), lane,
-       [&](int u, int dst, int e) {
-         const int64_t r = static_cast<int64_t>(dst);
-         edge[u] = e;
+  auto load = [&](int u, int dst) {
+    const int64_t r = static_cast<int64_t>(dst);
 #pragma unroll
-         for (int j = 0; j < J; ++j) {
-           if (ln.act[j]) val[u][j] = rc::load_vec<float, V>(g + r * k_width + ln.k[j]);
-         }
+    for (int j = 0; j < J; ++j) {
+      if (ln.act[j]) val[u][j] = rc::load_vec<float, V>(g + r * k_width + ln.k[j]);
+    }
 #pragma unroll
-         for (int q = 0; q < NG; ++q) {
-           if (ln.act[q]) {
-             er_i[u][q] = __ldg(er + r * bh + ln.grp[q]);
-             lse_i[u][q] = __ldg(lse + r * bh + ln.grp[q]);
-           }
-         }
-       },
-       [&](int u) {
-         float a[NG], d[J];
+    for (int q = 0; q < NG; ++q) {
+      if (ln.act[q]) {
+        er_i[u][q] = __ldg(er + r * bh + ln.grp[q]);
+        lse_i[u][q] = __ldg(lse + r * bh + ln.grp[q]);
+      }
+    }
+  };
+  // Edge u's a_ij * g[i] into acc, and d[j] = this lane's part of vector
+  // j's dot g[i] . wh[j].
+  auto add = [&](int u, float (&d)[J]) {
+    float a[NG];
 #pragma unroll
-         for (int q = 0; q < NG; ++q) {
-           a[q] = ln.act[q] ? __expf(leaky(el_j[q] + er_i[u][q], slope) - lse_i[u][q]) : 0.0f;
-         }
+    for (int q = 0; q < NG; ++q) {
+      a[q] = ln.act[q] ? __expf(leaky(el_j[q] + er_i[u][q], slope) - lse_i[u][q]) : 0.0f;
+    }
 #pragma unroll
-         for (int j = 0; j < J; ++j) {
-           d[j] = 0.0f;
-           if (!ln.act[j]) continue;
-           const float aj = a[kSpan ? 0 : j];
+    for (int j = 0; j < J; ++j) {
+      d[j] = 0.0f;
+      if (!ln.act[j]) continue;
+      const float aj = a[kSpan ? 0 : j];
 #pragma unroll
-           for (int i = 0; i < V; ++i) {
-             const float gv = rc::get(val[u][j], i);
-             acc[j * V + i] = fmaf(aj, gv, acc[j * V + i]);
-             d[j] = fmaf(gv, rc::get(own[j], i), d[j]);
-           }
-         }
-         float* out_e = dalpha + static_cast<int64_t>(edge[u]) * bh;
-         if constexpr (kSpan) {
-           float sum = 0.0f;
+      for (int i = 0; i < V; ++i) {
+        const float gv = rc::get(val[u][j], i);
+        acc[j * V + i] = fmaf(aj, gv, acc[j * V + i]);
+        d[j] = fmaf(gv, rc::get(own[j], i), d[j]);
+      }
+    }
+  };
+  const int beg = __ldg(t.ptr + chunk), end = __ldg(t.ptr + chunk + 1);
+  if constexpr (kSpan) {
+    // Lane l stages its part of the batch's edge b's da at tile[b][l]; at
+    // the batch's end lane u sums edge u % kSpanBatch's parts from its
+    // block of kSpanBatch lanes, the blocks' sums are added over the warp
+    // (both adjacent first: segment_sum's tree, so its bits), and lane b
+    // stores edge b's da: one store instruction a batch.
+    __shared__ float stage[kWarps][kSpanBatch][kPitch];
+    float(*tile)[kPitch] = stage[threadIdx.x >> 5];
+    walk_batched(
+        idx, beg, end, lane, load,
+        [&](int u, int b) {
+          float d[J];
+          add(u, d);
+          float sum = 0.0f;
 #pragma unroll
-           for (int j = 0; j < J; ++j) sum += d[j];
-           sum = segment_sum(sum, lane, 32);
-           if (ln.lead[0]) out_e[ln.grp[0]] = sum;
-         } else {
+          for (int j = 0; j < J; ++j) sum += d[j];
+          tile[b][lane] = sum;
+        },
+        [&](int first, int n) {
+          __syncwarp();
+          const int b = lane % kSpanBatch;
+          float da = tree_sum<kSpanBatch>(&tile[b][lane - b]);
 #pragma unroll
-           for (int j = 0; j < J; ++j) {
-             const float sum = segment_sum(d[j], lane, c);
-             if (ln.lead[j]) out_e[ln.grp[j]] = sum;
-           }
-         }
-       });
+          for (int m = kSpanBatch; m < 32; m <<= 1) da += __shfl_xor_sync(kFull, da, m);
+          if (lane < n) dalpha[static_cast<int64_t>(first + lane) * bh + ln.grp[0]] = da;
+          __syncwarp();
+        });
+  } else {
+    const int c = f / V;  // lanes a group
+    int edge[kUnroll];
+    walk(
+        idx, beg, end, lane,
+        [&](int u, int dst, int e) {
+          edge[u] = e;
+          load(u, dst);
+        },
+        [&](int u) {
+          float d[J];
+          add(u, d);
+          float* out_e = dalpha + static_cast<int64_t>(edge[u]) * bh;
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            const float sum = segment_sum(d[j], lane, c);
+            if (ln.lead[j]) out_e[ln.grp[j]] = sum;
+          }
+        });
+  }
   const int slot = __ldg(t.slot + chunk);
 #pragma unroll
   for (int j = 0; j < J; ++j) {

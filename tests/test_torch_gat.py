@@ -60,6 +60,24 @@ def _graph(seed=0, n=30, row_chunk=8):
     return build_graph(pairs[:, 0], pairs[:, 1], n, add_self_loops=True, row_chunk=row_chunk)
 
 
+# Out-edges (the transpose's rows, self-loop included) of nodes 0-4 in
+# _batch_graph: the span backward's batches of 32 edges whole, with a tail,
+# a tail alone, and a row that ROW_CHUNK splits.
+BATCH_ROWS = (1, 31, 32, 33, 300)
+
+
+def _batch_graph(seed=3, n=400):
+    """Nodes 0-4 with BATCH_ROWS out-edges; node 5's in-edges from nodes 6
+    on split its forward row too; random edges among nodes 6 on."""
+    rng = np.random.default_rng(seed)
+    pairs = [(s, d) for s, out in enumerate(BATCH_ROWS[1:], 1) for d in range(5, 5 + out - 1)]
+    pairs += [(s, 5) for s in range(6, n)]
+    src, dst = rng.integers(6, n, 2 * n), rng.integers(0, n, 2 * n)
+    pairs += [(a, b) for a, b in zip(src.tolist(), dst.tolist()) if a != b]
+    pairs = np.unique(np.array(pairs), axis=0)
+    return build_graph(pairs[:, 0], pairs[:, 1], n, add_self_loops=True)
+
+
 def _adj(graph):
     ip = graph.indptr.tolist()
     src = graph.src.tolist()
@@ -108,6 +126,13 @@ def test_graph_has_a_split_row_and_a_lone_self_loop():
     n = g.n_real_nodes
     assert g.chunks.n_split > 0 and int(g.chunks.split_row[0]) == 0
     assert g.src[g.indptr[n - 1]:g.indptr[n]].tolist() == [n - 1]
+
+
+def test_batch_graph_has_the_batch_rows():
+    g = _batch_graph()
+    ti = g.t_indptr.tolist()
+    assert [ti[i + 1] - ti[i] for i in range(len(BATCH_ROWS))] == list(BATCH_ROWS)
+    assert g.t_chunks.split_row.tolist() == [4] and g.chunks.split_row.tolist() == [5]
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
@@ -366,13 +391,20 @@ def _replay_fwd(g, wh, el, er, f, slope=0.2):
     return out, lse
 
 
+def _lane_tree(vals):
+    """The lanes' values summed adjacent first: segment_sum's tree, and
+    reduce_scatter's for each value."""
+    while len(vals) > 1:
+        vals = [sum(vals[i:i + 2]) for i in range(0, len(vals), 2)]
+    return vals[0]
+
+
 def _replay_bwd(g, gout, wh, el, er, lse, f, slope=0.2):
     """spmm_gat_bwd_kernel, the der pass's two phases, the del pass and
     their combines, as the kernels walk them, in float64."""
     n, k_width = wh.shape
     bh = k_width // f
     v, j_vec, span, lanes = _lane_layout(f, k_width)
-    c_lanes = 32 if span else f // v
     tc, fc = g.t_chunks, g.chunks
     t_dst = g.t_dst.tolist()
     e_total = g.n_edges
@@ -380,23 +412,27 @@ def _replay_bwd(g, gout, wh, el, er, lse, f, slope=0.2):
     part = np.zeros((tc.n_slots, k_width))
     buf = np.full((e_total, bh), np.nan)
     leaky = (lambda z: z if z > 0 else slope * z)
+    # The span layout hands da over a batch of 32 edges at a time: each
+    # lane's part of each of the batch's da, summed over the lanes once the
+    # batch is walked (edge b's by lane b); the grouped layout sums each
+    # edge's da over its group's lanes after the edge.
+    batch = 32 if span else 1
     for c in range(tc.n_chunks):
         row, beg, end, slot = (int(tc.row[c]), int(tc.ptr[c]), int(tc.ptr[c + 1]),
                                int(tc.slot[c]))
-        for e in range(beg, end):
-            i = t_dst[e]
+        target = part[slot] if slot >= 0 else dwh[row]
+        for first in range(beg, end, batch):
             partials = {}
-            for (y, lane, j), (k, grp, lead) in lanes.items():
-                a = math.exp(leaky(el[row, grp] + er[i, grp]) - lse[i, grp])
-                target = part[slot] if slot >= 0 else dwh[row]
-                target[k:k + v] += a * gout[i, k:k + v]
-                seg = (y, 0 if span else (j, lane // c_lanes))
-                partials.setdefault(seg, [0.0, None])
-                partials[seg][0] += float(np.dot(gout[i, k:k + v], wh[row, k:k + v]))
-                if lead:
-                    partials[seg][1] = grp
-            for total, grp in partials.values():
-                buf[e, grp] = total
+            for e in range(first, min(first + batch, end)):
+                i = t_dst[e]
+                for (y, lane, j), (k, grp, lead) in lanes.items():
+                    a = math.exp(leaky(el[row, grp] + er[i, grp]) - lse[i, grp])
+                    target[k:k + v] += a * gout[i, k:k + v]
+                    lane_part = partials.setdefault((e, grp), {})
+                    lane_part[lane] = (lane_part.get(lane, 0.0)
+                                       + float(np.dot(gout[i, k:k + v], wh[row, k:k + v])))
+            for (e, grp), lane_part in partials.items():
+                buf[e, grp] = _lane_tree([lane_part[lane] for lane in sorted(lane_part)])
     for i in range(tc.n_split):
         row, s0, s1 = int(tc.split_row[i]), int(tc.split_ptr[i]), int(tc.split_ptr[i + 1])
         dwh[row] = part[s0:s1].sum(0)
@@ -444,14 +480,16 @@ def _replay_bwd(g, gout, wh, el, er, lse, f, slope=0.2):
     return dwh, d_el, der
 
 
-@pytest.mark.parametrize("f,bh", [(12, 5), (256, 2), (6, 3), (3, 4), (40, 3)],
-                         ids=["f12", "f256-span", "f6-v2", "f3-v1", "f40-c10"])
-def test_kernel_traversal_replay_matches_plain(f, bh):
+@pytest.mark.parametrize("f,bh,graph", [(12, 5, "small"), (256, 2, "small"), (6, 3, "small"),
+                                       (3, 4, "small"), (40, 3, "small"), (256, 1, "batches")],
+                         ids=["f12", "f256-span", "f6-v2", "f3-v1", "f40-c10", "batches-f256"])
+def test_kernel_traversal_replay_matches_plain(f, bh, graph):
     """A replay of spmm_gat.cu's walk (lane layout, online softmax and its
-    combine, da reduced over each group's lanes, the der pass's two phases
-    and the del pass) gives the plain version's results, on a graph whose
-    split rows take every combine."""
-    g = _graph(9, n=20, row_chunk=6)
+    combine, da reduced over each group's lanes, in the span layout a batch
+    of edges at a time, the der pass's two phases and the del pass) gives
+    the plain version's results, on a graph whose split rows take every
+    combine."""
+    g = _graph(9, n=20, row_chunk=6) if graph == "small" else _batch_graph()
     assert g.chunks.n_split > 0 and g.t_chunks.n_split > 0
     wh, el, er, gout = _op_inputs(g, bh, f, torch.float64, seed=f)
     out, lse = sk.spmm_gat_fwd_plain(g, wh, el, er, f)
@@ -593,6 +631,8 @@ def card():
 def _card_graph(name):
     if name == "small":
         return _graph(11, n=300, row_chunk=8).to("cuda")
+    if name == "batches":
+        return _batch_graph().to("cuda")
     from plagnn_tpu_torch.data.synthetic import powerlaw_ppi
     from plagnn_tpu_torch.ops.graph_format import from_scipy_coo
 
@@ -608,13 +648,14 @@ CARD_TOL = dict(rtol=2e-4, atol=2e-5)
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,bh,f", [
     ("small", 4, 256), ("small", 6, 12), ("small", 5, 3), ("small", 3, 6), ("small", 4, 40),
-    ("24k", 8, 256), ("24k", 32 * 6, 12)],
+    ("24k", 8, 256), ("24k", 32 * 6, 12), ("batches", 4, 256), ("batches", 6, 12)],
     ids=["small-f256", "small-f12", "small-f3", "small-f6", "small-f40", "24k-f256",
-         "24k-k2304"])
+         "24k-k2304", "batches-f256", "batches-f12"])
 def test_card_kernels_match_plain(card, name, bh, f):
     """Forward (out, lse) and backward (dwh, del, der) of the kernels equal
     the plain op on the card within CARD_TOL, on graphs whose split rows
-    take every combine; the launches are counted; two runs are bit-equal."""
+    take every combine ("batches": transpose rows of BATCH_ROWS edges); the
+    launches are counted; two runs are bit-equal."""
     g = _card_graph(name)
     assert g.chunks.n_split > 0 and g.t_chunks.n_split > 0
     wh, el, er, gout = _op_inputs(g, bh, f, device=card)
